@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false: a CUDA kernel has no CPU mode.
+The file imports no JAX (the machine with the card has none), so it runs
+there without the JAX package's ``conftest.py``:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q -m cuda
+
+Tolerances: the JAX package's for each kernel (``tests/test_ops.py``):
+1e-4 (whisper) and 1e-3/2e-3 (scipy) for the mel kernel, 2e-5 for flash
+in f32 and 1e-2 in bf16 (one bf16 ulp of the output), rtol 0.05 / atol
+0.02 for decode attention.
+"""
+
+import pytest
+import torch
+
+from yoho_tpu_torch.audio import frontend
+from yoho_tpu_torch.nn import kv_cache
+from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+MEL = {"whisper": (dict(mel_scale="slaney", convention="whisper", log_floor=1e-10,
+                        n_mels=80), dict(rtol=1e-4, atol=1e-4)),
+       "scipy": (dict(mel_scale="htk", convention="scipy", log_floor=1e-13,
+                      n_mels=32), dict(rtol=1e-3, atol=2e-3))}
+
+
+@pytest.mark.parametrize("convention", ["whisper", "scipy"])
+@pytest.mark.parametrize("n", [48_000, 12_345])
+def test_mel_kernel_matches_plain(gen, convention, n):
+    kw, tol = MEL[convention]
+    audio = torch.randn((3, n), generator=gen, device="cuda") * 0.2
+    before = mel_kernel.KERNEL.launches
+    got = mel_kernel.fused_log_mel(audio, **kw)
+    assert mel_kernel.KERNEL.launches == before + 1
+    want = frontend.log_mel_spectrogram(audio, sample_rate=16000, n_fft=400,
+                                        hop=160, **kw)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,t,kv_len", [
+    (False, 1500, 1500, None), (True, 300, 300, None), (False, 77, 77, None),
+    (False, 1536, 1536, 1500), (False, 300, 300, 129), (True, 256, 256, 200),
+    (False, 6, 1500, None)])
+def test_flash_kernel_matches_plain(gen, dtype, causal, tq, t, kv_len):
+    q, k, v = (torch.randn((2, n, 3, 64), generator=gen, device="cuda").to(dtype)
+               for n in (tq, t, t))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.attention_reference(q, k, v, causal, 64 ** -0.5, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("s,pos", [(1, None), (3, None), (1, 200), (5, 0)])
+def test_decode_kernel_matches_plain(gen, kind, s, pos):
+    k, v = (torch.randn((2, 4, 64, 333), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((2, 4, s, 64), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    if kind == "bf16":
+        args, packing = (q, k, v, None, None), 1
+    else:
+        qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+        args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=300,
+                                                  packing=packing)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=300,
+                                                       packing=packing)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+def test_decode_kernel_gqa_and_f32(gen):
+    q = torch.randn((2, 6, 2, 64), generator=gen, device="cuda") * 0.3
+    k, v = (torch.randn((2, 3, 64, 200), generator=gen, device="cuda") for _ in range(2))
+    got = decode_attention.fused_decode_attention(q, k, v, pos=50, groups=2)
+    want = decode_attention.decode_attention_reference(q, k, v, pos=50, groups=2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_raise_instead_of_falling_back(gen):
+    q = torch.randn((1, 2, 1, 64), generator=gen, device="cuda").to(torch.float16)
+    k = torch.zeros((1, 2, 64, 16), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        decode_attention.fused_decode_attention(q, k, k)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 12), device="cuda")
+                                          for _ in range(3)))

@@ -1,0 +1,222 @@
+"""Whisper encoder-decoder in PyTorch.
+
+The JAX package's ``nn/whisper.py`` with the same parameter names (see
+``nn/params.py`` for carrying its weights across): conv stem k=3 pad=1
+(second conv stride 2) with exact GELU, fixed sinusoidal encoder
+positions, pre-LN blocks, learned decoder positions, tied-embedding
+logits in float32, and a KV-cached ``decode_step``. Full-sequence
+attention (the encoder's, and the teacher-forcing decoder's causal self and
+cross) runs through the flash kernel; every decode read of the caches and
+of the cross-K/V runs through the decode attention kernel.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yoho_tpu_torch.core.config import WhisperConfig
+from yoho_tpu_torch.core.device import full_fp32, resolve_device
+from yoho_tpu_torch.nn.kv_cache import (
+    KVCache,
+    QuantizedKVCache,
+    quantize_kv,
+    quantize_kv4,
+)
+from yoho_tpu_torch.nn.layers import MLP, LayerNorm, MultiHeadAttention
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """OpenAI Whisper's fixed positional encoding (host-side constant)."""
+    assert channels % 2 == 0
+    log_timescale_increment = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
+        np.float32)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ln1 = LayerNorm(n_state, device=device)
+        self.attn = MultiHeadAttention(n_state, n_head, dtype=dtype, device=device)
+        self.ln2 = LayerNorm(n_state, device=device)
+        self.mlp = MLP(n_state, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ln1 = LayerNorm(n_state, device=device)
+        self.attn = MultiHeadAttention(n_state, n_head, **kw)
+        self.ln2 = LayerNorm(n_state, device=device)
+        self.cross_attn = MultiHeadAttention(n_state, n_head, **kw)
+        self.ln3 = LayerNorm(n_state, device=device)
+        self.mlp = MLP(n_state, **kw)
+
+    def forward(self, x, xa):
+        x = x + self.attn(self.ln1(x), causal=True)
+        x = x + self.cross_attn(self.ln2(x), xa=xa)
+        return x + self.mlp(self.ln3(x))
+
+    def step(self, x, cache, cross_kv, pos: int):
+        """One cached decode step: x is (B, S_new, D)."""
+        a, cache = self.attn(self.ln1(x), cache=cache, pos=pos)
+        x = x + a
+        x = x + self.cross_attn(self.ln2(x), cross_kv=cross_kv)
+        return x + self.mlp(self.ln3(x)), cache
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        c = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = nn.Conv1d(c.n_mels, c.n_audio_state, 3, padding=1, **kw)
+        self.conv2 = nn.Conv1d(c.n_audio_state, c.n_audio_state, 3, stride=2,
+                               padding=1, **kw)
+        self.register_buffer(
+            "positions",
+            torch.from_numpy(sinusoids(c.n_audio_ctx, c.n_audio_state)).to(
+                device=device, dtype=dtype),
+            persistent=False)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(c.n_audio_state, c.n_audio_head, **kw)
+            for _ in range(c.n_audio_layer))
+        self.ln_post = LayerNorm(c.n_audio_state, device=device)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, n_frames, n_mels) -> (B, n_audio_ctx, n_state)."""
+        x = mel.to(self.dtype).transpose(1, 2)
+        with full_fp32():  # a float32 model's convolutions, not TF32
+            x = F.gelu(self.conv1(x))
+            x = F.gelu(self.conv2(x)).transpose(1, 2)
+        x = x + self.positions
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_post(x)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.token_embedding = nn.Embedding(c.n_vocab, c.n_text_state, **kw)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(c.n_text_ctx, c.n_text_state, **kw))
+        self.blocks = nn.ModuleList(
+            DecoderBlock(c.n_text_state, c.n_text_head, **kw)
+            for _ in range(c.n_text_layer))
+        self.ln = LayerNorm(c.n_text_state, device=device)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits in float32: operands of the model's type
+        are exact in f32, and the product accumulates and stays in f32 (a
+        bf16 output would round the logits and flip argmax near ties)."""
+        with full_fp32():
+            return F.linear(x.float(), self.token_embedding.weight.float())
+
+    def forward(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+        """Full-sequence (teacher-forcing) forward -> f32 logits."""
+        t = tokens.shape[1]
+        x = self.token_embedding(tokens) + self.positional_embedding[:t]
+        for blk in self.blocks:
+            x = blk(x, xa)
+        return self._logits(self.ln(x))
+
+    def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
+                    quantized: bool = False):
+        c = self.cfg
+        dtype = dtype or self.dtype
+        max_len = -(-(max_len or c.n_text_ctx) // 128) * 128
+        cls = QuantizedKVCache if quantized else KVCache
+        device = self.token_embedding.weight.device
+        return [cls.zeros(batch, c.n_text_head, max_len,
+                          c.n_text_state // c.n_text_head, dtype, device=device)
+                for _ in range(c.n_text_layer)]
+
+    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
+        """Per-layer cross-attention K/V, once per window. ``quantize``:
+        False (the model's type), True/"int8" or "int4". T is not padded:
+        the decode kernel masks any length."""
+        mode = {False: None, True: "int8"}.get(quantize, quantize)
+        if mode == "int8":
+            return [quantize_kv(*blk.cross_attn.kv_tm(xa), time_major=True)
+                    for blk in self.blocks]
+        if mode == "int4":
+            return [quantize_kv4(*blk.cross_attn.kv_tm(xa), time_major=True)
+                    for blk in self.blocks]
+        if mode is not None:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        return [blk.cross_attn.kv(xa) for blk in self.blocks]
+
+    def decode_step(self, tokens: torch.Tensor, caches: List, cross_kvs,
+                    pos: int):
+        """Cached step: tokens (B, S_new) at absolute position ``pos``.
+        Returns (f32 logits (B, S_new, vocab), caches)."""
+        s = tokens.shape[1]
+        x = self.token_embedding(tokens)
+        # Clipped like jnp.take(mode="clip"): rows past n_text_ctx stay
+        # finite (a NaN K/V would poison every row through the mask).
+        idx = torch.clamp(torch.arange(s, device=x.device) + int(pos),
+                          max=self.cfg.n_text_ctx - 1)
+        x = x + self.positional_embedding[idx]
+        new_caches = []
+        for blk, cache, ckv in zip(self.blocks, caches, cross_kvs):
+            x, nc = blk.step(x, cache, ckv, pos)
+            new_caches.append(nc)
+        return self._logits(self.ln(x)), new_caches
+
+
+class Whisper(nn.Module):
+    """Full model; ``forward(mel, tokens)`` is the teacher-forcing pass.
+
+    ``device=None`` places it on CUDA (and raises when CUDA is absent);
+    pass ``device="cpu"`` for the plain PyTorch path. Parameters start
+    uninitialized: fill them with ``nn.params.load_jax_params`` or
+    ``nn.params.init_random``."""
+
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype
+        self.encoder = AudioEncoder(cfg, dtype=dtype, device=device)
+        self.decoder = TextDecoder(cfg, dtype=dtype, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.token_embedding.weight.device
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        return self.decoder(tokens, self.encoder(mel))
+
+    def encode_audio(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.encoder(mel)
+
+    def decode_text(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+        return self.decoder(tokens, xa)
+
+    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
+        return self.decoder.cross_kvs(xa, quantize)
+
+    def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
+                    quantized: bool = False):
+        return self.decoder.init_caches(batch, dtype, max_len, quantized)
+
+    def decode_step(self, tokens, caches, cross_kvs, pos: int):
+        return self.decoder.decode_step(tokens, caches, cross_kvs, pos)

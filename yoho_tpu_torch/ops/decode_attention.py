@@ -1,0 +1,146 @@
+"""Fused decode attention over time-minor (B, H, D, T) KV: the CUDA kernel
+``csrc/decode_attention.cu`` and its plain PyTorch version.
+
+Counterpart of the JAX package's ``ops/decode_attention.py::
+fused_decode_attention``, with the same contract:
+
+  q        (B, Hq, S, D)   f32/bf16, already scaled
+  k, v     (B, Hkv, D, T)  int8 (with scales), (B, Hkv, D/2, T) uint8
+                           nibble-packed int4 (``packing=2``), or the type
+                           of q (scales None)
+  k_scale  (B, Hkv, 1, T)  bf16 per-position scales on the scores
+  v_scale  (B, Hkv, 1, T)  bf16, folded into the attention weights
+  pos      int             causal: query row i sees keys <= pos + i
+  kv_len   int             only keys < kv_len are valid
+  groups   int             Hq = groups * Hkv; head h reads kv head h//groups
+
+Returns (B, S, Hq, D) in q's type. Unlike the TPU kernel, T need not be a
+multiple of 128. The wrapper takes the plain version only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, stream_of
+
+KERNEL = CudaKernel(
+    "decode_attention", "decode_attention.cu", "decode_attention",
+    [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    replaces="yoho_tpu/ops/decode_attention.py:140 _decode_attention_call")
+
+_QTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8, _INT4, _FLOAT = 0, 1, 2
+_HEAD_DIMS = (64,)  # every whisper size
+_SPLIT = 256  # positions per block of the kernel's split over T
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def unpack_int4(x: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """(…, D/2, …) uint8 nibble-packed -> (…, D, …) int8 in [-8, 7]."""
+    lo = (x & 0xF).to(torch.int8) - 8
+    hi = (x >> 4).to(torch.int8) - 8
+    return torch.cat([lo, hi], dim=axis)
+
+
+def attend_time_minor(q, k, v, k_scale, v_scale, mask, dtype) -> torch.Tensor:
+    """Plain attention against time-minor K/V; q (B, H, S, D) pre-scaled,
+    k and v (B, H, D, T) as stored (integer codes or floats), scales
+    (B, H, 1, T) or None, ``mask`` broadcastable to (B, H, S, T) or None.
+    The arithmetic of the JAX package's ``_attend_quantized``: f32 scores,
+    finfo.min mask, softmax, ``v_scale`` folded into the weights, weights
+    and values in ``dtype`` for the value product. Returns (B, S, H, D)."""
+    scores = torch.einsum("bhsd,bhdt->bhst", q.float(), k.to(dtype).float())
+    if k_scale is not None:
+        scores = scores * k_scale.float()
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale.float()
+    out_t = torch.einsum("bhdt,bhst->bhds", v.to(dtype), w.to(dtype))
+    return out_t.permute(0, 3, 1, 2)
+
+
+def decode_attention_reference(q, k, v, k_scale=None, v_scale=None, pos=None,
+                               kv_len: Optional[int] = None, groups: int = 1,
+                               packing: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of the kernel (same contract)."""
+    t = k.shape[3]
+    s = q.shape[2]
+    if packing == 2:
+        k, v = unpack_int4(k), unpack_int4(v)
+    if groups > 1:
+        k, v = k.repeat_interleave(groups, 1), v.repeat_interleave(groups, 1)
+        if k_scale is not None:
+            k_scale = k_scale.repeat_interleave(groups, 1)
+            v_scale = v_scale.repeat_interleave(groups, 1)
+    cols = torch.arange(t, device=q.device)
+    mask = None
+    if kv_len is not None and kv_len < t:
+        mask = (cols < kv_len)[None, :].expand(s, t)
+    if pos is not None:
+        causal = cols[None, :] <= int(pos) + torch.arange(s, device=q.device)[:, None]
+        mask = causal if mask is None else mask & causal
+    return attend_time_minor(q, k, v, k_scale, v_scale, mask, q.dtype)
+
+
+def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
+                           kv_len: Optional[int] = None, groups: int = 1,
+                           packing: int = 1) -> torch.Tensor:
+    """Decode attention through the kernel (CUDA) or its plain version
+    (CPU); see the module docstring for the contract."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[3]
+    kv_len = t if kv_len is None else int(kv_len)
+    if hq != groups * hkv or k.shape != (b, hkv, d // packing, t) \
+            or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} disagree (groups={groups}, "
+                         f"packing={packing})")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if not q.is_cuda:
+        return decode_attention_reference(q, k, v, k_scale, v_scale, pos,
+                                          kv_len, groups, packing)
+    if q.dtype not in _QTYPES:
+        raise TypeError(f"decode kernel takes f32 or bf16 q, got {q.dtype}")
+    if packing == 2:
+        kind = _INT4
+        if k.dtype != torch.uint8:
+            raise TypeError(f"packed int4 K/V must be uint8, got {k.dtype}")
+    elif k.dtype == torch.int8:
+        kind = _INT8
+    elif k.dtype == q.dtype:
+        kind = _FLOAT
+    else:
+        raise TypeError(f"decode kernel takes int8, packed int4 or {q.dtype} "
+                        f"K/V, got {k.dtype}")
+    if (kind == _FLOAT) != (k_scale is None):
+        raise ValueError("integer K/V need scales; float K/V take none")
+    if s > 32:
+        raise ValueError(f"decode kernel takes at most 32 queries, got {s}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"decode kernel head dim {d} not in {_HEAD_DIMS}")
+    if kind != _FLOAT and (k_scale.shape != (b, hkv, 1, t)
+                           or k_scale.dtype != torch.bfloat16
+                           or v_scale.shape != k_scale.shape
+                           or v_scale.dtype != torch.bfloat16):
+        raise ValueError("scales must be bf16 of shape (B, Hkv, 1, T)")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    ks = k_scale.contiguous() if k_scale is not None else None
+    vs = v_scale.contiguous() if v_scale is not None else None
+    out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    # Per (b, h, split, s): the split's P.V (D), max and normalizer.
+    part = torch.empty((b * hq * -(-t // _SPLIT) * s * (d + 2),),
+                       dtype=torch.float32, device=q.device)
+    causal = pos is not None
+    KERNEL.launch(_QTYPES[q.dtype], kind, ptr(q), ptr(k), ptr(v),
+                  ptr(ks) if ks is not None else None,
+                  ptr(vs) if vs is not None else None, ptr(out), ptr(part), b, hq,
+                  hkv, s, d, t, kv_len, int(causal), int(pos) if causal else 0,
+                  stream_of(q))
+    return out
