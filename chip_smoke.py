@@ -10,24 +10,36 @@ Phases, one output line each (JSON after the phase name):
    them, then with the PyTorch and CUDA versions.
 2. ``build``: compiles every kernel of ``yoho_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the seconds.
-3. ``kernel``: each kernel at the main path's shapes on the card against
+3. ``kernel``: each kernel at the main paths' shapes on the card against
    its plain PyTorch version on the same inputs, with the stated
    tolerance; its device time per call (``torch.profiler``, L2 flushed
    between calls), the plain version's, a PyTorch library call's
    where one computes the same function (a yardstick only: the port never
    calls it), and the bound: the larger of bytes over 3.35 TB/s and
    operations over the peak rate of their type (H100 SXM data sheet).
+   The w8a8 cases also time two labelled yardsticks: ``torch._int_mm`` on
+   the pre-quantized operands (the int8 product alone) and bf16
+   ``F.linear`` (+ tanh-GELU), what the bf16 lane computes.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
    30 s and 75 s of synthetic audio. Checks: finite encoder output and
    logits that agree with the CPU plain path on one window, the same
-   tokens on a second run, and every kernel launched during the run.
-   With ``--profile`` the second run's device activity is traced with
+   tokens on a second run, and the kernels of the path (all but w8a8)
+   launched during the run.
+5. ``e2e-int8``: the same for whisper large-v3-turbo (1280 wide, 32
+   encoder and 4 decoder layers, 128 mels, vocab 51866) with its random
+   bf16 weights quantized on the card into both int8 lanes
+   (``encoder_int8``: W8A8 encoder MLPs through the w8a8 kernel;
+   ``weights_int8``: int8 decoder weights and tied embedding) and
+   ``fast_gelu``; the CPU reference is the same quantized model in f32,
+   and every kernel, w8a8 included, must launch.
+   With ``--profile`` each path's second run is traced with
    ``torch.profiler`` and a ``profile`` line gives the device time by
    kernel and the device's busy share of the untraced run's wall time.
-5. ``kernels``: one JSON object with every kernel's numbers.
-6. The last line: ``{"ok": true, "device": {...}}``.
+6. ``kernels``: one JSON object with every kernel's numbers; launches are
+   summed over the two e2e paths' first runs.
+7. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -42,8 +54,9 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 SEED = 0
+BATCH, ENC_CTX = 16, 1500      # the e2e batch, and encoder positions per window
 
 
 def emit(phase: str, **fields) -> None:
@@ -94,6 +107,15 @@ def time_ms(fn, iters: int, flush) -> float:
     return sum(v for k, v in us.items() if k not in flush_names) / iters / 1e3
 
 
+def yardstick_ms(fn, flush):
+    """``time_ms`` of a library call that is only a yardstick: a call this
+    PyTorch build refuses is reported as its error, not a failure."""
+    try:
+        return time_ms(fn, 20, flush)
+    except RuntimeError as e:
+        return f"not measured: {str(e).splitlines()[0][:160]}"
+
+
 def check_close(name, got, want, rtol, atol) -> float:
     import torch
 
@@ -113,8 +135,9 @@ def card_line() -> str:
 
 
 def kernel_checks(card: str) -> dict:
-    """Phase 3: every kernel against its plain version at the main path's
-    shapes (whisper-small, batch 16). Returns the JSON entry per kernel."""
+    """Phase 3: every kernel against its plain version at the main paths'
+    shapes (batch 16: whisper-small, and large-v3-turbo for the mel at 128
+    and the w8a8 kernel). Returns the JSON entry per kernel."""
     import torch
 
     from yoho_tpu_torch.audio.frontend import log_mel_spectrogram
@@ -122,6 +145,7 @@ def kernel_checks(card: str) -> dict:
     from yoho_tpu_torch.ops import decode_attention as da
     from yoho_tpu_torch.ops import flash_attention as fa
     from yoho_tpu_torch.ops import mel_kernel as mk
+    from yoho_tpu_torch.ops import w8a8_dense as w8
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -129,12 +153,12 @@ def kernel_checks(card: str) -> dict:
     entries = {}
 
     def record(kernel, case, err, ms, plain_ms, nbytes, flops, kind, library_ms,
-               tol, main=True):
+               tol, main=True, **extra):
         b_ms, b_by = bound(nbytes, flops, kind)
         emit("kernel", name=kernel.name, case=case, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
              bound_by=b_by, bound_from=f"{nbytes:.0f} B, {flops:.0f} {kind} ops",
-             tolerance=tol, card=card)
+             tolerance=tol, card=card, **extra)
         if main:
             entries[kernel.name] = dict(
                 name=kernel.name, route="cuda",
@@ -164,6 +188,17 @@ def kernel_checks(card: str) -> dict:
                       log_mel_spectrogram(sc, **skw), 1e-3, 2e-3)
     emit("kernel", name=mk.KERNEL.name, case="scipy 2x160000", max_abs_err=err,
          tolerance="rtol 1e-3, atol 2e-3")
+    # large-v3-turbo's frontend: 128 mels.
+    kw128 = dict(kw, n_mels=128)
+    got = mk.fused_log_mel(audio, **kw128)
+    err = check_close("mel 128", got, log_mel_spectrogram(audio, **kw128), 1e-4, 1e-4)
+    flops = b * frames * (4 * 400 * n_freq + 3 * n_freq + 2 * n_freq * 128)
+    nbytes = audio.numel() * 4 + got.numel() * 4 + 2 * 400 * n_freq * 4 + n_freq * 128 * 4
+    record(mk.KERNEL, "whisper 128 mels 16x480000", err,
+           time_ms(lambda: mk.fused_log_mel(audio, **kw128), 20, flush),
+           time_ms(lambda: log_mel_spectrogram(audio, **kw128), 5, flush),
+           nbytes, flops, "fp32", None, "rtol 1e-4, atol 1e-4", main=False)
+    del audio, got
 
     # Kernel 2: encoder self-attention, (16, 1500, 12, 64) bf16, scale 1/8.
     shape = (16, 1500, 12, 64)
@@ -235,6 +270,54 @@ def kernel_checks(card: str) -> dict:
 
     case("cross bf16 S=1", qb, kb, vb, None, None, None, 1, library=lambda: time_ms(
         sdpa_decode, 50, flush))
+    del kb, vb, qb, cross, self_kv, c4
+
+    # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
+    # rows): large-v3-turbo's fc1 (with the tanh GELU) and fc2, and
+    # whisper-small's fc1. Weights are random at init_random's scale,
+    # quantized per output channel as nn/quantize.py does.
+    m = BATCH * ENC_CTX
+    for label, k, n, act, main in (
+            ("large-v3-turbo fc1 + GELU", 1280, 5120, "gelu_tanh", True),
+            ("large-v3-turbo fc2", 5120, 1280, None, False),
+            ("small fc1 + GELU", 768, 3072, "gelu_tanh", False)):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+        bias = torch.randn((n,), generator=gen, device=dev) * 0.02
+        w_q, w_scale = w8.quantize_rows(w)
+        w_scale = w_scale[:, 0].contiguous()
+        args = (x, w_q, w_scale, bias)
+        got = w8.w8a8_dense(*args, activation=act)
+        want = w8.w8a8_dense_reference(*args, activation=act)
+        # The JAX package's pin (tests/test_ops.py): one weight step x
+        # max|x| x 1.1 (a 1-ulp scale difference flips an int8 round on an
+        # exact half), plus one rounding of the bf16 output, and >= 98% of
+        # the outputs identical.
+        atol = float(w_scale.max()) * float(x.float().abs().max()) * 1.1 + 1e-5
+        err = check_close(f"w8a8 {label}", got, want, 2.0 ** -8, atol)
+        same = float((got.to(torch.bfloat16) == want.to(torch.bfloat16)).float().mean())
+        if same <= 0.98:
+            raise AssertionError(f"w8a8 {label}: only {same:.4f} of outputs identical")
+        del want
+        xq = w8.quantize_rows(x)[0]
+        w_bf16, b_bf16 = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+        def bf16_lane(act=act):
+            y = torch.nn.functional.linear(x, w_bf16, b_bf16)
+            return torch.nn.functional.gelu(y, approximate="tanh") if act else y
+
+        yard = {"int_mm_ms (int8 product alone)": yardstick_ms(
+                    lambda: torch._int_mm(xq, w_q.t()), flush),
+                "bf16_linear_ms (F.linear" + (" + tanh-GELU)" if act else ")"):
+                    yardstick_ms(bf16_lane, flush)}
+        nbytes = m * k * 2 + n * k + 2 * n * 4 + m * n * 2
+        record(w8.KERNEL, f"{label} M={m} K={k} N={n}", err,
+               time_ms(lambda: w8.w8a8_dense(*args, activation=act), 20, flush),
+               time_ms(lambda: w8.w8a8_dense_reference(*args, activation=act), 3, flush),
+               nbytes, 2 * m * k * n, "int8", None,
+               f"one weight step x max|x| x 1.1 = {atol:.4g}, rtol 2^-8, "
+               f">= 98% identical (got {same:.4f})", main=main, yardsticks=yard)
+        del x, w, xq, got, w_bf16
     return entries
 
 
@@ -253,55 +336,81 @@ def _profiled(fn):
     return box[0], {k: v / 1e3 for k, v in us.items()}
 
 
-def e2e(card: str, kernels, trace: bool = False) -> dict:
-    """Phase 4: whisper-small served end to end through the port."""
+# The two e2e paths: (phase, preset, int8 lanes, fast_gelu, v3 token table,
+# reference tolerance on the encoder output and the logits).
+PATHS = (
+    ("e2e", "small", False, False, False, (3e-2, 5e-2)),
+    # On the card the W8A8 MLPs quantize bf16 activations, on the CPU f32
+    # ones: codes near an exact half differ, so the two drift apart more
+    # than in bf16 alone.
+    ("e2e-int8", "large-v3-turbo", True, True, True, (5e-2, 5e-2)),
+)
+
+
+def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool,
+        v3: bool, tol, trace: bool = False) -> dict:
+    """Phases 4 and 5: one whisper model served end to end through the
+    port; returns the launches of its first run."""
     import numpy as np
     import torch
 
     from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.longform import chunk_audio
     from yoho_tpu_torch.infer.pipeline import Transcriber
     from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.quantize import quantize_whisper_decoder, quantize_whisper_encoder
     from yoho_tpu_torch.nn.whisper import Whisper
     from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
     from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
 
-    cfg = WHISPER_PRESETS["small"]
-    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
-    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    cfg = WHISPER_PRESETS[preset]
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16, fast_gelu=fast_gelu), seed=SEED)
+    if int8:  # the card quantizes its own random bf16 weights
+        quantize_whisper_decoder(quantize_whisper_encoder(model))
+    lanes = dict(weights_int8=model.weights_int8, encoder_int8=model.encoder_int8,
+                 fast_gelu=fast_gelu)
+    table = WhisperTokenTable(multilingual=True, v3=v3, text_backend=_IdText())
+    if table.n_vocab != cfg.n_vocab:
+        raise AssertionError(f"token table of {table.n_vocab} ids for a {cfg.n_vocab} vocab")
     rng = np.random.default_rng(SEED)
     seconds = (12, 30, 75)
     audios = [(0.1 * rng.standard_normal(s * 16000)).astype(np.float32)
               for s in seconds]
 
     # Reference on a small input: one window through the card's kernels
-    # against the CPU plain path in float32 with the same weights.
+    # against the CPU plain path in float32 with the same weights (the same
+    # int8 codes and scales where the lanes are on).
     with torch.inference_mode():
         window = np.zeros((1, cfg.n_samples), np.float32)
         window[0, :len(audios[0])] = audios[0][:cfg.n_samples]
-        mel = fused_whisper_log_mel(torch.as_tensor(window, device="cuda"))
+        mel = fused_whisper_log_mel(torch.as_tensor(window, device="cuda"), cfg.n_mels)
         xa = model.encode_audio(mel)
         prompt = torch.as_tensor([table.sot_sequence("en")], device="cuda")
         logits, _ = model.decode_step(prompt, model.init_caches(1, quantized=True),
                                       model.cross_kvs(xa, "int8"), 0)
         if not (torch.isfinite(xa).all() and torch.isfinite(logits).all()):
             raise AssertionError("non-finite encoder output or logits")
-        if xa.shape != (1, 1500, 768) or logits.shape != (1, 3, cfg.n_vocab):
+        if xa.shape != (1, cfg.n_audio_ctx, cfg.n_audio_state) \
+                or logits.shape != (1, 3, cfg.n_vocab):
             raise AssertionError(f"shapes {tuple(xa.shape)}, {tuple(logits.shape)}")
-        ref = Whisper(cfg, dtype=torch.float32, device="cpu")
-        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        ref = Whisper(cfg, dtype=torch.float32, device="cpu", **lanes)
+        ref.load_state_dict({k: (v.float() if v.is_floating_point() else v).cpu()
+                             for k, v in model.state_dict().items()})
         xa_ref = ref.encode_audio(mel.cpu())
         logits_ref, _ = ref.decode_step(prompt.cpu(), ref.init_caches(1),
                                         ref.cross_kvs(xa_ref), 0)
         rel_xa = float((xa.float().cpu() - xa_ref).norm() / xa_ref.norm())
         rel_lg = float((logits.cpu() - logits_ref).norm() / logits_ref.norm())
-        if rel_xa > 3e-2 or rel_lg > 5e-2:
-            raise AssertionError(f"card vs CPU reference: encoder rel err {rel_xa}, "
-                                 f"logits rel err {rel_lg}")
-        emit("reference", window=1, encoder_rel_err=rel_xa, logits_rel_err=rel_lg,
-             tolerance="encoder 3e-2, logits 5e-2 (bf16 card vs f32 CPU)")
-        del ref
+        if rel_xa > tol[0] or rel_lg > tol[1]:
+            raise AssertionError(f"{phase}: card vs CPU reference: encoder rel err "
+                                 f"{rel_xa}, logits rel err {rel_lg}")
+        emit("reference", path=phase, window=1, encoder_rel_err=rel_xa,
+             logits_rel_err=rel_lg,
+             tolerance=f"encoder {tol[0]}, logits {tol[1]} (bf16 card vs f32 CPU)")
+        del ref, xa_ref, logits_ref
 
-    tr = Transcriber(model, token_table=table, batch_size=16,
+    tr = Transcriber(model, token_table=table, batch_size=BATCH,
                      quantized_cross_kv="int8", quantized_cache=True,
                      cache_dtype=torch.bfloat16)
     runs = []
@@ -320,25 +429,32 @@ def e2e(card: str, kernels, trace: bool = False) -> dict:
     if trace:
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        emit("profile", run="second e2e run, device activity traced",
+        emit("profile", path=phase, run="second run, device activity traced",
              traced_wall_ms=runs[1][0] * 1e3, untraced_wall_ms=runs[0][0] * 1e3,
              device_busy_ms=busy, device_busy_share=busy / (runs[0][0] * 1e3),
              top_device_ms={k[:90]: round(v, 3) for k, v in top}, card=card)
     (wall, results, launches), (wall2, results2, _) = runs
     toks = [[t for s in r.segments for t in s.tokens] for r in results]
     if toks != [[t for s in r.segments for t in s.tokens] for r in results2]:
-        raise AssertionError("second run gave other tokens")
-    idle = [name for name, n in launches.items() if n == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"{phase}: second run gave other tokens")
+    windows = sum(len(chunk_audio(a, tr.chunk_samples, tr.stride_samples)[1])
+                  for a in audios)
+    batches = -(-windows // BATCH)
+    # The W8A8 kernel runs twice per encoder block per batch on the int8
+    # lane, and never otherwise; every other kernel runs on both paths.
+    want_w8a8 = 2 * cfg.n_audio_layer * batches if model.encoder_int8 else 0
+    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+    if idle or launches[W8A8.name] != want_w8a8:
+        raise AssertionError(f"{phase}: kernels never launched: {idle}; w8a8 "
+                             f"{launches[W8A8.name]} launches, {want_w8a8} expected")
     n_tok = sum(len(t) for t in toks)
     # Two decode-attention launches (self, cross) per layer per step.
-    steps = launches["decode_attention"] // (2 * cfg.n_text_layer)
-    emit("e2e", model="whisper-small", batch=16, requests=list(seconds),
-         windows=5, wall_s=wall, wall_s_second_run=wall2,
+    steps = launches["decode_attention"] // (2 * cfg.n_text_layer * batches)
+    emit(phase, model=f"whisper-{preset}", lanes=lanes, batch=BATCH,
+         requests=list(seconds), windows=windows, wall_s=wall, wall_s_second_run=wall2,
          audio_s_per_s=sum(seconds) / wall, segment_tokens=n_tok,
          tokens_per_s=n_tok / wall, decode_steps=steps,
-         batch_tokens_per_s=16 * steps / wall, launches=launches, card=card)
+         batch_tokens_per_s=BATCH * steps * batches / wall, launches=launches, card=card)
     return launches
 
 
@@ -363,15 +479,19 @@ def main(argv) -> int:
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
 
     from yoho_tpu_torch.ops import _build
-    from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel
+    from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8a8_dense
 
     t0 = time.perf_counter()
     per_source = _build.build()
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
 
-    kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL]
+    kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+               w8a8_dense.KERNEL]
     entries = kernel_checks(card)
-    launches = e2e(card, kernels, "--profile" in argv)
+    launches = {k.name: 0 for k in kernels}
+    for path in PATHS:
+        for name, n in e2e(card, kernels, *path, trace="--profile" in argv).items():
+            launches[name] += n
     print(json.dumps({"kernels": [
         dict(entries[k.name], launches=launches[k.name]) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

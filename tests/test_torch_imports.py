@@ -109,9 +109,15 @@ def test_transcriber_needs_device_cpu_without_cuda(monkeypatch):
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
     """A CPU tensor never touches the kernel build (no nvcc here), and
     launch counters stay at 0."""
-    from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel
+    from yoho_tpu_torch.ops import (
+        decode_attention,
+        flash_attention,
+        mel_kernel,
+        w8a8_dense,
+    )
 
-    kernels = (mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL)
+    kernels = (mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+               w8a8_dense.KERNEL)
     before = [k.launches for k in kernels]
     mel_kernel.fused_log_mel(torch.zeros(1, 1600))
     flash_attention.flash_attention(*(torch.zeros(1, 4, 1, 8) for _ in range(3)))
@@ -120,5 +126,7 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
         torch.zeros(1, 1, 8, 4, dtype=torch.int8),
         torch.ones(1, 1, 1, 4, dtype=torch.bfloat16),
         torch.ones(1, 1, 1, 4, dtype=torch.bfloat16))
+    w8a8_dense.w8a8_dense(torch.zeros(3, 32), torch.zeros(8, 32, dtype=torch.int8),
+                          torch.ones(8), activation="gelu_tanh")
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)

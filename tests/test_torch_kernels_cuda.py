@@ -10,7 +10,8 @@ there without the JAX package's ``conftest.py``:
 Tolerances: the JAX package's for each kernel (``tests/test_ops.py``):
 1e-4 (whisper) and 1e-3/2e-3 (scipy) for the mel kernel, 2e-5 for flash
 in f32 and 1e-2 in bf16 (one bf16 ulp of the output), rtol 0.05 / atol
-0.02 for decode attention.
+0.02 for decode attention, one weight step x max|x| x 1.1 and >= 98%
+identical outputs for w8a8.
 """
 
 import pytest
@@ -18,7 +19,7 @@ import torch
 
 from yoho_tpu_torch.audio import frontend
 from yoho_tpu_torch.nn import kv_cache
-from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel
+from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8a8_dense
 
 pytestmark = pytest.mark.cuda
 
@@ -32,11 +33,13 @@ def gen():
 
 MEL = {"whisper": (dict(mel_scale="slaney", convention="whisper", log_floor=1e-10,
                         n_mels=80), dict(rtol=1e-4, atol=1e-4)),
+       "whisper128": (dict(mel_scale="slaney", convention="whisper", log_floor=1e-10,
+                           n_mels=128), dict(rtol=1e-4, atol=1e-4)),
        "scipy": (dict(mel_scale="htk", convention="scipy", log_floor=1e-13,
                       n_mels=32), dict(rtol=1e-3, atol=2e-3))}
 
 
-@pytest.mark.parametrize("convention", ["whisper", "scipy"])
+@pytest.mark.parametrize("convention", ["whisper", "whisper128", "scipy"])
 @pytest.mark.parametrize("n", [48_000, 12_345])
 def test_mel_kernel_matches_plain(gen, convention, n):
     kw, tol = MEL[convention]
@@ -93,6 +96,75 @@ def test_decode_kernel_gqa_and_f32(gen):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+WHISPER_WIDTHS = (384, 512, 768, 1024, 1280)  # tiny .. large
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("activation", [None, "gelu_tanh"])
+@pytest.mark.parametrize("k,n", [(d, 4 * d) for d in WHISPER_WIDTHS]
+                         + [(4 * d, d) for d in WHISPER_WIDTHS])
+def test_w8a8_kernel_matches_plain(gen, k, n, activation, out_dtype):
+    """Every whisper MLP shape (fc1 d -> 4d, fc2 4d -> d) at a ragged M of
+    333 rows. The tolerance is the JAX package's pin (tests/test_ops.py):
+    one weight step x max|x| x 1.1, plus one rounding of a bf16 output,
+    and >= 98% of outputs identical."""
+    x = (torch.randn((3, 111, k), generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((n,), generator=gen, device="cuda")
+    w_q, w_scale = w8a8_dense.quantize_rows(w)
+    w_scale = w_scale[:, 0]
+    args = (x, w_q, w_scale, bias)
+    before = w8a8_dense.KERNEL.launches
+    got = w8a8_dense.w8a8_dense(*args, activation=activation, out_dtype=out_dtype)
+    assert w8a8_dense.KERNEL.launches == before + 1
+    want = w8a8_dense.w8a8_dense_reference(*args, activation=activation,
+                                           out_dtype=out_dtype)
+    assert got.shape == (3, 111, n) and got.dtype == out_dtype
+    step = float(w_scale.max())
+    atol = step * float(x.float().abs().max()) * 1.1 + 1e-5
+    rtol = 2.0 ** -8 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert _same_in_bf16(got, want) > 0.98
+
+
+def _same_in_bf16(got, want) -> float:
+    """The share of outputs identical once both are rounded to bf16."""
+    return float((got.to(torch.bfloat16) == want.to(torch.bfloat16)).float().mean())
+
+
+def test_w8a8_kernel_f32_input_and_no_bias(gen):
+    x = torch.randn((2, 1500, 768), generator=gen, device="cuda")
+    w_q, w_scale = w8a8_dense.quantize_rows(
+        torch.randn((3072, 768), generator=gen, device="cuda") * 0.05)
+    got = w8a8_dense.w8a8_dense(x, w_q, w_scale[:, 0], out_dtype=torch.float32)
+    want = w8a8_dense.w8a8_dense_reference(x, w_q, w_scale[:, 0], out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=float(w_scale.max()) * float(x.abs().max()) * 1.1)
+    assert _same_in_bf16(got, want) > 0.98
+
+
+def test_quantizers_are_bit_exact_on_the_card(gen):
+    """The int8/int4 codes and scales the card computes equal the CPU's,
+    which equal JAX's (tests/test_torch_kv_cache.py, test_torch_quantize.py):
+    every scale is a true division, as in JAX."""
+    x = torch.randn((4, 6, 64, 700), generator=gen, device="cuda") * 3
+    for got, want in ((w8a8_dense.quantize_rows(x), w8a8_dense.quantize_rows(x.cpu())),
+                      (w8a8_dense.quantize_rows(x.bfloat16()),
+                       w8a8_dense.quantize_rows(x.bfloat16().cpu()))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    k, v = x.bfloat16(), (x * 0.5).bfloat16()
+    for fn in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
+        got, want = fn(k, v), fn(k.cpu(), v.cpu())
+        for name in ("k_q", "v_q", "k_scale", "v_scale"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    caches = [kv_cache.QuantizedKVCache.zeros(4, 6, 16, 64, device=d) for d in ("cuda", "cpu")]
+    for c in caches:
+        c.update(3, k[..., :5].to(c.k_q.device), v[..., :5].to(c.k_q.device))
+    for name in ("k_q", "v_q", "k_scale", "v_scale"):
+        assert torch.equal(getattr(caches[0], name).cpu(), getattr(caches[1], name)), name
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     q = torch.randn((1, 2, 1, 64), generator=gen, device="cuda").to(torch.float16)
     k = torch.zeros((1, 2, 64, 16), device="cuda", dtype=torch.float16)
@@ -101,3 +173,10 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 12), device="cuda")
                                           for _ in range(3)))
+    w_q = torch.zeros((8, 48), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # K % 32 != 0
+        w8a8_dense.w8a8_dense(torch.zeros((2, 48), device="cuda"), w_q,
+                              torch.ones(8, device="cuda"))
+    with pytest.raises(TypeError):  # fp16 x
+        w8a8_dense.w8a8_dense(torch.zeros((2, 48), device="cuda", dtype=torch.float16),
+                              w_q, torch.ones(8, device="cuda"))

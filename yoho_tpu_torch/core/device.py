@@ -8,6 +8,7 @@ run.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterator, Optional, Union
 
 import torch
@@ -25,6 +26,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         if dev.index is None:  # "cuda" -> "cuda:<current>", as tensors report it
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_on(device: torch.device, value: float) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def div_exact(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as an IEEE division on every device. PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal instead, which
+    can land one ulp away from the quotient JAX computes (and flip an int8
+    code on an exact half); a divisor tensor on the same device is divided
+    by exactly."""
+    return x / _scalar_on(x.device, float(value))
 
 
 @contextlib.contextmanager

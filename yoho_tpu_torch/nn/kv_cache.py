@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from yoho_tpu_torch.core.device import div_exact
 from yoho_tpu_torch.ops.decode_attention import (
     attend_time_minor,
     fused_decode_attention,
@@ -79,7 +80,7 @@ class QuantizedKV:
 
 
 def _absmax_scale(x: torch.Tensor, axis: int, qmax: float) -> torch.Tensor:
-    scale = x.abs().amax(dim=axis, keepdim=True).to(torch.float32) / qmax
+    scale = div_exact(x.abs().amax(dim=axis, keepdim=True).to(torch.float32), qmax)
     return torch.clamp_min(scale, 1e-8)
 
 
@@ -203,7 +204,7 @@ class QuantizedKVCache:
 
         def _q(x):
             xf = x.to(torch.float32)
-            scale = torch.clamp_min(xf.abs().amax(dim=2, keepdim=True) / 127.0, 1e-8)
+            scale = _absmax_scale(xf, 2, 127.0)
             q = torch.clamp(torch.round(xf / scale), -127, 127)
             return q.to(torch.int8), scale.to(torch.bfloat16)
 

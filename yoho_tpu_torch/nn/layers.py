@@ -14,6 +14,13 @@ The full modes run through the flash kernel, the cached modes read their
 K/V through the decode attention kernel. The JAX package's explicit
 boolean masks (``causal_mask``, ``decode_mask``) are not needed: both
 kernels take the causal rule and the valid length as arguments.
+
+The int8 serving layers hold their codes and scales as buffers, filled by
+``nn/quantize.py`` (or ``nn/params.py`` from a JAX-quantized tree), never
+trained: :class:`QuantizedDense` (weight-only, the decoder's
+``weights_int8``), :class:`Int8Dense` (W8A8 through the w8a8 kernel, the
+encoder MLPs' ``encoder_int8``) and :class:`QuantizedEmbed` (the tied
+embedding with per-row scales).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yoho_tpu_torch.core.device import full_fp32
 from yoho_tpu_torch.nn.kv_cache import (
     KVCache,
     QuantizedKV,
@@ -32,6 +40,8 @@ from yoho_tpu_torch.nn.kv_cache import (
 )
 from yoho_tpu_torch.ops.decode_attention import fused_decode_attention
 from yoho_tpu_torch.ops.flash_attention import flash_attention
+from yoho_tpu_torch.ops.w8a8_dense import quantize_rows as quantize_act_rows  # noqa: F401
+from yoho_tpu_torch.ops.w8a8_dense import w8a8_dense
 
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -60,19 +70,95 @@ CrossKV = Union[Tuple[torch.Tensor, torch.Tensor], QuantizedKV]
 Cache = Union[KVCache, QuantizedKVCache]
 
 
+class _Int8Weights(nn.Module):
+    """An (out, in) int8 weight with per-output-channel f32 scales and an
+    optional f32 bias, as buffers; ``dtype`` is the model's type."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.dtype = dtype
+        f32 = dict(dtype=torch.float32, device=device)
+        self.register_buffer("weight_q", torch.zeros(
+            (out_features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones((out_features,), **f32))
+        self.register_buffer("bias", torch.zeros((out_features,), **f32)
+                             if bias else None)
+
+
+class QuantizedDense(_Int8Weights):
+    """Weight-only int8 linear layer: the JAX package's ``QuantizedDense``
+    with its numerics: the product of x and the int8 codes accumulated in
+    f32, times the per-channel scale, one rounding to the model's type, then
+    the bias added in that type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with full_fp32():  # operands of the model's type are exact in f32
+            y = F.linear(x.to(self.dtype).float(), self.weight_q.float())
+        y = (y * self.weight_scale).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Int8Dense(_Int8Weights):
+    """W8A8 linear layer (the JAX package's ``Int8Dense``): activations
+    quantized per row at run time, int8 x int8 product, per-channel rescale,
+    bias and the optional tanh-GELU (``activation="gelu_tanh"``) fused, all
+    in the w8a8 kernel; the output is in the model's type."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, device=None,
+                 activation: Optional[str] = None):
+        super().__init__(in_features, out_features, bias, dtype, device)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return w8a8_dense(x, self.weight_q, self.weight_scale, self.bias,
+                          activation=self.activation, out_dtype=self.dtype)
+
+
+class QuantizedEmbed(nn.Module):
+    """Tied embedding stored int8 with per-row (per-token) f32 scales; serves
+    the lookup and the tied logits (the JAX package's ``QuantizedEmbed``)."""
+
+    def __init__(self, num_embeddings: int, features: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("weight_q", torch.zeros(
+            (num_embeddings, features), dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(
+            (num_embeddings,), dtype=torch.float32, device=device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        vec = self.weight_q[ids].to(self.dtype)
+        return vec * self.weight_scale[ids].unsqueeze(-1).to(self.dtype)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits: the f32 product with the codes, times each row's
+        scale."""
+        with full_fp32():
+            y = F.linear(x.float(), self.weight_q.float())
+        return y * self.weight_scale
+
+
 class MultiHeadAttention(nn.Module):
-    """Whisper-semantics MHA with optional decode caches (see module doc)."""
+    """Whisper-semantics MHA with optional decode caches (see module doc).
+    ``weights_int8``: the four projections are :class:`QuantizedDense`."""
 
     def __init__(self, n_state: int, n_head: int, dtype=torch.float32,
-                 device=None):
+                 device=None, weights_int8: bool = False):
         super().__init__()
         self.n_state = n_state
         self.n_head = n_head
         kw = dict(dtype=dtype, device=device)
-        self.q_proj = nn.Linear(n_state, n_state, **kw)
-        self.k_proj = nn.Linear(n_state, n_state, bias=False, **kw)
-        self.v_proj = nn.Linear(n_state, n_state, **kw)
-        self.out_proj = nn.Linear(n_state, n_state, **kw)
+        dense = QuantizedDense if weights_int8 else nn.Linear
+        self.q_proj = dense(n_state, n_state, **kw)
+        self.k_proj = dense(n_state, n_state, bias=False, **kw)
+        self.v_proj = dense(n_state, n_state, **kw)
+        self.out_proj = dense(n_state, n_state, **kw)
 
     @property
     def scale(self) -> float:
@@ -136,14 +222,30 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Whisper MLP: fc1 -> exact (erf) GELU -> fc2, 4x expansion."""
+    """Whisper MLP: fc1 -> exact (erf) GELU -> fc2, 4x expansion.
+
+    ``weights_int8``: fc1 and fc2 are :class:`QuantizedDense`. ``w8a8``: they
+    are :class:`Int8Dense`, and the GELU is the tanh approximation fused into
+    fc1's kernel epilogue (part of the ``encoder_int8`` approximation).
+    ``gelu_tanh``: the tanh approximation without int8 (``fast_gelu``)."""
 
     def __init__(self, n_state: int, expansion: int = 4, dtype=torch.float32,
-                 device=None):
+                 device=None, weights_int8: bool = False, w8a8: bool = False,
+                 gelu_tanh: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.fc1 = nn.Linear(n_state, n_state * expansion, **kw)
-        self.fc2 = nn.Linear(n_state * expansion, n_state, **kw)
+        self.gelu_tanh = gelu_tanh
+        hidden = n_state * expansion
+        if w8a8:
+            self.fc1 = Int8Dense(n_state, hidden, activation="gelu_tanh", **kw)
+            self.fc2 = Int8Dense(hidden, n_state, **kw)
+        else:
+            dense = QuantizedDense if weights_int8 else nn.Linear
+            self.fc1 = dense(n_state, hidden, **kw)
+            self.fc2 = dense(hidden, n_state, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        h = self.fc1(x)
+        if not isinstance(self.fc1, Int8Dense):  # else fused into fc1
+            h = F.gelu(h, approximate="tanh" if self.gelu_tanh else "none")
+        return self.fc2(h)

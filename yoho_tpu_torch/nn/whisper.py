@@ -8,6 +8,12 @@ logits in float32, and a KV-cached ``decode_step``. Full-sequence
 attention (the encoder's, and the teacher-forcing decoder's causal self and
 cross) runs through the flash kernel; every decode read of the caches and
 of the cross-K/V runs through the decode attention kernel.
+
+The serving lanes carry the JAX flags and meanings: ``weights_int8`` (the
+decoder's projections, MLPs and tied embedding int8, weight-only),
+``encoder_int8`` (the encoder block MLPs W8A8 through the w8a8 kernel, with
+the tanh GELU) and ``fast_gelu`` (the tanh GELU in the encoder MLPs). The
+int8 weights come from ``nn/quantize.py`` or a JAX-quantized tree.
 """
 
 from __future__ import annotations
@@ -27,7 +33,13 @@ from yoho_tpu_torch.nn.kv_cache import (
     quantize_kv,
     quantize_kv4,
 )
-from yoho_tpu_torch.nn.layers import MLP, LayerNorm, MultiHeadAttention
+from yoho_tpu_torch.nn.layers import (
+    MLP,
+    Int8Dense,
+    LayerNorm,
+    MultiHeadAttention,
+    QuantizedEmbed,
+)
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -41,12 +53,16 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None):
+    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None,
+                 w8a8: bool = False, gelu_tanh: bool = False):
         super().__init__()
         self.ln1 = LayerNorm(n_state, device=device)
         self.attn = MultiHeadAttention(n_state, n_head, dtype=dtype, device=device)
         self.ln2 = LayerNorm(n_state, device=device)
-        self.mlp = MLP(n_state, dtype=dtype, device=device)
+        # W8A8 quantizes the MLP only: the square attention projections
+        # stay in the model's type, as in the JAX package.
+        self.mlp = MLP(n_state, dtype=dtype, device=device, w8a8=w8a8,
+                       gelu_tanh=gelu_tanh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -54,9 +70,10 @@ class EncoderBlock(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None):
+    def __init__(self, n_state: int, n_head: int, dtype=torch.float32, device=None,
+                 weights_int8: bool = False):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, weights_int8=weights_int8)
         self.ln1 = LayerNorm(n_state, device=device)
         self.attn = MultiHeadAttention(n_state, n_head, **kw)
         self.ln2 = LayerNorm(n_state, device=device)
@@ -78,7 +95,11 @@ class DecoderBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+    """Conv stem (exact GELU), sinusoidal positions, pre-LN blocks. ``w8a8``
+    and ``gelu_tanh`` reach the block MLPs only."""
+
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None,
+                 w8a8: bool = False, gelu_tanh: bool = False):
         super().__init__()
         c = cfg
         self.dtype = dtype
@@ -92,7 +113,8 @@ class AudioEncoder(nn.Module):
                 device=device, dtype=dtype),
             persistent=False)
         self.blocks = nn.ModuleList(
-            EncoderBlock(c.n_audio_state, c.n_audio_head, **kw)
+            EncoderBlock(c.n_audio_state, c.n_audio_head, w8a8=w8a8,
+                         gelu_tanh=gelu_tanh, **kw)
             for _ in range(c.n_audio_layer))
         self.ln_post = LayerNorm(c.n_audio_state, device=device)
 
@@ -109,17 +131,23 @@ class AudioEncoder(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+    """Learned positions, pre-LN blocks with cross-attention, tied logits.
+    ``weights_int8``: the blocks' dense layers are ``QuantizedDense`` and the
+    tied embedding a ``QuantizedEmbed``."""
+
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None,
+                 weights_int8: bool = False):
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
-        self.token_embedding = nn.Embedding(c.n_vocab, c.n_text_state, **kw)
+        self.token_embedding = (QuantizedEmbed if weights_int8 else nn.Embedding)(
+            c.n_vocab, c.n_text_state, **kw)
         self.positional_embedding = nn.Parameter(
             torch.empty(c.n_text_ctx, c.n_text_state, **kw))
         self.blocks = nn.ModuleList(
-            DecoderBlock(c.n_text_state, c.n_text_head, **kw)
+            DecoderBlock(c.n_text_state, c.n_text_head, weights_int8=weights_int8, **kw)
             for _ in range(c.n_text_layer))
         self.ln = LayerNorm(c.n_text_state, device=device)
 
@@ -127,6 +155,8 @@ class TextDecoder(nn.Module):
         """Tied-embedding logits in float32: operands of the model's type
         are exact in f32, and the product accumulates and stays in f32 (a
         bf16 output would round the logits and flip argmax near ties)."""
+        if isinstance(self.token_embedding, QuantizedEmbed):
+            return self.token_embedding.logits(x)
         with full_fp32():
             return F.linear(x.float(), self.token_embedding.weight.float())
 
@@ -144,7 +174,7 @@ class TextDecoder(nn.Module):
         dtype = dtype or self.dtype
         max_len = -(-(max_len or c.n_text_ctx) // 128) * 128
         cls = QuantizedKVCache if quantized else KVCache
-        device = self.token_embedding.weight.device
+        device = self.positional_embedding.device
         return [cls.zeros(batch, c.n_text_head, max_len,
                           c.n_text_state // c.n_text_head, dtype, device=device)
                 for _ in range(c.n_text_layer)]
@@ -188,19 +218,34 @@ class Whisper(nn.Module):
     ``device=None`` places it on CUDA (and raises when CUDA is absent);
     pass ``device="cpu"`` for the plain PyTorch path. Parameters start
     uninitialized: fill them with ``nn.params.load_jax_params`` or
-    ``nn.params.init_random``."""
+    ``nn.params.init_random``; the int8 lanes (``weights_int8``,
+    ``encoder_int8``) hold zero codes until ``load_jax_params`` fills them,
+    or are made from a float model by ``nn.quantize``. ``fast_gelu`` changes
+    no weights."""
 
-    def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: WhisperConfig, dtype=torch.float32,
+                 weights_int8: bool = False, encoder_int8: bool = False,
+                 fast_gelu: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
-        self.encoder = AudioEncoder(cfg, dtype=dtype, device=device)
-        self.decoder = TextDecoder(cfg, dtype=dtype, device=device)
+        self.encoder = AudioEncoder(cfg, dtype=dtype, device=device,
+                                    w8a8=encoder_int8, gelu_tanh=fast_gelu)
+        self.decoder = TextDecoder(cfg, dtype=dtype, device=device,
+                                   weights_int8=weights_int8)
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.token_embedding.weight.device
+        return self.decoder.positional_embedding.device
+
+    @property
+    def weights_int8(self) -> bool:
+        return isinstance(self.decoder.token_embedding, QuantizedEmbed)
+
+    @property
+    def encoder_int8(self) -> bool:
+        return any(isinstance(b.mlp.fc1, Int8Dense) for b in self.encoder.blocks)
 
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return self.decoder(tokens, self.encoder(mel))
