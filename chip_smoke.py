@@ -19,7 +19,10 @@ Phases, one output line each (JSON after the phase name):
    operations over the peak rate of their type (H100 SXM data sheet).
    The w8a8 cases also time two labelled yardsticks: ``torch._int_mm`` on
    the pre-quantized operands (the int8 product alone) and bf16
-   ``F.linear`` (+ tanh-GELU), what the bf16 lane computes.
+   ``F.linear`` (+ tanh-GELU), what the bf16 lane computes. Flash runs at
+   whisper-small's 12 and turbo's 20 heads; decode attention on the cross
+   K/V padded to 1536 positions (kv_len 1500) as the main path stores
+   them, for prefill, and on the self cache at pos 0, 200 and 447.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -36,7 +39,8 @@ Phases, one output line each (JSON after the phase name):
    and every kernel, w8a8 included, must launch.
    With ``--profile`` each path's second run is traced with
    ``torch.profiler`` and a ``profile`` line gives the device time by
-   kernel and the device's busy share of the untraced run's wall time.
+   kernel and the device's busy share of the untraced run's wall time;
+   the trace must hold no combine kernel (decode attention is one launch).
 6. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the two e2e paths' first runs.
 7. The last line: ``{"ok": true, "device": {...}}``.
@@ -224,9 +228,21 @@ def kernel_checks(card: str) -> dict:
            4 * q.numel() * 2, flops, "bf16", time_ms(sdpa, 5, flush),
            "rtol 1e-2, atol 1e-2")
     del q, k, v
+    # large-v3-turbo's encoder: 20 heads.
+    q, k, v = (torch.randn((16, 1500, 20, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    err = check_close("flash turbo", fa.flash_attention(q, k, v, scale=scale),
+                      fa.attention_reference(q, k, v, False, scale), 1e-2, 1e-2)
+    record(fa.KERNEL, "encoder 16x1500x20x64 bf16 (large-v3-turbo)", err,
+           time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
+           time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
+           4 * q.numel() * 2, 4 * 16 * 20 * 1500 * 1500 * 64, "bf16", time_ms(sdpa, 5, flush),
+           "rtol 1e-2, atol 1e-2", main=False)
+    del q, k, v
 
-    # Kernel 3: decode reads. Cross: int8 (16, 12, 64, 1500); self: int8
-    # cache (16, 12, 64, 512) read causally at pos.
+    # Kernel 3: decode reads. Cross: int8 (16, 12, 64, 1536) padded from
+    # 1500 (kv_len 1500), the layout of the main path; self: int8 cache
+    # (16, 12, 64, 512) read causally up to pos.
     def kv(t, shape_d=64):
         return (torch.randn((16, 12, shape_d, t), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
@@ -235,13 +251,15 @@ def kernel_checks(card: str) -> dict:
         return (torch.randn((16, 12, s, 64), generator=gen, device=dev) * 0.35
                 ).to(torch.bfloat16)
 
-    def case(label, qq, k_, v_, ks, vs, pos, packing, main=False, library=None):
-        args = (qq, k_, v_, ks, vs, pos, None, 1, packing)
+    def case(label, qq, k_, v_, ks, vs, pos, packing, kv_len=None, main=False, library=None):
+        args = (qq, k_, v_, ks, vs, pos, kv_len, 1, packing)
         got = da.fused_decode_attention(*args)
         err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
                           0.05, 0.02)
-        t = k_.shape[3]
-        t_read = min(t, pos + qq.shape[2]) if pos is not None else t
+        # The positions this call needs: those below kv_len and pos + S.
+        t_read = k_.shape[3] if kv_len is None else kv_len
+        if pos is not None:
+            t_read = min(t_read, pos + qq.shape[2])
         per_pos = k_.shape[0] * k_.shape[1] * k_.shape[2] * k_.element_size() * 2
         nbytes = per_pos * t_read + (ks is not None) * 2 * 16 * 12 * t_read * 2 \
             + 2 * qq.numel() * 2
@@ -251,16 +269,18 @@ def kernel_checks(card: str) -> dict:
                nbytes, flops, "bf16", library() if library else None,
                "rtol 0.05, atol 0.02", main=main)
 
-    cross = quantize_kv(*kv(1500))
-    case("cross int8 S=1", q_of(1), cross.k_q, cross.v_q, cross.k_scale,
-         cross.v_scale, None, 1, main=True)
+    cross = quantize_kv(*kv(1500), pad_to=128)
+    case("cross int8 S=1 (T 1536, kv_len 1500)", q_of(1), cross.k_q, cross.v_q,
+         cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len, main=True)
     case("cross int8 S=3 (prefill)", q_of(3), cross.k_q, cross.v_q, cross.k_scale,
-         cross.v_scale, None, 1)
+         cross.v_scale, None, 1, kv_len=cross.kv_len)
     self_kv = quantize_kv(*kv(512))
-    case("self int8 S=1 pos=200", q_of(1), self_kv.k_q, self_kv.v_q,
-         self_kv.k_scale, self_kv.v_scale, 200, 1)
-    c4 = quantize_kv4(*kv(1500))
-    case("cross int4 S=1", q_of(1), c4.k_q, c4.v_q, c4.k_scale, c4.v_scale, None, 2)
+    for pos in (0, 200, 447):
+        case(f"self int8 S=1 pos={pos}", q_of(1), self_kv.k_q, self_kv.v_q,
+             self_kv.k_scale, self_kv.v_scale, pos, 1)
+    c4 = quantize_kv4(*kv(1500), pad_to=128)
+    case("cross int4 S=1", q_of(1), c4.k_q, c4.v_q, c4.k_scale, c4.v_scale, None, 2,
+         kv_len=c4.kv_len)
     kb, vb = kv(1500)
     qb = q_of(1)
 
@@ -268,8 +288,8 @@ def kernel_checks(card: str) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qb, kb.transpose(2, 3), vb.transpose(2, 3), scale=1.0)
 
-    case("cross bf16 S=1", qb, kb, vb, None, None, None, 1, library=lambda: time_ms(
-        sdpa_decode, 50, flush))
+    case("cross bf16 S=1 (T 1500, rows through registers)", qb, kb, vb, None, None, None, 1,
+         library=lambda: time_ms(sdpa_decode, 50, flush))
     del kb, vb, qb, cross, self_kv, c4
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
@@ -427,6 +447,9 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
         wall = time.perf_counter() - t0
         runs.append((wall, results, {k.name: k.launches for k in kernels}))
     if trace:
+        # Decode attention is one launch per call: no second combine pass.
+        if any("combine" in name for name in by_name):
+            raise AssertionError(f"{phase}: a combine kernel ran: {sorted(by_name)}")
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         emit("profile", path=phase, run="second run, device activity traced",

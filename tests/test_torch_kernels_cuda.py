@@ -53,12 +53,16 @@ def test_mel_kernel_matches_plain(gen, convention, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,tq,t,kv_len", [
-    (False, 1500, 1500, None), (True, 300, 300, None), (False, 77, 77, None),
-    (False, 1536, 1536, 1500), (False, 300, 300, 129), (True, 256, 256, 200),
-    (False, 6, 1500, None)])
-def test_flash_kernel_matches_plain(gen, dtype, causal, tq, t, kv_len):
-    q, k, v = (torch.randn((2, n, 3, 64), generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("causal,tq,t,kv_len,heads", [
+    (False, 1500, 1500, None, 3), (True, 300, 300, None, 3), (False, 77, 77, None, 3),
+    (False, 1536, 1536, 1500, 3), (False, 300, 300, 129, 3), (True, 256, 256, 200, 3),
+    (False, 6, 1500, None, 3), (False, 1500, 1500, None, 20), (False, 1500, 1500, 129, 3),
+    (True, 1500, 1500, None, 2)])
+def test_flash_kernel_matches_plain(gen, dtype, causal, tq, t, kv_len, heads):
+    """The bf16 route (wgmma + TMA, 128-row query and key tiles) at its
+    edges: turbo's 20 heads, kv_len inside a tile, Tq != Tk, causal, the
+    ragged T = 1500; the f32 route on the same cases."""
+    q, k, v = (torch.randn((2, n, heads, 64), generator=gen, device="cuda").to(dtype)
                for n in (tq, t, t))
     before = flash_attention.KERNEL.launches
     got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
@@ -68,10 +72,27 @@ def test_flash_kernel_matches_plain(gen, dtype, causal, tq, t, kv_len):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def test_flash_kernel_unaligned_view(gen):
+    """A bf16 view that starts 2 bytes into its allocation: the TMA loads
+    need 16-byte aligned bases, so the wrapper copies it first."""
+    base = torch.randn((2 * 300 * 3 * 64 + 1,), generator=gen, device="cuda").to(torch.bfloat16)
+    q = base[1:].view(2, 300, 3, 64)
+    got = flash_attention.flash_attention(q, q, q)
+    want = flash_attention.attention_reference(q, q, q, False, 64 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
-@pytest.mark.parametrize("s,pos", [(1, None), (3, None), (1, 200), (5, 0)])
-def test_decode_kernel_matches_plain(gen, kind, s, pos):
-    k, v = (torch.randn((2, 4, 64, 333), generator=gen, device="cuda").to(torch.bfloat16)
+@pytest.mark.parametrize("s,pos", [(1, None), (3, None), (1, 200), (5, 0), (1, 0), (1, 447)])
+@pytest.mark.parametrize("t,kv_len", [(333, 300), (1500, 1500), (1536, 1500), (512, 512),
+                                      (8192, 8000)])
+def test_decode_kernel_matches_plain(gen, kind, s, pos, t, kv_len):
+    """Every load branch: T = 333 (rows copied element by element), 1500
+    (4-byte words: rows not 16-byte aligned), the padded cross read (1536,
+    kv_len 1500) and the cache (512) through TMA, and a T whose chunks
+    outnumber the blocks of a cluster (8192), at S = 1, 3, 5 and pos from
+    0 to 447."""
+    k, v = (torch.randn((2, 4, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     q = (torch.randn((2, 4, s, 64), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
     if kind == "bf16":
@@ -80,10 +101,10 @@ def test_decode_kernel_matches_plain(gen, kind, s, pos):
         qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
         args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
     before = decode_attention.KERNEL.launches
-    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=300,
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
                                                   packing=packing)
     assert decode_attention.KERNEL.launches == before + 1
-    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=300,
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
                                                        packing=packing)
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
 
@@ -94,6 +115,28 @@ def test_decode_kernel_gqa_and_f32(gen):
     got = decode_attention.fused_decode_attention(q, k, v, pos=50, groups=2)
     want = decode_attention.decode_attention_reference(q, k, v, pos=50, groups=2)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int8", "int4", "float"])
+@pytest.mark.parametrize("t,kv_len", [(1536, 1500), (200, 200)])
+def test_decode_kernel_groups(gen, q_dtype, kind, t, kv_len):
+    """groups = 2 (head h reads kv head h // 2) for every K/V kind and both
+    query types, prefill-sized S = 3."""
+    q = (torch.randn((2, 6, 3, 64), generator=gen, device="cuda") * 0.3).to(q_dtype)
+    k, v = (torch.randn((2, 3, 64, t), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    if kind == "float":
+        args, packing = (q, k, v, None, None), 1
+    else:
+        qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+        args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
+    got = decode_attention.fused_decode_attention(*args, kv_len=kv_len, groups=2,
+                                                  packing=packing)
+    want = decode_attention.decode_attention_reference(*args, kv_len=kv_len, groups=2,
+                                                       packing=packing)
+    tol = (1e-4, 1e-5) if kind == "float" and q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
 
 
 WHISPER_WIDTHS = (384, 512, 768, 1024, 1280)  # tiny .. large

@@ -143,3 +143,35 @@ def test_quantized_decode_step_matches_jax(fixture_params, quant):
                            torch.from_numpy(TOKENS).long(),
                            tm.init_caches(2, quantized=True))
     np.testing.assert_allclose(got, want, atol=2e-4)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_cross_kvs_are_jax_padded_layout(fixture_params, quant):
+    """The port's quantized cross-K/V are the JAX package's
+    ``quantize_kv(..., pad_to=128, time_major=True)`` of the same
+    projections, bit for bit: T padded to a multiple of 128 with zero codes
+    and scales, ``kv_len`` the valid length (the layout the decode kernel's
+    bulk copies need). The cached steps' logits over that layout are held
+    to JAX's by ``test_quantized_decode_step_matches_jax``."""
+    from yoho_tpu.nn import kv_cache as jkv
+
+    _, tm = _models(fixture_params, "f32")
+    quantize = jkv.quantize_kv if quant == "int8" else jkv.quantize_kv4
+    t = CFG["n_audio_ctx"]
+    with torch.no_grad():
+        xa = tm.encode_audio(torch.from_numpy(_mel(2)))
+        got = tm.cross_kvs(xa, quant)
+        projections = [blk.cross_attn.kv_tm(xa) for blk in tm.decoder.blocks]
+    assert len(got) == len(projections) == CFG["n_text_layer"]
+    for g, (k, v) in zip(got, projections):
+        want = quantize(jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), pad_to=128,
+                        time_major=True)
+        assert g.kv_len == want.kv_len == t and g.packing == want.packing
+        for name in ("k_q", "v_q", "k_scale", "v_scale"):
+            tg = getattr(g, name)
+            tg = (tg.float() if tg.dtype == torch.bfloat16 else tg).numpy()
+            jw = getattr(want, name)
+            jw = np.asarray(jw.astype(jnp.float32) if jw.dtype == jnp.bfloat16 else jw)
+            assert tg.shape == jw.shape and tg.shape[3] == -(-t // 128) * 128, name
+            np.testing.assert_array_equal(tg[..., :t], jw[..., :t], err_msg=name)
+            assert not tg[..., t:].any(), f"{name}: padding is not zero"

@@ -181,14 +181,17 @@ class TextDecoder(nn.Module):
 
     def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
         """Per-layer cross-attention K/V, once per window. ``quantize``:
-        False (the model's type), True/"int8" or "int4". T is not padded:
-        the decode kernel masks any length."""
+        False (the model's type), True/"int8" or "int4". Quantized K/V
+        are zero-padded along T to a multiple of 128 with the valid length
+        kept as ``kv_len`` (the JAX package's layout when its kernel runs):
+        a padded int8 row is a multiple of 16 bytes, which the decode
+        kernel's TMA loads need."""
         mode = {False: None, True: "int8"}.get(quantize, quantize)
         if mode == "int8":
-            return [quantize_kv(*blk.cross_attn.kv_tm(xa), time_major=True)
+            return [quantize_kv(*blk.cross_attn.kv_tm(xa), pad_to=128, time_major=True)
                     for blk in self.blocks]
         if mode == "int4":
-            return [quantize_kv4(*blk.cross_attn.kv_tm(xa), time_major=True)
+            return [quantize_kv4(*blk.cross_attn.kv_tm(xa), pad_to=128, time_major=True)
                     for blk in self.blocks]
         if mode is not None:
             raise ValueError(f"unknown quantize mode {quantize!r}")

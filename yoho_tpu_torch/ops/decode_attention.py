@@ -15,8 +15,13 @@ fused_decode_attention``, with the same contract:
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
 Returns (B, S, Hq, D) in q's type. Unlike the TPU kernel, T need not be a
-multiple of 128. The wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
+multiple of 128: int8/int4/bf16 rows of a multiple of 16 bytes (the
+padded cross K/V, the cache) stream in by TMA tile loads, rows of a
+multiple of 4 bytes by asynchronous word copies, any other T element by
+element. One launch per call: a thread-block cluster per (b, h) merges
+its blocks' softmax states (sm_90a). The wrapper takes the plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -29,13 +34,12 @@ from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention",
-    [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     replaces="yoho_tpu/ops/decode_attention.py:140 _decode_attention_call")
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4, _FLOAT = 0, 1, 2
 _HEAD_DIMS = (64,)  # every whisper size
-_SPLIT = 256  # positions per block of the kernel's split over T
 NEG_INF = torch.finfo(torch.float32).min
 
 
@@ -134,13 +138,10 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     ks = k_scale.contiguous() if k_scale is not None else None
     vs = v_scale.contiguous() if v_scale is not None else None
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
-    # Per (b, h, split, s): the split's P.V (D), max and normalizer.
-    part = torch.empty((b * hq * -(-t // _SPLIT) * s * (d + 2),),
-                       dtype=torch.float32, device=q.device)
     causal = pos is not None
     KERNEL.launch(_QTYPES[q.dtype], kind, ptr(q), ptr(k), ptr(v),
                   ptr(ks) if ks is not None else None,
-                  ptr(vs) if vs is not None else None, ptr(out), ptr(part), b, hq,
+                  ptr(vs) if vs is not None else None, ptr(out), b, hq,
                   hkv, s, d, t, kv_len, int(causal), int(pos) if causal else 0,
                   stream_of(q))
     return out

@@ -5,9 +5,9 @@ Counterpart of the JAX package's ``ops/flash_attention.py::
 flash_attention`` (forward only; the backward comes with training). Same
 (B, S, H, D) layout and unscaled inputs: pass ``scale``. ``kv_len`` masks
 the keys at and past it (padded keys), as the TPU kernel's ``kv_len``
-does. The wrapper takes
-the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+does. bf16 runs on Hopper's wgmma fed by TMA (sm_90a), f32 on FMAs. The
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -71,7 +71,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash kernel head dim {d} not in {_HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
+    # starts mid-allocation is copied.
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
     out = torch.empty_like(q)
     KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, h,
                   s, t, kv_len, d, float(scale), int(causal), stream_of(q))
