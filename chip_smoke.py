@@ -15,12 +15,16 @@ Phases, one output line each (JSON after the phase name):
    tolerance; its device time per call (``torch.profiler``, L2 flushed
    between calls), the plain version's, a PyTorch library call's
    where one computes the same function (a yardstick only: the port never
-   calls it), and the bound: the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of their type (H100 SXM data sheet).
+   calls it), and the bound: the largest of bytes over 3.35 TB/s and the
+   operations of each type over that type's peak rate (H100 SXM data
+   sheet), counted for the work the design runs (the mel kernel's three
+   TF32 products; its FP32-only figure beside it).
    The w8a8 cases also time two labelled yardsticks: ``torch._int_mm`` on
    the pre-quantized operands (the int8 product alone) and bf16
-   ``F.linear`` (+ tanh-GELU), what the bf16 lane computes. Flash runs at
-   whisper-small's 12 and turbo's 20 heads; decode attention on the cross
+   ``F.linear`` (+ tanh-GELU), what the bf16 lane computes, and split the
+   kernel's time into its row-quantize pass and its GEMM; the mel cases
+   time a ``torch.stft`` yardstick (cuFFT, not the same rounding). Flash
+   runs at whisper-small's 12 and turbo's 20 heads; decode attention on the cross
    K/V padded to 1536 positions (kv_len 1500) as the main path stores
    them, for prefill, and on the self cache at pos 0, 200 and 447.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
@@ -38,9 +42,10 @@ Phases, one output line each (JSON after the phase name):
    ``fast_gelu``; the CPU reference is the same quantized model in f32,
    and every kernel, w8a8 included, must launch.
    With ``--profile`` each path's second run is traced with
-   ``torch.profiler`` and a ``profile`` line gives the device time by
-   kernel and the device's busy share of the untraced run's wall time;
-   the trace must hold no combine kernel (decode attention is one launch).
+   ``torch.profiler`` and a ``profile`` line gives the device time of the
+   top kernels and of each of the port's own kernel functions, and the
+   device's busy share of the untraced run's wall time; the trace must
+   hold no combine kernel (decode attention is one launch).
 6. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the two e2e paths' first runs.
 7. The last line: ``{"ok": true, "device": {...}}``.
@@ -52,13 +57,14 @@ Any failure exits non-zero before the last line. Needs CUDA and the
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 SEED = 0
 BATCH, ENC_CTX = 16, 1500      # the e2e batch, and encoder positions per window
 
@@ -67,9 +73,13 @@ def emit(phase: str, **fields) -> None:
     print(f"{phase} {json.dumps(fields, sort_keys=True)}", flush=True)
 
 
-def bound(nbytes: float, flops: float, kind: str):
+def bound(nbytes: float, ops: dict):
+    """The least time (ms) for ``nbytes`` of memory traffic and ``ops``
+    operations by type, each type at its own peak (tensor cores and FP32
+    units run side by side): the largest of these times, and whether bytes
+    or operations set it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_ops = max(n / PEAK_FLOPS[kind] for kind, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -90,12 +100,23 @@ def _device_us_by_kernel(run) -> dict:
     return out
 
 
-def time_ms(fn, iters: int, flush) -> float:
-    """Device time of one call of ``fn``: the summed durations of the
-    kernels it launches, averaged over ``iters`` calls (host time between
-    launches is not counted). ``flush`` (a buffer larger than the 50 MB
-    L2) is rewritten before each call so inputs come from memory, as
-    they do on the main path; the flush's own kernels are left out."""
+def _port_kernels(by_name: dict) -> dict:
+    """Device ms of the port's own kernels (the functions of ``csrc/``, in
+    anonymous namespaces), summed by function name."""
+    out = {}
+    for name, ms in by_name.items():
+        m = re.search(r"\(anonymous namespace\)::(?:\w+::)*(\w+)", name)
+        if m and "at::native" not in name:
+            out[m.group(1)] = round(out.get(m.group(1), 0.0) + ms, 3)
+    return out
+
+
+def kernel_ms(fn, iters: int, flush) -> dict:
+    """Device time of one call of ``fn`` per kernel name (ms), averaged
+    over ``iters`` calls (host time between launches is not counted).
+    ``flush`` (a buffer larger than the 50 MB L2) is rewritten before each
+    call so inputs come from memory, as they do on the main path; the
+    flush's own kernels are left out."""
     import torch
 
     fn()
@@ -107,8 +128,18 @@ def time_ms(fn, iters: int, flush) -> float:
             flush.zero_()
             fn()
 
-    us = _device_us_by_kernel(body)
-    return sum(v for k, v in us.items() if k not in flush_names) / iters / 1e3
+    for _ in range(3):  # a trace that kept no kernel of the call is taken again
+        us = _device_us_by_kernel(body)
+        out = {k: v / iters / 1e3 for k, v in us.items() if k not in flush_names}
+        if out:
+            return out
+    raise RuntimeError("the profiler recorded no kernel of the call")
+
+
+def time_ms(fn, iters: int, flush) -> float:
+    """The summed device time of the kernels of one call of ``fn`` (ms);
+    see ``kernel_ms``."""
+    return sum(kernel_ms(fn, iters, flush).values())
 
 
 def yardstick_ms(fn, flush):
@@ -144,6 +175,7 @@ def kernel_checks(card: str) -> dict:
     and the w8a8 kernel). Returns the JSON entry per kernel."""
     import torch
 
+    from yoho_tpu_torch.audio.filters import mel_filter_bank
     from yoho_tpu_torch.audio.frontend import log_mel_spectrogram
     from yoho_tpu_torch.nn.kv_cache import quantize_kv, quantize_kv4
     from yoho_tpu_torch.ops import decode_attention as da
@@ -156,12 +188,13 @@ def kernel_checks(card: str) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     entries = {}
 
-    def record(kernel, case, err, ms, plain_ms, nbytes, flops, kind, library_ms,
-               tol, main=True, **extra):
-        b_ms, b_by = bound(nbytes, flops, kind)
+    def record(kernel, case, err, ms, plain_ms, nbytes, ops, library_ms, tol, main=True,
+               **extra):
+        b_ms, b_by = bound(nbytes, ops)
         emit("kernel", name=kernel.name, case=case, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-             bound_by=b_by, bound_from=f"{nbytes:.0f} B, {flops:.0f} {kind} ops",
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+             bound_from=f"{nbytes:.0f} B, " + ", ".join(
+                 f"{n:.0f} {kind} ops" for kind, n in ops.items()),
              tolerance=tol, card=card, **extra)
         if main:
             entries[kernel.name] = dict(
@@ -171,37 +204,50 @@ def kernel_checks(card: str) -> dict:
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
-    # Kernel 1: the log-mel frontend of 16 windows of 30 s.
-    b, n = 16, 480_000
+    # Kernel 1: the log-mel frontend of 16 windows of 30 s, at whisper-small's
+    # 80 mels and large-v3-turbo's 128.
+    b, n, frames, n_fft, hop, n_freq = 16, 480_000, 3000, 400, 160, 201
     audio = torch.randn((b, n), generator=gen, device=dev) * 0.1
-    kw = dict(sample_rate=16000, n_fft=400, hop=160, n_mels=80,
+    kw = dict(sample_rate=16000, n_fft=n_fft, hop=hop, n_mels=80,
               mel_scale="slaney", convention="whisper", log_floor=1e-10)
-    got = mk.fused_log_mel(audio, **kw)
-    want = log_mel_spectrogram(audio, **kw)
-    err = check_close("mel", got, want, 1e-4, 1e-4)
-    frames, n_freq = 3000, 201
-    flops = b * frames * (4 * 400 * n_freq + 3 * n_freq + 2 * n_freq * 80)
-    nbytes = audio.numel() * 4 + got.numel() * 4 + 2 * 400 * n_freq * 4 + n_freq * 80 * 4
-    record(mk.KERNEL, "whisper 16x480000", err,
-           time_ms(lambda: mk.fused_log_mel(audio, **kw), 20, flush),
-           time_ms(lambda: log_mel_spectrogram(audio, **kw), 5, flush),
-           nbytes, flops, "fp32", None, "rtol 1e-4, atol 1e-4")
+    hann = torch.hann_window(n_fft, periodic=True, device=dev)
+    for n_mels, main in ((80, True), (128, False)):
+        kwm = dict(kw, n_mels=n_mels)
+        got = mk.fused_log_mel(audio, **kwm)
+        err = check_close(f"mel {n_mels}", got, log_mel_spectrogram(audio, **kwm), 1e-4, 1e-4)
+        consts = mk._constants(16000, n_fft, hop, n_mels, "slaney", False)
+        nnz = int(consts[1][-1])  # mel weights the sparse projection reads
+        # The design's work: three TF32 products (frames x n_fft) x
+        # (n_fft x 2 n_freq) on the tensor cores; the power (3 operations
+        # per bin) and the sparse mel projection (2 per weight) in FP32.
+        # The FP32-only figure is the same DFT on FMAs, the route of PR 1.
+        tf32_ops = 3 * 2 * b * frames * n_fft * 2 * n_freq
+        fp32_ops = b * frames * (3 * n_freq + 2 * nnz)
+        nbytes = audio.numel() * 4 + got.numel() * 4 + sum(c.nbytes for c in consts)
+        filt_t = torch.from_numpy(mel_filter_bank(16000, n_fft, n_mels, mel_scale="slaney")).to(dev)
+
+        def stft_log_mel():
+            spec = torch.stft(audio, n_fft, hop, window=hann, center=True, pad_mode="reflect",
+                              return_complex=True)
+            power = spec[..., :-1].abs() ** 2
+            return torch.log10(torch.clamp_min(filt_t @ power, 1e-10))
+
+        record(mk.KERNEL, f"whisper {n_mels} mels 16x480000", err,
+               time_ms(lambda: mk.fused_log_mel(audio, **kwm), 20, flush),
+               time_ms(lambda: log_mel_spectrogram(audio, **kwm), 5, flush),
+               nbytes, {"tf32": tf32_ops, "fp32": fp32_ops}, None, "rtol 1e-4, atol 1e-4",
+               main=main,
+               bound_fp32_route_ms=bound(nbytes, {"fp32": 2 * b * frames * n_fft * 2 * n_freq
+                                                  + fp32_ops})[0],
+               yardsticks={"stft_log_mel_ms (torch.stft + |.|^2 + mel matmul + log10: "
+                           "cuFFT, other rounding, (B, mels, frames) layout)":
+                           yardstick_ms(stft_log_mel, flush)})
     sc = audio[:2, :16000 * 10]
     skw = dict(kw, convention="scipy", mel_scale="htk", log_floor=1e-13)
     err = check_close("mel scipy", mk.fused_log_mel(sc, **skw),
                       log_mel_spectrogram(sc, **skw), 1e-3, 2e-3)
     emit("kernel", name=mk.KERNEL.name, case="scipy 2x160000", max_abs_err=err,
          tolerance="rtol 1e-3, atol 2e-3")
-    # large-v3-turbo's frontend: 128 mels.
-    kw128 = dict(kw, n_mels=128)
-    got = mk.fused_log_mel(audio, **kw128)
-    err = check_close("mel 128", got, log_mel_spectrogram(audio, **kw128), 1e-4, 1e-4)
-    flops = b * frames * (4 * 400 * n_freq + 3 * n_freq + 2 * n_freq * 128)
-    nbytes = audio.numel() * 4 + got.numel() * 4 + 2 * 400 * n_freq * 4 + n_freq * 128 * 4
-    record(mk.KERNEL, "whisper 128 mels 16x480000", err,
-           time_ms(lambda: mk.fused_log_mel(audio, **kw128), 20, flush),
-           time_ms(lambda: log_mel_spectrogram(audio, **kw128), 5, flush),
-           nbytes, flops, "fp32", None, "rtol 1e-4, atol 1e-4", main=False)
     del audio, got
 
     # Kernel 2: encoder self-attention, (16, 1500, 12, 64) bf16, scale 1/8.
@@ -225,7 +271,7 @@ def kernel_checks(card: str) -> dict:
     record(fa.KERNEL, "encoder 16x1500x12x64 bf16", err,
            time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
            time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
-           4 * q.numel() * 2, flops, "bf16", time_ms(sdpa, 5, flush),
+           4 * q.numel() * 2, {"bf16": flops}, time_ms(sdpa, 5, flush),
            "rtol 1e-2, atol 1e-2")
     del q, k, v
     # large-v3-turbo's encoder: 20 heads.
@@ -236,7 +282,7 @@ def kernel_checks(card: str) -> dict:
     record(fa.KERNEL, "encoder 16x1500x20x64 bf16 (large-v3-turbo)", err,
            time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
            time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
-           4 * q.numel() * 2, 4 * 16 * 20 * 1500 * 1500 * 64, "bf16", time_ms(sdpa, 5, flush),
+           4 * q.numel() * 2, {"bf16": 4 * 16 * 20 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
            "rtol 1e-2, atol 1e-2", main=False)
     del q, k, v
 
@@ -266,7 +312,7 @@ def kernel_checks(card: str) -> dict:
         flops = 4 * 16 * 12 * qq.shape[2] * t_read * 64
         record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
-               nbytes, flops, "bf16", library() if library else None,
+               nbytes, {"bf16": flops}, library() if library else None,
                "rtol 0.05, atol 0.02", main=main)
 
     cross = quantize_kv(*kv(1500), pad_to=128)
@@ -318,6 +364,7 @@ def kernel_checks(card: str) -> dict:
         same = float((got.to(torch.bfloat16) == want.to(torch.bfloat16)).float().mean())
         if same <= 0.98:
             raise AssertionError(f"w8a8 {label}: only {same:.4f} of outputs identical")
+        bit_identical = bool(torch.equal(got, want))
         del want
         xq = w8.quantize_rows(x)[0]
         w_bf16, b_bf16 = w.to(torch.bfloat16), bias.to(torch.bfloat16)
@@ -330,13 +377,19 @@ def kernel_checks(card: str) -> dict:
                     lambda: torch._int_mm(xq, w_q.t()), flush),
                 "bf16_linear_ms (F.linear" + (" + tanh-GELU)" if act else ")"):
                     yardstick_ms(bf16_lane, flush)}
+        # The entry point's two launches, timed apart: the row quantize pass
+        # (x read once, xq and xs written: bound by bytes) and the GEMM.
+        split = kernel_ms(lambda: w8.w8a8_dense(*args, activation=act), 20, flush)
+        quant_ms = sum(v for name, v in split.items() if "quantize_rows" in name)
         nbytes = m * k * 2 + n * k + 2 * n * 4 + m * n * 2
-        record(w8.KERNEL, f"{label} M={m} K={k} N={n}", err,
-               time_ms(lambda: w8.w8a8_dense(*args, activation=act), 20, flush),
+        record(w8.KERNEL, f"{label} M={m} K={k} N={n}", err, sum(split.values()),
                time_ms(lambda: w8.w8a8_dense_reference(*args, activation=act), 3, flush),
-               nbytes, 2 * m * k * n, "int8", None,
+               nbytes, {"int8": 2 * m * k * n}, None,
                f"one weight step x max|x| x 1.1 = {atol:.4g}, rtol 2^-8, "
-               f">= 98% identical (got {same:.4f})", main=main, yardsticks=yard)
+               f">= 98% identical (got {same:.4f})", main=main, yardsticks=yard,
+               bit_identical=bit_identical, quantize_ms=quant_ms,
+               gemm_ms=sum(split.values()) - quant_ms,
+               quantize_bound_ms=bound(m * k * 3 + m * 4, {"fp32": 2 * m * k})[0])
         del x, w, xq, got, w_bf16
     return entries
 
@@ -455,7 +508,8 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
         emit("profile", path=phase, run="second run, device activity traced",
              traced_wall_ms=runs[1][0] * 1e3, untraced_wall_ms=runs[0][0] * 1e3,
              device_busy_ms=busy, device_busy_share=busy / (runs[0][0] * 1e3),
-             top_device_ms={k[:90]: round(v, 3) for k, v in top}, card=card)
+             top_device_ms={k[:90]: round(v, 3) for k, v in top},
+             port_kernels_ms=_port_kernels(by_name), card=card)
     (wall, results, launches), (wall2, results2, _) = runs
     toks = [[t for s in r.segments for t in s.tokens] for r in results]
     if toks != [[t for s in r.segments for t in s.tokens] for r in results2]:

@@ -11,7 +11,8 @@ Tolerances: the JAX package's for each kernel (``tests/test_ops.py``):
 1e-4 (whisper) and 1e-3/2e-3 (scipy) for the mel kernel, 2e-5 for flash
 in f32 and 1e-2 in bf16 (one bf16 ulp of the output), rtol 0.05 / atol
 0.02 for decode attention, one weight step x max|x| x 1.1 and >= 98%
-identical outputs for w8a8.
+identical outputs for w8a8 (which is also held bit for bit to its plain
+version).
 """
 
 import pytest
@@ -49,6 +50,20 @@ def test_mel_kernel_matches_plain(gen, convention, n):
     assert mel_kernel.KERNEL.launches == before + 1
     want = frontend.log_mel_spectrogram(audio, sample_rate=16000, n_fft=400,
                                         hop=160, **kw)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("convention", ["whisper", "whisper128", "scipy"])
+@pytest.mark.parametrize("n", [100, 5_000, 100_000])
+def test_mel_kernel_edges(gen, convention, n):
+    """One row (B = 1); audio shorter than one 64-frame tile (100 and 5,000
+    samples: 1 and 31 frames); a frame count (625) that is not a multiple
+    of the tile; 80 and 128 mels; both conventions."""
+    kw, tol = MEL[convention]
+    audio = torch.randn((1, n), generator=gen, device="cuda") * 0.2
+    got = mel_kernel.fused_log_mel(audio, **kw)
+    want = frontend.log_mel_spectrogram(audio, sample_rate=16000, n_fft=400, hop=160, **kw)
+    assert got.shape == want.shape
     torch.testing.assert_close(got, want, **tol)
 
 
@@ -168,11 +183,51 @@ def test_w8a8_kernel_matches_plain(gen, k, n, activation, out_dtype):
     rtol = 2.0 ** -8 if out_dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     assert _same_in_bf16(got, want) > 0.98
+    assert torch.equal(got, want)
 
 
 def _same_in_bf16(got, want) -> float:
     """The share of outputs identical once both are rounded to bf16."""
     return float((got.to(torch.bfloat16) == want.to(torch.bfloat16)).float().mean())
+
+
+def _w8a8_case(gen, m, k, n, x_dtype, out_dtype, activation, bias=True):
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 0.7).to(x_dtype)
+    w_q, w_scale = w8a8_dense.quantize_rows(torch.randn((n, k), generator=gen, device="cuda") * 0.05)
+    b = torch.randn((n,), generator=gen, device="cuda") if bias else None
+    args = (x, w_q, w_scale[:, 0], b)
+    before = w8a8_dense.KERNEL.launches
+    got = w8a8_dense.w8a8_dense(*args, activation=activation, out_dtype=out_dtype)
+    assert w8a8_dense.KERNEL.launches == before + 1
+    want = w8a8_dense.w8a8_dense_reference(*args, activation=activation, out_dtype=out_dtype)
+    assert got.shape == (m, n) and got.dtype == out_dtype
+    # Bit for bit with the plain version (exact integer sums, the rescale and
+    # GELU in the reference's order), which is inside the JAX pin.
+    assert torch.equal(got, want)
+    atol = float(w_scale.max()) * float(x.float().abs().max()) * 1.1 + 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0, atol=atol)
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 333, 24_000])
+@pytest.mark.parametrize("k", [32, 96, 5120, 8192])
+def test_w8a8_kernel_edges_m_k(gen, m, k):
+    """The wgmma route's edges: M from one row to a batch of 16 windows
+    (ragged 64- and 128-row tiles through TMA's zero fill and clipped
+    stores), K of one k-slice (32), shorter than a stage (96), and the
+    widest (8192), at a ragged N = 136."""
+    _w8a8_case(gen, m, k, 136, torch.bfloat16, torch.bfloat16, "gelu_tanh")
+
+
+@pytest.mark.parametrize("n", [8, 136, 5120])
+@pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.bfloat16, torch.float32),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.float32, torch.float32)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_w8a8_kernel_edges_n_types(gen, n, x_dtype, out_dtype, bias):
+    """N of one 8-column group, a ragged 136 and turbo's 5120, every pair
+    of input and output types, with and without bias."""
+    _w8a8_case(gen, 333, 96, n, x_dtype, out_dtype, None if bias else "gelu_tanh", bias)
 
 
 def test_w8a8_kernel_f32_input_and_no_bias(gen):

@@ -45,6 +45,7 @@
 // float32 keeps full FP32 arithmetic on FMAs from shared memory (TF32
 // would lose digits); it is not on the main path.
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -180,34 +181,6 @@ constexpr int K_OFF = 2 * Q_BYTES;       // two Q buffers: the next item's Q loa
 constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
 constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
 constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 2 * STAGES) + 1024;  // + alignment slack
-
-// A wgmma shared-memory matrix descriptor for a tile in the 128-byte
-// swizzle: start address, leading and stride byte offsets in 16-byte
-// units, layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | ((uint64_t)sbo << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of accumulator registers across
-// the asynchronous products that write them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // 2^x on the special-function unit (flush-to-zero: a masked score's
 // weight comes out exactly 0).

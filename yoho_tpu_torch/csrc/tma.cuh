@@ -1,5 +1,5 @@
-// Tensor Memory Accelerator (TMA) helpers shared by the attention kernels:
-// encoding tensor maps on the host, and tile loads on the device.
+// Tensor Memory Accelerator (TMA) helpers shared by the kernels: encoding
+// tensor maps on the host, and tile loads and stores on the device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -105,4 +105,25 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Stores one box of shared memory to a 2-D tensor map (the part of the box
+// past the tensor's edge is not written); tma_store_commit closes this
+// thread's group of such stores.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores have read their shared memory (the
+// buffer may be written again), or until they have completed.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
