@@ -24,9 +24,14 @@ Phases, one output line each (JSON after the phase name):
    ``F.linear`` (+ tanh-GELU), what the bf16 lane computes, and split the
    kernel's time into its row-quantize pass and its GEMM; the mel cases
    time a ``torch.stft`` yardstick (cuFFT, not the same rounding). Flash
-   runs at whisper-small's 12 and turbo's 20 heads; decode attention on the cross
-   K/V padded to 1536 positions (kv_len 1500) as the main path stores
-   them, for prefill, and on the self cache at pos 0, 200 and 447.
+   runs at whisper-small's 12 and turbo's 20 heads, and at the alignment
+   pass's causal 448 x 448 and cross 448 x 1500; decode attention on the
+   cross K/V padded to 1536 positions (kv_len 1500) as the main path
+   stores them, for prefill, and on the self cache at pos 0, 200 and 447;
+   beam search's folded cross read (5 queries a stream), a 224-token
+   prompt's prefill (7 launches of 32 queries) on the cache and on the
+   cross K/V, the folded beam prefill of that prompt (35 launches), and
+   the unpadded bf16 cross read of language detection.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -41,14 +46,29 @@ Phases, one output line each (JSON after the phase name):
    ``weights_int8``: int8 decoder weights and tied embedding) and
    ``fast_gelu``; the CPU reference is the same quantized model in f32,
    and every kernel, w8a8 included, must launch.
+6. ``e2e-options``: whisper-small at full width and depth (random bf16
+   weights, int8 cross-K/V and cache, batch 16, the same three requests)
+   through one ``Transcriber`` with beams 5, ``language=None``, word
+   timestamps, hotwords, a logit bias, ``repetition_penalty`` 1.1,
+   ``no_repeat_ngram_size`` 3 and a 224-token per-request prompt on the
+   75 s request; ``transcribe_many`` twice (the same tokens and word
+   timings both times), then ``condition_on_previous_text`` on the 75 s
+   request. Checks: the language logits, one folded beam step's logits
+   and the alignment map of one window against the CPU plain path in
+   float32; a hook on the decode kernel's launch counts every read's
+   (rows, queries, positions) and holds them to the beam arithmetic
+   (per layer: the detection step, each batch's prefill in 32-query
+   chunks, one self read at 80 rows and one folded cross read of 5
+   queries at 16 rows per step; no cross read at 80 rows).
    With ``--profile`` each path's second run is traced with
    ``torch.profiler`` and a ``profile`` line gives the device time of the
    top kernels and of each of the port's own kernel functions, and the
    device's busy share of the untraced run's wall time; the trace must
    hold no combine kernel (decode attention is one launch).
-6. ``kernels``: one JSON object with every kernel's numbers; launches are
-   summed over the two e2e paths' first runs.
-7. The last line: ``{"ok": true, "device": {...}}``.
+7. ``kernels``: one JSON object with every kernel's numbers; launches are
+   summed over the three e2e paths' first runs (and the conditioning
+   call).
+8. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -285,6 +305,30 @@ def kernel_checks(card: str) -> dict:
            4 * q.numel() * 2, {"bf16": 4 * 16 * 20 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
            "rtol 1e-2, atol 1e-2", main=False)
     del q, k, v
+    # The alignment pass of word timestamps (phase e2e-options): the
+    # teacher-forced decoder's causal self-attention over 448 tokens and
+    # its cross-attention of 448 queries over 1500 encoder positions.
+    for label, tq, tk, causal in (("decoder causal 16x448x12x64 bf16", 448, 448, True),
+                                  ("decoder cross 16x448 over 1500, 12 heads bf16",
+                                   448, 1500, False)):
+        q = torch.randn((16, tq, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((16, tk, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        err = check_close(f"flash {label}", fa.flash_attention(q, k, v, causal, scale),
+                          fa.attention_reference(q, k, v, causal, scale), 1e-2, 1e-2)
+        pairs = tq * (tq + 1) // 2 if causal else tq * tk
+
+        def sdpa_tf(q=q, k=k, v=v, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+                scale=scale)
+
+        record(fa.KERNEL, label, err,
+               time_ms(lambda: fa.flash_attention(q, k, v, causal, scale), 20, flush),
+               time_ms(lambda: fa.attention_reference(q, k, v, causal, scale), 5, flush),
+               (q.numel() * 2 + k.numel() + v.numel()) * 2, {"bf16": 4 * 16 * 12 * pairs * 64},
+               time_ms(sdpa_tf, 20, flush), "rtol 1e-2, atol 1e-2", main=False)
+        del q, k, v
 
     # Kernel 3: decode reads. Cross: int8 (16, 12, 64, 1536) padded from
     # 1500 (kv_len 1500), the layout of the main path; self: int8 cache
@@ -299,21 +343,27 @@ def kernel_checks(card: str) -> dict:
 
     def case(label, qq, k_, v_, ks, vs, pos, packing, kv_len=None, main=False, library=None):
         args = (qq, k_, v_, ks, vs, pos, kv_len, 1, packing)
+        before = da.KERNEL.launches
         got = da.fused_decode_attention(*args)
+        launches = da.KERNEL.launches - before
         err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
                           0.05, 0.02)
-        # The positions this call needs: those below kv_len and pos + S.
+        # The positions this call needs: those below kv_len and pos + S; a
+        # causal query i reads the keys up to pos + i.
+        b_, h_, s_ = qq.shape[:3]
         t_read = k_.shape[3] if kv_len is None else kv_len
+        keys = s_ * t_read
         if pos is not None:
-            t_read = min(t_read, pos + qq.shape[2])
+            keys = sum(min(t_read, pos + i + 1) for i in range(s_))
+            t_read = min(t_read, pos + s_)
         per_pos = k_.shape[0] * k_.shape[1] * k_.shape[2] * k_.element_size() * 2
-        nbytes = per_pos * t_read + (ks is not None) * 2 * 16 * 12 * t_read * 2 \
+        nbytes = per_pos * t_read + (ks is not None) * 2 * b_ * h_ * t_read * 2 \
             + 2 * qq.numel() * 2
-        flops = 4 * 16 * 12 * qq.shape[2] * t_read * 64
+        flops = 4 * b_ * h_ * keys * 64
         record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
                nbytes, {"bf16": flops}, library() if library else None,
-               "rtol 0.05, atol 0.02", main=main)
+               "rtol 0.05, atol 0.02", main=main, launches_per_call=launches)
 
     cross = quantize_kv(*kv(1500), pad_to=128)
     case("cross int8 S=1 (T 1536, kv_len 1500)", q_of(1), cross.k_q, cross.v_q,
@@ -334,8 +384,21 @@ def kernel_checks(card: str) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qb, kb.transpose(2, 3), vb.transpose(2, 3), scale=1.0)
 
-    case("cross bf16 S=1 (T 1500, rows through registers)", qb, kb, vb, None, None, None, 1,
-         library=lambda: time_ms(sdpa_decode, 50, flush))
+    case("cross bf16 S=1 (T 1500, rows through registers; language detection)", qb, kb, vb,
+         None, None, None, 1, library=lambda: time_ms(sdpa_decode, 50, flush))
+    # The request options' reads (phase e2e-options): beam search's cross
+    # read, 5 beams folded into the queries of each stream's untiled K/V;
+    # a 224-token prompt's prefill, chunked into 32-query launches, on the
+    # cache (causal at pos 0) and on the cross K/V; the beam prefill of
+    # that prompt (5 x 224 folded queries).
+    case("cross int8 folded beams S=5 (B 16, T 1536, kv_len 1500)", q_of(5), cross.k_q,
+         cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
+    case("self int8 prefill S=224 causal pos=0 (T 512, 7 launches)", q_of(224), self_kv.k_q,
+         self_kv.v_q, self_kv.k_scale, self_kv.v_scale, 0, 1)
+    case("cross int8 prefill S=224 (7 launches)", q_of(224), cross.k_q, cross.v_q,
+         cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
+    case("cross int8 folded beam prefill S=1120 (35 launches)", q_of(1120), cross.k_q,
+         cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
     del kb, vb, qb, cross, self_kv, c4
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
@@ -395,10 +458,18 @@ def kernel_checks(card: str) -> dict:
 
 
 class _IdText:
-    """Renders token ids as numbers: random weights have no vocabulary."""
+    """A text backend of numbers: random weights have no vocabulary, so
+    every id is a word written as its number (with the byte-BPE space
+    marker on its piece)."""
+
+    def encode(self, text):
+        return [int(w) for w in text.split()]
 
     def decode(self, ids):
         return " ".join(str(int(i)) for i in ids)
+
+    def convert_ids_to_tokens(self, ids):
+        return [f"\u0120{int(i)}" for i in ids]
 
 
 def _profiled(fn):
@@ -418,6 +489,21 @@ PATHS = (
     # than in bf16 alone.
     ("e2e-int8", "large-v3-turbo", True, True, True, (5e-2, 5e-2)),
 )
+
+
+def _emit_profile(phase: str, runs, by_name: dict, card: str, **extra) -> None:
+    """The ``profile`` line of a traced second run: device busy time against
+    the untraced first run's wall, the top kernels, the port's kernels."""
+    # Decode attention is one launch per call: no second combine pass.
+    if any("combine" in name for name in by_name):
+        raise AssertionError(f"{phase}: a combine kernel ran: {sorted(by_name)}")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit("profile", path=phase, run="second run, device activity traced",
+         traced_wall_ms=runs[1][0] * 1e3, untraced_wall_ms=runs[0][0] * 1e3,
+         device_busy_ms=busy, device_busy_share=busy / (runs[0][0] * 1e3),
+         top_device_ms={k[:90]: round(v, 3) for k, v in top},
+         port_kernels_ms=_port_kernels(by_name), card=card, **extra)
 
 
 def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool,
@@ -500,16 +586,7 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
         wall = time.perf_counter() - t0
         runs.append((wall, results, {k.name: k.launches for k in kernels}))
     if trace:
-        # Decode attention is one launch per call: no second combine pass.
-        if any("combine" in name for name in by_name):
-            raise AssertionError(f"{phase}: a combine kernel ran: {sorted(by_name)}")
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        emit("profile", path=phase, run="second run, device activity traced",
-             traced_wall_ms=runs[1][0] * 1e3, untraced_wall_ms=runs[0][0] * 1e3,
-             device_busy_ms=busy, device_busy_share=busy / (runs[0][0] * 1e3),
-             top_device_ms={k[:90]: round(v, 3) for k, v in top},
-             port_kernels_ms=_port_kernels(by_name), card=card)
+        _emit_profile(phase, runs, by_name, card)
     (wall, results, launches), (wall2, results2, _) = runs
     toks = [[t for s in r.segments for t in s.tokens] for r in results]
     if toks != [[t for s in r.segments for t in s.tokens] for r in results2]:
@@ -533,6 +610,210 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
          tokens_per_s=n_tok / wall, decode_steps=steps,
          batch_tokens_per_s=BATCH * steps * batches / wall, launches=launches, card=card)
     return launches
+
+
+def _rel_err(got, want) -> float:
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def e2e_options(card: str, kernels, trace: bool = False) -> dict:
+    """Phase 6: whisper-small served with the request options (beam search
+    over the untiled cross-K/V, language detection, word timestamps, logit
+    bias, hotwords, repetition rules, a 224-token per-request prompt), then
+    previous-text conditioning; returns the launches of its runs."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    phase, beams = "e2e-options", 5
+    cfg = WHISPER_PRESETS["small"]
+    layers = cfg.n_text_layer
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    rng = np.random.default_rng(SEED)
+    seconds = (12, 30, 75)
+    audios = [(0.1 * rng.standard_normal(s * 16000)).astype(np.float32) for s in seconds]
+    # 230 ids, of which the prompt keeps the last 220: with <|startofprev|>
+    # and the SOT sequence, 224 tokens, the per-request prompt budget.
+    prompts = [None, None, " ".join(str(int(i)) for i in rng.integers(1000, 50000, 230))]
+    options = dict(language=None, word_timestamps=True, hotwords="1000 1001, 2000",
+                   logit_bias={3000: 2.0, 4000: -1.0}, repetition_penalty=1.1,
+                   no_repeat_ngram_size=3)
+    serving = dict(quantized_cross_kv="int8", quantized_cache=True,
+                   cache_dtype=torch.bfloat16)
+    tr = Transcriber(model, token_table=table, batch_size=BATCH, beams=beams, **options,
+                     **serving)
+
+    # Reference on one window: the language logits, one folded beam step and
+    # the alignment map from the card against the CPU plain path in float32
+    # with the same weights (float cross-K/V and cache there).
+    tol = 5e-2
+    with torch.inference_mode():
+        window = np.zeros((1, cfg.n_samples), np.float32)
+        window[0, :len(audios[0])] = audios[0][:cfg.n_samples]
+        ref = Whisper(cfg, dtype=torch.float32, device="cpu")
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        ref_tr = Transcriber(ref, token_table=table, batch_size=1, beams=beams,
+                             device="cpu", **options)
+        lang_logits = tr._language_logits(window)
+        lang_ref = ref_tr._language_logits(window)
+        mel = fused_whisper_log_mel(torch.as_tensor(window, device="cuda"), cfg.n_mels)
+        xa, xa_ref = model.encode_audio(mel), ref.encode_audio(mel.cpu())
+        prompt = torch.as_tensor([table.sot_sequence("en")] * beams)
+        step = torch.as_tensor([[100 * (j + 1)] for j in range(beams)])
+
+        def beam_step(m, ckv, caches, dev):
+            m.decode_step(prompt.to(dev), caches, ckv, 0)
+            return m.decode_step(step.to(dev), caches, ckv, prompt.shape[1])[0]
+
+        # The cross-K/V of the one window, untiled: the 5 beams fold into
+        # its queries.
+        beam_logits = beam_step(model, model.cross_kvs(xa, "int8"),
+                                model.init_caches(beams, torch.bfloat16, None, True), "cuda")
+        beam_ref = beam_step(ref, ref.cross_kvs(xa_ref), ref.init_caches(beams), "cpu")
+        tokens = torch.full((1, cfg.n_text_ctx), table.eot)
+        forced = table.sot_sequence("en") + [int(i) for i in rng.integers(1000, 50000, 200)]
+        tokens[0, :len(forced)] = torch.as_tensor(forced)
+        amap = model.cross_attention_map(tokens.cuda(), xa)
+        amap_ref = ref.cross_attention_map(tokens, xa_ref)
+        errs = dict(language_logits_rel_err=_rel_err(lang_logits, lang_ref),
+                    beam_step_logits_rel_err=_rel_err(beam_logits, beam_ref),
+                    alignment_map_rel_err=_rel_err(amap, amap_ref))
+        finite = all(bool(torch.isfinite(torch.as_tensor(x)).all())
+                     for x in (lang_logits, beam_logits, amap))
+        shapes_ok = (lang_logits.shape == (1, cfg.n_vocab)
+                     and beam_logits.shape == (beams, 1, cfg.n_vocab)
+                     and amap.shape == (1, cfg.n_text_ctx, cfg.n_audio_ctx))
+        emit("reference", path=phase, window=1, **errs,
+             tolerance=f"each {tol} (bf16 card, int8 cross-K/V and cache, vs f32 CPU)")
+        if not finite or not shapes_ok or max(errs.values()) > tol:
+            raise AssertionError(f"{phase}: card vs CPU reference: finite {finite}, "
+                                 f"shapes {shapes_ok}, {errs}")
+        del ref, ref_tr, xa_ref, amap_ref, beam_ref
+
+    # Every decode-attention launch's (rows, queries, positions, causal),
+    # through a hook on the kernel's launch.
+    shapes: Counter = Counter()
+    launch = da.KERNEL.launch
+
+    def recording_launch(*args):
+        shapes[(args[8], args[11], args[13], args[15])] += 1
+        launch(*args)
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        shapes.clear()
+        da.KERNEL.launch = recording_launch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del da.KERNEL.launch
+        return wall, out, {k.name: k.launches for k in kernels}, Counter(shapes)
+
+    def serve():
+        return tr.transcribe_many(audios, prompts=prompts)
+
+    runs = [counted(serve)]
+    if trace:
+        box = []
+        wall2, _, _, _ = counted(lambda: box.append(_profiled(serve)))
+        results2, by_name = box[0]
+        # index_select runs as PyTorch's vectorized_gather_kernel on the card.
+        families = {"beam cache reorder (index_select)": "vectorized_gather_kernel",
+                    "beam top-k (topk, sort)": "[Tt]op[Kk]|[Ss]ort|[Rr]adix",
+                    "scans (cumsum)": "[Ss]can"}
+        _emit_profile(phase, [runs[0][:2], (wall2, results2)], by_name, card, by_family={
+            label: round(sum(v for k, v in by_name.items() if re.search(pat, k)), 3)
+            for label, pat in families.items()})
+    else:
+        wall2, results2, _, _ = counted(serve)
+    wall, results, launches, seen = runs[0]
+
+    def words(rs):
+        return [[(s.tokens, [(w.word, w.start, w.end, w.probability) for w in s.words or []])
+                 for s in r.segments] for r in rs]
+
+    if words(results) != words(results2):
+        raise AssertionError(f"{phase}: second run gave other tokens or word timings")
+    n_words = sum(len(w) for r in words(results) for _, w in r)
+    if n_words == 0 or any(r.language_probability is None for r in results):
+        raise AssertionError(f"{phase}: {n_words} words; languages "
+                             f"{[(r.language, r.language_probability) for r in results]}")
+
+    # The launch arithmetic: per layer, one detection step (self, bf16 cross),
+    # per decode batch a prefill (self at B*K rows; cross folded, K x P
+    # queries of the B untiled rows, in 32-query chunks), then per step one
+    # self read at B*K rows and one folded cross read of K queries at B rows.
+    b, rows = BATCH, BATCH * beams
+    n_win = [len(chunk_audio(a, tr.chunk_samples, tr.stride_samples)[1]) for a in audios]
+    batches = {p: -(-sum(n for n, q in zip(n_win, prompts) if (q is None) == (p == 3)) // b)
+               for p in (3, 224)}
+    steps = seen[(b, beams, 1536, 0)] // layers
+    want = Counter({(b, 1, 1500, 0): layers, (b, 1, 128, 1): layers,
+                    (rows, 3, 512, 1): layers * batches[3],
+                    (b, 3 * beams, 1536, 0): layers * batches[3],
+                    (rows, 32, 512, 1): 7 * layers * batches[224],
+                    (b, 32, 1536, 0): 35 * layers * batches[224],
+                    (rows, 1, 512, 1): layers * steps, (b, beams, 1536, 0): layers * steps})
+    cross_rows = sorted({k[0] for k in seen if k[2] == 1536})
+    if seen != want or cross_rows != [b] or launches[da.KERNEL.name] != sum(want.values()):
+        raise AssertionError(f"{phase}: decode-attention launches {dict(seen)} "
+                             f"({launches[da.KERNEL.name]}), expected {dict(want)}")
+    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+    if idle or launches[W8A8.name]:
+        raise AssertionError(f"{phase}: kernels never launched: {idle}; w8a8 "
+                             f"{launches[W8A8.name]} launches")
+
+    # Previous-text conditioning on the 75 s request: window by window,
+    # greedy. The initial prompt alone fills the context budget, so every
+    # window's prompt is the 224-token <|startofprev|> context of the
+    # initial prompt and the history.
+    seq = Transcriber(model, token_table=table, batch_size=BATCH,
+                      condition_on_previous_text=True, initial_prompt=prompts[2],
+                      **options, **serving)
+    c_wall, c_result, c_launches, c_seen = counted(lambda: seq.transcribe(audios[2]))
+    c_tokens = [t for s in c_result.segments for t in s.tokens]
+    chunked = c_seen[(1, 32, 512, 1)]
+    if not c_tokens or chunked != 7 * layers * n_win[2] \
+            or c_seen[(1, 32, 1536, 0)] != chunked:
+        raise AssertionError(f"{phase}: conditioning gave {len(c_tokens)} tokens, "
+                             f"decode launches {dict(c_seen)}")
+
+    toks = [[t for s in r.segments for t in s.tokens] for r in results]
+    n_tok = sum(len(t) for t in toks)
+    emit(phase, model="whisper-small", options=dict(options, beams=beams, prompts=[
+        None if q is None else "224-token prompt" for q in prompts]), batch=BATCH,
+        requests=list(seconds), windows=sum(n_win), wall_s=wall, wall_s_second_run=wall2,
+        audio_s_per_s=sum(seconds) / wall, segment_tokens=n_tok, tokens_per_s=n_tok / wall,
+        words=n_words, languages=[(r.language, r.language_probability) for r in results],
+        decode_steps=steps, batch_tokens_per_s=b * steps / wall,
+        decode_launches_by_shape={f"B{k[0]} S{k[1]} T{k[2]}{' causal' if k[3] else ''}": n
+                                  for k, n in sorted(seen.items())},
+        cross_read_rows=cross_rows, launches=launches,
+        conditioning=dict(wall_s=c_wall, audio_s_per_s=seconds[2] / c_wall,
+                          segment_tokens=len(c_tokens),
+                          windows_with_224_token_prompt=chunked // (7 * layers),
+                          launches=c_launches), card=card)
+    return {k: launches[k] + c_launches[k] for k in launches}
 
 
 def main(argv) -> int:
@@ -569,6 +850,8 @@ def main(argv) -> int:
     for path in PATHS:
         for name, n in e2e(card, kernels, *path, trace="--profile" in argv).items():
             launches[name] += n
+    for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
+        launches[name] += n
     print(json.dumps({"kernels": [
         dict(entries[k.name], launches=launches[k.name]) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

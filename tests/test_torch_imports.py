@@ -32,6 +32,9 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert len(mods) >= 20
+    # The request options' modules are among them.
+    assert {"yoho_tpu_torch.infer.beam", "yoho_tpu_torch.infer.logit_rules",
+            "yoho_tpu_torch.infer.word_timestamps"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

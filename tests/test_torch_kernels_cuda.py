@@ -124,6 +124,82 @@ def test_decode_kernel_matches_plain(gen, kind, s, pos, t, kv_len):
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("pos", [None, 0, 200])
+@pytest.mark.parametrize("s", [33, 64, 224, 1120])
+def test_decode_kernel_long_query_runs(gen, kind, pos, s):
+    """More than 32 queries (a prompt's prefill, beams folded into the query
+    axis) run through the kernel in chunks of 32, one launch each, a causal
+    chunk at pos + its first query."""
+    t, kv_len = 1536, 1500
+    k, v = (torch.randn((2, 4, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((2, 4, s, 64), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    if kind == "bf16":
+        args, packing = (q, k, v, None, None), 1
+    else:
+        qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+        args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
+                                                  packing=packing)
+    assert decode_attention.KERNEL.launches == before + -(-s // decode_attention.MAX_QUERIES)
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
+                                                       packing=packing)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_folded_beam_read_matches_tiled_plain_read(gen, kind):
+    """Beam search's cross read: 4 streams x 5 beams folded into 5 queries
+    of each stream's untiled K/V, against the plain read of K/V tiled to
+    20 rows."""
+    from yoho_tpu_torch.infer.beam import tile_beams
+    from yoho_tpu_torch.nn.layers import _fold_queries
+
+    b, k_beams, t = 4, 5, 1500
+    kb, vb = (torch.randn((b, 12, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    q = (torch.randn((b * k_beams, 12, 1, 64), generator=gen, device="cuda") * 0.3
+         ).to(torch.bfloat16)
+    if kind == "int8":
+        qkv = kv_cache.quantize_kv(kb, vb, pad_to=128)
+        kv = (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+        kv_len = qkv.kv_len
+    else:
+        kv, kv_len = (kb, vb, None, None), None
+    got = decode_attention.fused_decode_attention(_fold_queries(q, k_beams), *kv,
+                                                  kv_len=kv_len)
+    assert got.shape == (b, k_beams, 12, 64)
+    want = decode_attention.decode_attention_reference(
+        q, *tile_beams(list(kv[:2]), k_beams),
+        *(tile_beams(list(kv[2:]), k_beams) if kind == "int8" else kv[2:]), kv_len=kv_len)
+    torch.testing.assert_close(got.reshape(b * k_beams, 1, 12, 64).float(), want.float(),
+                               rtol=0.05, atol=0.02)
+
+
+def test_beam_reorder_and_top_k_on_the_card(gen):
+    """The beam cache reorder and the tie-ordered top-k give on the card
+    what they give on the CPU."""
+    from yoho_tpu_torch.infer.beam import _gather_beams, top_k
+
+    src = torch.tensor([[2, 0, 0], [1, 1, 2]], device="cuda")
+    caches = [kv_cache.QuantizedKVCache.zeros(6, 4, 512, 64, device="cuda")]
+    caches[0].k_q.copy_(torch.randint(-127, 128, caches[0].k_q.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+    caches[0].k_scale.copy_(torch.rand(caches[0].k_scale.shape, generator=gen,
+                                       device="cuda"))
+    cpu = [kv_cache.QuantizedKVCache(*(x.cpu() for x in (
+        caches[0].k_q, caches[0].v_q, caches[0].k_scale, caches[0].v_scale)))]
+    _gather_beams(caches, src)
+    _gather_beams(cpu, src.cpu())
+    for name in ("k_q", "v_q", "k_scale", "v_scale"):
+        assert torch.equal(getattr(caches[0], name).cpu(), getattr(cpu[0], name)), name
+    x = torch.randint(0, 3, (16, 5 * 51865), generator=gen, device="cuda").float()
+    for got, want in zip(top_k(x, 5), top_k(x.cpu(), 5)):
+        assert torch.equal(got.cpu(), want)
+
+
 def test_decode_kernel_gqa_and_f32(gen):
     q = torch.randn((2, 6, 2, 64), generator=gen, device="cuda") * 0.3
     k, v = (torch.randn((2, 3, 64, 200), generator=gen, device="cuda") for _ in range(2))

@@ -121,6 +121,33 @@ def test_decode_attention_int4_matches_jax():
     _close(got, want_kernel, want_xla)
 
 
+@pytest.mark.parametrize("pos", [0, 100, None])
+def test_decode_attention_chunks_long_query_runs(pos):
+    """S = 224 (a per-request prompt's prefill) goes through the wrapper in
+    chunks of 32 queries, a causal chunk at ``pos`` + its first query: the
+    same as the plain version over all 224 queries at once, and as JAX's
+    XLA route for S > 32."""
+    g = np.random.default_rng(14)
+    b, h, d, t, s = 2, 2, 64, 512, 224
+    q = g.standard_normal((b, h, s, d)).astype(np.float32)
+    k_q, k_s = _quantize_ref(g.standard_normal((b, h, d, t)).astype(np.float32))
+    v_q, v_s = _quantize_ref(g.standard_normal((b, h, d, t)).astype(np.float32))
+    ks, vs = _bf16(k_s), _bf16(v_s)
+    args = (_t(q), _t(k_q), _t(v_q), _t(ks, torch.bfloat16), _t(vs, torch.bfloat16))
+    got = tda.fused_decode_attention(*args, pos=pos, kv_len=500)
+    assert got.shape == (b, s, h, d) and s > tda.MAX_QUERIES
+    torch.testing.assert_close(
+        got, tda.decode_attention_reference(*args, pos=pos, kv_len=500),
+        rtol=1e-5, atol=1e-6)
+    mask = (jnp.arange(t) < 500)[None, None, None, :]
+    if pos is not None:
+        mask = mask & decode_mask(t, pos, s)
+    want = _attend_quantized(jnp.asarray(q), QuantizedKV(
+        jnp.asarray(k_q), jnp.asarray(v_q), jnp.asarray(ks, jnp.bfloat16),
+        jnp.asarray(vs, jnp.bfloat16)), mask, jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
 def test_decode_attention_rejects_bad_shapes():
     q = torch.zeros(1, 2, 1, 8)
     k = torch.zeros(1, 2, 8, 16, dtype=torch.int8)

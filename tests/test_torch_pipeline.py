@@ -219,11 +219,8 @@ def test_sampling_rungs_are_seeded(tiny):
 
 
 @pytest.mark.parametrize("kw", [
-    {"beams": 4}, {"language": None}, {"word_timestamps": True},
-    {"vad_filter": True}, {"hotwords": "hello"}, {"logit_bias": {5: 1.0}},
-    {"repetition_penalty": 1.2}, {"condition_on_previous_text": True},
-    {"draft_model": object()}, {"mesh": object()}, {"family": "yoho"},
-    {"diarize_encoder": object()},
+    {"vad_filter": True}, {"draft_model": object()}, {"mesh": object()},
+    {"family": "yoho"}, {"diarize_encoder": object()},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(tiny, kw):
     _, _, _, _, model, table = tiny

@@ -53,7 +53,8 @@ class FallbackLadderMixin:
         tokens = np.array(tokens)
         lengths = np.array(lengths)
         aux = {k: np.array(v) for k, v in aux.items()}
-        if float(temp) <= 0.0 or self.best_of <= 1:
+        # Beam search draws no samples: extra candidates would be the same.
+        if float(temp) <= 0.0 or self.best_of <= 1 or self.beams > 1:
             return tokens, lengths, aux
         n_prompt = (prompt_len if prompt_len is not None
                     else len(self._prompt_ids()))
@@ -111,7 +112,7 @@ class FallbackLadderMixin:
         just to discover nothing needs retrying)."""
         ladder = tuple(temperatures) if temperatures is not None \
             else self.temperatures
-        if len(ladder) <= 1:
+        if len(ladder) <= 1 or self.beams > 1:  # beam search has no rungs
             return
 
         prompt_len = None if prompt is None else prompt.shape[1]

@@ -1,13 +1,15 @@
 """High-level transcription API (whisper family): audio in, timed
 segments out.
 
-The JAX package's ``infer/pipeline.py::Transcriber`` for batched
-transcription of array input: audio is cut into fixed 30 s windows, the
-windows of all requests are pooled and decoded ``batch_size`` at a time
-(log-mel kernel -> encoder -> cross-K/V -> greedy decode with the
-timestamp rules), and segments are stitched back per request. Options of
-the JAX class that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The JAX package's ``infer/pipeline.py::Transcriber`` for array input: audio
+is cut into fixed 30 s windows, the windows of all requests are pooled and
+decoded ``batch_size`` at a time (log-mel kernel -> encoder -> cross-K/V ->
+greedy or beam decode with the logit rules), and segments are stitched
+back per request. The request options: beam search with a length
+penalty, language auto-detection, word timestamps and forced alignment,
+logit bias and hotwords, repetition rules, and previous-text conditioning
+(window by window). Options of the JAX class that this port does not have
+yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ class TranscriptionResult:
     text: str
     segments: List[Segment]
     language: Optional[str] = None
+    # Probability of the detected language when it was auto-detected;
+    # None when the configuration or the request named it.
     language_probability: Optional[float] = None
 
 
@@ -40,9 +44,14 @@ def _not_ported(feature: str, item: int):
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
+_NO_OVERRIDES = ("per-request prompt/temperature overrides don't compose with "
+                 "condition_on_previous_text (use initial_prompt/temperatures "
+                 "instead)")
+
+
 class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
-    """Audio arrays in, timed segments out (whisper family, greedy decode
-    with the temperature fallback ladder).
+    """Audio arrays in, timed segments out (whisper family; greedy decode
+    with the temperature fallback ladder, or beam search).
 
     ``device=None`` runs on CUDA and raises when CUDA is absent; the model
     must already live on the resolved device."""
@@ -54,37 +63,36 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         token_table,
         family: str = "whisper",
         batch_size: int = 8,
-        beams: int = 0,
+        beams: int = 0,  # 0/1 = greedy
+        length_penalty: float = 1.0,  # GNMT beam score normalization
         overlap_seconds: float = 5.0,
         cache_dtype=torch.float32,
-        language: Optional[str] = "en",
+        language: Optional[str] = "en",  # None = auto-detect
         task: str = "transcribe",
         timestamps: bool = True,
         quantized_cross_kv=False,  # False | True/"int8" | "int4"
         quantized_cache: bool = False,
         no_speech_threshold: float = 0.6,
         logprob_threshold: float = -1.0,
+        word_timestamps: bool = False,
         temperatures: Sequence[float] = (0.0,),
         compression_ratio_threshold: float = 2.4,
         best_of: int = 1,
         initial_prompt: Optional[str] = None,
+        condition_on_previous_text: bool = False,
         suppress_tokens: Sequence[int] = (),
+        repetition_penalty: Optional[float] = None,  # CTRL-style, > 1 damps
+        no_repeat_ngram_size: int = 0,
+        logit_bias=None,  # {token_id: delta} added to the decode logits
+        hotwords: Optional[str] = None,  # comma-separated boosted phrases
+        hotword_boost: float = 4.0,
         device=None,
         **unported,
     ):
         if family != "whisper":
             _not_ported(f"family={family!r}", 12)
-        if beams and beams > 1:
-            _not_ported("beam search (beams > 1)", 8)
-        if language is None:
-            _not_ported("language auto-detection (language=None)", 3)
-        for name, item in (("word_timestamps", 4), ("vad_filter", 5),
-                           ("vad_options", 5),
+        for name, item in (("vad_filter", 5), ("vad_options", 5),
                            ("hallucination_silence_threshold", 5),
-                           ("logit_bias", 6), ("hotwords", 6),
-                           ("hotword_boost", 6), ("repetition_penalty", 6),
-                           ("no_repeat_ngram_size", 6),
-                           ("condition_on_previous_text", 7),
                            ("draft_model", 9), ("draft_variables", 9),
                            ("speculative_gamma", 9), ("mesh", 11),
                            ("diarize_encoder", 12), ("diarize_variables", 12),
@@ -99,6 +107,15 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self.best_of = int(best_of)
         if self.best_of < 1:
             raise ValueError(f"best_of must be >= 1, got {best_of}")
+        if repetition_penalty is not None and repetition_penalty <= 0:
+            raise ValueError(
+                f"repetition_penalty must be > 0, got {repetition_penalty}")
+        if no_repeat_ngram_size < 0:
+            raise ValueError(
+                f"no_repeat_ngram_size must be >= 0, got {no_repeat_ngram_size}")
+        if condition_on_previous_text and beams and beams > 1:
+            raise ValueError("condition_on_previous_text currently supports "
+                             "greedy (+temperature fallback) decoding only")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, transcriber on "
@@ -108,14 +125,20 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
 
         self.model = model
         self.token_table = token_table
+        self.beams = max(0, int(beams))
+        self.length_penalty = float(length_penalty)
         self.temperatures = tuple(temperatures)
         self.compression_ratio_threshold = compression_ratio_threshold
         self.no_speech_threshold = no_speech_threshold
         self.logprob_threshold = logprob_threshold
+        self.word_timestamps = word_timestamps
         self.quantized_cross_kv = quantized_cross_kv
         self.quantized_cache = quantized_cache
         self.initial_prompt = initial_prompt
+        self.condition_on_previous_text = condition_on_previous_text
         self.suppress_tokens = tuple(int(t) for t in suppress_tokens)
+        self.repetition_penalty = repetition_penalty
+        self.no_repeat_ngram_size = int(no_repeat_ngram_size)
         self.batch_size = int(batch_size)
         self.language = language
         self.task = task
@@ -130,6 +153,10 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self.eot = token_table.eot
         overlap = min(int(overlap_seconds * self.sample_rate), self.chunk_samples // 2)
         self.stride_samples = self.chunk_samples - overlap
+        # Fixed per Transcriber: bias -> repetition -> timestamp rules run
+        # in every decode program.
+        self._logit_bias_entries = self._build_logit_bias(
+            logit_bias, hotwords, hotword_boost)
         self._programs = {}
 
     def _features(self, wins: np.ndarray) -> torch.Tensor:
@@ -165,10 +192,74 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
     def transcribe(self, audio: np.ndarray, sample_rate: Optional[int] = None,
                    language: Optional[str] = None, prompt: Optional[str] = None,
                    temperature: Optional[float] = None) -> TranscriptionResult:
-        """Transcribe one audio array of any length."""
+        """Transcribe one audio array of any length. ``language``,
+        ``prompt`` and ``temperature`` override the configuration for this
+        call (as ``transcribe_many``'s per-request lists do)."""
+        if self.condition_on_previous_text:
+            if prompt is not None or temperature is not None:
+                raise ValueError(_NO_OVERRIDES)
+            return self._transcribe_sequential(
+                self._prepare_audio(audio, sample_rate), language=language)
         return self.transcribe_many([audio], sample_rate, languages=[language],
                                     prompts=[prompt],
                                     temperatures=[temperature])[0]
+
+    def _transcribe_sequential(self, audio: np.ndarray,
+                               language: Optional[str] = None
+                               ) -> TranscriptionResult:
+        """Window by window with previous-text conditioning.
+
+        Each window's prompt is ``<|startofprev|>`` + the last C generated
+        tokens + the SOT sequence, with C a fixed budget (two prompt
+        lengths in all, not one per history length); windows before that
+        much history use the base prompt. The history resets after a
+        fallback rung above 0.5, so a degenerate window is not fed
+        forward."""
+        tt = self.token_table
+        if len(audio) == 0:
+            return TranscriptionResult(text="", segments=[], language=self.language)
+        lang = language or self.language
+        lang_prob = None
+        if lang is None:
+            lang, lang_probs = self.detect_language(audio)
+            lang_prob = lang_probs.get(lang)
+        base_ids = self._prompt_ids(lang)
+        sot_seq = tt.sot_sequence(lang, self.task, timestamps=self.timestamps)
+        ctx_budget = max(8, self.max_len // 2 - len(sot_seq) - 1)
+        init_ctx: List[int] = []
+        if self.initial_prompt:
+            init_ctx = list(map(int, tt.encode_text(" " + self.initial_prompt.strip())))
+
+        windows, starts = chunk_audio(audio, self.chunk_samples, self.stride_samples)
+        history: List[int] = []
+        per_window: List[List[Segment]] = []
+        for win in windows:
+            mel = self._features(win[None])
+            ctx = init_ctx + history
+            ids = ([tt.sot_prev] + ctx[-ctx_budget:] + sot_seq
+                   if len(ctx) >= ctx_budget else base_ids)
+            tokens, lengths, aux = self._decode_with_fallback(
+                1, mel, np.asarray([ids], np.int64))
+            silent = self._silent_mask(lengths, aux, n_prompt=len(ids))
+            segs = ([] if silent[0]
+                    else self._tokens_to_segments(tokens[0], int(lengths[0]),
+                                                  n_prompt=len(ids)))
+            self._attach_quality([segs], lengths, aux, n_prompt=len(ids))
+            self._attach_words(mel, tokens, lengths, [segs], n_prompt=len(ids))
+            per_window.append(segs)
+            if aux["used_temperature"][0] > 0.5:
+                history = []  # a degenerate window: do not condition on it
+            elif not silent[0]:
+                gen = tokens[0, len(ids): int(lengths[0])]
+                history += [int(t) for t in gen
+                            if t < tt.eot or tt.is_timestamp(int(t))]
+                history = history[-4 * ctx_budget:]  # only the tail is used
+
+        segments = stitch_segments(per_window, starts, self.sample_rate,
+                                   self.chunk_samples, self.stride_samples)
+        text = " ".join(s.text for s in segments if s.text).strip()
+        return TranscriptionResult(text=text, segments=segments, language=lang,
+                                   language_probability=lang_prob)
 
     def transcribe_many(
         self,
@@ -183,19 +274,47 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         All requests' 30 s windows are pooled per (prompt length,
         temperature) and decoded ``batch_size`` at a time. ``languages``,
         ``prompts`` and ``temperatures`` are per-request overrides (one
-        entry per audio, ``None`` keeps the configuration)."""
+        entry per audio, ``None`` keeps the configuration; with
+        ``language=None`` the requests without an override are detected
+        in shared batches). With ``condition_on_previous_text`` each
+        request runs window by window instead."""
         n = len(audios)
         for name, seq in (("languages", languages), ("prompts", prompts),
                           ("temperatures", temperatures)):
             if seq is not None and len(seq) != n:
                 raise ValueError(f"{name} has {len(seq)} entries for {n} audios")
-        req_langs = [lg or self.language for lg in (languages or [None] * n)]
+        overrides = list(languages) if languages is not None else [None] * n
+        if self.condition_on_previous_text:
+            if any(p is not None for p in (prompts or [])) or \
+                    any(t is not None for t in (temperatures or [])):
+                raise ValueError(_NO_OVERRIDES)
+            return [self._transcribe_sequential(self._prepare_audio(a, sample_rate),
+                                                language=lg)
+                    for a, lg in zip(audios, overrides)]
         req_prompts = list(prompts) if prompts is not None else [None] * n
         req_temps = list(temperatures) if temperatures is not None else [None] * n
         for t in req_temps:
             if t is not None and not 0.0 <= float(t) <= 2.0:
                 raise ValueError(f"temperature {t} outside [0, 2]")
+        if self.beams > 1 and any(t is not None and float(t) != 0.0
+                                  for t in req_temps):
+            raise ValueError(
+                f"per-request temperatures are greedy-only; this "
+                f"Transcriber runs beam search (beams={self.beams})")
         prepared = [self._prepare_audio(a, sample_rate) for a in audios]
+
+        req_lang_probs: List[Optional[float]] = [None] * n
+        if self.language is None and any(o is None for o in overrides):
+            # Detect only the requests without an override.
+            need = [i for i, o in enumerate(overrides) if o is None]
+            detected, det_probs = self.detect_language_many(
+                [prepared[i] for i in need], return_probs=True)
+            req_langs = list(overrides)
+            for i, lang, p in zip(need, detected, det_probs):
+                req_langs[i] = lang
+                req_lang_probs[i] = p
+        else:
+            req_langs = [o or self.language for o in overrides]
 
         all_starts: List[List[int]] = []
         win_entries: List[tuple] = []  # (window, prompt ids, temperature)
@@ -235,19 +354,22 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
                                                       n_prompt=plen)
                         for j in range(actual)]
                 self._attach_quality(segs, lengths, aux, n_prompt=plen)
+                # The full padded batch: only rows with segments are read.
+                self._attach_words(mel, tokens, lengths, segs, n_prompt=plen)
                 for j, g in enumerate(chunk):
                     per_window[g] = segs[j]
 
         results = []
         off = 0
-        for starts, lang in zip(all_starts, req_langs):
+        for starts, lang, lang_prob in zip(all_starts, req_langs, req_lang_probs):
             k = len(starts)
             segments = stitch_segments(per_window[off: off + k], starts,
                                        self.sample_rate, self.chunk_samples,
                                        self.stride_samples)
             text = " ".join(s.text for s in segments if s.text).strip()
             results.append(TranscriptionResult(text=text, segments=segments,
-                                               language=lang))
+                                               language=lang,
+                                               language_probability=lang_prob))
             off += k
         return results
 

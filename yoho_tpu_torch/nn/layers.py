@@ -8,12 +8,17 @@ attention semantics: biases on q/v/out but not k, and the 0.25-power scale
 * full cross-attention ``forward(x, xa=encoder_out)``;
 * cached self decode ``forward(x, cache=..., pos=i)`` -> (out, cache);
 * cached cross decode ``forward(x, cross_kv=...)`` with K/V from :meth:`kv`
-  or a :class:`QuantizedKV`.
+  or a :class:`QuantizedKV`. Beam search passes B*K query rows against
+  an untiled (B, ...) cross K/V: the K beams of a stream fold into the
+  query axis (:func:`_beam_fold`, :func:`_fold_queries`), so all of them
+  share one cross read.
 
 The full modes run through the flash kernel, the cached modes read their
 K/V through the decode attention kernel. The JAX package's explicit
 boolean masks (``causal_mask``, ``decode_mask``) are not needed: both
 kernels take the causal rule and the valid length as arguments.
+:meth:`MultiHeadAttention.attention_map` (the word-timestamp alignment
+signal) is plain PyTorch, as it is an XLA einsum in the JAX package.
 
 The int8 serving layers hold their codes and scales as buffers, filled by
 ``nn/quantize.py`` (or ``nn/params.py`` from a JAX-quantized tree), never
@@ -52,6 +57,26 @@ def _bhsd(x: torch.Tensor) -> torch.Tensor:
 def _bhdt(x: torch.Tensor) -> torch.Tensor:
     """(B, S, H, D) -> (B, H, D, S) — the KV storage layout."""
     return x.permute(0, 2, 3, 1)
+
+
+def _beam_fold(q_batch: int, kv_batch: int) -> int:
+    """K (``q_batch // kv_batch``) when beam search passed the untiled
+    (B, ...) cross K/V for its B*K query rows, else 1. Every beam of a
+    stream attends the same encoder output: folding the beams into the
+    query axis reads that K/V once instead of K times."""
+    if kv_batch == q_batch or q_batch % kv_batch:
+        return 1
+    return q_batch // kv_batch
+
+
+def _fold_queries(q: torch.Tensor, fold: int) -> torch.Tensor:
+    """(Bc*fold, H, S, D) -> (Bc, H, fold*S, D), beams major in the new
+    query axis (row b*fold+j -> query j*S+s), so the attention output
+    (Bc, fold*S, H, D) reshapes straight back to (Bc*fold, S, H, D)."""
+    bc = q.shape[0] // fold
+    h, s, d = q.shape[1:]
+    return (q.reshape(bc, fold, h, s, d).transpose(1, 2)
+            .reshape(bc, h, fold * s, d))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -168,6 +193,16 @@ class MultiHeadAttention(nn.Module):
         b, s, _ = x.shape
         return x.view(b, s, self.n_head, self.n_state // self.n_head)
 
+    def attention_map(self, x: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+        """Head-averaged cross-attention weights (B, S, T) in f32: the
+        alignment signal of word timestamps (DTW). q and k scaled in the
+        model's type, scores in f32."""
+        q = _bhsd(self._split(self.q_proj(x)) * self.scale)
+        k = _bhdt(self._split(self.k_proj(xa)) * self.scale)
+        with full_fp32():
+            scores = torch.einsum("bhsd,bhdt->bhst", q.float(), k.float())
+        return torch.softmax(scores, dim=-1).mean(dim=1)
+
     def kv(self, xa: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K/V from the encoder output, once per window,
         time-minor (B, H, D, T); k is pre-scaled."""
@@ -199,10 +234,9 @@ class MultiHeadAttention(nn.Module):
         q = _bhsd(self._split(self.q_proj(x)) * self.scale)
         if cross_kv is not None:
             quantized = isinstance(cross_kv, QuantizedKV)
-            if (cross_kv.k_q if quantized else cross_kv[0]).shape[0] != b:
-                raise NotImplementedError(
-                    "beam-shared cross-KV (query folding) is not in the "
-                    "PyTorch port yet (ROADMAP.md, Queue 1 item 8)")
+            fold = _beam_fold(b, (cross_kv.k_q if quantized else cross_kv[0]).shape[0])
+            if fold > 1:
+                q = _fold_queries(q, fold)
             if quantized:
                 out = attend_quantized(q, cross_kv)
             else:
@@ -249,3 +283,32 @@ class MLP(nn.Module):
         if not isinstance(self.fc1, Int8Dense):  # else fused into fc1
             h = F.gelu(h, approximate="tanh" if self.gelu_tanh else "none")
         return self.fc2(h)
+
+
+def realized_token_probs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """p(tokens[:, i] | tokens[:, :i]) from teacher-forced logits (B, S, V):
+    position i - 1 predicts token i, and the forced first position gets
+    probability 1. f32 throughout (the word-confidence surface)."""
+    logits = logits.float()[:, :-1]
+    picked = logits.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    probs = torch.exp(picked - torch.logsumexp(logits, dim=-1))
+    return torch.cat([torch.ones((tokens.shape[0], 1), dtype=torch.float32,
+                                 device=probs.device), probs], dim=1)
+
+
+def realized_token_probs_streamed(h: torch.Tensor, logits_fn, tokens: torch.Tensor,
+                                  chunk: int = 16) -> torch.Tensor:
+    """:func:`realized_token_probs` of ``logits_fn(h)`` (h (B, S, D)) without
+    materializing the (B, S, V) f32 logits: positions go through
+    ``logits_fn`` ``chunk`` at a time, each position's logits an
+    independent row, so the result equals the dense version."""
+    b, s = tokens.shape
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    lps = []
+    for i0 in range(0, s, chunk):
+        logits = logits_fn(h[:, i0:i0 + chunk]).float()
+        picked = logits.gather(-1, nxt[:, i0:i0 + chunk, None])[..., 0]
+        lps.append(picked - torch.logsumexp(logits, dim=-1))
+    lp = torch.cat(lps, dim=1)
+    return torch.cat([torch.ones((b, 1), dtype=torch.float32, device=lp.device),
+                      torch.exp(lp[:, :s - 1])], dim=1)

@@ -39,6 +39,7 @@ from yoho_tpu_torch.nn.layers import (
     LayerNorm,
     MultiHeadAttention,
     QuantizedEmbed,
+    realized_token_probs_streamed,
 )
 
 
@@ -197,6 +198,32 @@ class TextDecoder(nn.Module):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         return [blk.cross_attn.kv(xa) for blk in self.blocks]
 
+    def cross_attention_map(self, tokens: torch.Tensor, xa: torch.Tensor,
+                            with_probs: bool = False):
+        """Teacher-forced forward that collects the alignment signal: the
+        cross-attention weights averaged over the heads of the upper half of
+        the decoder layers (the heuristic for a checkpoint without an
+        alignment-head mask). Returns (B, S_text, T_audio) f32; with
+        ``with_probs`` also the realized-token probabilities (B, S_text) f32
+        from the same forward. The self-attention (causal) and the residual
+        cross-attention run through the flash kernel."""
+        t = tokens.shape[1]
+        x = self.token_embedding(tokens) + self.positional_embedding[:t]
+        align_from = len(self.blocks) // 2
+        acc = None
+        for i, blk in enumerate(self.blocks):
+            x = x + blk.attn(blk.ln1(x), causal=True)
+            x_in = blk.ln2(x)
+            if i >= align_from:
+                w = blk.cross_attn.attention_map(x_in, xa)
+                acc = w if acc is None else acc + w
+            x = x + blk.cross_attn(x_in, xa=xa)
+            x = x + blk.mlp(blk.ln3(x))
+        amap = acc / max(len(self.blocks) - align_from, 1)
+        if not with_probs:
+            return amap
+        return amap, realized_token_probs_streamed(self.ln(x), self._logits, tokens)
+
     def decode_step(self, tokens: torch.Tensor, caches: List, cross_kvs,
                     pos: int):
         """Cached step: tokens (B, S_new) at absolute position ``pos``.
@@ -268,3 +295,6 @@ class Whisper(nn.Module):
 
     def decode_step(self, tokens, caches, cross_kvs, pos: int):
         return self.decoder.decode_step(tokens, caches, cross_kvs, pos)
+
+    def cross_attention_map(self, tokens, xa, with_probs: bool = False):
+        return self.decoder.cross_attention_map(tokens, xa, with_probs)

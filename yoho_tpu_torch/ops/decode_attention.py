@@ -18,10 +18,13 @@ Returns (B, S, Hq, D) in q's type. Unlike the TPU kernel, T need not be a
 multiple of 128: int8/int4/bf16 rows of a multiple of 16 bytes (the
 padded cross K/V, the cache) stream in by TMA tile loads, rows of a
 multiple of 4 bytes by asynchronous word copies, any other T element by
-element. One launch per call: a thread-block cluster per (b, h) merges
-its blocks' softmax states (sm_90a). The wrapper takes the plain version
-only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+element. One launch per call of at most 32 queries: a thread-block
+cluster per (b, h) merges its blocks' softmax states (sm_90a). Longer
+query runs (a prompt's prefill, beams folded into the query axis) go
+through the same kernel in chunks of 32, one launch each; a causal chunk
+whose first query is i0 runs at ``pos + i0``. The wrapper takes the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ KERNEL = CudaKernel(
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4, _FLOAT = 0, 1, 2
 _HEAD_DIMS = (64,)  # every whisper size
+MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
 
 
@@ -107,6 +111,14 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
                          f"packing={packing})")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
+    if s > MAX_QUERIES:
+        out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+        for i0 in range(0, s, MAX_QUERIES):
+            i1 = min(i0 + MAX_QUERIES, s)
+            out[:, i0:i1] = fused_decode_attention(
+                q[:, :, i0:i1], k, v, k_scale, v_scale,
+                None if pos is None else int(pos) + i0, kv_len, groups, packing)
+        return out
     if not q.is_cuda:
         return decode_attention_reference(q, k, v, k_scale, v_scale, pos,
                                           kv_len, groups, packing)
@@ -125,8 +137,6 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
                         f"K/V, got {k.dtype}")
     if (kind == _FLOAT) != (k_scale is None):
         raise ValueError("integer K/V need scales; float K/V take none")
-    if s > 32:
-        raise ValueError(f"decode kernel takes at most 32 queries, got {s}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"decode kernel head dim {d} not in {_HEAD_DIMS}")
     if kind != _FLOAT and (k_scale.shape != (b, hkv, 1, t)
