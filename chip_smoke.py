@@ -24,14 +24,17 @@ Phases, one output line each (JSON after the phase name):
    ``F.linear`` (+ tanh-GELU), what the bf16 lane computes, and split the
    kernel's time into its row-quantize pass and its GEMM; the mel cases
    time a ``torch.stft`` yardstick (cuFFT, not the same rounding). Flash
-   runs at whisper-small's 12 and turbo's 20 heads, and at the alignment
-   pass's causal 448 x 448 and cross 448 x 1500; decode attention on the
+   runs at whisper-small's 12, turbo's 20 and whisper-tiny's 6 heads
+   (SDPA's time beside each), and at the alignment pass's causal 448 x 448
+   and cross 448 x 1500; decode attention on the
    cross K/V padded to 1536 positions (kv_len 1500) as the main path
    stores them, for prefill, and on the self cache at pos 0, 200 and 447;
    beam search's folded cross read (5 queries a stream), a 224-token
    prompt's prefill (7 launches of 32 queries) on the cache and on the
-   cross K/V, the folded beam prefill of that prompt (35 launches), and
-   the unpadded bf16 cross read of language detection.
+   cross K/V, the folded beam prefill of that prompt (35 launches), the
+   unpadded bf16 cross read of language detection, speculative decoding's
+   5-query verify read, causal on the cache at pos 200 and 447, and the
+   draft's 2-query reads at 6 heads on its cache and cross K/V.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -65,10 +68,37 @@ Phases, one output line each (JSON after the phase name):
    top kernels and of each of the port's own kernel functions, and the
    device's busy share of the untraced run's wall time; the trace must
    hold no combine kernel (decode attention is one launch).
-7. ``kernels``: one JSON object with every kernel's numbers; launches are
-   summed over the three e2e paths' first runs (and the conditioning
-   call).
-8. The last line: ``{"ok": true, "device": {...}}``.
+7. ``e2e-files``: whisper-small as in ``e2e``, with ``vad_filter`` and
+   ``hallucination_silence_threshold`` 2.0, on the same three requests
+   written as files: 12 s as a stereo int16 WAV at 44.1 kHz, 30 s as a
+   16-bit FLAC from the port's encoder, 75 s as a mono int16 WAV at 16 kHz
+   with 20 s of zeros in the middle. Checks: the decoded samples equal the
+   port's ``resample`` of the written arrays within one int16 step, the
+   75 s request's speech map leaves the zeros out, the same tokens on a
+   second call, every segment inside its request, and mel, flash and
+   decode attention launched. It prints which decoder read the FLAC and
+   the windows decoded with and without the VAD.
+8. ``e2e-spec``: whisper-small (bf16, int8 cross-K/V and cache, batch 16)
+   decoding speculatively at gamma 4 on the three requests, with two
+   drafts: whisper-tiny with random weights from seed 1 (it mostly
+   disagrees: the low-acceptance worst case) and the target itself (every
+   round commits gamma + 1 tokens but at ties). Checks: one verify step's
+   logits against the CPU plain path in float32; a hook on the decode
+   kernel's launch holds every read to the round arithmetic (per batch the
+   prompt's prefill by both models; per round and draft layer one S = 2
+   step and gamma - 1 S = 1 steps at the draft's heads, then per target
+   layer one 5-query verify step; each a causal read of the cache and a
+   read of the cross K/V at 16 rows); one host sync per round; each row's
+   tokens equal greedy's (the ``e2e`` configuration, run again with its
+   processed logits recorded) up to its first difference, and there the
+   greedy top-2 margin is at most 4 bf16 ulps of the larger logit. It
+   prints per draft the wall, audio-s/s, rounds, tokens committed per
+   round, host syncs, the rows that diverge and the decode launches by
+   shape; ``phase-wall`` lines give each of the two phases' seconds.
+9. ``kernels``: one JSON object with every kernel's numbers; launches are
+   summed over the e2e paths' first runs (and the conditioning call),
+   ``e2e-files``' first call and every ``e2e-spec`` run.
+10. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -305,6 +335,17 @@ def kernel_checks(card: str) -> dict:
            4 * q.numel() * 2, {"bf16": 4 * 16 * 20 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
            "rtol 1e-2, atol 1e-2", main=False)
     del q, k, v
+    # whisper-tiny's encoder, the draft of phase e2e-spec: 6 heads.
+    q, k, v = (torch.randn((16, 1500, 6, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    err = check_close("flash tiny", fa.flash_attention(q, k, v, scale=scale),
+                      fa.attention_reference(q, k, v, False, scale), 1e-2, 1e-2)
+    record(fa.KERNEL, "encoder 16x1500x6x64 bf16 (whisper-tiny, the draft)", err,
+           time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
+           time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
+           4 * q.numel() * 2, {"bf16": 4 * 16 * 6 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
+           "rtol 1e-2, atol 1e-2", main=False)
+    del q, k, v
     # The alignment pass of word timestamps (phase e2e-options): the
     # teacher-forced decoder's causal self-attention over 448 tokens and
     # its cross-attention of 448 queries over 1500 encoder positions.
@@ -333,12 +374,12 @@ def kernel_checks(card: str) -> dict:
     # Kernel 3: decode reads. Cross: int8 (16, 12, 64, 1536) padded from
     # 1500 (kv_len 1500), the layout of the main path; self: int8 cache
     # (16, 12, 64, 512) read causally up to pos.
-    def kv(t, shape_d=64):
-        return (torch.randn((16, 12, shape_d, t), generator=gen, device=dev)
+    def kv(t, heads=12):
+        return (torch.randn((16, heads, 64, t), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
 
-    def q_of(s):
-        return (torch.randn((16, 12, s, 64), generator=gen, device=dev) * 0.35
+    def q_of(s, heads=12):
+        return (torch.randn((16, heads, s, 64), generator=gen, device=dev) * 0.35
                 ).to(torch.bfloat16)
 
     def case(label, qq, k_, v_, ks, vs, pos, packing, kv_len=None, main=False, library=None):
@@ -399,7 +440,21 @@ def kernel_checks(card: str) -> dict:
          cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
     case("cross int8 folded beam prefill S=1120 (35 launches)", q_of(1120), cross.k_q,
          cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
-    del kb, vb, qb, cross, self_kv, c4
+    # Speculative decoding (phase e2e-spec): the target's verify step, 5
+    # queries (gamma 4 + 1) causal on the cache at a non-zero pos (its cross
+    # read is the S=5 shape above), and whisper-tiny's draft step of 2
+    # queries at 6 heads on its cache and its cross K/V.
+    for pos in (200, 447):
+        case(f"self int8 verify S=5 causal pos={pos} (T 512)", q_of(5), self_kv.k_q,
+             self_kv.v_q, self_kv.k_scale, self_kv.v_scale, pos, 1)
+    draft_self = quantize_kv(*kv(512, heads=6))
+    case("draft self int8 S=2 causal pos=199, 6 heads (T 512)", q_of(2, heads=6),
+         draft_self.k_q, draft_self.v_q, draft_self.k_scale, draft_self.v_scale, 199, 1)
+    draft_cross = quantize_kv(*kv(1500, heads=6), pad_to=128)
+    case("draft cross int8 S=2, 6 heads (T 1536, kv_len 1500)", q_of(2, heads=6),
+         draft_cross.k_q, draft_cross.v_q, draft_cross.k_scale, draft_cross.v_scale, None, 1,
+         kv_len=draft_cross.kv_len)
+    del kb, vb, qb, cross, self_kv, c4, draft_self, draft_cross
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
     # rows): large-v3-turbo's fc1 (with the tanh GELU) and fc2, and
@@ -480,6 +535,18 @@ def _profiled(fn):
     return box[0], {k: v / 1e3 for k, v in us.items()}
 
 
+SPEC_GAMMA = 4
+
+
+def _requests():
+    """The three requests of the e2e phases: 12 s, 30 s and 75 s of noise
+    from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [(0.1 * rng.standard_normal(s * 16000)).astype(np.float32) for s in (12, 30, 75)]
+
+
 # The two e2e paths: (phase, preset, int8 lanes, fast_gelu, v3 token table,
 # reference tolerance on the encoder output and the logits).
 PATHS = (
@@ -532,10 +599,8 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
     table = WhisperTokenTable(multilingual=True, v3=v3, text_backend=_IdText())
     if table.n_vocab != cfg.n_vocab:
         raise AssertionError(f"token table of {table.n_vocab} ids for a {cfg.n_vocab} vocab")
-    rng = np.random.default_rng(SEED)
     seconds = (12, 30, 75)
-    audios = [(0.1 * rng.standard_normal(s * 16000)).astype(np.float32)
-              for s in seconds]
+    audios = _requests()
 
     # Reference on a small input: one window through the card's kernels
     # against the CPU plain path in float32 with the same weights (the same
@@ -816,6 +881,300 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
     return {k: launches[k] + c_launches[k] for k in launches}
 
 
+def e2e_files(card: str, kernels) -> dict:
+    """Phase e2e-files: whisper-small served from audio files with the VAD
+    and the silence-hallucination filter; returns the launches of its first
+    call."""
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch import native
+    from yoho_tpu_torch.audio.flac import encode_flac
+    from yoho_tpu_torch.audio.io import load_audio_f32, resample
+    from yoho_tpu_torch.audio.vad import collapse_silence
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    phase, sr = "e2e-files", 16000
+    cfg = WHISPER_PRESETS["small"]
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    audios = _requests()
+    # 20 s of digital silence in the middle of the 75 s request.
+    gap = (int(27.5 * sr), int(47.5 * sr))
+    audios[2][gap[0]:gap[1]] = 0.0
+
+    def pcm16(x):
+        return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+    def write_wav(path, pcm, rate, channels):
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(channels)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(pcm.tobytes())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        stereo = pcm16(resample(audios[0], sr, 44100))
+        write_wav(tmp / "a.wav", np.repeat(stereo, 2), 44100, 2)  # interleaved L, R
+        flac_pcm = pcm16(audios[1])
+        (tmp / "b.flac").write_bytes(encode_flac(flac_pcm.astype(np.int64)[:, None], sr))
+        mono = pcm16(audios[2])
+        write_wav(tmp / "c.wav", mono, sr, 1)
+        paths = [tmp / "a.wav", tmp / "b.flac", tmp / "c.wav"]
+
+        # The decoded samples against the port's resample of the same array,
+        # within one int16 step.
+        step = 1.0 / 32768.0
+        decoded = [load_audio_f32(pth, sr) for pth in paths]
+        expect = [resample(stereo.astype(np.float32) / 32768.0, 44100, sr),
+                  flac_pcm.astype(np.float32) / 32768.0, mono.astype(np.float32) / 32768.0]
+        decode_err = [float(np.abs(d - e).max()) for d, e in zip(decoded, expect)]
+        if any(len(d) != len(e) for d, e in zip(decoded, expect)) or max(decode_err) > step:
+            raise AssertionError(f"{phase}: decoded samples off the resampled arrays by "
+                                 f"{decode_err} (one int16 step {step})")
+        # The VAD leaves the silent stretch out (its 300 ms pads aside).
+        _, smap = collapse_silence(decoded[2], sr)
+        inner = (gap[0] + int(0.4 * sr), gap[1] - int(0.4 * sr))
+        kept = [(o, o + n) for _c, o, n in smap.chunks]
+        if any(a < inner[1] and b > inner[0] for a, b in kept):
+            raise AssertionError(f"{phase}: the speech map {kept} keeps the silence {gap}")
+
+        tr = Transcriber(model, token_table=table, batch_size=BATCH,
+                         quantized_cross_kv="int8", quantized_cache=True,
+                         cache_dtype=torch.bfloat16, vad_filter=True,
+                         hallucination_silence_threshold=2.0)
+        runs = []
+        for _ in range(2):
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = tr.transcribe_many([str(pth) for pth in paths])
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, results,
+                         {k.name: k.launches for k in kernels}))
+    (wall, results, launches), (wall2, results2, _) = runs
+    toks = [[t for s in r.segments for t in s.tokens] for r in results]
+    if toks != [[t for s in r.segments for t in s.tokens] for r in results2]:
+        raise AssertionError(f"{phase}: second call gave other tokens")
+    seconds = [len(d) / sr for d in decoded]
+    outside = [(i, s.start, s.end) for i, r in enumerate(results) for s in r.segments
+               if not 0 <= s.start <= s.end <= seconds[i] + 1e-3]
+    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+    if outside or idle or not any(toks):
+        raise AssertionError(f"{phase}: segments outside their request {outside[:4]}; "
+                             f"kernels never launched {idle}; tokens {sum(map(len, toks))}")
+
+    def windows(xs):
+        return sum(len(chunk_audio(x, tr.chunk_samples, tr.stride_samples)[1]) for x in xs)
+
+    n_tok = sum(len(t) for t in toks)
+    emit(phase, model="whisper-small", batch=BATCH,
+         files=["12 s stereo int16 WAV 44.1 kHz", "30 s 16-bit FLAC",
+                "75 s mono int16 WAV 16 kHz, 20 s of zeros in the middle"],
+         flac_decoder="native" if native.get_lib() is not None else "python",
+         decode_err_vs_resample=decode_err,
+         windows_without_vad=windows(decoded),
+         windows_with_vad=windows([collapse_silence(d, sr)[0] for d in decoded]),
+         speech_seconds=[round(collapse_silence(d, sr)[1].speech_seconds, 3) for d in decoded],
+         wall_s=wall, wall_s_second_call=wall2, audio_s_per_s=sum(seconds) / wall,
+         segment_tokens=n_tok, launches=launches, card=card)
+    return launches
+
+
+def e2e_spec(card: str, kernels) -> dict:
+    """Phase e2e-spec: whisper-small decoding speculatively with two drafts
+    (whisper-tiny with random weights: low acceptance; the target itself:
+    full acceptance but at ties); returns the launches of its runs."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    phase, gamma = "e2e-spec", SPEC_GAMMA
+    cfg = WHISPER_PRESETS["small"]
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
+    tiny = init_random(Whisper(WHISPER_PRESETS["tiny"], dtype=torch.bfloat16), seed=1)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    audios = _requests()
+    serving = dict(token_table=table, batch_size=BATCH, quantized_cross_kv="int8",
+                   quantized_cache=True, cache_dtype=torch.bfloat16)
+    seconds = sum(len(a) for a in audios) / 16000
+
+    # Reference on one window: a verify step of gamma + 1 queries after the
+    # prompt's prefill, card (bf16, int8 cross-K/V and cache) against the
+    # CPU plain path in float32 with the same weights.
+    tol = 5e-2
+    with torch.inference_mode():
+        window = np.zeros((1, cfg.n_samples), np.float32)
+        window[0, :len(audios[0])] = audios[0][:cfg.n_samples]
+        mel = fused_whisper_log_mel(torch.as_tensor(window, device="cuda"), cfg.n_mels)
+        ref = Whisper(cfg, dtype=torch.float32, device="cpu")
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        prompt = torch.as_tensor([table.sot_sequence("en")])
+        # The last prompt token again, then 4 proposals.
+        block = torch.as_tensor([[int(prompt[0, -1]), 1000, 2000, 3000, 4000]])
+
+        def verify(m, ckv, caches, dev):
+            m.decode_step(prompt.to(dev), caches, ckv, 0)
+            return m.decode_step(block.to(dev), caches, ckv, prompt.shape[1] - 1)[0]
+
+        got = verify(model, model.cross_kvs(model.encode_audio(mel), "int8"),
+                     model.init_caches(1, torch.bfloat16, cfg.n_text_ctx + gamma + 2, True),
+                     "cuda")
+        want = verify(ref, ref.cross_kvs(ref.encode_audio(mel.cpu())),
+                      ref.init_caches(1, None, cfg.n_text_ctx + gamma + 2), "cpu")
+        rel = _rel_err(got, want)
+        emit("reference", path=phase, window=1, verify_step_logits_rel_err=rel,
+             tolerance=f"{tol} (bf16 card, int8 cross-K/V and cache, vs f32 CPU)")
+        if not bool(torch.isfinite(got).all()) or got.shape != (1, gamma + 1, cfg.n_vocab) \
+                or rel > tol:
+            raise AssertionError(f"{phase}: verify logits {tuple(got.shape)}, rel err {rel}")
+        del ref, want
+
+    # Every decode-attention launch's (rows, heads, queries, positions,
+    # causal), through a hook on the kernel's launch.
+    shapes: Counter = Counter()
+    launch = da.KERNEL.launch
+
+    def recording_launch(*args):
+        shapes[(args[8], args[9], args[11], args[13], args[15])] += 1
+        launch(*args)
+
+    def serve(tr):
+        """One transcribe_many with its decode rows captured: (wall, rows
+        of (tokens, length), launches, read shapes)."""
+        rows = []
+        decode = tr._decode_with_fallback
+
+        def capturing(b, mel, prompt=None, **kw):
+            out = decode(b, mel, prompt, **kw)
+            rows.extend(zip(out[0], out[1]))
+            return out
+
+        for k in kernels:
+            k.launches = 0
+        shapes.clear()
+        tr._decode_with_fallback = capturing
+        da.KERNEL.launch = recording_launch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.transcribe_many(audios)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del da.KERNEL.launch, tr._decode_with_fallback
+        return wall, rows, {k.name: k.launches for k in kernels}, Counter(shapes)
+
+    # Greedy, with the two largest of its processed logits (after the
+    # suppression and the timestamp rules) recorded at every position: the
+    # margin a speculative row may flip inside.
+    greedy = Transcriber(model, **serving)
+    top2 = torch.zeros((BATCH, cfg.n_text_ctx, 2), device="cuda")
+    build = greedy._logits_fn
+
+    def recording_rules(prompt_len):
+        rules = build(prompt_len)
+
+        def fn(logits, tokens, pos):
+            out = rules(logits, tokens, pos)
+            top2[:, pos] = torch.topk(out, 2, dim=-1).values
+            return out
+
+        return fn
+
+    greedy._logits_fn = recording_rules
+    g_wall, g_rows, g_launches, _ = serve(greedy)
+    if len(g_rows) != BATCH:  # the recorded logits are one batch's
+        raise AssertionError(f"{phase}: {len(g_rows)} decode rows, one batch expected")
+    g_top2 = top2.cpu().numpy()
+    n_prompt = len(greedy._prompt_ids())
+
+    total = dict(g_launches)
+    out = {}
+    draft_cfgs = {"whisper-tiny, random (seed 1)": tiny, "the target itself": model}
+    for label, draft in draft_cfgs.items():
+        tr = Transcriber(model, draft_model=draft, speculative_gamma=gamma, **serving)
+        tr.speculative_stats.clear()
+        wall, rows, launches, seen = serve(tr)
+        stats = dict(tr.speculative_stats)
+        # The launch arithmetic: per batch a prefill of the prompt by both
+        # models; per round, per draft layer one S = 2 step and gamma - 1
+        # S = 1 steps, then per target layer one verify step of gamma + 1
+        # queries; each step one self read (causal, the 512-position cache)
+        # and one cross read (the 1536-padded int8 K/V) at 16 rows.
+        batches, rounds = len(rows) // BATCH + (len(rows) % BATCH > 0), stats["rounds"]
+        dc, lt = draft.cfg, cfg.n_text_layer
+        want = Counter()
+        for heads, layers, s, n in ((cfg.n_text_head, lt, n_prompt, batches),
+                                    (dc.n_text_head, dc.n_text_layer, n_prompt, batches),
+                                    (dc.n_text_head, dc.n_text_layer, 2, rounds),
+                                    (dc.n_text_head, dc.n_text_layer, 1, rounds * (gamma - 1)),
+                                    (cfg.n_text_head, lt, gamma + 1, rounds)):
+            want[(BATCH, heads, s, 512, 1)] += layers * n
+            want[(BATCH, heads, s, 1536, 0)] += layers * n
+        if seen != want or launches[da.KERNEL.name] != sum(want.values()):
+            raise AssertionError(f"{phase} ({label}): decode-attention launches "
+                                 f"{dict(seen)}, expected {dict(want)}")
+        idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+        if idle or launches[W8A8.name] or stats["syncs"] != rounds:
+            raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, "
+                                 f"w8a8 {launches[W8A8.name]}, stats {stats}")
+        # Each row equals greedy up to its first difference, and differs
+        # there only inside a tie: a top-2 margin of greedy's processed
+        # logits of at most 4 bf16 ulps of the larger logit.
+        diverged, worst = 0, 0.0
+        for j, ((tok, _n), (g_tok, _g)) in enumerate(zip(rows, g_rows)):
+            diff = np.flatnonzero(tok != g_tok)
+            if len(diff) == 0:
+                continue
+            diverged += 1
+            i = int(diff[0])
+            first, second = (float(x) for x in g_top2[j, i])
+            ulp = 2.0 ** (np.floor(np.log2(abs(first))) - 7)  # bf16: 8 significant bits
+            worst = max(worst, (first - second) / ulp)
+            if first - second > 4 * ulp:
+                raise AssertionError(f"{phase} ({label}): row {j} leaves greedy at {i} "
+                                     f"with a top-2 margin of {first - second} "
+                                     f"({(first - second) / ulp} bf16 ulps of {first})")
+        for name, n in launches.items():
+            total[name] += n
+        out[label] = dict(
+            wall_s=wall, audio_s_per_s=seconds / wall, rounds=rounds,
+            committed_per_round=stats["committed"] / rounds, host_syncs=stats["syncs"],
+            rows_diverging=diverged, largest_margin_at_divergence_bf16_ulps=worst,
+            decode_launches_by_shape={f"B{k[0]} H{k[1]} S{k[2]} T{k[3]}"
+                                      f"{' causal' if k[4] else ''}": n
+                                      for k, n in sorted(seen.items())},
+            launches=launches)
+    windows = sum(len(chunk_audio(a, greedy.chunk_samples, greedy.stride_samples)[1])
+                  for a in audios)
+    emit(phase, model="whisper-small", gamma=gamma, batch=BATCH, windows=windows,
+         greedy=dict(wall_s=g_wall, audio_s_per_s=seconds / g_wall), drafts=out, card=card)
+    return total
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -852,6 +1211,12 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
+    for phase in (e2e_files, e2e_spec):
+        t0 = time.perf_counter()
+        for name, n in phase(card, kernels).items():
+            launches[name] += n
+        emit("phase-wall", path=phase.__name__.replace("_", "-"),
+             seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         dict(entries[k.name], launches=launches[k.name]) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

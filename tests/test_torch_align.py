@@ -106,6 +106,11 @@ def multilingual():
 
 
 @pytest.fixture(scope="module")
+def multilingual_f32():
+    return _Fixture("whisper_multilingual", "f32")
+
+
+@pytest.fixture(scope="module")
 def tiny():
     return _Fixture("whisper_tiny", "f32")
 
@@ -117,16 +122,25 @@ def python_dtw(monkeypatch):
     monkeypatch.setattr(yoho_tpu.native, "dtw_path_native", lambda cost: None)
 
 
-def test_detect_language_matches_golden_and_jax(multilingual):
-    fx = multilingual
-    jt, tt = fx.pair(batch_size=1, timestamps=False, language=None)
-    for s in fx.golden["samples"]:
-        clip = _tone_clip(s["tone"], fx.n)
-        lang, probs = tt.detect_language(clip)
-        want_lang, want_probs = jt.detect_language(clip)
-        assert lang == s["detected"] == want_lang
-        assert probs[lang] == pytest.approx(want_probs[lang], abs=1e-3)
-        assert abs(sum(probs.values()) - 1.0) < 1e-3
+def test_detect_language_matches_golden_and_jax(multilingual, multilingual_f32):
+    """Float clips in bf16, and the same clips as int16 PCM: detection casts
+    an array to float32 as it is, as the JAX package does (no PCM scaling).
+    The int16 case runs in f32: its probabilities sit near 0.6, where the
+    documented bf16 rounding difference of the two packages (ROADMAP.md,
+    reference tolerances) moves them by more than the pin."""
+    for fx, pcm in ((multilingual, False), (multilingual_f32, True)):
+        jt, tt = fx.pair(batch_size=1, timestamps=False, language=None)
+        for s in fx.golden["samples"]:
+            audio = _tone_clip(s["tone"], fx.n)
+            if pcm:
+                audio = np.round(audio * 32767).astype(np.int16)
+            lang, probs = tt.detect_language(audio)
+            want_lang, want_probs = jt.detect_language(audio)
+            assert lang == want_lang
+            if not pcm:
+                assert lang == s["detected"]
+            assert probs[lang] == pytest.approx(want_probs[lang], abs=1e-3)
+            assert abs(sum(probs.values()) - 1.0) < 1e-3
 
 
 def test_language_auto_detection_transcripts(multilingual):
@@ -259,8 +273,8 @@ def test_align_and_align_many_match_jax(tiny, python_dtw):
                         [[(w.word, w.start, w.end, w.probability) for w in r] for r in want])
     with pytest.raises(ValueError, match="one window"):
         tt.align(np.zeros(2 * tiny.n, np.float32), "hello")
-    with pytest.raises(NotImplementedError, match="audio file input"):
-        tt.align("clip.wav", "hello")
+    with pytest.raises(FileNotFoundError, match="no such audio file"):
+        tt.align("no-such-clip.wav", "hello")
 
 
 def test_condition_on_previous_text_matches_jax(tiny, python_dtw):

@@ -178,6 +178,70 @@ def test_folded_beam_read_matches_tiled_plain_read(gen, kind):
                                rtol=0.05, atol=0.02)
 
 
+@pytest.mark.parametrize("heads,s,pos,t,kv_len", [
+    (12, 5, 200, 512, 512), (12, 5, 447, 512, 512), (12, 5, None, 1536, 1500),
+    (6, 2, 199, 512, 512), (6, 2, None, 1536, 1500), (6, 1, 300, 512, 512),
+    (6, 3, 0, 512, 512)])
+def test_speculative_reads_match_plain(gen, heads, s, pos, t, kv_len):
+    """Speculative decoding's reads at batch 16, int8: the target's verify
+    step of gamma + 1 = 5 queries, causal on the cache at a non-zero pos and
+    over the padded cross K/V; whisper-tiny's draft steps at 6 heads (S = 2
+    at c - 2, S = 1, the prompt's prefill)."""
+    k, v = (torch.randn((16, heads, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((16, heads, s, 64), generator=gen, device="cuda") * 0.35
+         ).to(torch.bfloat16)
+    qkv = kv_cache.quantize_kv(k, v)
+    args = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+def test_flash_kernel_whisper_tiny_encoder(gen):
+    """The draft's encoder self-attention: whisper-tiny's 6 heads at batch 16."""
+    q, k, v = (torch.randn((16, 1500, 6, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v)
+    want = flash_attention.attention_reference(q, k, v, False, 64 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("draft_kind", ["independent", "perfect"])
+def test_speculative_decode_on_the_card_equals_greedy(gen, draft_kind):
+    """Speculative greedy decoding through the kernels equals greedy
+    decoding through them, in f32 (int8 cross K/V, float caches), with
+    random weights at head dim 64."""
+    from yoho_tpu_torch.core.config import WhisperConfig
+    from yoho_tpu_torch.infer.decode import greedy_decode, make_whisper_step_fn
+    from yoho_tpu_torch.infer.speculative import speculative_greedy_decode
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+
+    kw = dict(n_mels=80, n_audio_ctx=64, n_vocab=512, n_text_ctx=64)
+    target = init_random(Whisper(WhisperConfig(
+        n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_text_state=128,
+        n_text_head=2, n_text_layer=2, **kw)), seed=0, std=0.3)
+    draft = target if draft_kind == "perfect" else init_random(Whisper(WhisperConfig(
+        n_audio_state=64, n_audio_head=1, n_audio_layer=1, n_text_state=64,
+        n_text_head=1, n_text_layer=1, **kw)), seed=1, std=0.3)
+    mel = torch.randn((4, 128, 80), generator=gen, device="cuda")
+    prompt = torch.tensor([[1, 2, 3]] * 4, device="cuda")
+    with torch.inference_mode():
+        ckvs = [m.cross_kvs(m.encode_audio(mel), "int8") for m in (target, draft)]
+        want, want_len = greedy_decode(make_whisper_step_fn(target, ckvs[0]),
+                                       target.init_caches(4), prompt, 64, 7)
+        stats = {}
+        got, got_len = speculative_greedy_decode(
+            make_whisper_step_fn(target, ckvs[0]), make_whisper_step_fn(draft, ckvs[1]),
+            target.init_caches(4, None, 64 + 4 + 2), draft.init_caches(4, None, 64 + 4 + 2),
+            prompt, 64, 7, gamma=4, stats=stats)
+    assert torch.equal(got, want) and torch.equal(got_len, want_len)
+    assert stats["syncs"] == stats["rounds"]
+
+
 def test_beam_reorder_and_top_k_on_the_card(gen):
     """The beam cache reorder and the tie-ordered top-k give on the card
     what they give on the CPU."""

@@ -219,17 +219,10 @@ def test_sampling_rungs_are_seeded(tiny):
 
 
 @pytest.mark.parametrize("kw", [
-    {"vad_filter": True}, {"draft_model": object()}, {"mesh": object()},
-    {"family": "yoho"}, {"diarize_encoder": object()},
+    {"mesh": object()}, {"family": "yoho"}, {"diarize_encoder": object()},
+    {"diarize_variables": object()}, {"enrolled_speakers": {"a": [0.0]}},
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(tiny, kw):
     _, _, _, _, model, table = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
         Transcriber(model, token_table=table, device="cpu", **kw)
-
-
-def test_file_paths_are_not_ported(tiny):
-    _, _, _, _, model, table = tiny
-    t = Transcriber(model, token_table=table, device="cpu")
-    with pytest.raises(NotImplementedError, match="audio file input"):
-        t.transcribe("clip.wav")

@@ -5,8 +5,10 @@ The JAX package's ``infer/decode_programs.py``: prompt assembly, the
 suppress list, the SOT index for the no-speech probability, the logit
 processors in their order (bias -> repetition rules -> timestamp rules),
 one memoized decode program per (batch, temperature, prompt length):
-encoder -> cross-K/V -> caches -> ``greedy_decode`` or, with ``beams > 1``,
-``beam_search`` over B*K cache rows and the untiled cross-K/V; the
+encoder -> cross-K/V -> caches -> ``greedy_decode``; with ``beams > 1``,
+``beam_search`` over B*K cache rows and the untiled cross-K/V; with a draft
+model at temperature 0, ``speculative_greedy_decode`` over the draft's own
+encoder output, cross-K/V and caches of both models; the
 teacher-forced alignment program of word timestamps; and language
 detection (one decoder step on ``<|startoftranscript|>`` over an
 unquantized cross-K/V and a float cache of 128 positions).
@@ -14,13 +16,20 @@ unquantized cross-K/V and a float cache of 128 positions).
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from yoho_tpu_torch.audio.io import load_audio_f32
+
 from yoho_tpu_torch.infer.beam import beam_search
 from yoho_tpu_torch.infer.decode import greedy_decode, make_whisper_step_fn
+from yoho_tpu_torch.infer.speculative import (
+    make_verify_step_fn,
+    speculative_greedy_decode,
+)
 
 
 class DecodeProgramsMixin:
@@ -208,6 +217,22 @@ class DecodeProgramsMixin:
                 tokens, lengths, _scores, aux = beam_search(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
                     beams=k, length_penalty=self.length_penalty, **kw)
+            elif self.draft_model is not None and temperature == 0.0:
+                # The draft encodes the same mel; both cache sets hold the
+                # stale-write workspace past the horizon.
+                d_model = self.draft_model
+                gamma = self.speculative_gamma
+                d_ckv = d_model.cross_kvs(d_model.encode_audio(mel),
+                                          self.quantized_cross_kv)
+                horizon = self.max_len + gamma + 2
+                t_caches = model.init_caches(batch, self.cache_dtype, horizon,
+                                             self.quantized_cache)
+                d_caches = d_model.init_caches(batch, self.cache_dtype, horizon,
+                                               self.quantized_cache)
+                tokens, lengths, aux = speculative_greedy_decode(
+                    make_verify_step_fn(model, ckv), make_verify_step_fn(d_model, d_ckv),
+                    t_caches, d_caches, prompt, self.max_len, self.eot, gamma=gamma,
+                    stats=self.speculative_stats, **kw)
             else:
                 caches = model.init_caches(batch, self.cache_dtype, None,
                                            self.quantized_cache)
@@ -244,12 +269,20 @@ class DecodeProgramsMixin:
         logits, _ = model.decode_step(prompt, caches, model.cross_kvs(xa), 0)
         return logits[:, -1].float().cpu().numpy()
 
-    def detect_language(self, audio: np.ndarray):
+    def _detection_input(self, audio) -> np.ndarray:
+        """Language detection's input as the JAX package takes it: a file
+        path is decoded to f32 at the model's rate, an array is cast to f32
+        as it is (integer PCM is not scaled, channels are not mixed)."""
+        if isinstance(audio, (str, Path)):
+            return load_audio_f32(audio, self.sample_rate)
+        return np.asarray(audio, np.float32)
+
+    def detect_language(self, audio):
         """Whisper language ID on the first window: one decoder step after
         <|startoftranscript|>, argmax over the language tokens. Returns
         (language, {language: probability})."""
         window = np.zeros((1, self.chunk_samples), np.float32)
-        clip = self._prepare_audio(audio, None)[: self.chunk_samples]
+        clip = self._detection_input(audio)[: self.chunk_samples]
         window[0, : len(clip)] = clip
         tt = self.token_table
         logits = self._language_logits(window)[0]
@@ -266,13 +299,12 @@ class DecodeProgramsMixin:
         e = np.exp(lang_logits - lang_logits.max())
         return e / e.sum()
 
-    def detect_language_many(self, audios: Sequence[np.ndarray],
-                             return_probs: bool = False):
+    def detect_language_many(self, audios: Sequence, return_probs: bool = False):
         """Batched language ID: the requests' first windows share
         ``batch_size``-padded calls. ``return_probs``: also each detected
         language's probability (None for empty inputs, which get 'en')."""
         tt = self.token_table
-        prepared = [self._prepare_audio(a, None) for a in audios]
+        prepared = [self._detection_input(a) for a in audios]
         langs = ["en"] * len(prepared)
         probs: List[Optional[float]] = [None] * len(prepared)
         todo = [i for i, a in enumerate(prepared) if len(a)]

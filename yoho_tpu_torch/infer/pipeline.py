@@ -1,25 +1,32 @@
 """High-level transcription API (whisper family): audio in, timed
 segments out.
 
-The JAX package's ``infer/pipeline.py::Transcriber`` for array input: audio
-is cut into fixed 30 s windows, the windows of all requests are pooled and
-decoded ``batch_size`` at a time (log-mel kernel -> encoder -> cross-K/V ->
-greedy or beam decode with the logit rules), and segments are stitched
-back per request. The request options: beam search with a length
+The JAX package's ``infer/pipeline.py::Transcriber``: audio (an array or a
+file path, decoded and resampled on the host by ``audio/io.py``) is cut
+into fixed 30 s windows, the windows of all requests are pooled and decoded
+``batch_size`` at a time (log-mel kernel -> encoder -> cross-K/V -> greedy,
+speculative or beam decode with the logit rules), and segments are
+stitched back per request. The request options: beam search with a length
 penalty, language auto-detection, word timestamps and forced alignment,
-logit bias and hotwords, repetition rules, and previous-text conditioning
-(window by window). Options of the JAX class that this port does not have
-yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+logit bias and hotwords, repetition rules, previous-text conditioning
+(window by window), the host energy VAD (``vad_filter``) with its map
+back to the source timeline, the silence-hallucination filter, and
+speculative decoding with a draft model. Options of the JAX class that
+this port does not have yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from pathlib import Path
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from yoho_tpu_torch.audio.io import load_audio_f32, resample
+from yoho_tpu_torch.audio.vad import collapse_silence
 from yoho_tpu_torch.core.device import resolve_device
 from yoho_tpu_torch.infer.decode_programs import DecodeProgramsMixin
 from yoho_tpu_torch.infer.fallback import FallbackLadderMixin
@@ -50,11 +57,21 @@ _NO_OVERRIDES = ("per-request prompt/temperature overrides don't compose with "
 
 
 class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
-    """Audio arrays in, timed segments out (whisper family; greedy decode
-    with the temperature fallback ladder, or beam search).
+    """Audio arrays or files in, timed segments out (whisper family; greedy
+    decode with the temperature fallback ladder, speculative greedy decode
+    with a draft model, or beam search).
 
     ``device=None`` runs on CUDA and raises when CUDA is absent; the model
-    must already live on the resolved device."""
+    must already live on the resolved device.
+
+    ``draft_model``: a smaller port ``Whisper`` of the same vocabulary and
+    mel count on the same device. Greedy windows (temperature 0) then
+    decode speculatively (``infer/speculative.py``): the draft proposes
+    ``speculative_gamma`` tokens and the target verifies them in one step,
+    with the target's greedy tokens as the result. The draft's weights live
+    in its module, so the JAX class's ``draft_variables`` has no
+    counterpart here (``nn.params.load_jax_params`` carries a JAX draft
+    tree into it)."""
 
     def __init__(
         self,
@@ -86,15 +103,17 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         logit_bias=None,  # {token_id: delta} added to the decode logits
         hotwords: Optional[str] = None,  # comma-separated boosted phrases
         hotword_boost: float = 4.0,
+        vad_filter: bool = False,
+        vad_options=None,  # audio.vad.VadOptions
+        hallucination_silence_threshold: Optional[float] = None,
+        draft_model=None,
+        speculative_gamma: int = 4,
         device=None,
         **unported,
     ):
         if family != "whisper":
             _not_ported(f"family={family!r}", 12)
-        for name, item in (("vad_filter", 5), ("vad_options", 5),
-                           ("hallucination_silence_threshold", 5),
-                           ("draft_model", 9), ("draft_variables", 9),
-                           ("speculative_gamma", 9), ("mesh", 11),
+        for name, item in (("mesh", 11),
                            ("diarize_encoder", 12), ("diarize_variables", 12),
                            ("enrolled_speakers", 12),
                            ("speaker_threshold", 12)):
@@ -116,10 +135,28 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         if condition_on_previous_text and beams and beams > 1:
             raise ValueError("condition_on_previous_text currently supports "
                              "greedy (+temperature fallback) decoding only")
+        if (hallucination_silence_threshold is not None
+                and hallucination_silence_threshold <= 0):
+            raise ValueError("hallucination_silence_threshold must be > 0 "
+                             f"seconds, got {hallucination_silence_threshold}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, transcriber on "
                              f"{self.device}")
+        if draft_model is not None:
+            if beams and beams > 1:
+                raise ValueError("speculative decoding is greedy-only "
+                                 "(beams must be 0/1)")
+            if int(speculative_gamma) < 1:
+                raise ValueError(f"speculative_gamma must be >= 1, got "
+                                 f"{speculative_gamma}")
+            dc, tc = draft_model.cfg, model.cfg
+            if (dc.n_vocab, dc.n_mels) != (tc.n_vocab, tc.n_mels):
+                raise ValueError(f"draft vocab/mels {(dc.n_vocab, dc.n_mels)} "
+                                 f"!= target's {(tc.n_vocab, tc.n_mels)}")
+            if draft_model.device != self.device:
+                raise ValueError(f"draft model is on {draft_model.device}, "
+                                 f"transcriber on {self.device}")
         if token_table is None:
             raise ValueError("whisper family needs a WhisperTokenTable")
 
@@ -144,6 +181,14 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self.task = task
         self.timestamps = timestamps
         self.cache_dtype = cache_dtype
+        self.vad_filter = vad_filter
+        self.vad_options = vad_options
+        self.hallucination_silence_threshold = hallucination_silence_threshold
+        self.draft_model = draft_model
+        self.speculative_gamma = int(speculative_gamma)
+        # Counts of the speculative decodes (rounds, tokens committed per
+        # stream, host syncs), for measurement.
+        self.speculative_stats: dict = {}
 
         cfg = model.cfg
         self.sample_rate = cfg.sample_rate
@@ -164,8 +209,12 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         return fused_whisper_log_mel(audio, n_mels=self.model.cfg.n_mels)
 
     def _prepare_audio(self, audio, sample_rate: Optional[int]) -> np.ndarray:
-        if not isinstance(audio, np.ndarray):
-            _not_ported("audio file input", 5)
+        """A file path (decoded and resampled by ``audio/io.py``) or an
+        array (PCM scaled to [-1, 1], channels mixed down, resampled from
+        ``sample_rate``) -> mono f32 at the model's rate."""
+        if isinstance(audio, (str, Path)):
+            return load_audio_f32(audio, self.sample_rate)
+        audio = np.asarray(audio)
         if audio.dtype.kind in "iu":
             # Raw PCM: scale to [-1, 1] (soundfile convention).
             if audio.dtype not in (np.uint8, np.int16, np.int32):
@@ -186,13 +235,21 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
             raise ValueError(f"audio must be 1-D mono or 2-D multi-channel, "
                              f"got shape {audio.shape}")
         if sample_rate is not None and sample_rate != self.sample_rate:
-            _not_ported("resampling", 5)
+            audio = resample(audio, sample_rate, self.sample_rate)
         return audio
 
-    def transcribe(self, audio: np.ndarray, sample_rate: Optional[int] = None,
+    def _apply_vad(self, audio: np.ndarray, enabled: Optional[bool] = None):
+        """Collapse silence (``vad_filter`` on, or ``enabled`` for this
+        call); returns (audio, SpeechMap or None)."""
+        if not (self.vad_filter if enabled is None else enabled):
+            return audio, None
+        return collapse_silence(audio, self.sample_rate, self.vad_options)
+
+    def transcribe(self, audio: Union[str, Path, np.ndarray],
+                   sample_rate: Optional[int] = None,
                    language: Optional[str] = None, prompt: Optional[str] = None,
                    temperature: Optional[float] = None) -> TranscriptionResult:
-        """Transcribe one audio array of any length. ``language``,
+        """Transcribe one audio array or file of any length. ``language``,
         ``prompt`` and ``temperature`` override the configuration for this
         call (as ``transcribe_many``'s per-request lists do)."""
         if self.condition_on_previous_text:
@@ -205,7 +262,8 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
                                     temperatures=[temperature])[0]
 
     def _transcribe_sequential(self, audio: np.ndarray,
-                               language: Optional[str] = None
+                               language: Optional[str] = None,
+                               vad: Optional[bool] = None,
                                ) -> TranscriptionResult:
         """Window by window with previous-text conditioning.
 
@@ -216,7 +274,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         fallback rung above 0.5, so a degenerate window is not fed
         forward."""
         tt = self.token_table
-        if len(audio) == 0:
+        original_audio = audio
+        audio, vmap = self._apply_vad(audio, vad)
+        if len(audio) == 0:  # nothing left after the VAD
             return TranscriptionResult(text="", segments=[], language=self.language)
         lang = language or self.language
         lang_prob = None
@@ -255,42 +315,43 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
                             if t < tt.eot or tt.is_timestamp(int(t))]
                 history = history[-4 * ctx_budget:]  # only the tail is used
 
-        segments = stitch_segments(per_window, starts, self.sample_rate,
-                                   self.chunk_samples, self.stride_samples)
-        text = " ".join(s.text for s in segments if s.text).strip()
-        return TranscriptionResult(text=text, segments=segments, language=lang,
-                                   language_probability=lang_prob)
+        return self._finalize_request(per_window, starts, vmap, original_audio,
+                                      lang, lang_prob)
 
     def transcribe_many(
         self,
-        audios: Sequence[np.ndarray],
+        audios: Sequence[Union[str, Path, np.ndarray]],
         sample_rate: Optional[int] = None,
         languages: Optional[Sequence[Optional[str]]] = None,
+        vad: Optional[Sequence[Optional[bool]]] = None,
         prompts: Optional[Sequence[Optional[str]]] = None,
         temperatures: Optional[Sequence[Optional[float]]] = None,
     ) -> List[TranscriptionResult]:
-        """Transcribe several audio arrays through shared decode batches.
+        """Transcribe several audio arrays or files through shared decode
+        batches.
 
         All requests' 30 s windows are pooled per (prompt length,
         temperature) and decoded ``batch_size`` at a time. ``languages``,
-        ``prompts`` and ``temperatures`` are per-request overrides (one
-        entry per audio, ``None`` keeps the configuration; with
+        ``vad``, ``prompts`` and ``temperatures`` are per-request overrides
+        (one entry per audio, ``None`` keeps the configuration; with
         ``language=None`` the requests without an override are detected
-        in shared batches). With ``condition_on_previous_text`` each
-        request runs window by window instead."""
+        in shared batches; ``vad`` overrides ``vad_filter``). With
+        ``condition_on_previous_text`` each request runs window by window
+        instead."""
         n = len(audios)
-        for name, seq in (("languages", languages), ("prompts", prompts),
-                          ("temperatures", temperatures)):
+        for name, seq in (("languages", languages), ("vad", vad),
+                          ("prompts", prompts), ("temperatures", temperatures)):
             if seq is not None and len(seq) != n:
                 raise ValueError(f"{name} has {len(seq)} entries for {n} audios")
         overrides = list(languages) if languages is not None else [None] * n
+        vad_over = list(vad) if vad is not None else [None] * n
         if self.condition_on_previous_text:
             if any(p is not None for p in (prompts or [])) or \
                     any(t is not None for t in (temperatures or [])):
                 raise ValueError(_NO_OVERRIDES)
             return [self._transcribe_sequential(self._prepare_audio(a, sample_rate),
-                                                language=lg)
-                    for a, lg in zip(audios, overrides)]
+                                                language=lg, vad=v)
+                    for a, lg, v in zip(audios, overrides, vad_over)]
         req_prompts = list(prompts) if prompts is not None else [None] * n
         req_temps = list(temperatures) if temperatures is not None else [None] * n
         for t in req_temps:
@@ -301,7 +362,12 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
             raise ValueError(
                 f"per-request temperatures are greedy-only; this "
                 f"Transcriber runs beam search (beams={self.beams})")
-        prepared = [self._prepare_audio(a, sample_rate) for a in audios]
+        # The source timeline per request (the hallucination filter reads
+        # it); the VAD replaces ``prepared`` by the condensed audio.
+        originals = [self._prepare_audio(a, sample_rate) for a in audios]
+        pairs = [self._apply_vad(a, v) for a, v in zip(originals, vad_over)]
+        prepared = [p[0] for p in pairs]
+        vad_maps = [p[1] for p in pairs]
 
         req_lang_probs: List[Optional[float]] = [None] * n
         if self.language is None and any(o is None for o in overrides):
@@ -320,7 +386,7 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         win_entries: List[tuple] = []  # (window, prompt ids, temperature)
         for audio, lang, ptext, tover in zip(prepared, req_langs, req_prompts,
                                              req_temps):
-            if len(audio) == 0:
+            if len(audio) == 0:  # empty, or silent after the VAD
                 all_starts.append([])
                 continue
             w, s = chunk_audio(audio, self.chunk_samples, self.stride_samples)
@@ -361,19 +427,31 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
 
         results = []
         off = 0
-        for starts, lang, lang_prob in zip(all_starts, req_langs, req_lang_probs):
+        for i, starts in enumerate(all_starts):
             k = len(starts)
-            segments = stitch_segments(per_window[off: off + k], starts,
-                                       self.sample_rate, self.chunk_samples,
-                                       self.stride_samples)
-            text = " ".join(s.text for s in segments if s.text).strip()
-            results.append(TranscriptionResult(text=text, segments=segments,
-                                               language=lang,
-                                               language_probability=lang_prob))
+            results.append(self._finalize_request(
+                per_window[off: off + k], starts, vad_maps[i], originals[i],
+                req_langs[i], req_lang_probs[i]))
             off += k
         return results
 
-    def transcribe_batch(self, audios: Sequence[np.ndarray]
+    def _finalize_request(self, per_window: List[List[Segment]],
+                          starts: Sequence[int], vmap, original_audio,
+                          language: Optional[str],
+                          language_probability: Optional[float] = None,
+                          ) -> TranscriptionResult:
+        """One request's decoded windows -> TranscriptionResult: stitch,
+        map VAD-condensed times back to the source, drop silence
+        hallucinations, join the text."""
+        segments = stitch_segments(per_window, list(starts), self.sample_rate,
+                                   self.chunk_samples, self.stride_samples)
+        segments = self._remap_segments(segments, vmap)
+        segments = self._drop_silence_hallucinations(segments, original_audio)
+        text = " ".join(s.text for s in segments if s.text).strip()
+        return TranscriptionResult(text=text, segments=segments, language=language,
+                                   language_probability=language_probability)
+
+    def transcribe_batch(self, audios: Sequence[Union[str, Path, np.ndarray]]
                          ) -> List[TranscriptionResult]:
         """Independent clips through shared padded batches
         (:meth:`transcribe_many`)."""

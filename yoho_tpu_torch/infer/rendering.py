@@ -3,8 +3,10 @@ timestamped segments, text, word timings and forced alignment.
 
 The whisper half of the JAX package's ``infer/rendering.py``: segment
 parsing, word timestamps by DTW over the teacher-forced cross-attention
-map (``_attach_words``), and forced alignment of a known transcript
-(``align``, ``align_many``) on audio arrays.
+map (``_attach_words``), forced alignment of a known transcript
+(``align``, ``align_many``), the map of VAD-condensed times back to the
+source audio (``_remap_segments``) and the silence-hallucination filter
+(``_drop_silence_hallucinations``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from yoho_tpu_torch.audio.vad import detect_speech
 from yoho_tpu_torch.infer.longform import Segment
 from yoho_tpu_torch.infer.word_timestamps import (
     WordTiming,
@@ -88,10 +91,10 @@ class RenderingMixin:
                                 timestamps=False),
                 [int(t) for t in tt.encode_text(" " + text.strip())])
 
-    def align(self, audio: np.ndarray, text: str,
+    def align(self, audio, text: str,
               sample_rate: Optional[int] = None) -> List[WordTiming]:
         """Forced alignment: word timings for a known transcript of one
-        window of audio (30 s for whisper). Teacher-forces the text through
+        window of audio (30 s for whisper; an array or a file path). Teacher-forces the text through
         the decoder and runs the word-timestamp DTW on its cross-attention
         map."""
         return self._align_pairs([(audio, text)], sample_rate, 1)[0]
@@ -193,3 +196,63 @@ class RenderingMixin:
                     "but populated .tokens). Pass token_table.text_backend.",
                     stacklevel=2)
             return ""
+
+    def _drop_silence_hallucinations(self, segments: List[Segment],
+                                     audio) -> List[Segment]:
+        """faster-whisper's ``hallucination_silence_threshold`` as a
+        post-pass: drop a segment whose audio span is essentially
+        speech-free (<10% speech by the energy VAD) AND sits inside a
+        silence run at least ``threshold`` seconds long. Windows decode in
+        parallel batches, so the filter runs on the stitched result instead
+        of steering the decoder. Runs on the source timeline (after the VAD
+        remap), so it composes with ``vad_filter``."""
+        thr = self.hallucination_silence_threshold
+        if thr is None or not segments or audio is None:
+            return segments
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim != 1 or len(audio) == 0:
+            return segments
+        sr = self.sample_rate
+        spans = detect_speech(audio, sr, self.vad_options)
+
+        def speech_seconds(a: int, b: int) -> float:
+            return sum(max(0, min(e, b) - max(s, a)) for s, e in spans) / sr
+
+        def silence_run(a: int, b: int) -> float:
+            """Length of the speech-free run containing the segment
+            midpoint (0 when speech covers it)."""
+            mid = (a + b) // 2
+            lo, hi = 0, len(audio)
+            for s, e in spans:
+                if e <= mid:
+                    lo = max(lo, e)
+                elif s >= mid:
+                    hi = min(hi, s)
+                else:
+                    return 0.0
+            return (hi - lo) / sr
+
+        kept = []
+        for seg in segments:
+            a = int(seg.start * sr)
+            b = max(int(seg.end * sr), a + 1)
+            dur = (b - a) / sr
+            if (speech_seconds(a, b) < 0.1 * dur
+                    and silence_run(a, b) >= thr):
+                continue
+            kept.append(seg)
+        return kept
+
+    @staticmethod
+    def _remap_segments(segments: List[Segment], vmap) -> List[Segment]:
+        """Map condensed-timeline times (``vad_filter``) back to the source
+        audio."""
+        if vmap is None:
+            return segments
+        for seg in segments:
+            seg.start = vmap.to_original(seg.start)
+            seg.end = vmap.to_original(seg.end, end=True)
+            for w in seg.words or []:
+                w.start = vmap.to_original(w.start)
+                w.end = vmap.to_original(w.end, end=True)
+        return segments
