@@ -33,8 +33,11 @@ Phases, one output line each (JSON after the phase name):
    prompt's prefill (7 launches of 32 queries) on the cache and on the
    cross K/V, the folded beam prefill of that prompt (35 launches), the
    unpadded bf16 cross read of language detection, speculative decoding's
-   5-query verify read, causal on the cache at pos 200 and 447, and the
-   draft's 2-query reads at 6 heads on its cache and cross K/V.
+   5-query verify read, causal on the cache at pos 200 and 447, the
+   draft's 2-query reads at 6 heads on its cache and cross K/V, and
+   continuous batching's reads of the cache with one position per row (16
+   rows spread from 0 to 447, all at 200, all at 0, and the 5-query verify
+   read at spread positions), whose bound counts each row's valid prefix.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -95,10 +98,34 @@ Phases, one output line each (JSON after the phase name):
    prints per draft the wall, audio-s/s, rounds, tokens committed per
    round, host syncs, the rows that diverge and the decode launches by
    shape; ``phase-wall`` lines give each of the two phases' seconds.
-9. ``kernels``: one JSON object with every kernel's numbers; launches are
+9. ``e2e-serve``: whisper-small (random bf16 weights, int8 cross-K/V and
+   cache, timestamps, 16 slots, ``chunk_tokens`` 16) served continuously.
+   (a) ``SlotEngine`` with a fixed schedule: the 5 windows of the three
+   requests in four waves, admitted before chunks 0, 2, 5 and 9 (20
+   windows for 16 slots); (b) ``serve(transcriber, port=0, continuous=
+   True)`` after ``warmup``, with the three requests to ``POST
+   /transcribe``, the 30 s request to ``/v1/audio/transcriptions`` as
+   verbose_json and srt, and a ``/stream`` WebSocket session of the 75 s
+   request in 1 s frames, all at once, then the same with
+   ``continuous=False`` (the micro-batcher); (c) the speculative slots,
+   gamma 4 with the target as its own draft, the 5 windows admitted one
+   per chunk. Checks: every decoded window equals greedy's (the ``e2e``
+   configuration, one batch of every distinct window) up to its first
+   difference, where greedy's top-2 margin is at most 4 bf16 ulps; a hook
+   on the decode kernel's launch sees every causal read inside a chunk at
+   per-row positions (16 rows; S = 5 verify reads in (c)) and none at a
+   scalar one; each chunk runs under PyTorch's sync debug mode set to
+   raise (no host sync inside a chunk) and each ``reap`` makes one;
+   ``/statz`` and ``/metrics`` count the requests, the responses hold
+   ``transcribe_many``'s segments where no window left greedy, and
+   ``drain`` returns. It prints per part the wall and audio-s/s, the
+   chunks, host syncs and slot occupancy per chunk, the requests served
+   and the decode launches by (rows, queries, per-row, scalar or no
+   position); a ``phase-wall`` line gives the phase's seconds.
+10. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
-   ``e2e-files``' first call and every ``e2e-spec`` run.
-10. The last line: ``{"ok": true, "device": {...}}``.
+   ``e2e-files``' first call and every ``e2e-spec`` and ``e2e-serve`` run.
+11. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -382,29 +409,37 @@ def kernel_checks(card: str) -> dict:
         return (torch.randn((16, heads, s, 64), generator=gen, device=dev) * 0.35
                 ).to(torch.bfloat16)
 
-    def case(label, qq, k_, v_, ks, vs, pos, packing, kv_len=None, main=False, library=None):
+    def case(label, qq, k_, v_, ks, vs, pos, packing, kv_len=None, main=False, library=None,
+             **extra):
+        """One decode read against its plain version; ``pos`` None, an int,
+        or a list (one position per row: continuous batching's per-row
+        causal read, passed as an int32 tensor on the card)."""
+        b_, h_, s_ = qq.shape[:3]
+        rows = [pos] * b_ if pos is None or isinstance(pos, int) else list(pos)
+        if not (pos is None or isinstance(pos, int)):
+            pos = torch.tensor(rows, dtype=torch.int32, device=dev)
         args = (qq, k_, v_, ks, vs, pos, kv_len, 1, packing)
         before = da.KERNEL.launches
         got = da.fused_decode_attention(*args)
         launches = da.KERNEL.launches - before
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"decode {label}: non-finite output")
         err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
                           0.05, 0.02)
-        # The positions this call needs: those below kv_len and pos + S; a
-        # causal query i reads the keys up to pos + i.
-        b_, h_, s_ = qq.shape[:3]
-        t_read = k_.shape[3] if kv_len is None else kv_len
-        keys = s_ * t_read
-        if pos is not None:
-            keys = sum(min(t_read, pos + i + 1) for i in range(s_))
-            t_read = min(t_read, pos + s_)
-        per_pos = k_.shape[0] * k_.shape[1] * k_.shape[2] * k_.element_size() * 2
-        nbytes = per_pos * t_read + (ks is not None) * 2 * b_ * h_ * t_read * 2 \
-            + 2 * qq.numel() * 2
-        flops = 4 * b_ * h_ * keys * 64
+        # The positions this call needs, row by row: those below kv_len and
+        # the row's pos + S; a causal query i reads the keys up to pos + i.
+        t_all = k_.shape[3] if kv_len is None else kv_len
+        t_rows = [t_all if p is None else min(t_all, p + s_) for p in rows]
+        keys = sum(s_ * t_all if p is None else sum(min(t_all, p + i + 1) for i in range(s_))
+                   for p in rows)
+        per_pos = k_.shape[1] * k_.shape[2] * k_.element_size() * 2  # K and V of a row
+        nbytes = (per_pos + (ks is not None) * 2 * h_ * 2) * sum(t_rows) \
+            + 2 * qq.numel() * 2 + (0 if isinstance(pos, (int, type(None))) else 4 * b_)
+        flops = 4 * h_ * keys * 64
         record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
                nbytes, {"bf16": flops}, library() if library else None,
-               "rtol 0.05, atol 0.02", main=main, launches_per_call=launches)
+               "rtol 0.05, atol 0.02", main=main, launches_per_call=launches, **extra)
 
     cross = quantize_kv(*kv(1500), pad_to=128)
     case("cross int8 S=1 (T 1536, kv_len 1500)", q_of(1), cross.k_q, cross.v_q,
@@ -447,6 +482,18 @@ def kernel_checks(card: str) -> dict:
     for pos in (200, 447):
         case(f"self int8 verify S=5 causal pos={pos} (T 512)", q_of(5), self_kv.k_q,
              self_kv.v_q, self_kv.k_scale, self_kv.v_scale, pos, 1)
+    # Continuous batching (phase e2e-serve): the slots' causal reads of the
+    # int8 cache with one position per row: spread from 0 to 447, every row
+    # at 200 (beside the scalar read at 200 above), every row at 0 (most
+    # blocks of each cluster read nothing and combine as empty states), and
+    # the speculative slots' 5-query verify read at spread positions.
+    spread = [round(447 * i / 15) for i in range(16)]
+    for label, s_, rows in (("S=1 rows spread 0..447", 1, spread),
+                            ("S=1 every row at 200", 1, [200] * 16),
+                            ("verify S=5 rows spread 0..442", 5, [min(p, 442) for p in spread]),
+                            ("S=1 every row at 0", 1, [0] * 16)):
+        case(f"self int8 per-row pos {label} (T 512)", q_of(s_), self_kv.k_q, self_kv.v_q,
+             self_kv.k_scale, self_kv.v_scale, rows, 1, per_row_pos=rows)
     draft_self = quantize_kv(*kv(512, heads=6))
     case("draft self int8 S=2 causal pos=199, 6 heads (T 512)", q_of(2, heads=6),
          draft_self.k_q, draft_self.v_q, draft_self.k_scale, draft_self.v_scale, 199, 1)
@@ -992,6 +1039,46 @@ def e2e_files(card: str, kernels) -> dict:
     return launches
 
 
+def _window_key(window) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(window, np.float32).tobytes()).hexdigest()
+
+
+def _tie_check(phase: str, label: str, rows, ref) -> dict:
+    """Each decoded row's tokens equal the greedy reference row of the
+    same window up to their first difference, and differ there only inside
+    a tie: a top-2 margin of greedy's processed logits of at most 4 bf16
+    ulps of the larger logit. ``rows``: [(key, tokens)]; ``ref``: {key:
+    (greedy tokens, greedy top-2 per position)}, the key a window's hash or
+    a row index. Returns the rows checked, those that diverged and the
+    largest margin there, in ulps."""
+    import numpy as np
+
+    diverged, worst = 0, 0.0
+    for key, tok in rows:
+        if key not in ref:
+            raise AssertionError(f"{phase} ({label}): a decoded row has no reference row")
+        g_tok, g_top2 = ref[key]
+        n = min(len(tok), len(g_tok))
+        diff = np.flatnonzero(np.asarray(tok[:n]) != np.asarray(g_tok[:n]))
+        if len(diff) == 0:
+            continue
+        diverged += 1
+        i = int(diff[0])
+        first, second = (float(x) for x in g_top2[i])
+        ulp = 2.0 ** (np.floor(np.log2(abs(first))) - 7)  # bf16: 8 significant bits
+        worst = max(worst, (first - second) / ulp)
+        if first - second > 4 * ulp:
+            raise AssertionError(f"{phase} ({label}): row {key} leaves greedy at {i} with a "
+                                 f"top-2 margin of {first - second} "
+                                 f"({(first - second) / ulp} bf16 ulps of {first})")
+    return dict(rows_checked=len(rows), rows_diverging=diverged,
+                largest_margin_at_divergence_bf16_ulps=worst)
+
+
 def e2e_spec(card: str, kernels) -> dict:
     """Phase e2e-spec: whisper-small decoding speculatively with two drafts
     (whisper-tiny with random weights: low acceptance; the target itself:
@@ -1142,28 +1229,16 @@ def e2e_spec(card: str, kernels) -> dict:
             raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, "
                                  f"w8a8 {launches[W8A8.name]}, stats {stats}")
         # Each row equals greedy up to its first difference, and differs
-        # there only inside a tie: a top-2 margin of greedy's processed
-        # logits of at most 4 bf16 ulps of the larger logit.
-        diverged, worst = 0, 0.0
-        for j, ((tok, _n), (g_tok, _g)) in enumerate(zip(rows, g_rows)):
-            diff = np.flatnonzero(tok != g_tok)
-            if len(diff) == 0:
-                continue
-            diverged += 1
-            i = int(diff[0])
-            first, second = (float(x) for x in g_top2[j, i])
-            ulp = 2.0 ** (np.floor(np.log2(abs(first))) - 7)  # bf16: 8 significant bits
-            worst = max(worst, (first - second) / ulp)
-            if first - second > 4 * ulp:
-                raise AssertionError(f"{phase} ({label}): row {j} leaves greedy at {i} "
-                                     f"with a top-2 margin of {first - second} "
-                                     f"({(first - second) / ulp} bf16 ulps of {first})")
+        # there only inside a tie.
+        ties = _tie_check(phase, label, [(j, tok) for j, (tok, _n) in enumerate(rows)],
+                          {j: (g_tok, g_top2[j]) for j, (g_tok, _g) in enumerate(g_rows)})
         for name, n in launches.items():
             total[name] += n
         out[label] = dict(
             wall_s=wall, audio_s_per_s=seconds / wall, rounds=rounds,
             committed_per_round=stats["committed"] / rounds, host_syncs=stats["syncs"],
-            rows_diverging=diverged, largest_margin_at_divergence_bf16_ulps=worst,
+            rows_diverging=ties["rows_diverging"],
+            largest_margin_at_divergence_bf16_ulps=ties["largest_margin_at_divergence_bf16_ulps"],
             decode_launches_by_shape={f"B{k[0]} H{k[1]} S{k[2]} T{k[3]}"
                                       f"{' causal' if k[4] else ''}": n
                                       for k, n in sorted(seen.items())},
@@ -1173,6 +1248,455 @@ def e2e_spec(card: str, kernels) -> dict:
     emit(phase, model="whisper-small", gamma=gamma, batch=BATCH, windows=windows,
          greedy=dict(wall_s=g_wall, audio_s_per_s=seconds / g_wall), drafts=out, card=card)
     return total
+
+
+def e2e_serve(card: str, kernels) -> dict:
+    """Phase e2e-serve: whisper-small served continuously. (a) the slot
+    engine with a fixed admission schedule; (b) the HTTP servers, slot
+    engine and micro-batcher, with concurrent clients; (c) the speculative
+    slots. Returns the launches of the three parts' measured runs (the
+    greedy reference and the servers' warmups not counted)."""
+    import io
+    import socket
+    import struct
+    import threading
+    import urllib.request
+    import warnings
+    import wave
+    from collections import Counter, defaultdict
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.cli.serve import drain, serve, warmup
+    from yoho_tpu_torch.cli.serve_openai import _decode_wav_bytes
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.infer.slot_engine import SlotEngine, _Window
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.srt import compose_srt, segments_to_subtitles
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+    from yoho_tpu_torch.utils import websocket as ws
+
+    phase, chunk_tokens, sr = "e2e-serve", 16, 16000
+    cfg = WHISPER_PRESETS["small"]
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    serving = dict(token_table=table, batch_size=BATCH, quantized_cross_kv="int8",
+                   quantized_cache=True, cache_dtype=torch.bfloat16)
+    audios = _requests()
+    seconds = [len(a) / sr for a in audios]
+
+    # The kernels' launches: set to 0 just before each part's measured run
+    # and summed just after it.
+    total = Counter()
+
+    def zero_launches():
+        for k in kernels:
+            k.launches = 0
+
+    def take_launches(label):
+        got = {k.name: k.launches for k in kernels}
+        idle = [name for name, n in got.items() if n == 0 and name != W8A8.name]
+        if idle or got[W8A8.name]:
+            raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, "
+                                 f"w8a8 {got[W8A8.name]}")
+        total.update(got)
+        return got
+
+    # Every decode-attention launch: whether it ran inside a chunk, its
+    # rows, its queries, and its causal position (per-row, scalar, or none:
+    # a cross read).
+    shapes: Counter = Counter()
+    in_chunk = [False]
+    launch = da.KERNEL.launch
+
+    def recording_launch(*args):
+        shapes[(in_chunk[0], args[8], args[11], "per-row pos" if args[17] is not None
+                else "scalar pos" if args[15] else "no pos")] += 1
+        launch(*args)
+
+    def by_shape():
+        return {f"{'chunk' if k[0] else 'outside chunks'} B{k[1]} S{k[2]} {k[3]}": n
+                for k, n in sorted(shapes.items())}
+
+    def chunk_hook(engine):
+        """Runs each chunk of ``engine`` with the launch flag set and with
+        PyTorch's sync debug mode raising on any host sync."""
+        chunk = engine._chunk
+
+        def checked(state):
+            in_chunk[0] = True
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                chunk(state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                in_chunk[0] = False
+
+        engine._chunk = checked
+
+    def reap_syncs(engine):
+        """Counts the host syncs PyTorch sees in each reap of ``engine``
+        (sync debug mode "warn"); returns the running count."""
+        reap, seen = engine.reap, [0]
+
+        def counted():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    got = reap()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            seen[0] += sum("called a synchronizing CUDA operation" in str(w.message)
+                           for w in caught)
+            return got
+
+        engine.reap = counted
+        return seen
+
+    def capture_rows(tr, rows):
+        """Records (window key, tokens) of every window ``tr`` decodes in a
+        batch (the padding rows of a short batch left out)."""
+        features, decode = tr._features, tr._decode_with_fallback
+        last = []
+
+        def capturing_features(wins):
+            last[:] = [np.asarray(wins, np.float32)]
+            return features(wins)
+
+        def capturing_decode(b, mel, prompt=None, **kw):
+            res = decode(b, mel, prompt, **kw)
+            rows.extend((_window_key(w), t) for w, t in zip(last[0], res[0]) if w.any())
+            return res
+
+        tr._features, tr._decode_with_fallback = capturing_features, capturing_decode
+
+    # The greedy reference (the e2e configuration): every distinct window
+    # the phase decodes in one batch of 16, with greedy's top-2 processed
+    # logits at each position (the margin a row may flip inside).
+    wav_30 = io.BytesIO()
+    with wave.open(wav_30, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(np.clip(np.round(audios[1] * 32767), -32768, 32767)
+                      .astype(np.int16).tobytes())
+    wav_30 = wav_30.getvalue()
+    greedy = Transcriber(model, **serving)
+    windows = [w for a in audios for w in chunk_audio(a, greedy.chunk_samples,
+                                                      greedy.stride_samples)[0]]
+    ref_windows = windows + list(chunk_audio(_decode_wav_bytes(wav_30, sr),
+                                             greedy.chunk_samples, greedy.stride_samples)[0])
+    top2 = torch.zeros((BATCH, cfg.n_text_ctx, 2), device=model.device)
+    build = greedy._logits_fn
+
+    def recording_rules(prompt_len):
+        rules = build(prompt_len)
+
+        def fn(logits, tokens, pos):
+            out = rules(logits, tokens, pos)
+            top2[:, pos] = torch.topk(out, 2, dim=-1).values
+            return out
+
+        return fn
+
+    greedy._logits_fn = recording_rules
+    batch = np.zeros((BATCH, greedy.chunk_samples), np.float32)
+    for j, w in enumerate(ref_windows):
+        batch[j, :len(w)] = w
+    g_tokens, g_lengths, _aux = greedy._decode_with_fallback(BATCH, greedy._features(batch))
+    g_top2 = top2.cpu().numpy()
+    ref = {_window_key(batch[j]): (g_tokens[j], g_top2[j]) for j in range(len(ref_windows))}
+    prompt = np.asarray(greedy._prompt_ids(), np.int64)
+    out = {}
+    da.KERNEL.launch = recording_launch
+    try:
+        # (a) The engine: the 5 windows of the three requests in four waves,
+        # admitted before chunks 0, 2, 5 and 9 (20 windows for 16 slots: the
+        # last wave waits for freed slots).
+        tr = Transcriber(model, **serving)
+        engine = SlotEngine(tr, slots=BATCH, chunk_tokens=chunk_tokens)
+        chunk_hook(engine)
+        syncs = reap_syncs(engine)
+        shapes.clear()
+        waves, queue, done, chunk = (0, 2, 5, 9), [], [], 0
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        while queue or engine.busy or chunk <= waves[-1]:
+            if chunk in waves:
+                queue += [_Window(w, prompt) for w in windows]
+            if queue and engine.free_slots:
+                del queue[:engine.admit_many(queue)]
+                done += engine.reap()
+            if engine.busy:
+                done += engine.step()
+            chunk += 1
+        wall = time.perf_counter() - t0
+        launches = take_launches("a")
+        stats = dict(engine.stats)
+        if len(done) != len(waves) * len(windows) or syncs[0] != stats["reaps"]:
+            raise AssertionError(f"{phase} (a): {len(done)} windows reaped, {syncs[0]} "
+                                 f"host syncs seen in reaps, stats {stats}")
+        inside = {k: n for k, n in shapes.items() if k[0]}
+        per_kind = stats["chunks"] * chunk_tokens * cfg.n_text_layer
+        want = {(True, BATCH, 1, "per-row pos"): per_kind, (True, BATCH, 1, "no pos"): per_kind}
+        if inside != want:
+            raise AssertionError(f"{phase} (a): decode launches inside chunks {inside}, "
+                                 f"expected {want}")
+        ties = _tie_check(phase, "engine", [(_window_key(np.pad(w.window, (
+            0, greedy.chunk_samples - len(w.window)))), w.tokens) for w in done], ref)
+        out["engine"] = dict(
+            wall_s=wall, audio_s_per_s=len(waves) * sum(seconds) / wall,
+            windows=len(done), chunks=stats["chunks"], host_syncs_in_chunks=0,
+            host_syncs_in_reaps=syncs[0], reaps=stats["reaps"],
+            slot_occupancy_per_chunk=stats["occupied_slot_chunks"] / stats["chunks"],
+            decode_launches=by_shape(), launches=launches, **ties)
+
+        # (b) The servers: the three requests to /transcribe, the 30 s
+        # request to the OpenAI endpoint as verbose_json and srt (a WAV
+        # upload), and a /stream session of the 75 s request in 1 s frames,
+        # all at once; first through the slot engine, then the micro-batcher.
+        def post(url, path, body, ctype):
+            req = urllib.request.Request(url + path, data=body, headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.read()
+
+        def openai(url, fmt):
+            bnd = "smokeboundary"
+            body = (f"--{bnd}\r\nContent-Disposition: form-data; name=\"file\"; "
+                    f"filename=\"a.wav\"\r\n\r\n").encode() + wav_30 + (
+                f"\r\n--{bnd}\r\nContent-Disposition: form-data; name=\"response_format\""
+                f"\r\n\r\n{fmt}\r\n--{bnd}--\r\n").encode()
+            return post(url, "/v1/audio/transcriptions", body,
+                        f"multipart/form-data; boundary={bnd}")
+
+        def stream(url, audio):
+            host, port = url.replace("http://", "").split(":")
+            s = socket.create_connection((host, int(port)), timeout=600)
+            s.sendall(("GET /stream HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+                       "Connection: Upgrade\r\nSec-WebSocket-Key: AAAAAAAAAAAAAAAAAAAAAA==\r\n"
+                       "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+            resp = b""
+            while b"\r\n\r\n" not in resp:
+                resp += s.recv(4096)
+            mask = b"\x01\x02\x03\x04"
+
+            def send(payload, opcode):
+                n = len(payload)
+                hdr = (bytes([0x80 | opcode, 0x80 | n]) if n < 126 else
+                       bytes([0x80 | opcode, 0xFE]) + struct.pack(">H", n) if n < 65536 else
+                       bytes([0x80 | opcode, 0xFF]) + struct.pack(">Q", n))
+                m = np.frombuffer(mask * (n // 4 + 1), np.uint8)[:n]
+                s.sendall(hdr + mask + (np.frombuffer(payload, np.uint8) ^ m).tobytes())
+
+            finals = []
+            try:
+                for i in range(0, len(audio), sr):
+                    send(audio[i:i + sr].astype("<f4").tobytes(), ws.OP_BINARY)
+                send(b'{"op": "end"}', ws.OP_TEXT)
+                rfile, wfile = s.makefile("rb"), s.makefile("wb")
+                while True:
+                    msg = ws.read_message(rfile, wfile)
+                    if msg is None:
+                        raise AssertionError(f"{phase}: /stream closed before its final message")
+                    body = json.loads(msg[1])
+                    if "error" in body:
+                        raise AssertionError(f"{phase}: /stream error {body['error']}")
+                    if not body.get("partial"):
+                        finals += body["segments"]
+                    if body.get("final"):
+                        return finals
+            finally:
+                s.close()
+
+        def keys_of(audio):
+            return [_window_key(np.pad(w, (0, greedy.chunk_samples - len(w))))
+                    for w in chunk_audio(audio, greedy.chunk_samples, greedy.stride_samples)[0]]
+
+        def same(a, b):
+            n = min(len(a), len(b))
+            return np.array_equal(np.asarray(a[:n]), np.asarray(b[:n]))
+
+        # transcribe_many's responses, with the tokens of every window it
+        # decoded: a response is held against them where each of its
+        # windows decoded to the same tokens on the server.
+        exp_rows = []
+        capture_rows(greedy, exp_rows)
+        expected = greedy.transcribe_many(audios)
+        audio_30 = _decode_wav_bytes(wav_30, sr)
+        expected_30 = greedy.transcribe_many([audio_30])[0]
+        exp_rows = dict(exp_rows)
+        srt_30 = compose_srt(segments_to_subtitles(expected_30.segments))
+        n_requests = 3 + 2 + len(chunk_audio(audios[2], greedy.chunk_samples,
+                                            greedy.stride_samples)[0])
+        for continuous in (True, False):
+            label = "servers, slot engine" if continuous else "servers, micro-batcher"
+            tr = Transcriber(model, **serving)
+            rows = []
+            if continuous:
+                server = serve(tr, port=0, continuous=True, chunk_tokens=chunk_tokens)
+                engine = server.batcher.engine
+                chunk_hook(engine)
+                reap = engine.reap
+
+                def capturing_reap(reap=reap):
+                    got = reap()
+                    rows.extend((_window_key(np.pad(w.window, (0, tr.chunk_samples
+                                                                - len(w.window)))), w.tokens)
+                                for w in got)
+                    return got
+
+                engine.reap = capturing_reap
+            else:
+                server = serve(tr, port=0, continuous=False)
+                capture_rows(tr, rows)
+            warmup(server)
+            rows.clear()
+            base = dict(engine.stats) if continuous else {}  # the warmup's chunks left out
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            shapes.clear()
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(6) as pool:
+                futs = [pool.submit(post, url, "/transcribe", a.astype("<f4").tobytes(),
+                                    "application/octet-stream") for a in audios]
+                futs += [pool.submit(openai, url, f) for f in ("verbose_json", "srt")]
+                futs.append(pool.submit(stream, url, audios[2]))
+                results = [f.result(timeout=900) for f in futs]
+            wall = time.perf_counter() - t0
+            launches = take_launches(label)
+            with urllib.request.urlopen(url + "/statz") as r:
+                statz = json.load(r)
+            with urllib.request.urlopen(url + "/metrics") as r:
+                metrics = r.read().decode()
+            t_drain = time.perf_counter()
+            drain(server, timeout_s=30)
+            t_drain = time.perf_counter() - t_drain
+            if statz["requests_served"] != n_requests or \
+                    f"yoho_requests_served_total {n_requests}" not in metrics:
+                raise AssertionError(f"{phase} ({label}): /statz {statz}, {n_requests} "
+                                     "requests expected")
+            ties = _tie_check(phase, label, rows, ref)
+            # Each response whose windows all decoded here to transcribe_many's
+            # tokens holds transcribe_many's result: the text and each
+            # segment's times and text (/transcribe), times, text and tokens
+            # (verbose_json, /stream), the same srt. A response with a window
+            # that left transcribe_many's tokens (inside a tie, as checked
+            # above) is named on a line of its own.
+            served = defaultdict(list)
+            for key, tok in rows:
+                served[key].append(tok)
+
+            def timed(segs):  # /transcribe: times and text
+                return [(s_["start"], s_["end"], s_["text"]) for s_ in segs]
+
+            def toks(segs):  # /stream: its own window plan, so text and tokens
+                return [(s_["text"], s_["tokens"]) for s_ in segs]
+
+            def want_timed(r, with_tokens=False):
+                return [(s_.start, s_.end, s_.text)
+                        + ((list(map(int, s_.tokens)),) if with_tokens else ())
+                        for s_ in r.segments]
+
+            bodies = [json.loads(r) for r in results[:4]]
+            verbose = bodies[3]
+            responses = [(f"/transcribe {int(seconds[i])} s", audios[i],
+                          (bodies[i]["text"], timed(bodies[i]["segments"])),
+                          (expected[i].text, want_timed(expected[i]))) for i in range(3)]
+            responses += [
+                ("verbose_json 30 s", audio_30,
+                 (verbose["text"], [(s_["start"], s_["end"], s_["text"], s_["tokens"])
+                                    for s_ in verbose["segments"]]),
+                 (expected_30.text, want_timed(expected_30, True))),
+                ("srt 30 s", audio_30, results[4].decode(), srt_30),
+                ("/stream 75 s", audios[2], toks(results[5]),
+                 [(s_.text, list(map(int, s_.tokens))) for s_ in expected[2].segments])]
+            checked, skipped = [], []
+            for name, audio, got, want in responses:
+                keys = keys_of(audio)
+                if any(key not in served or key not in exp_rows for key in keys):
+                    raise AssertionError(f"{phase} ({label}): {name}: a window of the "
+                                         "request was not decoded")
+                if not all(same(t, exp_rows[key]) for key in keys for t in served[key]):
+                    skipped.append(name)
+                    emit("response-check-skipped", path=phase, part=label, response=name,
+                         reason="a window decoded to other tokens than transcribe_many's "
+                                "(inside a tie)")
+                    continue
+                if got != want:
+                    raise AssertionError(f"{phase} ({label}): {name} differs from "
+                                         f"transcribe_many's: {got!r} against {want!r}")
+                checked.append(name)
+            inside = sorted(k for k in shapes if k[0] and k[3] != "no pos")
+            if continuous and (not inside or any(k[3] != "per-row pos" for k in inside)):
+                raise AssertionError(f"{phase} ({label}): causal reads in chunks {inside}")
+            out[label] = dict(wall_s=wall, audio_s_per_s=(sum(seconds) + 30 * 2 + seconds[2])
+                              / wall, requests_served=statz["requests_served"],
+                              drain_s=t_drain, statz=statz, **ties,
+                              responses_checked=checked, responses_skipped=skipped,
+                              **({"chunks": engine.stats["chunks"] - base["chunks"],
+                                  "reaps": engine.stats["reaps"] - base["reaps"],
+                                  "slot_occupancy_per_chunk":
+                                      (engine.stats["occupied_slot_chunks"]
+                                       - base["occupied_slot_chunks"])
+                                      / max(engine.stats["chunks"] - base["chunks"], 1)}
+                                 if continuous else {}),
+                              decode_launches=by_shape(), launches=launches)
+
+        # (c) The speculative slots: gamma 4 with the target as its own
+        # draft, the 5 windows admitted one per chunk.
+        gamma = SPEC_GAMMA
+        tr = Transcriber(model, draft_model=model, speculative_gamma=gamma, **serving)
+        engine = SlotEngine(tr, slots=BATCH, chunk_tokens=chunk_tokens)
+        chunk_hook(engine)
+        syncs = reap_syncs(engine)
+        shapes.clear()
+        queue, done = [_Window(w, prompt) for w in windows], []
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        while queue or engine.busy:
+            if queue and engine.free_slots:
+                del queue[:engine.admit_many(queue[:1])]
+                done += engine.reap()
+            if engine.busy:
+                done += engine.step()
+        wall = time.perf_counter() - t0
+        launches = take_launches("c")
+        stats = dict(engine.stats)
+        rounds = stats["chunks"] * max(1, chunk_tokens // (gamma + 1))
+        verify = shapes.get((True, BATCH, gamma + 1, "per-row pos"), 0)
+        inside_scalar = [k for k in shapes if k[0] and k[3] == "scalar pos"]
+        if verify != rounds * cfg.n_text_layer or inside_scalar or len(done) != len(windows) \
+                or syncs[0] != stats["reaps"]:
+            raise AssertionError(f"{phase} (c): verify reads {verify}, {rounds} rounds, "
+                                 f"scalar causal reads in chunks {inside_scalar}, "
+                                 f"{len(done)} windows, {syncs[0]} host syncs seen in "
+                                 f"{stats['reaps']} reaps")
+        ties = _tie_check(phase, "speculative slots", [(_window_key(np.pad(w.window, (
+            0, tr.chunk_samples - len(w.window)))), w.tokens) for w in done], ref)
+        out["speculative slots"] = dict(
+            gamma=gamma, wall_s=wall, audio_s_per_s=sum(seconds) / wall, rounds=rounds,
+            chunks=stats["chunks"], host_syncs_in_chunks=0, host_syncs_in_reaps=syncs[0],
+            reaps=stats["reaps"],
+            slot_occupancy_per_chunk=stats["occupied_slot_chunks"] / stats["chunks"],
+            decode_launches=by_shape(), launches=launches, **ties)
+    finally:
+        del da.KERNEL.launch
+    emit(phase, model="whisper-small", slots=BATCH, chunk_tokens=chunk_tokens,
+         requests=[int(x) for x in seconds], parts=out, launches=dict(total), card=card)
+    return dict(total)
 
 
 def main(argv) -> int:
@@ -1211,7 +1735,7 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec):
+    for phase in (e2e_files, e2e_spec, e2e_serve):
         t0 = time.perf_counter()
         for name, n in phase(card, kernels).items():
             launches[name] += n

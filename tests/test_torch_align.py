@@ -58,6 +58,16 @@ class _PieceBackend:
         return ["Ġ" + self.id_words.get(int(i), "?") for i in ids]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU: one intra-op thread keeps the eager
+    decode loops from oversubscribing it (results do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tone_clip(hz: float, n_samples: int) -> np.ndarray:
     audio = (np.random.default_rng(9).standard_normal(n_samples) * 0.002
              ).astype(np.float32)

@@ -32,6 +32,16 @@ CFG = json.loads((FIXTURE / "config.json").read_text())
 TONES = json.loads((FIXTURE / "golden.json").read_text())["tones"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU: one intra-op thread keeps the eager
+    decode loops from oversubscribing it (results do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fixture_params():
     cfg = JaxConfig(**CFG)

@@ -32,13 +32,18 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert len(mods) >= 20
-    # The request options', the audio input's and speculative decoding's
-    # modules are among them.
+    # The request options', the audio input's, speculative decoding's and
+    # the serving layer's modules are among them.
     assert {"yoho_tpu_torch.infer.beam", "yoho_tpu_torch.infer.logit_rules",
             "yoho_tpu_torch.infer.word_timestamps", "yoho_tpu_torch.audio.io",
             "yoho_tpu_torch.audio.flac", "yoho_tpu_torch.audio.codecs",
             "yoho_tpu_torch.audio.vad", "yoho_tpu_torch.native",
-            "yoho_tpu_torch.infer.speculative"} <= set(mods)
+            "yoho_tpu_torch.infer.speculative", "yoho_tpu_torch.infer.slot_engine",
+            "yoho_tpu_torch.infer.continuous", "yoho_tpu_torch.infer.continuous_spec",
+            "yoho_tpu_torch.infer.batching", "yoho_tpu_torch.infer.streaming",
+            "yoho_tpu_torch.text.srt", "yoho_tpu_torch.utils.websocket",
+            "yoho_tpu_torch.cli.serve", "yoho_tpu_torch.cli.serve_openai",
+            "yoho_tpu_torch.cli.serve_ws"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -200,6 +200,61 @@ def test_speculative_reads_match_plain(gen, heads, s, pos, t, kv_len):
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
 
 
+ROW_POS = {"spread": [0, 3, 61, 64, 127, 200, 255, 300, 383, 384, 400, 420, 430, 440, 446, 447],
+           "all 200": [200] * 16, "all 0": [0] * 16}
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("rows", sorted(ROW_POS))
+@pytest.mark.parametrize("s", [1, 2, 5, 40])
+def test_decode_kernel_per_row_pos(gen, kind, rows, s):
+    """Continuous batching's causal reads: every row of 16 at its own
+    position in a 512-position cache (12 heads), S = 1, the draft's 2, the
+    verify's 5 and a chunked 40. Rows at pos 0 leave most of their cluster
+    with nothing to read: those blocks combine as empty states (no NaN).
+    The scalar launch at the same position gives the same answer."""
+    t = 512
+    k, v = (torch.randn((16, 12, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((16, 12, s, 64), generator=gen, device="cuda") * 0.35).to(torch.bfloat16)
+    if kind == "bf16":
+        args = (q, k, v, None, None)
+        packing = 1
+    else:
+        qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+        args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
+    pos = torch.tensor(ROW_POS[rows], dtype=torch.int32, device="cuda")
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, packing=packing)
+    assert decode_attention.KERNEL.launches == before + -(-s // decode_attention.MAX_QUERIES)
+    assert torch.isfinite(got.float()).all()
+    want = decode_attention.decode_attention_reference(*args, pos=pos, packing=packing)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+    if rows != "spread":
+        same = decode_attention.fused_decode_attention(*args, pos=int(ROW_POS[rows][0]),
+                                                       packing=packing)
+        torch.testing.assert_close(got.float(), same.float(), rtol=0.05, atol=0.02)
+
+
+def test_per_row_cache_write_drops_past_the_horizon_on_the_card(gen):
+    """A per-row block write past the cache's end is dropped on the card
+    (no device-side assert), and the cache equals the CPU write."""
+    k, v = (torch.randn((4, 2, 64, 128), generator=gen, device="cuda") for _ in range(2))
+    new = [torch.randn((4, 2, 64, 5), generator=gen, device="cuda") for _ in range(2)]
+    pos = torch.tensor([0, 60, 124, 127], dtype=torch.int32, device="cuda")
+    for cls in (kv_cache.KVCache, kv_cache.QuantizedKVCache):
+        if cls is kv_cache.KVCache:
+            gpu, cpu = cls(k.clone(), v.clone()), cls(k.cpu(), v.cpu())
+        else:
+            gpu = cls.zeros(4, 2, 128, 64, device="cuda").update(0, k, v)
+            cpu = cls.zeros(4, 2, 128, 64, device="cpu").update(0, k.cpu(), v.cpu())
+        gpu.update(pos, *new)
+        cpu.update(pos.cpu(), *(x.cpu() for x in new))
+        torch.cuda.synchronize()
+        for a, b in zip(vars(gpu).values(), vars(cpu).values()):
+            assert torch.equal(a.cpu(), b)
+
+
 def test_flash_kernel_whisper_tiny_encoder(gen):
     """The draft's encoder self-attention: whisper-tiny's 6 heads at batch 16."""
     q, k, v = (torch.randn((16, 1500, 6, 64), generator=gen, device="cuda")

@@ -84,10 +84,19 @@ def test_kv_cache_update_matches_jax():
 
 
 def test_per_row_positions_are_not_ported():
-    cache = tkv.QuantizedKVCache.zeros(2, 1, 128, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cache.update(torch.tensor([1, 2]), torch.zeros(2, 1, 8, 1),
-                     torch.zeros(2, 1, 8, 1))
+    """Per-row positions were refused until continuous batching came to the
+    port (the name is kept): now each row is written at its own position,
+    bit-exact with JAX's scatter."""
+    k_new, v_new = (np.random.default_rng(i).standard_normal((2, 1, 8, 1)).astype(np.float32)
+                    for i in (1, 2))
+    pos = np.asarray([1, 2], np.int32)
+    got = tkv.QuantizedKVCache.zeros(2, 1, 128, 8).update(
+        torch.from_numpy(pos), torch.from_numpy(k_new), torch.from_numpy(v_new))
+    want = jkv.QuantizedKVCache.zeros(2, 1, 128, 8).update(
+        jnp.asarray(pos), jnp.asarray(k_new), jnp.asarray(v_new))
+    for name in ("k_q", "v_q", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(getattr(got, name).float().numpy(),
+                                      np.asarray(getattr(want, name), np.float32))
 
 
 @pytest.mark.parametrize("packing", [1, 2])

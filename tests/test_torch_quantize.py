@@ -197,10 +197,31 @@ def _assert_w8a8_close(got, want, kernel, x, what):
     assert same > 0.98, report
 
 
-def _same_rounding(x, tp, activation, got, got_bf16):
+def _w8a8_stages(x, w_q, w_scale, bias, activation):
+    """The plain version's intermediate values, recomputed step by step:
+    the row codes and scales, the float64 product, and the f32 output
+    before and after the activation."""
+    n, k = w_q.shape
+    xq, xs = w8.quantize_rows(_t(x, torch.bfloat16).reshape(-1, k))
+    acc = xq.double() @ w_q.double().T
+    y = acc.float() * xs * w_scale.reshape(1, n).float()
+    if bias is not None:
+        y = y + bias.float()
+    out = w8.gelu_tanh(y) if activation == "gelu_tanh" else y
+    return dict(codes=xq, row_scales=xs, acc=acc, y=y, activated=out)
+
+
+def _same_rounding(x, tp, activation, got, got_bf16, snapshot):
     """The bf16 output is the f32 output rounded once. A failure says how
-    many outputs differ, where, their values, and what a third call of each
-    output type gives on the same inputs."""
+    many outputs differ, where, their values, what a third call of each
+    output type gives on the same inputs, and which intermediate value
+    (the row codes and scales, the float64 product, the output before and
+    after the activation) moves: each is recomputed twice from the inputs
+    as they are and once from their copies taken before the first call
+    (``snapshot``: a changed input means memory was written after the
+    first call). The first call's output is held against the
+    recomputation, with the rows and columns where it differs: a fault in
+    a row's codes or scale shows along rows, one in the product scatters."""
     rounded = got.to(torch.bfloat16)
     diff = got_bf16 != rounded
     if not bool(diff.any()):
@@ -210,6 +231,17 @@ def _same_rounding(x, tp, activation, got, got_bf16):
                           tp["bias"], activation=activation, out_dtype=torch.float32)
     again_bf16 = w8.w8a8_dense(_t(x, torch.bfloat16), tp["weight_q"], tp["weight_scale"],
                                tp["bias"], activation=activation)
+    now = [_w8a8_stages(x, tp["weight_q"], tp["weight_scale"], tp["bias"], activation)
+           for _ in range(2)]
+    before = _w8a8_stages(snapshot["x"], snapshot["weight_q"], snapshot["weight_scale"],
+                          snapshot["bias"], activation)
+    stages = [f"{name}: {'same' if torch.equal(a, now[1][name]) else 'differs'} twice, "
+              f"{'same' if torch.equal(a, before[name]) else 'differs'} from the copies"
+              for name, a in now[0].items()]
+    off = got.reshape(now[0]["activated"].shape) != now[0]["activated"]
+    rows, cols = off.any(dim=1).nonzero().flatten(), off.any(dim=0).nonzero().flatten()
+    unchanged = {k: bool(torch.equal(v, snapshot[k])) for k, v in tp.items()}
+    unchanged["x"] = bool(np.array_equal(x, snapshot["x"]))
     raise AssertionError(
         f"out_dtype: {int(diff.sum())} of {diff.numel()} bf16 outputs differ from the "
         f"f32 output rounded, at {idx}: f32 {[float(got[i]) for i in idx]}, bf16 "
@@ -217,6 +249,10 @@ def _same_rounding(x, tp, activation, got, got_bf16):
         f"{[float(again[i]) for i in idx]} (equal to the first everywhere: "
         f"{bool(torch.equal(again, got))}), bf16 {[float(again_bf16[i]) for i in idx]} "
         f"(equal to the second everywhere: {bool(torch.equal(again_bf16, got_bf16))}); "
+        f"recomputed stages: {'; '.join(stages)}; the first call's output differs from "
+        f"the recomputation at {int(off.sum())} outputs, in {len(rows)} rows "
+        f"{rows[:8].tolist()} and {len(cols)} columns {cols[:8].tolist()}; inputs equal "
+        f"to their copies from before the first call: {unchanged}; "
         f"torch threads {torch.get_num_threads()}")
 
 
@@ -232,6 +268,7 @@ def test_w8a8_plain_matches_jax_kernel_and_int8_dense(activation, n):
     # The port's two outputs first, each copied out of torch's memory before
     # any JAX call: the arrays JAX reads or makes are never torch's own.
     tp = tq.quantize_dense_params(_t(kernel.T), _t(bias))
+    snapshot = dict({k: v.clone() for k, v in tp.items()}, x=x.copy())
     got = w8.w8a8_dense(_t(x, torch.bfloat16), tp["weight_q"], tp["weight_scale"],
                         tp["bias"], activation=activation, out_dtype=torch.float32)
     got_bf16 = w8.w8a8_dense(_t(x, torch.bfloat16), tp["weight_q"], tp["weight_scale"],
@@ -239,7 +276,7 @@ def test_w8a8_plain_matches_jax_kernel_and_int8_dense(activation, n):
     assert got.shape == (3, 70, n) and got.dtype == torch.float32
     assert got_bf16.dtype == torch.bfloat16
     # out_dtype changes only the last rounding: bf16 is the f32 output rounded once.
-    _same_rounding(x, tp, activation, got, got_bf16)
+    _same_rounding(x, tp, activation, got, got_bf16, snapshot)
     got = got.numpy().copy()
 
     qp = jq.quantize_dense_params({"kernel": kernel, "bias": bias})

@@ -23,7 +23,13 @@
 // in flight and about nothing else standing in their way:
 //
 // - Positions [0, t_end), t_end = min(T, kv_len, pos + S when causal), are
-//   cut into chunks of 64. The CL blocks of a cluster (CL a power of two up
+//   cut into chunks of 64. With per-row positions (continuous batching:
+//   pos_rows, a device array of B ints the host never reads) the grid is
+//   sized for min(T, kv_len), and each (b, h) ends its row at
+//   min(T, kv_len, pos_rows[b] + S): a block whose chunks all lie past the
+//   row's end loads nothing and publishes the empty state (m = finfo.min,
+//   l = 0), which the combine weighs by exp(finfo.min - m) = 0 (never
+//   exp(-inf - -inf)). The CL blocks of a cluster (CL a power of two up
 //   to 8, grown until the grid has about two blocks per SM) take the
 //   chunks of one (b, h) in turn, each through a ring of three shared-memory
 //   stages. Where rows are a multiple of 16 bytes (the cross K/V, padded to
@@ -193,8 +199,8 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
             const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
             const QT* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
             const __nv_bfloat16* __restrict__ k_scale, const __nv_bfloat16* __restrict__ v_scale,
-            QT* __restrict__ out, int Hq, int Hkv, int S, int T, int t_end, int causal, int pos,
-            int mode) {
+            QT* __restrict__ out, int Hq, int Hkv, int S, int T, int t_end_all, int causal,
+            int pos_all, const int* __restrict__ pos_rows, int mode) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
   using L = Stage<E, DK>;
@@ -212,6 +218,9 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int b = bh / Hq;
   const int h = bh - b * Hq;
   const int bhk = b * Hkv + h / (Hq / Hkv);
+  // This row's causal position and end: the launch's, or row b's own.
+  const int pos = pos_rows != nullptr ? pos_rows[b] : pos_all;
+  const int t_end = pos_rows != nullptr ? min(t_end_all, pos + S) : t_end_all;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool scaled = k_scale != nullptr;
   const int n_chunks = (t_end + TC - 1) / TC;
@@ -431,7 +440,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 template <typename QT, int KIND, int SMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                    void* out, int B, int Hq, int Hkv, int S, int T, int t_end, int causal,
-                   int pos, cudaStream_t stream) {
+                   int pos, const int* pos_rows, cudaStream_t stream) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
   using L = Stage<E, DK>;
@@ -497,7 +506,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
   err = cudaLaunchKernelEx(&cfg, kern, mk, mv, mks, mvs, static_cast<const QT*>(q), k, v,
                            static_cast<const __nv_bfloat16*>(ks),
                            static_cast<const __nv_bfloat16*>(vs), static_cast<QT*>(out), Hq, Hkv,
-                           S, T, t_end, causal, pos, mode);
+                           S, T, t_end, causal, pos, pos_rows, mode);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -505,21 +514,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
 template <typename QT, int KIND>
 cudaError_t dispatch_s(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
-                       int t_end, int causal, int pos, cudaStream_t st) {
-  if (S <= 1) return launch<QT, KIND, 1>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
-  if (S <= 4) return launch<QT, KIND, 4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
-  if (S <= 32) return launch<QT, KIND, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
+                       int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
+  if (S <= 1) return launch<QT, KIND, 1>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 4) return launch<QT, KIND, 4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 32) return launch<QT, KIND, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT>
 cudaError_t dispatch_kind(int kind, const void* q, const void* k, const void* v, const void* ks,
                           const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
-                          int t_end, int causal, int pos, cudaStream_t st) {
+                          int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
   switch (kind) {
-    case KV_INT8: return dispatch_s<QT, KV_INT8>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
-    case KV_INT4: return dispatch_s<QT, KV_INT4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
-    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, st);
+    case KV_INT8: return dispatch_s<QT, KV_INT8>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_INT4: return dispatch_s<QT, KV_INT4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,19 +539,23 @@ YOHO_ERROR_STRING_FN
 
 // q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
 // 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
-// sees keys <= pos + s. D is 64. One launch; no workspace.
+// of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
+// (B ints on the device, each >= 0) is not null. D is 64. One launch; no
+// workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
-                                int kv_len, int causal, int pos, cudaStream_t stream) {
+                                int kv_len, int causal, int pos, const int* pos_rows,
+                                cudaStream_t stream) {
   int t_end = min(T, kv_len);
-  if (causal) t_end = min(t_end, pos + S);
-  if (t_end <= 0 || Dh != D || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (causal && pos_rows == nullptr) t_end = min(t_end, pos + S);
+  if (t_end <= 0 || Dh != D || Hkv <= 0 || Hq % Hkv != 0 || (pos_rows != nullptr && !causal))
+    return cudaErrorInvalidValue;
   if (q_dtype == 0)
     return dispatch_kind<float>(kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, T, t_end,
-                                causal, pos, stream);
+                                causal, pos, pos_rows, stream);
   if (q_dtype == 1)
     return dispatch_kind<__nv_bfloat16>(kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S,
-                                        T, t_end, causal, pos, stream);
+                                        T, t_end, causal, pos, pos_rows, stream);
   return cudaErrorInvalidValue;
 }

@@ -161,6 +161,7 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
             raise ValueError("whisper family needs a WhisperTokenTable")
 
         self.model = model
+        self.family = family
         self.token_table = token_table
         self.beams = max(0, int(beams))
         self.length_penalty = float(length_penalty)

@@ -21,20 +21,24 @@ from typing import Callable, Optional
 
 import torch
 
+from yoho_tpu_torch.ops.decode_attention import is_row_pos
+
 NEG_INF = torch.finfo(torch.float32).min
 
 
 def make_timestamp_rules(table, prompt_len: int,
                          max_initial_timestamp: Optional[float] = 1.0
                          ) -> Callable:
-    """Returns ``fn(logits (B, V) f32, tokens (B, T), pos: int) -> logits``;
-    ``pos`` is the buffer index of the token about to be generated."""
+    """Returns ``fn(logits (B, V) f32, tokens (B, T), pos) -> logits``;
+    ``pos`` is the buffer index of the token about to be generated: an int
+    (every row at the same index: the batched decode loop) or a per-row
+    (B,) tensor (continuous batching), read on the device only."""
     ts_begin = table.timestamp_begin
     eot = table.eot
     max_initial_offset = (None if max_initial_timestamp is None
                           else int(round(max_initial_timestamp / 0.02)))
 
-    def fn(logits: torch.Tensor, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    def fn(logits: torch.Tensor, tokens: torch.Tensor, pos) -> torch.Tensor:
         b, v = logits.shape
         dev = logits.device
         vocab_ids = torch.arange(v, device=dev)
@@ -43,14 +47,24 @@ def make_timestamp_rules(table, prompt_len: int,
         # ALL non-timestamp ids [0, ts_begin), EOT and specials included.
         is_text_vocab = vocab_ids < eot
 
-        last_is_ts = tokens[:, pos - 1] >= ts_begin
-        if pos - 1 < prompt_len:
-            last_is_ts = torch.zeros_like(last_is_ts)
-        # OpenAI: penultimate_was_timestamp = len(sampled) < 2 or
-        # sampled[-2] >= ts_begin.
-        penult_is_ts = tokens[:, pos - 2] >= ts_begin
-        if pos - 2 < prompt_len:
-            penult_is_ts = torch.ones_like(penult_is_ts)
+        rows = is_row_pos(pos)
+        if rows:
+            p = pos.long()
+            last = tokens.gather(1, (p - 1)[:, None])[:, 0]
+            penult = tokens.gather(1, torch.clamp(p - 2, min=0)[:, None])[:, 0]
+            last_is_ts = (last >= ts_begin) & (p - 1 >= prompt_len)
+            penult_is_ts = (p - 2 < prompt_len) | (penult >= ts_begin)
+            pos_col = p[:, None]
+        else:
+            last_is_ts = tokens[:, pos - 1] >= ts_begin
+            if pos - 1 < prompt_len:
+                last_is_ts = torch.zeros_like(last_is_ts)
+            # OpenAI: penultimate_was_timestamp = len(sampled) < 2 or
+            # sampled[-2] >= ts_begin.
+            penult_is_ts = tokens[:, pos - 2] >= ts_begin
+            if pos - 2 < prompt_len:
+                penult_is_ts = torch.ones_like(penult_is_ts)
+            pos_col = pos
 
         needs_second = last_is_ts & ~penult_is_ts
         after_pair = last_is_ts & penult_is_ts
@@ -60,16 +74,18 @@ def make_timestamp_rules(table, prompt_len: int,
         # Floor = max generated timestamp; strictly above it unless the
         # pair's second timestamp is due.
         positions = torch.arange(tokens.shape[1], device=dev)
-        seen = (positions < pos) & (positions >= prompt_len)
-        ts_vals = torch.where(seen[None, :] & (tokens >= ts_begin), tokens, 0)
+        seen = (positions[None, :] < pos_col) & (positions[None, :] >= prompt_len)
+        ts_vals = torch.where(seen & (tokens >= ts_begin), tokens, 0)
         ts_max = ts_vals.amax(dim=1)  # 0 when none seen
         ts_floor = torch.where(ts_max > 0, ts_max + (~needs_second).long(), 0)
         mask = mask | (is_ts_vocab[None, :] & (vocab_ids[None, :] < ts_floor[:, None]))
 
-        if pos == prompt_len:
-            init_mask = ~is_ts_vocab
-            if max_initial_offset is not None:
-                init_mask = init_mask | (vocab_ids > ts_begin + max_initial_offset)
+        init_mask = ~is_ts_vocab
+        if max_initial_offset is not None:
+            init_mask = init_mask | (vocab_ids > ts_begin + max_initial_offset)
+        if rows:
+            mask = torch.where((p == prompt_len)[:, None], mask | init_mask[None, :], mask)
+        elif pos == prompt_len:
             mask = mask | init_mask[None, :]
 
         logits = logits.masked_fill(mask, NEG_INF)

@@ -24,6 +24,7 @@ from yoho_tpu_torch.core.device import div_exact
 from yoho_tpu_torch.ops.decode_attention import (
     attend_time_minor,
     fused_decode_attention,
+    is_row_pos,
     unpack_int4,
 )
 
@@ -31,12 +32,27 @@ __all__ = ["KVCache", "QuantizedKV", "QuantizedKVCache", "attend_quantized",
            "_attend_quantized", "quantize_kv", "quantize_kv4", "unpack_int4"]
 
 
-def _scalar_pos(pos) -> int:
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        raise NotImplementedError(
-            "per-row cache positions (continuous batching) are not in the "
-            "PyTorch port yet (ROADMAP.md, Queue 1 item 10)")
-    return int(pos)
+def _write_rows(big: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Writes ``new`` (B, H, D|1, S) into ``big`` (B, H, D|1, T) in place,
+    row b at positions ``pos[b] .. pos[b] + S - 1`` (a device tensor (B,);
+    the host never reads it).
+
+    Entries at or past T are dropped, as a JAX scatter drops them (an
+    index out of range would be a device-side assert on CUDA): each one is
+    sent to its row's spare column ``clamp(pos[b] - 1, 0, T - 1)``, which
+    no kept entry of the row writes when ``pos[b] >= 1``, and writes back
+    the value that column holds. Every dropped entry of a row writes the
+    same value there, so the duplicate indices agree."""
+    t, s = big.shape[3], new.shape[3]
+    p = pos.long()
+    idx = p[:, None] + torch.arange(s, device=p.device)[None, :]  # (B, S)
+    keep = idx < t
+    dst = torch.where(keep, idx, torch.clamp(p - 1, 0, t - 1)[:, None])
+    rows = torch.arange(big.shape[0], device=p.device)[:, None]
+    # Advanced indices at dims 0 and 3: the indexed shape is (B, S, H, D|1).
+    vals = new.permute(0, 3, 1, 2).to(big.dtype)
+    big[rows, :, :, dst] = torch.where(keep[:, :, None, None], vals,
+                                       big[rows, :, :, dst])
 
 
 @dataclass
@@ -58,8 +74,17 @@ class KVCache:
         return self.k.shape[3]
 
     def update(self, pos, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
-        """Write (B, H, D, S) new entries at time offset ``pos``, in place."""
-        p = _scalar_pos(pos)
+        """Write (B, H, D, S) new entries at time offset ``pos``, in place.
+
+        ``pos`` is an int, or a (B,) int tensor on the cache's device: row
+        b is written at ``pos[b] .. pos[b] + S - 1`` (the per-slot layout of
+        continuous batching and its draft-verify blocks), and entries past
+        the horizon are dropped (:func:`_write_rows`)."""
+        if is_row_pos(pos):
+            _write_rows(self.k, k_new, pos)
+            _write_rows(self.v, v_new, pos)
+            return self
+        p = int(pos)
         s = k_new.shape[3]
         self.k[..., p:p + s] = k_new.to(self.k.dtype)
         self.v[..., p:p + s] = v_new.to(self.v.dtype)
@@ -149,8 +174,9 @@ def quantize_kv4(k: torch.Tensor, v: torch.Tensor, pad_to: Optional[int] = None,
 
 def attend_quantized(q: torch.Tensor, qkv: QuantizedKV, pos=None) -> torch.Tensor:
     """Attention of pre-scaled q (B, H, S, D) against quantized KV through
-    the decode kernel (plain version on the CPU); ``pos`` makes it causal.
-    Returns (B, S, H, D) in q's type."""
+    the decode kernel (plain version on the CPU); ``pos`` (an int or a
+    per-row (B,) tensor) makes it causal. Returns (B, S, H, D) in q's
+    type."""
     t = qkv.k_q.shape[3]
     return fused_decode_attention(
         q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, pos=pos,
@@ -200,7 +226,8 @@ class QuantizedKVCache:
     def update(self, pos, k_new: torch.Tensor,
                v_new: torch.Tensor) -> "QuantizedKVCache":
         """Quantize + write (B, H, D, S) new entries at offset ``pos``, in
-        place."""
+        place; ``pos`` an int or a per-row (B,) tensor, as in
+        :meth:`KVCache.update`."""
 
         def _q(x):
             xf = x.to(torch.float32)
@@ -208,10 +235,15 @@ class QuantizedKVCache:
             q = torch.clamp(torch.round(xf / scale), -127, 127)
             return q.to(torch.int8), scale.to(torch.bfloat16)
 
-        p = _scalar_pos(pos)
-        s = k_new.shape[3]
         kq, ks = _q(k_new)
         vq, vs = _q(v_new)
+        if is_row_pos(pos):
+            for big, new in ((self.k_q, kq), (self.v_q, vq), (self.k_scale, ks),
+                             (self.v_scale, vs)):
+                _write_rows(big, new, pos)
+            return self
+        p = int(pos)
+        s = k_new.shape[3]
         self.k_q[..., p:p + s] = kq
         self.v_q[..., p:p + s] = vq
         self.k_scale[..., p:p + s] = ks

@@ -6,7 +6,8 @@ attention semantics: biases on q/v/out but not k, and the 0.25-power scale
 
 * full self-attention ``forward(x)``, causal with ``causal=True``;
 * full cross-attention ``forward(x, xa=encoder_out)``;
-* cached self decode ``forward(x, cache=..., pos=i)`` -> (out, cache);
+* cached self decode ``forward(x, cache=..., pos=i)`` -> (out, cache),
+  ``pos`` an int or a per-row (B,) tensor (continuous batching);
 * cached cross decode ``forward(x, cross_kv=...)`` with K/V from :meth:`kv`
   or a :class:`QuantizedKV`. Beam search passes B*K query rows against
   an untiled (B, ...) cross K/V: the K beams of a stream fold into the
@@ -218,7 +219,8 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
                 causal: bool = False,
-                cache: Optional[Cache] = None, pos: Optional[int] = None,
+                cache: Optional[Cache] = None,
+                pos: Optional[Union[int, torch.Tensor]] = None,
                 cross_kv: Optional[CrossKV] = None):
         b, s = x.shape[:2]
         if cache is None and cross_kv is None:

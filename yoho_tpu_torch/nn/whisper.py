@@ -41,6 +41,7 @@ from yoho_tpu_torch.nn.layers import (
     QuantizedEmbed,
     realized_token_probs_streamed,
 )
+from yoho_tpu_torch.ops.decode_attention import is_row_pos
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -87,7 +88,7 @@ class DecoderBlock(nn.Module):
         x = x + self.cross_attn(self.ln2(x), xa=xa)
         return x + self.mlp(self.ln3(x))
 
-    def step(self, x, cache, cross_kv, pos: int):
+    def step(self, x, cache, cross_kv, pos):
         """One cached decode step: x is (B, S_new, D)."""
         a, cache = self.attn(self.ln1(x), cache=cache, pos=pos)
         x = x + a
@@ -224,17 +225,21 @@ class TextDecoder(nn.Module):
             return amap
         return amap, realized_token_probs_streamed(self.ln(x), self._logits, tokens)
 
-    def decode_step(self, tokens: torch.Tensor, caches: List, cross_kvs,
-                    pos: int):
-        """Cached step: tokens (B, S_new) at absolute position ``pos``.
+    def decode_step(self, tokens: torch.Tensor, caches: List, cross_kvs, pos):
+        """Cached step: tokens (B, S_new) at absolute position ``pos``, an
+        int or a per-row (B,) tensor on the model's device (each row at its
+        own position: continuous batching; the host never reads it).
         Returns (f32 logits (B, S_new, vocab), caches)."""
         s = tokens.shape[1]
         x = self.token_embedding(tokens)
         # Clipped like jnp.take(mode="clip"): rows past n_text_ctx stay
         # finite (a NaN K/V would poison every row through the mask).
-        idx = torch.clamp(torch.arange(s, device=x.device) + int(pos),
-                          max=self.cfg.n_text_ctx - 1)
-        x = x + self.positional_embedding[idx]
+        steps = torch.arange(s, device=x.device)
+        if is_row_pos(pos):
+            idx = pos.long()[:, None] + steps[None, :]  # (B, S_new)
+        else:
+            idx = steps + int(pos)
+        x = x + self.positional_embedding[torch.clamp(idx, 0, self.cfg.n_text_ctx - 1)]
         new_caches = []
         for blk, cache, ckv in zip(self.blocks, caches, cross_kvs):
             x, nc = blk.step(x, cache, ckv, pos)
@@ -293,7 +298,7 @@ class Whisper(nn.Module):
                     quantized: bool = False):
         return self.decoder.init_caches(batch, dtype, max_len, quantized)
 
-    def decode_step(self, tokens, caches, cross_kvs, pos: int):
+    def decode_step(self, tokens, caches, cross_kvs, pos):
         return self.decoder.decode_step(tokens, caches, cross_kvs, pos)
 
     def cross_attention_map(self, tokens, xa, with_probs: bool = False):

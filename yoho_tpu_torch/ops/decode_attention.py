@@ -10,7 +10,9 @@ fused_decode_attention``, with the same contract:
                            of q (scales None)
   k_scale  (B, Hkv, 1, T)  bf16 per-position scales on the scores
   v_scale  (B, Hkv, 1, T)  bf16, folded into the attention weights
-  pos      int             causal: query row i sees keys <= pos + i
+  pos      int or (B,)     causal: query row i of batch row b sees keys
+           int32 tensor    <= pos + i, or <= pos[b] + i for a per-row
+                           tensor on q's device (continuous batching)
   kv_len   int             only keys < kv_len are valid
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
@@ -22,9 +24,12 @@ element. One launch per call of at most 32 queries: a thread-block
 cluster per (b, h) merges its blocks' softmax states (sm_90a). Longer
 query runs (a prompt's prefill, beams folded into the query axis) go
 through the same kernel in chunks of 32, one launch each; a causal chunk
-whose first query is i0 runs at ``pos + i0``. The wrapper takes the plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.
+whose first query is i0 runs at ``pos + i0`` (for a per-row ``pos`` an
+offset tensor on the device). A per-row ``pos`` is read by the kernel
+only, never by the host: the grid spans ``min(T, kv_len)`` and each
+(b, h) ends its row at ``min(T, kv_len, pos[b] + S)``. The wrapper takes
+the plain version only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention",
-    [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P],
     replaces="yoho_tpu/ops/decode_attention.py:140 _decode_attention_call")
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +50,12 @@ _INT8, _INT4, _FLOAT = 0, 1, 2
 _HEAD_DIMS = (64,)  # every whisper size
 MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def is_row_pos(pos) -> bool:
+    """True for a per-row position vector (B,), the continuous-batching
+    layout where every row decodes at its own position."""
+    return isinstance(pos, torch.Tensor) and pos.ndim == 1
 
 
 def unpack_int4(x: torch.Tensor, axis: int = 2) -> torch.Tensor:
@@ -91,7 +102,11 @@ def decode_attention_reference(q, k, v, k_scale=None, v_scale=None, pos=None,
     if kv_len is not None and kv_len < t:
         mask = (cols < kv_len)[None, :].expand(s, t)
     if pos is not None:
-        causal = cols[None, :] <= int(pos) + torch.arange(s, device=q.device)[:, None]
+        rows = torch.arange(s, device=q.device)[:, None]
+        if is_row_pos(pos):  # JAX's decode_mask of a vector: (B, 1, S, T)
+            causal = (cols[None, None, :] <= pos.long()[:, None, None] + rows)[:, None]
+        else:
+            causal = cols[None, :] <= int(pos) + rows
         mask = causal if mask is None else mask & causal
     return attend_time_minor(q, k, v, k_scale, v_scale, mask, q.dtype)
 
@@ -111,13 +126,20 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
                          f"packing={packing})")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
+    row_pos = is_row_pos(pos)
+    if row_pos and (pos.shape != (b,) or pos.device != q.device
+                    or pos.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"per-row pos must be a ({b},) integer tensor on "
+                         f"{q.device}, got {tuple(pos.shape)} {pos.dtype} on "
+                         f"{pos.device}")
     if s > MAX_QUERIES:
         out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
         for i0 in range(0, s, MAX_QUERIES):
             i1 = min(i0 + MAX_QUERIES, s)
             out[:, i0:i1] = fused_decode_attention(
                 q[:, :, i0:i1], k, v, k_scale, v_scale,
-                None if pos is None else int(pos) + i0, kv_len, groups, packing)
+                None if pos is None else (pos + i0 if row_pos else int(pos) + i0),
+                kv_len, groups, packing)
         return out
     if not q.is_cuda:
         return decode_attention_reference(q, k, v, k_scale, v_scale, pos,
@@ -149,9 +171,13 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     vs = v_scale.contiguous() if v_scale is not None else None
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     causal = pos is not None
+    # A per-row pos goes to the kernel as an int32 device pointer; the
+    # scalar stays an int argument.
+    pos_rows = pos.to(torch.int32).contiguous() if row_pos else None
     KERNEL.launch(_QTYPES[q.dtype], kind, ptr(q), ptr(k), ptr(v),
                   ptr(ks) if ks is not None else None,
                   ptr(vs) if vs is not None else None, ptr(out), b, hq,
-                  hkv, s, d, t, kv_len, int(causal), int(pos) if causal else 0,
-                  stream_of(q))
+                  hkv, s, d, t, kv_len, int(causal),
+                  int(pos) if causal and not row_pos else 0,
+                  ptr(pos_rows) if row_pos else None, stream_of(q))
     return out
