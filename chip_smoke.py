@@ -122,10 +122,34 @@ Phases, one output line each (JSON after the phase name):
    chunks, host syncs and slot occupancy per chunk, the requests served
    and the decode launches by (rows, queries, per-row, scalar or no
    position); a ``phase-wall`` line gives the phase's seconds.
-10. ``kernels``: one JSON object with every kernel's numbers; launches are
+10. ``train``: whisper-small fine-tuning on the card. First the flash
+   ``autograd.Function`` in bf16 at batch 8 (encoder 1500 x 1500, decoder
+   causal 448, cross 448 x 1500): its forward (the kernel) against the
+   plain version, and dq, dk, dv (the recompute) against
+   ``torch.autograd.grad`` through the plain version in f32, with the
+   recompute's ms per call and memory, the forward's ms and SDPA's
+   forward + backward ms by CUDA events (``flash-grad`` lines). Then a synthetic SRT corpus from the seed (4
+   tracks of 60 s: low noise, a tone of its own pitch per word, 1-3 words
+   an utterance), and ``WhisperFinetuner.run()`` on random f32
+   whisper-small weights: bf16 autocast, remat, AdamW, batch 8, 2
+   mini-batches per update, 6 updates (warmup 2), timestamps and
+   augmentation on, validation with 2 greedy samples (decode attention on
+   the int8 serving lane) at updates 3 and 6, checkpoints, the HF export.
+   Checks: every update's loss finite, the first batch's loss lower after
+   the run, mel, flash and decode attention launched in the run (w8a8
+   not), the files written, and a fresh finetuner on the same directory
+   resuming to bit-identical parameters. Then 2 updates each of
+   freeze-encoder (the encoder bit-unchanged), LoRA rank 8 (the base
+   bit-unchanged, the adapter file written), Adafactor, and
+   ``WhisperDistiller`` (the tuned whisper-small teaching a random
+   whisper-tiny). It prints the losses, ms per mini-step (synchronized;
+   its median after the first), the host's batch ms, trained audio-s/s,
+   ``max_memory_allocated`` and the launches of each run.
+11. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
-   ``e2e-files``' first call and every ``e2e-spec`` and ``e2e-serve`` run.
-11. The last line: ``{"ok": true, "device": {...}}``.
+   ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, and
+   the ``train`` phase's runs.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -217,6 +241,22 @@ def time_ms(fn, iters: int, flush) -> float:
     """The summed device time of the kernels of one call of ``fn`` (ms);
     see ``kernel_ms``."""
     return sum(kernel_ms(fn, iters, flush).values())
+
+
+def event_ms(fn, iters: int) -> float:
+    """ms per call of ``fn`` by CUDA events around ``iters`` back-to-back
+    calls after a warm call (device time plus any launch gaps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def yardstick_ms(fn, flush):
@@ -1699,6 +1739,328 @@ def e2e_serve(card: str, kernels) -> dict:
     return dict(total)
 
 
+# English words, so the corpus's language detection says "en".
+TRAIN_WORDS = ("the", "water", "house", "people", "morning", "about", "little", "would",
+               "there", "could", "their", "which", "other", "after", "where", "before")
+
+
+class _WordText:
+    """A word-level text backend for the training corpus: word i is token
+    100 + i (the corpus's words go through ``standardize_text`` unchanged)."""
+
+    def __init__(self, words):
+        self.ids = {w: 100 + i for i, w in enumerate(words)}
+        self.words = {i: w for w, i in self.ids.items()}
+
+    def encode(self, text, add_special_tokens=False):
+        return [self.ids[w] for w in text.split()]
+
+    def decode(self, ids):
+        return " ".join(self.words[int(i)] for i in ids if int(i) in self.words)
+
+
+def _train_corpus(root: Path, tracks: int = 4, seconds: int = 60) -> None:
+    """An SRT corpus from the seed: each track ``seconds`` of low noise
+    with utterances of 1-3 words, each word a 0.15-0.5 s tone of its own
+    pitch, and an SRT cue per utterance."""
+    import datetime as dt
+    import wave
+
+    import numpy as np
+
+    from yoho_tpu_torch.text.srt import Subtitle, compose_srt
+
+    sr = 16000
+    (root / "transcripts").mkdir(parents=True)
+    (root / "audio").mkdir()
+    rng = np.random.default_rng(SEED)
+    for f in range(tracks):
+        audio = (rng.standard_normal(seconds * sr) * 0.003).astype(np.float32)
+        subs, t = [], 0.3
+        while t < seconds - 3.0:
+            start, words = t, []
+            for _ in range(int(rng.integers(1, 4))):
+                w = int(rng.integers(len(TRAIN_WORDS)))
+                dur = float(rng.uniform(0.15, 0.5))
+                n = int(dur * sr)
+                tone = 0.4 * np.sin(2 * np.pi * (300 + 60 * w) * np.arange(n) / sr)
+                audio[int(t * sr):int(t * sr) + n] += tone.astype(np.float32)
+                words.append(TRAIN_WORDS[w])
+                t += dur + 0.05
+            subs.append(Subtitle(len(subs) + 1, dt.timedelta(seconds=start),
+                                 dt.timedelta(seconds=t), " ".join(words)))
+            t += float(rng.uniform(0.3, 1.2))
+        (root / "transcripts" / f"track{f}.srt").write_text(compose_srt(subs))
+        pcm = np.clip(audio * 32768, -32768, 32767).astype("<i2")
+        with wave.open(str(root / "audio" / f"track{f}.wav"), "wb") as w_:
+            w_.setnchannels(1)
+            w_.setsampwidth(2)
+            w_.setframerate(sr)
+            w_.writeframes(pcm.tobytes())
+
+
+def _flash_grad_checks(card: str) -> list:
+    """The flash ``autograd.Function`` on the card in bf16: the forward (the
+    kernel) against the plain version, and dq, dk, dv (the recompute)
+    against ``torch.autograd.grad`` through the plain version in f32 on the
+    same inputs, at the encoder's, the decoder's causal and the cross
+    shapes of whisper-small at batch 8; with the backward's ms per call and
+    memory above its inputs, the forward's ms, and SDPA's forward +
+    backward ms (CUDA events)."""
+    import torch
+
+    from yoho_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    scale = 64 ** -0.5
+    out = []
+    for label, s, t, causal in (("encoder 8x1500x12x64", 1500, 1500, False),
+                                ("decoder causal 8x448x12x64", 448, 448, True),
+                                ("cross 8x448x1500x12x64", 448, 1500, False)):
+        q = torch.randn((8, s, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((8, t, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        g = torch.randn((8, s, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.KERNEL.launches
+        got = fa.flash_attention(*leaves, causal=causal, scale=scale)
+        if fa.KERNEL.launches != before + 1:
+            raise AssertionError(f"flash gradient {label}: the forward did not launch the kernel")
+        fwd_err = check_close(f"flash forward {label}", got.detach(),
+                              fa.attention_reference(q, k, v, causal, scale), 1e-2, 1e-2)
+        grads = torch.autograd.grad(got, leaves, g)
+        ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+        ref = torch.autograd.grad(fa.attention_reference(*ref_leaves, causal, scale),
+                                  ref_leaves, g.float())
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+            a, b = a.float(), b.float()
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            # bf16 operands and a bf16 recompute against f32: 2% of the
+            # largest gradient entry.
+            if not torch.isfinite(a).all() or err > 0.02 * top:
+                raise AssertionError(f"flash gradient {label} {name}: max abs err {err} "
+                                     f"against 0.02 x max |grad| = {0.02 * top}")
+            errs[name] = dict(max_abs_err=err, max_abs_grad=top)
+        # The backward's cost: the plain recompute and its gradient, ms per
+        # call by CUDA events around back-to-back calls (launch gaps
+        # included), and the memory it holds above the inputs; the kernel's
+        # forward and SDPA's forward + backward on the same inputs beside it.
+        out_ = fa.flash_attention(*leaves, causal=causal, scale=scale)
+        bwd_ms = event_ms(lambda: torch.autograd.grad(out_, leaves, g, retain_graph=True), 10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(out_, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        bwd_bytes = torch.cuda.max_memory_allocated() - base
+
+        def sdpa_fwd_bwd():
+            x = [t.transpose(1, 2) for t in leaves]
+            o = torch.nn.functional.scaled_dot_product_attention(*x, is_causal=causal,
+                                                                 scale=scale)
+            return torch.autograd.grad(o, leaves, g.transpose(1, 2))
+
+        emit("flash-grad", case=label, forward_max_abs_err=fwd_err, **errs,
+             tolerance="forward rtol 1e-2, atol 1e-2; grads max abs err <= 0.02 x max |f32 grad|",
+             forward_kernel_ms=event_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                                   scale=scale), 50),
+             backward_recompute_ms=bwd_ms, backward_peak_bytes_above_inputs=bwd_bytes,
+             sdpa_forward_backward_ms=event_ms(sdpa_fwd_bwd, 20), timing="CUDA events",
+             card=card)
+        del out_
+        out.append(label)
+        del q, k, v, g, leaves, got, grads, ref_leaves, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(card: str, kernels) -> dict:
+    """Phase 10: whisper-small fine-tuning on the card through
+    ``WhisperFinetuner.run()`` (see the module doc). Returns the launches
+    of its measured runs by kernel name."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.nn import lora as lora_mod
+    from yoho_tpu_torch.nn.params import init_random, jax_parameters
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+    from yoho_tpu_torch.train.distill import WhisperDistiller
+    from yoho_tpu_torch.train.whisper_finetune import WhisperFinetuner
+
+    phase = "train"
+    total = {k.name: 0 for k in kernels}
+    grad_cases = _flash_grad_checks(card)
+    cfg = WHISPER_PRESETS["small"]
+    table = WhisperTokenTable(multilingual=True, text_backend=_WordText(TRAIN_WORDS))
+
+    def zero_launches():
+        for k in kernels:
+            k.launches = 0
+
+    def take_launches():
+        got = {k.name: k.launches for k in kernels}
+        for name, n in got.items():
+            total[name] += n
+        return got
+
+    def snapshot(model, prefix=""):
+        return {k: view(t).detach().clone() for k, (t, view) in jax_parameters(model).items()
+                if k.startswith(prefix)}
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    with tempfile.TemporaryDirectory(prefix="yoho_train_smoke_") as tmp:
+        tmp = Path(tmp)
+        _train_corpus(tmp / "corpus")
+        common = dict(batch_size=8, timestamps=True, language_whitelist=["en"],
+                      compute_dtype=torch.bfloat16, remat=True, seed=SEED)
+
+        # The main run: AdamW, 2 mini-batches per update, 6 updates, warmup
+        # 2, augmentation on, validation (2 greedy samples) at update 3.
+        model = init_random(Whisper(cfg, torch.float32), seed=SEED)
+        out = tmp / "main"
+        tuner = WhisperFinetuner(cfg, model, table, tmp / "corpus", out, updates=6,
+                                 warmup_updates=2, learning_rate=1e-4,
+                                 accumulated_batches=2, augment=True,
+                                 validation_frequency=3, validation_samples=2, **common)
+        first = tuner._place(tuner.train_dataloader.get_batch(0))
+        loss0 = float(tuner._val_loss(*first))
+        step_ms, batch_ms = [], []
+        train_step, get_batch = tuner._train_step, tuner.train_dataloader.get_prepared_batch
+
+        def timed_step(*batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = train_step(*batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+        def timed_batch():
+            t0 = time.perf_counter()
+            batch = get_batch()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            return batch
+
+        tuner._train_step, tuner.train_dataloader.get_prepared_batch = timed_step, timed_batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        tuner.run()
+        wall = time.perf_counter() - t0
+        launches = take_launches()
+        peak = torch.cuda.max_memory_allocated()
+        lossN = float(tuner._val_loss(*first))
+        losses = tuner.update_losses
+        w8a8 = kernels[-1].name  # off the path: training stays float
+        idle = [n for n, c in launches.items() if c == 0 and n != w8a8]
+        if idle or launches[w8a8]:
+            raise AssertionError(f"{phase}: kernels of the path never launched: {idle}; "
+                                 f"w8a8 {launches[w8a8]}")
+        if len(losses) != 6 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{phase}: update losses {losses}")
+        if not lossN < loss0:
+            raise AssertionError(f"{phase}: the first batch's loss did not fall: "
+                                 f"{loss0} -> {lossN}")
+        files = sorted(p.name for p in out.iterdir())
+        for name in ("model.safetensors", "config.json", "metrics.csv", "validations.jsonl",
+                     "finetune_checkpoint.msgpack"):
+            if name not in files:
+                raise AssertionError(f"{phase}: {name} missing from {files}")
+
+        # Resume: a fresh finetuner on the same out dir restores the last
+        # checkpoint; its parameters equal the trained ones bit for bit.
+        trained = snapshot(tuner.model)
+        resumed = WhisperFinetuner(cfg, init_random(Whisper(cfg, torch.float32), seed=SEED + 1),
+                                   table, tmp / "corpus", out, updates=6, warmup_updates=2,
+                                   learning_rate=1e-4, accumulated_batches=2, augment=True,
+                                   **common)
+        if resumed.step != 12 or not same(snapshot(resumed.model), trained):
+            raise AssertionError(f"{phase}: resume: step {resumed.step}, parameters equal: "
+                                 f"{same(snapshot(resumed.model), trained)}")
+        resumed.train_dataloader.terminate()
+        resumed.val_dataloader.terminate()
+        del resumed
+        emit(phase, run="main", model="whisper-small", batch=8, accumulated_batches=2,
+             updates=6, optimizer="adamw", remat=True, compute_dtype="bfloat16",
+             update_losses=losses, first_batch_loss=[loss0, lossN],
+             step_ms=step_ms, step_ms_median_after_first=float(np.median(step_ms[1:])),
+             batch_ms_median=float(np.median(batch_ms)),
+             audio_s_per_s=8 * 30.0 * len(step_ms) / (sum(step_ms) / 1e3),
+             audio_s_per_s_at_median_step=8 * 30.0 / (float(np.median(step_ms[1:])) / 1e3),
+             wall_s=wall, max_memory_allocated_bytes=peak,
+             allocated_at_start_bytes=start_bytes, launches=launches,
+             resumed_bit_identical=True, files=files, card=card)
+
+        # Short runs, 2 updates each: freeze-encoder, LoRA rank 8, Adafactor.
+        short = dict(common, updates=2, warmup_updates=1, learning_rate=1e-4,
+                     accumulated_batches=1, augment=False, validation_frequency=0)
+        results = {}
+        for label, opts in (("freeze_encoder", dict(freeze_encoder=True)),
+                            ("lora_rank_8", dict(lora_rank=8)),
+                            ("adafactor", dict(optimizer="adafactor"))):
+            m = init_random(Whisper(cfg, torch.float32), seed=SEED)
+            before = snapshot(m, "encoder/" if label == "freeze_encoder" else "")
+            tn = WhisperFinetuner(cfg, m, table, tmp / "corpus", tmp / label, **short, **opts)
+            zero_launches()
+            t0 = time.perf_counter()
+            tn.run()
+            wall = time.perf_counter() - t0
+            got = take_launches()
+            if label == "lora_rank_8":
+                adapters = lora_mod.adapters_of(m)
+                lora_mod.detach_lora(m)  # back to the base weights, unmerged
+                if not (tmp / label / lora_mod.ADAPTER_FILE).exists():
+                    raise AssertionError(f"{phase} ({label}): no adapter file")
+                moved = any(bool((ab["b"] != 0).any()) for ab in adapters.values())
+            else:
+                moved = None
+            after = snapshot(m, "encoder/" if label == "freeze_encoder" else "")
+            if not same(before, after) and label != "adafactor":
+                raise AssertionError(f"{phase} ({label}): frozen parameters changed")
+            if label == "adafactor" and same(before, after):
+                raise AssertionError(f"{phase} ({label}): no parameter moved")
+            if not all(math.isfinite(x) for x in tn.update_losses):
+                raise AssertionError(f"{phase} ({label}): losses {tn.update_losses}")
+            results[label] = dict(update_losses=tn.update_losses, wall_s=wall, launches=got,
+                                  frozen_bit_unchanged=label != "adafactor",
+                                  adapters_trained=moved)
+            del tn, m
+
+        # Distillation: the trained whisper-small teaches a random whisper-tiny.
+        tiny = WHISPER_PRESETS["tiny"]
+        student = init_random(Whisper(tiny, torch.float32), seed=SEED + 2)
+        dist = WhisperDistiller(cfg, tuner.model, tiny, student, table, tmp / "corpus",
+                                tmp / "distill", **dict(short, validation_frequency=2,
+                                                        validation_samples=1))
+        zero_launches()
+        t0 = time.perf_counter()
+        dist.run()
+        wall = time.perf_counter() - t0
+        got = take_launches()
+        if not all(math.isfinite(x) for x in dist.update_losses) or \
+                dist.last_agreement is None or \
+                not (tmp / "distill" / "model.safetensors").exists():
+            raise AssertionError(f"{phase} (distill): losses {dist.update_losses}, agreement "
+                                 f"{dist.last_agreement}")
+        results["distill_small_to_tiny"] = dict(update_losses=dist.update_losses, wall_s=wall,
+                                                agreement=dist.last_agreement, launches=got)
+        emit(phase, run="short", runs=results, flash_grad_cases=grad_cases, card=card)
+        del dist, tuner, model, student
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1735,7 +2097,7 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec, e2e_serve):
+    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase):
         t0 = time.perf_counter()
         for name, n in phase(card, kernels).items():
             launches[name] += n

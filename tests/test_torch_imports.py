@@ -47,6 +47,29 @@ def test_every_module_imports_without_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_training_modules_import_none_of_the_jax_stack():
+    """The training slice's modules load no JAX, flax, optax, msgpack,
+    safetensors or ml_dtypes (the machine with the card has none of them)
+    and nothing of the JAX package."""
+    mods = ["yoho_tpu_torch.train.whisper_finetune", "yoho_tpu_torch.train.distill",
+            "yoho_tpu_torch.train.trainer", "yoho_tpu_torch.train.checkpoint",
+            "yoho_tpu_torch.train.dataloader", "yoho_tpu_torch.train.metrics",
+            "yoho_tpu_torch.train.optim", "yoho_tpu_torch.train.msgpack",
+            "yoho_tpu_torch.nn.lora", "yoho_tpu_torch.nn.export",
+            "yoho_tpu_torch.audio.augment", "yoho_tpu_torch.text.corpus",
+            "yoho_tpu_torch.text.standardize", "yoho_tpu_torch.text.langdetect",
+            "yoho_tpu_torch.text.numbers", "yoho_tpu_torch.text.lang_corpus"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = ('jax', 'flax', 'optax', 'msgpack', 'safetensors', 'ml_dtypes', 'yoho_tpu')\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in bad)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_sources_never_name_the_jax_package():
     for path in (ROOT / "yoho_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():

@@ -15,6 +15,7 @@ identical outputs for w8a8 (which is also held bit for bit to its plain
 version).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -473,3 +474,103 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError):  # fp16 x
         w8a8_dense.w8a8_dense(torch.zeros((2, 48), device="cuda", dtype=torch.float16),
                               w_q, torch.ones(8, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,t,kv_len,causal", [(300, 300, None, False), (300, 300, None, True),
+                                               (130, 400, 333, False)])
+def test_flash_gradient_on_the_card(gen, dtype, tol, s, t, kv_len, causal):
+    """The flash ``autograd.Function`` on the card: the forward launches the
+    kernel once, and dq, dk, dv (the plain recompute) equal the gradient
+    through the plain version in f32 within ``tol`` of the largest entry
+    (f32: 1e-4, ``tests/test_ops.py``'s; bf16: 2%, the bf16 recompute)."""
+    q = torch.randn((2, s, 3, 64), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, t, 3, 64), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    g = torch.randn((2, s, 3, 64), generator=gen, device="cuda").to(dtype)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = flash_attention.KERNEL.launches
+    out = flash_attention.flash_attention(*leaves, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(
+        flash_attention.attention_reference(*ref_leaves, causal, 64 ** -0.5, kv_len),
+        ref_leaves, g.float())
+    for name, a, b in zip("qkv", got, ref):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        err = float((a.float() - b).abs().max())
+        assert err <= tol * float(b.abs().max()), f"d{name}: {err}"
+
+
+def test_bf16_train_step_on_the_card(gen, tmp_path):
+    """One bf16 train step of a whisper-tiny-width model (remat on) through
+    ``WhisperFinetuner``: mel and flash launch, the loss is finite, the
+    parameters move, and the step's loss is close to the f32 step's."""
+    import datetime as dt
+    import wave
+
+    import numpy as np
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.nn.params import init_random, to_jax_params
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.text.srt import Subtitle, compose_srt
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+    from yoho_tpu_torch.train.whisper_finetune import WhisperFinetuner
+
+    class Words:
+        def encode(self, text, add_special_tokens=False):
+            return [100 + ["house", "water", "people"].index(w) for w in text.split()]
+
+        def decode(self, ids):
+            return " ".join(["house", "water", "people"][int(i) - 100] for i in ids
+                            if 100 <= int(i) < 103)
+
+    root = tmp_path / "corpus"
+    (root / "transcripts").mkdir(parents=True)
+    (root / "audio").mkdir()
+    rng = np.random.default_rng(0)
+    for f in range(2):
+        audio = (rng.standard_normal(16000 * 12) * 0.003).astype(np.float32)
+        subs = []
+        for u, word in enumerate(["house", "water", "people"]):
+            start = 1.0 + 3.0 * u
+            audio[int(start * 16000):int(start * 16000) + 4000] += (0.4 * np.sin(
+                2 * np.pi * (300 + 100 * u) * np.arange(4000) / 16000)).astype(np.float32)
+            subs.append(Subtitle(u + 1, dt.timedelta(seconds=start),
+                                 dt.timedelta(seconds=start + 0.25), word))
+        (root / "transcripts" / f"t{f}.srt").write_text(compose_srt(subs))
+        with wave.open(str(root / "audio" / f"t{f}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(np.clip(audio * 32768, -32768, 32767).astype("<i2").tobytes())
+    cfg = WHISPER_PRESETS["tiny"]
+    table = WhisperTokenTable(multilingual=True, text_backend=Words())
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_random(Whisper(cfg, torch.float32), seed=0)
+        tuner = WhisperFinetuner(cfg, model, table, root, tmp_path / str(dtype), batch_size=2,
+                                 updates=2, warmup_updates=1, learning_rate=1e-4,
+                                 augment=False, validation_frequency=0, remat=True,
+                                 compute_dtype=dtype, language_whitelist=["en"])
+        before = to_jax_params(model)
+        counts = (mel_kernel.KERNEL.launches, flash_attention.KERNEL.launches)
+        batch = tuner._place(tuner.train_dataloader.get_batch(0))
+        losses[dtype] = float(tuner._train_step(*batch))
+        tuner._train_step(*tuner._place(tuner.train_dataloader.get_batch(1)))
+        assert mel_kernel.KERNEL.launches > counts[0]
+        assert flash_attention.KERNEL.launches >= counts[1] + 2 * 3 * cfg.n_audio_layer
+        after = dict(_flat(to_jax_params(model)))
+        assert any(not np.array_equal(a, after[k]) for k, a in _flat(before))
+    assert np.isfinite(losses[torch.bfloat16])
+    assert abs(losses[torch.bfloat16] - losses[torch.float32]) <= 0.02 * losses[torch.float32]
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v

@@ -517,3 +517,57 @@ def test_quality_lane_wer_matches_recorded(quality, lane):
     hyps = [r.text for r in t.transcribe_many(audio)]
     rate, _ = wer(spec["eval_sentences"], hyps, normalize=False)
     assert float(rate) == pytest.approx(spec["wer"][lane], abs=1e-4), lane
+
+
+def test_w8a8_plain_product_is_integer_arithmetic_on_the_cpu():
+    """The plain version's product of the int8 codes runs in int32 on the
+    CPU, never through a floating-point GEMM: the tier-1 failure of the
+    test above came from a multithreaded float64 GEMM that returned
+    non-integer sums for a block of rows (ROADMAP Queue 3). The products
+    are recorded by the dispatcher, and the output stays bit-identical
+    while another thread runs float64 GEMMs and changes the thread count."""
+    import threading
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kernel, bias, x = _w8a8_inputs(96, 384, (3, 70), seed=384)
+    tp = tq.quantize_dense_params(_t(kernel.T), _t(bias))
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] in ("mm", "addmm", "bmm", "matmul", "dot"):
+                self.seen.append((func.__name__, [a.dtype for a in args
+                                                  if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    def call():
+        return w8.w8a8_dense(_t(x, torch.bfloat16), tp["weight_q"], tp["weight_scale"],
+                             tp["bias"], activation="gelu_tanh", out_dtype=torch.float32)
+
+    with Products() as rec:
+        want = call()
+    assert rec.seen and all(d == [torch.int32, torch.int32] for _, d in rec.seen), rec.seen
+
+    stop = threading.Event()
+
+    def churn():
+        a = torch.randn(256, 256, dtype=torch.float64)
+        n = torch.get_num_threads()
+        while not stop.is_set():
+            (a @ a).sum()
+            torch.set_num_threads(1)
+            torch.set_num_threads(n)
+
+    worker = threading.Thread(target=churn, daemon=True)
+    worker.start()
+    try:
+        for _ in range(50):
+            assert torch.equal(call(), want)
+    finally:
+        stop.set()
+        worker.join(timeout=30)
+    assert not worker.is_alive()

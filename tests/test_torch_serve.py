@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from yoho_tpu.cli.serve import drain as jax_drain
 from yoho_tpu.cli.serve import serve as jax_serve
 from yoho_tpu.core.config import WhisperConfig as JaxConfig
 from yoho_tpu.infer.pipeline import Transcriber as JaxTranscriber
@@ -136,7 +137,9 @@ def env():
     urls = {k: _start(s) for k, s in servers.items()}
     yield dict(jt=jt, t=port_transcriber(), urls=urls, servers=servers, wav=buf.getvalue(),
                audio=pcm.astype(np.float32) / 32768.0)
-    servers["jax"].shutdown()
+    # Every server is drained, its batcher's worker thread joined: a worker
+    # left running would outlive the module in the test process.
+    jax_drain(servers["jax"], timeout_s=10)
     for name in ("micro", "continuous"):
         t0 = time.monotonic()
         drain(servers[name], timeout_s=10)

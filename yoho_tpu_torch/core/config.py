@@ -7,7 +7,9 @@ names the same model in both packages.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import List
 
 
 @dataclass(frozen=True)
@@ -79,3 +81,61 @@ WHISPER_PRESETS: dict[str, WhisperConfig] = {
     "distil-small.en": _wcfg(80, 1500, 768, 12, 12, vocab=51864,
                              text_layer=4),
 }
+
+
+# ---------------------------------------------------------------- training
+# The fields of the JAX package's session configuration that the training
+# dataloaders read (``yoho_tpu/core/config.py``: ``YOHOConfig``,
+# ``DatasetConfig``, ``SessionConfig``), as plain dataclasses with the same
+# names, defaults and derived sizes. The YOHO model's own fields come with
+# the YOHO family (ROADMAP Queue 1 item 12).
+
+
+@dataclass(frozen=True)
+class YOHOConfig:
+    """The audio frontend and context lengths of a training window, with
+    the reference's sample-count identity ``n_samples = n_fft +
+    (max_audio_len - 1) * stft_hop``."""
+
+    sample_rate: int = 16000
+    n_mel_bands: int = 128
+    n_fft: int = 400
+    stft_hop: int = 160
+    max_audio_len: int = 1024  # STFT frames fed to the encoder
+    max_text_len: int = 256  # decoder tokens
+
+    @property
+    def n_samples(self) -> int:
+        return self.n_fft + (self.max_audio_len - 1) * self.stft_hop
+
+    @property
+    def max_input_seconds(self) -> float:
+        return self.n_samples / self.sample_rate
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    noisy: Path = Path("./asr_dataset/noisy")
+    clean: Path = Path("./asr_dataset/clean")
+    finetune: Path = Path("./asr_dataset/finetune")
+    ambient: Path = Path("./asr_dataset/ambient")
+    speakers: Path = Path("./asr_dataset/speakers")
+
+
+@dataclass(frozen=True)
+class TrainingASRHP:
+    speechless_sample_ratio: float = 0.1
+
+
+@dataclass(frozen=True)
+class Hyperparameters:
+    transcribe_pretrain: TrainingASRHP = field(default_factory=TrainingASRHP)
+
+
+@dataclass(frozen=True)
+class SessionConfig:
+    name: str = "session"
+    yoho: YOHOConfig = field(default_factory=YOHOConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    hyperparameters: Hyperparameters = field(default_factory=Hyperparameters)
+    language_whitelist: List[str] = field(default_factory=lambda: ["en"])

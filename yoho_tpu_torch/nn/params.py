@@ -15,12 +15,19 @@ leaves by kind:
   becomes the buffer ``weight_q`` (out, in), ``kernel_scale`` (1, out)
   ``weight_scale`` (out,), ``embedding_q`` (V, D) ``weight_q`` and
   ``embedding_scale`` (V, 1) ``weight_scale`` (V,).
+
+:func:`to_jax_params` is the inverse: the module's parameters and stored
+buffers as a flax tree of numpy arrays, in the JAX names and layouts (what
+checkpoints, LoRA adapters and the HF export write). :func:`jax_leaves`
+gives the same leaves as views of the module's own tensors, keyed by their
+'/'-joined JAX path: the trainer's optimizer steps them in place, in the
+JAX layout (Adafactor's factoring depends on it).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +39,9 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     for key, val in tree.items():
         if isinstance(val, Mapping):
             out.update(_flatten(val, prefix + (key,)))
+        elif isinstance(val, torch.Tensor):  # e.g. a bf16 leaf of train.checkpoint
+            val = val.detach().cpu()
+            out[prefix + (key,)] = (val.float() if val.is_floating_point() else val).numpy()
         else:
             out[prefix + (key,)] = np.asarray(val)
     return out
@@ -55,6 +65,78 @@ def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     if leaf in ("kernel_scale", "embedding_scale"):  # (1, out) / (V, 1) -> 1-D
         return arr.reshape(-1)
     return arr
+
+
+def _jax_module_path(name: str) -> Tuple[str, ...]:
+    """``encoder.blocks.3.attn`` -> ('encoder', 'blocks_3', 'attn')."""
+    return tuple(re.sub(r"(^|\.)blocks\.(\d+)", r"\1blocks_\2", name).split(".")) \
+        if name else ()
+
+
+def _jax_leaf(mod: nn.Module, pname: str):
+    """The JAX leaf name of ``mod.<pname>`` and the function that views a
+    tensor of its shape in the JAX layout."""
+    from yoho_tpu_torch.nn.layers import QuantizedEmbed, _Int8Weights
+
+    same = lambda t: t  # noqa: E731
+    if isinstance(mod, nn.Linear) and pname == "weight":
+        return "kernel", lambda t: t.T
+    if isinstance(mod, nn.Conv1d) and pname == "weight":
+        return "kernel", lambda t: t.permute(2, 1, 0)
+    if isinstance(mod, nn.LayerNorm) and pname == "weight":
+        return "scale", same
+    if isinstance(mod, nn.Embedding) and pname == "weight":
+        return "embedding", same
+    if isinstance(mod, _Int8Weights) and pname in ("weight_q", "weight_scale"):
+        return (("kernel_q", lambda t: t.T) if pname == "weight_q"
+                else ("kernel_scale", lambda t: t.reshape(1, -1)))
+    if isinstance(mod, QuantizedEmbed) and pname in ("weight_q", "weight_scale"):
+        return (("embedding_q", same) if pname == "weight_q"
+                else ("embedding_scale", lambda t: t.reshape(-1, 1)))
+    return pname, same
+
+
+def jax_parameters(model: nn.Module) -> Dict[str, Tuple[torch.Tensor, object]]:
+    """'/'-joined JAX path -> (the module's tensor, its JAX-layout view
+    function), for every parameter and stored buffer. A parametrized weight
+    (LoRA while training) gives its parametrized value, a new tensor."""
+    from torch.nn.utils import parametrize
+
+    out: Dict[str, Tuple[torch.Tensor, object]] = {}
+    for mname, mod in model.named_modules():
+        if ".parametrizations" in f".{mname}":
+            continue
+        tensors = [(n, t) for n, t in mod._parameters.items() if t is not None]
+        tensors += [(n, t) for n, t in mod._buffers.items()
+                    if t is not None and n not in mod._non_persistent_buffers_set]
+        if parametrize.is_parametrized(mod):
+            tensors += [(n, getattr(mod, n)) for n in mod.parametrizations]
+        for pname, t in tensors:
+            leaf, view = _jax_leaf(mod, pname)
+            out["/".join(_jax_module_path(mname) + (leaf,))] = (t, view)
+    return out
+
+
+def jax_leaves(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """'/'-joined JAX path -> the parameter or stored buffer viewed in the
+    JAX layout (``kernel`` of a Linear is its weight transposed)."""
+    return {k: view(t) for k, (t, view) in jax_parameters(model).items()}
+
+
+@torch.no_grad()
+def to_jax_params(model: nn.Module) -> Dict:
+    """The module as a flax params tree (nested dicts of numpy arrays): the
+    inverse of :func:`load_jax_params`. Floats are float32 (flax's
+    parameter type), int8 codes stay int8."""
+    tree: Dict = {}
+    for path, t in jax_leaves(model).items():
+        *mods, leaf = path.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        t = t.detach()
+        node[leaf] = (t.float() if t.is_floating_point() else t).cpu().numpy().copy()
+    return tree
 
 
 @torch.no_grad()

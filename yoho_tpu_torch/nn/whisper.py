@@ -14,6 +14,15 @@ decoder's projections, MLPs and tied embedding int8, weight-only),
 ``encoder_int8`` (the encoder block MLPs W8A8 through the w8a8 kernel, with
 the tanh GELU) and ``fast_gelu`` (the tanh GELU in the encoder MLPs). The
 int8 weights come from ``nn/quantize.py`` or a JAX-quantized tree.
+
+Training (``train/whisper_finetune.py``) keeps float32 parameters and
+computes in bf16 under ``torch.autocast``: the dense layers and
+convolutions run in bf16, LayerNorm, the attention softmax, the tied
+logits and the loss stay float32, as flax's ``dtype=bf16,
+param_dtype=f32`` computes them. ``remat=True`` is the JAX package's
+``maybe_remat``: every encoder and decoder block is checkpointed
+(``torch.utils.checkpoint``, non-reentrant) while gradients are being
+recorded, and recomputed in the backward; parameter names do not change.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yoho_tpu_torch.core.config import WhisperConfig
 from yoho_tpu_torch.core.device import full_fp32, resolve_device
@@ -52,6 +62,15 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
     scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
     return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
         np.float32)
+
+
+def _run_blocks(blocks, remat: bool, x: torch.Tensor, *args) -> torch.Tensor:
+    """Each block in turn; checkpointed when ``remat`` and a gradient is
+    being recorded (the counterpart of ``maybe_remat``)."""
+    remat = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        x = checkpoint(blk, x, *args, use_reentrant=False) if remat else blk(x, *args)
+    return x
 
 
 class EncoderBlock(nn.Module):
@@ -101,10 +120,11 @@ class AudioEncoder(nn.Module):
     and ``gelu_tanh`` reach the block MLPs only."""
 
     def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None,
-                 w8a8: bool = False, gelu_tanh: bool = False):
+                 w8a8: bool = False, gelu_tanh: bool = False, remat: bool = False):
         super().__init__()
         c = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         self.conv1 = nn.Conv1d(c.n_mels, c.n_audio_state, 3, padding=1, **kw)
         self.conv2 = nn.Conv1d(c.n_audio_state, c.n_audio_state, 3, stride=2,
@@ -127,9 +147,7 @@ class AudioEncoder(nn.Module):
             x = F.gelu(self.conv1(x))
             x = F.gelu(self.conv2(x)).transpose(1, 2)
         x = x + self.positions
-        for blk in self.blocks:
-            x = blk(x)
-        return self.ln_post(x)
+        return self.ln_post(_run_blocks(self.blocks, self.remat, x))
 
 
 class TextDecoder(nn.Module):
@@ -138,11 +156,12 @@ class TextDecoder(nn.Module):
     tied embedding a ``QuantizedEmbed``."""
 
     def __init__(self, cfg: WhisperConfig, dtype=torch.float32, device=None,
-                 weights_int8: bool = False):
+                 weights_int8: bool = False, remat: bool = False):
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         self.token_embedding = (QuantizedEmbed if weights_int8 else nn.Embedding)(
             c.n_vocab, c.n_text_state, **kw)
@@ -156,19 +175,19 @@ class TextDecoder(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding logits in float32: operands of the model's type
         are exact in f32, and the product accumulates and stays in f32 (a
-        bf16 output would round the logits and flip argmax near ties)."""
-        if isinstance(self.token_embedding, QuantizedEmbed):
-            return self.token_embedding.logits(x)
-        with full_fp32():
-            return F.linear(x.float(), self.token_embedding.weight.float())
+        bf16 output would round the logits and flip argmax near ties), also
+        under autocast."""
+        with torch.autocast(x.device.type, enabled=False):
+            if isinstance(self.token_embedding, QuantizedEmbed):
+                return self.token_embedding.logits(x)
+            with full_fp32():
+                return F.linear(x.float(), self.token_embedding.weight.float())
 
     def forward(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
         """Full-sequence (teacher-forcing) forward -> f32 logits."""
         t = tokens.shape[1]
         x = self.token_embedding(tokens) + self.positional_embedding[:t]
-        for blk in self.blocks:
-            x = blk(x, xa)
-        return self._logits(self.ln(x))
+        return self._logits(self.ln(_run_blocks(self.blocks, self.remat, x, xa)))
 
     def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
                     quantized: bool = False):
@@ -256,19 +275,29 @@ class Whisper(nn.Module):
     ``nn.params.init_random``; the int8 lanes (``weights_int8``,
     ``encoder_int8``) hold zero codes until ``load_jax_params`` fills them,
     or are made from a float model by ``nn.quantize``. ``fast_gelu`` changes
-    no weights."""
+    no weights. ``remat`` checkpoints every block while training (see the
+    module doc)."""
 
     def __init__(self, cfg: WhisperConfig, dtype=torch.float32,
                  weights_int8: bool = False, encoder_int8: bool = False,
-                 fast_gelu: bool = False, device=None):
+                 fast_gelu: bool = False, device=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
         self.encoder = AudioEncoder(cfg, dtype=dtype, device=device,
-                                    w8a8=encoder_int8, gelu_tanh=fast_gelu)
+                                    w8a8=encoder_int8, gelu_tanh=fast_gelu,
+                                    remat=remat)
         self.decoder = TextDecoder(cfg, dtype=dtype, device=device,
-                                   weights_int8=weights_int8)
+                                   weights_int8=weights_int8, remat=remat)
+
+    @property
+    def remat(self) -> bool:
+        return self.encoder.remat
+
+    @remat.setter
+    def remat(self, flag: bool) -> None:
+        self.encoder.remat = self.decoder.remat = bool(flag)
 
     @property
     def device(self) -> torch.device:

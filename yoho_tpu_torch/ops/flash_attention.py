@@ -2,12 +2,18 @@
 its plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/flash_attention.py::
-flash_attention`` (forward only; the backward comes with training). Same
-(B, S, H, D) layout and unscaled inputs: pass ``scale``. ``kv_len`` masks
-the keys at and past it (padded keys), as the TPU kernel's ``kv_len``
-does. bf16 runs on Hopper's wgmma fed by TMA (sm_90a), f32 on FMAs. The
-wrapper takes the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+flash_attention``. Same (B, S, H, D) layout and unscaled inputs: pass
+``scale``. ``kv_len`` masks the keys at and past it (padded keys), as the
+TPU kernel's ``kv_len`` does. bf16 runs on Hopper's wgmma fed by TMA
+(sm_90a), f32 on FMAs. The wrapper takes the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+
+The gradient is the JAX package's: its ``custom_vjp`` backward is
+``jax.vjp`` of the plain attention, a recompute, not a kernel. Here
+:class:`FlashAttentionFunction` saves q, k and v and recomputes through
+:func:`attention_reference` under ``torch.autograd.grad``, on either
+device. It runs only when an input requires a gradient; otherwise the
+forward is the plain call above.
 """
 
 from __future__ import annotations
@@ -34,16 +40,62 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None) -> torch.Tensor:
     """Plain attention, (B, S, H, D) layout: f32 scores, finfo.min mask
     (keys >= ``kv_len``, and above the diagonal when causal), softmax,
-    weights rounded to the input type for the value product."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    tq, tk = scores.shape[-2:]
-    kpos = torch.arange(tk, device=q.device)[None, :]
-    mask = kpos < (tk if kv_len is None else kv_len)
-    if causal:
-        mask = mask & (kpos <= torch.arange(tq, device=q.device)[:, None])
-    scores = scores.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+    weights rounded to the input type for the value product. Autocast does
+    not reach it: the scores stay f32 whatever the caller's autocast."""
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        tq, tk = scores.shape[-2:]
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        mask = kpos < (tk if kv_len is None else kv_len)
+        if causal:
+            mask = mask & (kpos <= torch.arange(tq, device=q.device)[:, None])
+        scores = scores.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def _forward(q, k, v, causal: bool, scale: float, kv_len: int) -> torch.Tensor:
+    if not q.is_cuda:
+        return attention_reference(q, k, v, causal, scale, kv_len)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, s, h, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim {d} not in {_HEAD_DIMS}")
+    # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
+    # starts mid-allocation is copied.
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
+    out = torch.empty_like(q)
+    KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, h,
+                  s, k.shape[1], kv_len, d, float(scale), int(causal), stream_of(q))
+    return out
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The forward through the kernel (CUDA) or the plain version (CPU),
+    keeping no graph; the backward recomputes the plain version and takes
+    its gradient, as the JAX package's ``_flash_bwd`` does. ``causal``,
+    ``scale`` and ``kv_len`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, kv_len: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, kv_len)
+        return _forward(q, k, v, causal, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        # The recompute keeps the saved types: no autocast casts them.
+        with torch.enable_grad(), torch.autocast(saved[0].device.type, enabled=False):
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = attention_reference(*inputs, *ctx.args)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            got = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(got) if n else None for n in needs), None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,18 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} do not match")
     if causal and s != t:
         raise ValueError("causal flash attention needs S == T")
-    if not q.is_cuda:
-        return attention_reference(q, k, v, causal, scale, kv_len)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim {d} not in {_HEAD_DIMS}")
-    # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
-    # starts mid-allocation is copied.
-    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
-        memory_format=torch.contiguous_format) for x in (q, k, v))
-    out = torch.empty_like(q)
-    KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, h,
-                  s, t, kv_len, d, float(scale), int(causal), stream_of(q))
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, float(scale), kv_len)
+    return _forward(q, k, v, causal, scale, kv_len)

@@ -64,6 +64,19 @@ def _check_activation(activation: Optional[str]) -> None:
         raise ValueError(f"unknown activation {activation!r}")
 
 
+def _exact_int_product(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``xq @ w_q.T`` of int8 codes, exact (every partial sum is at most
+    K * 127^2 < 2^31). On the CPU the product runs in int32 arithmetic, not
+    through the float64 BLAS: a multithreaded float64 GEMM is exact only
+    while every thread computes what it should, and the plain version once
+    returned non-integer sums for a block of rows on the CPU (ROADMAP Queue
+    3). On CUDA (the plain version the kernel is held against) integer
+    matmuls are refused, and the float64 product, exact here, runs."""
+    if xq.is_cuda:
+        return xq.double() @ w_q.double().T
+    return xq.int() @ w_q.int().T
+
+
 def w8a8_dense_reference(x, w_q, w_scale, bias=None, *, activation=None,
                          out_dtype=torch.bfloat16) -> torch.Tensor:
     """The plain PyTorch version of the kernel (same contract)."""
@@ -71,11 +84,7 @@ def w8a8_dense_reference(x, w_q, w_scale, bias=None, *, activation=None,
     n, k = w_q.shape
     lead = x.shape[:-1]
     xq, xs = quantize_rows(x.reshape(-1, k))
-    # The integer product in float64, where every partial sum (at most
-    # K * 127^2) is exact: an int8 matmul wraps on the CPU and is refused on
-    # CUDA, and float32 stops being exact past 2^24.
-    acc = xq.double() @ w_q.double().T
-    y = acc.float() * xs * w_scale.reshape(1, n).float()
+    y = _exact_int_product(xq, w_q).float() * xs * w_scale.reshape(1, n).float()
     if bias is not None:
         y = y + bias.float()
     if activation == "gelu_tanh":

@@ -1,0 +1,257 @@
+"""What ``optax`` gives the whisper trainer, on tensors.
+
+The JAX fine-tuner (``yoho_tpu/train/whisper_finetune.py``) trains with
+
+* ``warmup_cosine_decay_schedule(0, lr, warmup, total, final_lr)``;
+* ``adamw(schedule)`` (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
+  every leaf, biases and LayerNorm scales included) or
+  ``adafactor(schedule)`` (factored second moments from dimension 128,
+  decay rate 0.8, block-RMS clipping at 1.0, updates scaled by the
+  parameter's RMS (at least 1e-3), eps 1e-30, no momentum);
+* ``MultiSteps(inner, accumulated_batches)``: the mean of k mini-batch
+  gradients feeds one inner update every k-th call; the schedule counts
+  updates, not mini-steps;
+* ``multi_transform`` that gives the frozen encoder zero updates: here the
+  frozen leaves are left out of the optimizer (:func:`trainable`).
+
+Each optimizer works on a dict of float32 tensors keyed by their JAX path,
+in the JAX layout (``nn.params.jax_leaves``), and follows optax's
+arithmetic step by step in float32. :meth:`MultiSteps.update` returns the
+updates to add to the parameters, or None between updates. Its state is a
+tree of tensors and ints, marked with :data:`STATE_FORMAT`, that the
+checkpoint writes as the port's own ``opt_state``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
+import math
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+STATE_FORMAT = "yoho_tpu_torch.train.optim/1"
+
+Tensors = Dict[str, torch.Tensor]
+_f32 = np.float32
+
+
+@functools.lru_cache(maxsize=None)
+def _cosf():
+    """The C library's single-precision cosine. optax evaluates the cosine
+    in float32; the correctly rounded double cosine rounded to float32 can
+    differ from it by an ulp, which the decay's small values at the end of
+    the schedule turn into a relative error of 1e-6, while ``cosf`` gives
+    optax's float32 values on the CPU."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6").cosf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return fn
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Callable[[int], float]:
+    """optax's schedule of the same name, in its float32 arithmetic: a
+    linear warmup from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then a cosine decay to ``end_value`` at
+    ``decay_steps``."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = float(decay_steps - warmup_steps)
+    if not cos_steps > 0:
+        raise ValueError(f"the cosine decay needs decay_steps > warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+
+    def linear(count: int):
+        if warmup_steps <= 0:
+            return _f32(init_value)
+        frac = _f32(1) - _f32(min(max(count, 0), warmup_steps)) / _f32(warmup_steps)
+        return _f32(init_value - peak_value) * frac + _f32(peak_value)
+
+    def cosine(count: int):
+        c = _f32(min(float(count), cos_steps))
+        arg = _f32(math.pi) * c / _f32(cos_steps)
+        decay = _f32(0.5) * (_f32(1) + _f32(_cosf()(float(arg))))
+        decayed = _f32(1 - alpha) * decay ** _f32(exponent) + _f32(alpha)
+        return _f32(peak_value) * decayed
+
+    def schedule(count: int) -> float:
+        count = int(count)
+        return float(linear(count) if count < warmup_steps else cosine(count - warmup_steps))
+
+    return schedule
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(x), dtype=like.dtype, device=like.device)
+
+
+class AdamW:
+    """``optax.adamw``: Adam moments with bias correction, plus ``weight_decay
+    * param``, times ``-learning_rate(count)``."""
+
+    def __init__(self, learning_rate: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+
+    def init(self, params: Tensors) -> dict:
+        zeros = lambda: {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                         for k, p in params.items()}
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: dict, params: Tensors) -> Tensors:
+        count = state["count"] + 1
+        bc1 = _f32(1) - _f32(self.b1) ** _f32(count)
+        bc2 = _f32(1) - _f32(self.b2) ** _f32(count)
+        step = -_f32(self.learning_rate(state["count"]))
+        out = {}
+        for k, g in grads.items():
+            mu, nu, p = state["mu"][k], state["nu"][k], params[k]
+            mu.mul_(_f32(self.b1)).add_(g * _f32(1 - self.b1))
+            nu.mul_(_f32(self.b2)).add_(g * g * _f32(1 - self.b2))
+            u = (mu / _scalar(bc1, mu)) / (torch.sqrt(nu / _scalar(bc2, nu)) + _f32(self.eps))
+            out[k] = (u + p * _f32(self.weight_decay)) * _f32(step)
+        state["count"] = count
+        return out
+
+
+def _factored_dims(shape, min_dim: int):
+    """optax's ``_factored_dims``: the two largest axes (second largest,
+    largest), or None when the second largest is under ``min_dim``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(x * x))
+
+
+class Adafactor:
+    """``optax.adafactor`` with its defaults: factored RMS scaling, block-RMS
+    clipping, the learning rate, the parameter's block RMS, then -1."""
+
+    def __init__(self, learning_rate: Callable[[int], float], min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, clipping_threshold: float = 1.0,
+                 min_param_scale: float = 1e-3, eps: float = 1e-30):
+        self.learning_rate = learning_rate
+        self.min_dim = min_dim_size_to_factor
+        self.decay_rate = decay_rate
+        self.clipping_threshold = clipping_threshold
+        self.min_param_scale = min_param_scale
+        self.eps = eps
+
+    def init(self, params: Tensors) -> dict:
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for k, p in params.items():
+            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            shape = list(p.shape)
+            if dims is None:
+                state["v"][k] = torch.zeros(shape, dtype=p.dtype, device=p.device)
+            else:
+                d1, d0 = dims
+                state["v_row"][k] = torch.zeros(shape[:d0] + shape[d0 + 1:],
+                                                dtype=p.dtype, device=p.device)
+                state["v_col"][k] = torch.zeros(shape[:d1] + shape[d1 + 1:],
+                                                dtype=p.dtype, device=p.device)
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: dict, params: Tensors) -> Tensors:
+        count = state["count"]
+        rate = _f32(1) - _f32(count + 1) ** _f32(-self.decay_rate)
+        keep, new = _f32(rate), _f32(_f32(1) - rate)
+        lr = _f32(self.learning_rate(count))
+        out = {}
+        for k, g in grads.items():
+            p = params[k]
+            sq = g * g + _f32(self.eps)
+            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            if dims is None:
+                v = state["v"][k]
+                v.copy_(v * keep + sq * new)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                vr, vc = state["v_row"][k], state["v_col"][k]
+                vr.copy_(vr * keep + torch.mean(sq, dim=d0) * new)
+                vc.copy_(vc * keep + torch.mean(sq, dim=d1) * new)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row = (vr / torch.mean(vr, dim=reduced_d1, keepdim=True)) ** -0.5
+                u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+            u = u / torch.clamp_min(_rms(u) / _f32(self.clipping_threshold), 1.0)
+            u = u * lr
+            prms = _rms(p)
+            u = u * torch.where(prms <= self.min_param_scale,
+                                _scalar(self.min_param_scale, prms), prms)
+            out[k] = -u
+        state["count"] = count + 1
+        return out
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k)``: the running mean of the
+    mini-batch gradients, one inner update every ``every_k``-th call."""
+
+    def __init__(self, inner, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"accumulated_batches must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+
+    def init(self, params: Tensors) -> dict:
+        return {"format": STATE_FORMAT, "mini_step": 0, "gradient_step": 0,
+                "acc_grads": {k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                              for k, p in params.items()},
+                "inner": self.inner.init(params)}
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: dict, params: Tensors) -> Optional[Tensors]:
+        n = state["mini_step"]
+        for k, g in grads.items():
+            acc = state["acc_grads"][k]
+            acc.add_((g - acc) / _f32(n + 1))
+        if n < self.every_k - 1:
+            state["mini_step"] = n + 1
+            return None
+        updates = self.inner.update(state["acc_grads"], state["inner"], params)
+        for acc in state["acc_grads"].values():
+            acc.zero_()
+        state["mini_step"] = 0
+        state["gradient_step"] += 1
+        return updates
+
+
+def trainable(params: Tensors, frozen: Callable[[str], bool]) -> Tensors:
+    """The leaves that train: the ``multi_transform`` freeze (the frozen
+    leaves get no optimizer state and no update)."""
+    return {k: p for k, p in params.items() if not frozen(k)}
+
+
+@torch.no_grad()
+def apply_updates(params: Tensors, updates: Tensors) -> None:
+    """``optax.apply_updates`` in place: p + u."""
+    for k, u in updates.items():
+        params[k].add_(u)
+
+
+def load_state(state: dict, saved: dict) -> dict:
+    """The state tree ``saved`` (numpy arrays from a checkpoint) copied into
+    ``state`` (same keys, tensors on their devices); ints taken as saved."""
+    for k, v in state.items():
+        if isinstance(v, dict):
+            load_state(v, saved[k])
+        elif isinstance(v, torch.Tensor):
+            src = saved[k]
+            v.copy_(src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src)))
+        else:
+            state[k] = type(v)(saved[k])
+    return state
