@@ -145,11 +145,33 @@ Phases, one output line each (JSON after the phase name):
    whisper-tiny). It prints the losses, ms per mini-step (synchronized;
    its median after the first), the host's batch ms, trained audio-s/s,
    ``max_memory_allocated`` and the launches of each run.
-11. ``kernels``: one JSON object with every kernel's numbers; launches are
+11. ``e2e-cli``: the command lines (``yoho_tpu_torch.cli``, in this
+   process) on a whisper-small HF directory the port's exporter writes from
+   seed-0 random f32 weights, with a GPT-2 ``vocab.json`` + ``merges.txt``
+   built here (the 256 byte symbols, then merges of symbol pairs up to
+   50,257 ids). ``transcribe`` of the three requests as WAV files (batch 16,
+   int8 K/V, JSON): its tokens (recorded from the transcriber the command
+   builds) and text equal an in-process ``Transcriber`` built from the same
+   numpy params; ``transcribe --int8-weights --int8-encoder --fast-gelu``
+   on one file (w8a8 launches); ``align`` with a given transcript (every
+   word timed); ``evaluate`` over a two-track SRT corpus (finite WER and
+   CER); ``doctor --json`` (no failed check, the card named); ``serve``'s
+   ``main`` on port 0 in a thread (one ``/transcribe`` of the 30 s request:
+   the tokens of ``transcribe``'s, then shutdown and drain); ``finetune``
+   (2 updates at batch 2, the export transcribed by ``transcribe --hf``);
+   ``distill`` (1 update to a random whisper-tiny). Each command's launches
+   are counted from 0 and checked (mel, flash and, where it decodes, decode
+   attention; w8a8 exactly under ``--int8-encoder``). Then the capacity
+   model on the card (a ``capacity`` line): ``max_memory_allocated`` above
+   the weights through log-mel, encode, int8 cross-K/V, prefill and 8
+   decode steps at batch 16 and 32 for whisper-small (bf16) and
+   large-v3-turbo int8; the slope per stream must be at most the model's
+   predicted bytes per stream; the ``auto`` batch each resolves to.
+12. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
-   ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, and
-   the ``train`` phase's runs.
-12. The last line: ``{"ok": true, "device": {...}}``.
+   ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
+   ``train`` phase's runs and ``e2e-cli``'s commands.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -2061,6 +2083,377 @@ def train_phase(card: str, kernels) -> dict:
     return total
 
 
+def _write_gpt2_bpe(d: Path, n_vocab: int = 50257) -> None:
+    """A GPT-2 ``vocab.json`` + ``merges.txt`` built here: the 256 byte
+    symbols of ``bytes_to_unicode``, then one merge per pair of symbols in
+    order until the vocabulary holds ``n_vocab`` tokens (every text id of a
+    whisper vocabulary renders as two bytes)."""
+    from yoho_tpu_torch.text.gpt2_bpe import bytes_to_unicode
+
+    sym = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(sym)}
+    merges = []
+    for a in sym:
+        for b in sym:
+            if len(vocab) == n_vocab:
+                break
+            vocab[a + b] = len(vocab)
+            merges.append(f"{a} {b}")
+    (d / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n",
+                                  encoding="utf-8")
+
+
+def _wav16(path: Path, audio) -> str:
+    import wave
+
+    import numpy as np
+
+    pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return str(path)
+
+
+def _cli(argv) -> str:
+    """One ``yoho-torch`` command in this process; its standard output."""
+    import contextlib
+    import io
+
+    from yoho_tpu_torch.cli.__main__ import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"e2e-cli: {argv[0]} exited {rc}: {out.getvalue()[-500:]}")
+    return out.getvalue()
+
+
+class _Recorder:
+    """Records the tokens of every ``Transcriber.transcribe_many`` call
+    (the commands build their transcriber inside; this is how the phase
+    sees what it decoded) and times ``load_whisper_model``."""
+
+    def __init__(self):
+        from yoho_tpu_torch.cli import transcribe as cli_t
+        from yoho_tpu_torch.infer.pipeline import Transcriber
+
+        self.calls, self.load_s = [], []
+        self._saved = (Transcriber.transcribe_many, cli_t.load_whisper_model)
+        many, load = self._saved
+
+        def transcribe_many(t, *a, **k):
+            results = many(t, *a, **k)
+            self.calls.append([[int(x) for s in r.segments for x in s.tokens]
+                               for r in results])
+            return results
+
+        def load_whisper_model(*a, **k):
+            import torch
+
+            t0 = time.perf_counter()
+            out = load(*a, **k)
+            torch.cuda.synchronize()
+            self.load_s.append(time.perf_counter() - t0)
+            return out
+
+        Transcriber.transcribe_many = transcribe_many
+        cli_t.load_whisper_model = load_whisper_model
+
+    def close(self):
+        from yoho_tpu_torch.cli import transcribe as cli_t
+        from yoho_tpu_torch.infer.pipeline import Transcriber
+
+        Transcriber.transcribe_many, cli_t.load_whisper_model = self._saved
+
+
+def _stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8) -> dict:
+    """``max_memory_allocated`` above the weights through the log-mel,
+    encode, int8 cross-K/V, a 3-token prefill and ``steps`` decode steps on
+    an int8 cache, at each batch; the slope is the measured bytes per
+    stream."""
+    import torch
+
+    from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+
+    peaks = {}
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            audio = 0.1 * torch.randn(b, cfg.n_samples, device="cuda", generator=g)
+            mel = fused_whisper_log_mel(audio, n_mels=cfg.n_mels)
+            del audio  # Transcriber._features frees its window batch too
+            xa = model.encode_audio(mel)
+            ckv = model.cross_kvs(xa, True)
+            caches = model.init_caches(b, torch.bfloat16, None, True)
+            tok = torch.full((b, 3), 50258, dtype=torch.long, device="cuda")
+            logits, caches = model.decode_step(tok, caches, ckv, 0)
+            for i in range(steps):
+                tok = logits[:, -1:].argmax(-1)
+                logits, caches = model.decode_step(tok, caches, ckv, 3 + i)
+            torch.cuda.synchronize()
+            del mel, xa, ckv, caches, logits, tok
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+    lo, hi = batches
+    return dict(peak_bytes=peaks, per_stream=(peaks[hi] - peaks[lo]) / (hi - lo))
+
+
+def _capacity_checks(card: str) -> dict:
+    """The capacity model against the card: predicted bytes per stream at
+    or above the measured slope for whisper-small (bf16, int8 K/V and cache)
+    and large-v3-turbo int8, and the ``auto`` batch each resolves to."""
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer import capacity
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.quantize import quantize_whisper_decoder, quantize_whisper_encoder
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    out = {}
+    for name, preset, int8 in (("whisper-small", "small", False),
+                               ("large-v3-turbo", "large-v3-turbo", False),
+                               ("large-v3-turbo-int8", "large-v3-turbo", True)):
+        cfg = WHISPER_PRESETS[preset]
+        model = init_random(Whisper(cfg, dtype=torch.bfloat16, fast_gelu=int8), seed=SEED)
+        if int8:
+            quantize_whisper_decoder(quantize_whisper_encoder(model))
+        measured = _stream_bytes_on_card(model, cfg)
+        terms = capacity.stream_terms(cfg, cross_kv="int8", cache_quantized=True,
+                                      act_itemsize=2)
+        predicted = sum(terms.values())
+        # The staging the reading leaves room for, in (n_audio_ctx x
+        # n_audio_state) bf16 tensors: what calibrates capacity._STAGING_CELLS.
+        cell = cfg.n_audio_ctx * cfg.n_audio_state * 2
+        needed = (measured["per_stream"] - predicted + terms["staging"]) / cell
+        t = Transcriber(model, token_table=WhisperTokenTable(multilingual=True, v3=int8),
+                        batch_size="auto", quantized_cross_kv=True, quantized_cache=True,
+                        cache_dtype=torch.bfloat16)
+        out[name] = dict(predicted_bytes_per_stream=predicted, predicted_terms=terms,
+                         measured_bytes_per_stream=measured["per_stream"],
+                         measured_peak_bytes_above_weights=measured["peak_bytes"],
+                         staging_cells_measured=needed,
+                         weight_bytes=capacity.module_bytes(model),
+                         device_bytes=capacity.device_memory_bytes(t.device),
+                         auto_batch=t.batch_size)
+        del model, t
+        torch.cuda.empty_cache()
+    emit("capacity", card=card, models=out)
+    for name, row in out.items():
+        if row["predicted_bytes_per_stream"] < row["measured_bytes_per_stream"]:
+            raise AssertionError(f"e2e-cli: {name}: predicted "
+                                 f"{row['predicted_bytes_per_stream']} B per stream below "
+                                 f"the measured {row['measured_bytes_per_stream']}")
+    return {k: v["auto_batch"] for k, v in out.items()}
+
+
+def e2e_cli(card: str, kernels) -> dict:
+    """Phase e2e-cli: the command lines on a whisper-small HF directory
+    written by the port's exporter (seed-0 random weights, a GPT-2
+    vocabulary built here). Returns the launches of the commands' runs."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.export import export_hf_whisper
+    from yoho_tpu_torch.nn.params import init_random, load_jax_params, to_jax_params
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.gpt2_bpe import GPT2BPE
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    phase = "e2e-cli"
+    cfg = WHISPER_PRESETS["small"]
+    total = {k.name: 0 for k in kernels}
+    report = {}
+
+    def measured(label, fn, want=(), w8a8=False):
+        """Runs one command with every count set to 0 just before it and
+        read just after; checks the kernels the command must launch."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        idle = [n for n in want if launches[n] == 0]
+        if idle or (launches[W8A8.name] > 0) != w8a8:
+            raise AssertionError(f"{phase} ({label}): launches {launches}; "
+                                 f"w8a8 expected: {w8a8}")
+        for n, v in launches.items():
+            total[n] += v
+        report[label] = dict(wall_s=time.perf_counter() - t0, launches=launches)
+        return result
+
+    path = ("mel_log_spectrogram", "flash_attention_forward", "decode_attention")
+    with tempfile.TemporaryDirectory(prefix="yoho_cli_smoke_") as tmp:
+        tmp = Path(tmp)
+        hf = tmp / "whisper-small"
+        t0 = time.perf_counter()
+        params = to_jax_params(init_random(Whisper(cfg, dtype=torch.float32),
+                                           seed=SEED))
+        export_hf_whisper(params, cfg, hf)
+        _write_gpt2_bpe(hf)
+        report["checkpoint"] = dict(write_s=time.perf_counter() - t0,
+                                    bytes=(hf / "model.safetensors").stat().st_size)
+        files = [_wav16(tmp / f"req{s}.wav", a) for s, a in zip((12, 30, 75), _requests())]
+
+        # The in-process reference: the same numpy params, the CLI's settings.
+        table = WhisperTokenTable(multilingual=True, text_backend=GPT2BPE.from_dir(hf))
+        ref_model = load_jax_params(Whisper(cfg, dtype=torch.bfloat16), params)
+        del params
+        ref = Transcriber(ref_model, token_table=table, batch_size=BATCH,
+                          quantized_cross_kv=True, quantized_cache=True,
+                          cache_dtype=torch.bfloat16)
+        ref_results = ref.transcribe_many(files)
+        ref_tokens = [[int(x) for s in r.segments for x in s.tokens] for r in ref_results]
+        del ref, ref_model
+
+        rec = _Recorder()
+        try:
+            # transcribe: the main call.
+            docs = [json.loads(x) for x in measured("transcribe", lambda: _cli(
+                ["transcribe", *files, "--hf", str(hf), "--batch", str(BATCH), "--int8-kv",
+                 "--json"]), path).splitlines()]
+            cli_tokens = rec.calls[-1]
+            if cli_tokens != ref_tokens:
+                raise AssertionError(f"{phase}: transcribe's tokens differ from the "
+                                     "in-process Transcriber's")
+            if [d["text"] for d in docs] != [r.text for r in ref_results]:
+                raise AssertionError(f"{phase}: transcribe's text differs")
+            report["transcribe"].update(
+                load_s=rec.load_s[-1], tokens=[len(t) for t in cli_tokens],
+                tokens_equal_in_process=True,
+                segments=[len(d["segments"]) for d in docs])
+
+            # The int8 lanes through the command line: w8a8 launches.
+            measured("transcribe-int8", lambda: _cli(
+                ["transcribe", files[0], "--hf", str(hf), "--batch", str(BATCH), "--int8-kv",
+                 "--int8-weights", "--int8-encoder", "--fast-gelu", "--json"]),
+                path, w8a8=True)
+
+            # align: every word of a given transcript gets a time.
+            text = "the water house people about little"
+            words = json.loads(measured("align", lambda: _cli(
+                ["align", files[0], "--hf", str(hf), "--text", text]),
+                ("mel_log_spectrogram", "flash_attention_forward")))["words"]
+            if [w["word"].strip() for w in words] != text.split() or not all(
+                    np.isfinite([w["start"], w["end"]]).all() and w["start"] <= w["end"]
+                    for w in words):
+                raise AssertionError(f"{phase}: align gave {words}")
+            report["align"]["words"] = len(words)
+
+            # evaluate over a two-pair SRT corpus.
+            corpus = tmp / "corpus"
+            _train_corpus(corpus, tracks=2, seconds=12)
+            ev = json.loads(measured("evaluate", lambda: _cli(
+                ["evaluate", str(corpus), "--hf", str(hf), "--batch", str(BATCH),
+                 "--int8-kv", "--json"]), path).splitlines()[-1])
+            if ev["utterances"] != 2 or not (np.isfinite(ev["wer"]) and np.isfinite(ev["cer"])):
+                raise AssertionError(f"{phase}: evaluate gave {ev}")
+            report["evaluate"].update(wer=ev["wer"], cer=ev["cer"])
+
+            # doctor: no failed check, the card named, the auto batch.
+            rows = [json.loads(x) for x in _cli(["doctor", "--json", "--hf", str(hf)])
+                    .splitlines()]
+            failed = [r for r in rows if r["status"] == "FAIL"]
+            devices = next(r for r in rows if r["check"] == "devices")
+            if failed or torch.cuda.get_device_name(0) not in devices["detail"]:
+                raise AssertionError(f"{phase}: doctor: failed {failed}; devices {devices}")
+            capacity_row = next((r["detail"] for r in rows
+                                 if r["check"] == "devices:capacity"), None)
+            report["doctor"] = dict(checks={r["check"]: r["status"] for r in rows},
+                                    devices=devices["detail"], capacity=capacity_row)
+
+            # serve: main on 127.0.0.1 port 0 in a thread, one /transcribe.
+            from yoho_tpu_torch.cli import serve as serve_mod
+
+            made, real_serve = [], serve_mod.serve
+            serve_mod.serve = lambda *a, **k: made.append(real_serve(*a, **k)) or made[-1]
+            out = {}
+
+            def run_server():
+                import contextlib
+                import io
+
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    out["rc"] = serve_mod.main(["--hf", str(hf), "--port", "0", "--batch",
+                                                str(BATCH), "--int8-kv"])
+
+            def serve_one():
+                th = threading.Thread(target=run_server, daemon=True)
+                th.start()
+                deadline = time.monotonic() + 300
+                while not made:  # bound and listening: a request queues until served
+                    if time.monotonic() > deadline or not th.is_alive():
+                        raise AssertionError(f"{phase}: the server did not start ({out})")
+                    time.sleep(0.1)
+                port = made[0].server_address[1]
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/transcribe",
+                    data=Path(files[1]).read_bytes(), headers={"Content-Type": "audio/wav"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    doc = json.load(r)
+                made[0].shutdown()
+                th.join(120)
+                if th.is_alive() or out.get("rc") != 0:
+                    raise AssertionError(f"{phase}: the server did not drain ({out})")
+                return doc
+
+            try:
+                rec.calls.clear()
+                doc = measured("serve", serve_one, path)
+            finally:
+                serve_mod.serve = real_serve
+            if rec.calls[-1] != [ref_tokens[1]] or doc["text"] != ref_results[1].text:
+                raise AssertionError(f"{phase}: /transcribe differs from transcribe's tokens")
+            report["serve"]["tokens_equal_transcribe"] = True
+
+            # finetune: 2 updates at batch 2, the export, then transcribe it.
+            tuned = tmp / "tuned"
+            measured("finetune", lambda: _cli(
+                ["finetune", "--hf", str(hf), "--data", str(corpus), "--out", str(tuned),
+                 "--batch", "2", "--updates", "2", "--warmup", "1", "--val-every", "0",
+                 "--language", "en"]), ("mel_log_spectrogram", "flash_attention_forward"))
+            docs = [json.loads(x) for x in measured("transcribe-tuned", lambda: _cli(
+                ["transcribe", files[0], "--hf", str(tuned), "--batch", str(BATCH), "--int8-kv",
+                 "--json"]), path).splitlines()]
+            if len(docs) != 1 or not (tuned / "model.safetensors").is_file():
+                raise AssertionError(f"{phase}: the fine-tuned export did not transcribe")
+
+            # distill: 1 update to a random whisper-tiny student.
+            measured("distill", lambda: _cli(
+                ["distill", "--hf", str(hf), "--student-preset", "tiny", "--data", str(corpus),
+                 "--out", str(tmp / "draft"), "--batch", "2", "--updates", "1", "--warmup", "1",
+                 "--val-every", "0", "--language", "en"]),
+                ("mel_log_spectrogram", "flash_attention_forward"))
+            if not (tmp / "draft" / "model.safetensors").is_file():
+                raise AssertionError(f"{phase}: distill wrote no export")
+        finally:
+            rec.close()
+
+    report["auto_batch"] = _capacity_checks(card)
+    emit(phase, model="whisper-small", batch=BATCH, card=card, launches=total, **report)
+    return total
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2097,7 +2490,7 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase):
+    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli):
         t0 = time.perf_counter()
         for name, n in phase(card, kernels).items():
             launches[name] += n

@@ -27,8 +27,10 @@ def test_every_module_imports_without_jax():
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import yoho_tpu_torch; yoho_tpu_torch.load_transcriber\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'flax', 'yoho_tpu.')) or m == 'yoho_tpu')))\n")
+        "m.startswith(('jax.', 'flax', 'yoho_tpu.', 'transformers', 'safetensors', "
+        "'tokenizers')) or m == 'yoho_tpu')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert len(mods) >= 20
@@ -43,7 +45,15 @@ def test_every_module_imports_without_jax():
             "yoho_tpu_torch.infer.batching", "yoho_tpu_torch.infer.streaming",
             "yoho_tpu_torch.text.srt", "yoho_tpu_torch.utils.websocket",
             "yoho_tpu_torch.cli.serve", "yoho_tpu_torch.cli.serve_openai",
-            "yoho_tpu_torch.cli.serve_ws"} <= set(mods)
+            "yoho_tpu_torch.cli.serve_ws", "yoho_tpu_torch.nn.convert",
+            "yoho_tpu_torch.text.gpt2_bpe", "yoho_tpu_torch.load",
+            "yoho_tpu_torch.infer.capacity", "yoho_tpu_torch.utils.platform",
+            "yoho_tpu_torch.utils.logging", "yoho_tpu_torch.utils.profiling",
+            "yoho_tpu_torch.eval.wer", "yoho_tpu_torch.eval.english_normalizer",
+            "yoho_tpu_torch.cli.transcribe", "yoho_tpu_torch.cli.align",
+            "yoho_tpu_torch.cli.evaluate", "yoho_tpu_torch.cli.doctor",
+            "yoho_tpu_torch.cli.finetune", "yoho_tpu_torch.cli.distill",
+            "yoho_tpu_torch.cli.__main__", "yoho_tpu_torch.__main__"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

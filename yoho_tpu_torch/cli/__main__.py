@@ -1,0 +1,77 @@
+"""Umbrella CLI: ``yoho-torch <command> ...`` (also ``python -m
+yoho_tpu_torch.cli`` and ``python -m yoho_tpu_torch``).
+
+The JAX package's command table. The commands the port has run; each
+command it does not have yet exits non-zero with a message naming the
+ROADMAP.md item that brings it.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+COMMANDS = {
+    "transcribe": ("yoho_tpu_torch.cli.transcribe", "Transcribe audio files"),
+    "serve": ("yoho_tpu_torch.cli.serve", "HTTP transcription server"),
+    "evaluate": ("yoho_tpu_torch.cli.evaluate", "WER/CER evaluation over a corpus"),
+    "finetune": ("yoho_tpu_torch.cli.finetune",
+                 "Fine-tune a Whisper checkpoint on an SRT corpus"),
+    "distill": ("yoho_tpu_torch.cli.distill",
+                "Distill a small draft Whisper for speculative decoding"),
+    "create-session": (12, "Scaffold a training session"),
+    "run-session": (12, "Run a training stage (0-4)"),
+    "plot-metrics": (15, "Live metrics dashboard for a session"),
+    "split-tracks": (15, "Split long (audio, SRT) pairs into chunks"),
+    "cache-corpus": (15, "Transcode a corpus to FLAC for fast decode"),
+    "import-corpus": (15, "Import CommonVoice/LibriSpeech/LJSpeech/CSV "
+                          "corpora into the SRT training layout"),
+    "summary": (15, "Model/param summary"),
+    "enroll": (12, "Enroll speaker voiceprints for recognition"),
+    "align": ("yoho_tpu_torch.cli.align",
+              "Forced alignment: word timings for known transcripts"),
+    "score-diarization": (12, "DER between reference and hypothesis RTTM"),
+    "doctor": ("yoho_tpu_torch.cli.doctor",
+               "Environment self-check (CUDA, kernels, codecs, checkpoints)"),
+}
+
+
+def _usage() -> str:
+    lines = ["usage: yoho-torch <command> [args...]", "", "commands:"]
+    width = max(map(len, COMMANDS))
+    for name, (target, desc) in COMMANDS.items():
+        note = "" if isinstance(target, str) else f"  (not ported: Queue 1 item {target})"
+        lines.append(f"  {name:<{width}}  {desc}{note}")
+    lines.append("")
+    lines.append("run 'yoho-torch <command> --help' for command arguments")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        if not argv or argv[0] in ("-h", "--help"):
+            print(_usage())
+            return 0
+        name = argv[0]
+        if name not in COMMANDS:
+            print(f"yoho-torch: unknown command {name!r}\n\n{_usage()}",
+                  file=sys.stderr)
+            return 2
+        target = COMMANDS[name][0]
+        if not isinstance(target, str):
+            from yoho_tpu_torch.infer.pipeline import _not_ported
+
+            try:
+                _not_ported(f"the {name} command", target)
+            except NotImplementedError as e:
+                print(f"yoho-torch: {e}", file=sys.stderr)
+            return 2
+        module = importlib.import_module(target)
+        return module.main(argv[1:]) or 0
+    except BrokenPipeError:  # e.g. `yoho-torch --help | head`
+        return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

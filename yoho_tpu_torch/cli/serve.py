@@ -31,8 +31,11 @@ call; the handler threads parse, wait and answer.
 
 Serving from Python: ``server = serve(transcriber, port, continuous=True)``,
 ``warmup(server)``, ``server.serve_forever()``, and ``drain(server)`` to
-stop. The command line (``main``) needs a checkpoint loader, which the
-port does not have yet (ROADMAP.md, Queue 1 item 14).
+stop. The command line (``main``, ``yoho-torch serve --hf DIR``) builds
+the transcriber from a local checkpoint directory (``cli/transcribe.py``)
+and does the same; ``--session``, ``--diarize-session``, ``--speakers``
+and ``--mesh`` are not in the port yet and raise, naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -363,12 +366,217 @@ def drain(server, timeout_s: float = 30.0) -> None:
 
 
 def main(argv=None):
-    """The serving command line of the JAX package (``--hf`` / ``--session``
-    checkpoints) needs a checkpoint loader, which the port does not have
-    yet."""
-    from yoho_tpu_torch.infer.pipeline import _not_ported
+    """The serving command line: build the transcriber from an HF
+    checkpoint directory (``cli/transcribe.py``), warm it up, serve until
+    SIGTERM or Ctrl-C, then drain."""
+    import argparse
+    import sys
 
-    _not_ported("the serve command line (a checkpoint loader)", 14)
+    from yoho_tpu_torch.cli.transcribe import (
+        _refuse_unported,
+        batch_size_arg,
+        build_whisper_transcriber,
+    )
+    from yoho_tpu_torch.utils.platform import add_device_arg, cli_device
+
+    parser = argparse.ArgumentParser(description="Transcription HTTP server")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--hf", type=str, help="HF Whisper checkpoint directory")
+    src.add_argument("--session", type=str,
+                     help="YOHO training session (not in the PyTorch port yet)")
+    parser.add_argument("--root", type=str, default="./sessions")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--batch", type=batch_size_arg, default=8,
+                        help="decode batch size (micro-batch cap / "
+                             "continuous slots), or 'auto' to size it "
+                             "from the device-memory capacity model")
+    parser.add_argument("--continuous", action="store_true",
+                        help="slot-engine continuous batching: refill "
+                             "freed decode slots between token chunks "
+                             "(greedy; composes with --draft-hf for "
+                             "per-slot speculative decoding; lowest "
+                             "queue latency)")
+    parser.add_argument("--chunk-tokens", type=int, default=16,
+                        help="tokens decoded between admission checks "
+                             "(--continuous)")
+    parser.add_argument("--partial-interval", type=float, default=None,
+                        metavar="SECONDS",
+                        help="websocket streams: decode the INCOMPLETE "
+                             "tail window every this-many seconds of new "
+                             "audio and push it as a revisable partial; "
+                             "finals are unchanged (costs one extra decode "
+                             "per interval per stream)")
+    parser.add_argument("--max-wait-ms", type=float, default=25.0,
+                        help="micro-batching window for concurrent requests")
+    parser.add_argument("--max-pending", type=int, default=256,
+                        help="backpressure: max in-flight requests before "
+                             "submissions get 503 + Retry-After (0 = "
+                             "unlimited)")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="skip the startup warmup decode (by default "
+                             "one silent window is transcribed before "
+                             "accepting traffic, so the first real "
+                             "request doesn't pay the kernel build)")
+    parser.add_argument("--drain-timeout", type=float, default=30.0,
+                        help="seconds to wait for in-flight requests on "
+                             "SIGTERM/Ctrl-C before exiting anyway")
+    parser.add_argument("--beams", type=int, default=0)
+    parser.add_argument("--mesh", type=str, default=None, metavar="DxM",
+                        help="multi-device serving mesh (not in the PyTorch "
+                             "port yet)")
+    parser.add_argument("--language", type=str, default="en")
+    parser.add_argument("--task", type=str, default="transcribe",
+                        choices=("transcribe", "translate"),
+                        help="whisper task (translate also enables the "
+                             "OpenAI /v1/audio/translations endpoint)")
+    parser.add_argument("--int8-kv", action="store_true",
+                        help="int8 KV caches (argmax-identical)")
+    parser.add_argument("--int8-weights", action="store_true",
+                        help="weight-only int8 decoder (near-lossless)")
+    parser.add_argument("--int8-encoder", action="store_true",
+                        help="W8A8 int8 encoder MLPs (near-lossless; "
+                             "implies the tanh GELU)")
+    parser.add_argument("--fast-gelu", action="store_true",
+                        help="tanh-GELU in encoder MLPs (near-lossless)")
+    parser.add_argument("--vad", action="store_true",
+                        help="collapse silence on the host before decoding")
+    parser.add_argument("--word-timestamps", action="store_true",
+                        help="attach word-level timings (cross-attention "
+                             "DTW); surfaces as 'words' in verbose_json")
+    parser.add_argument("--temperature-fallback", action="store_true",
+                        help="retry low-quality windows at higher "
+                             "temperatures (whisper quality ladder; works "
+                             "with --continuous too)")
+    parser.add_argument("--best-of", type=int, default=1,
+                        help="sampled candidates per window at fallback "
+                             "temperatures > 0 (also applies to "
+                             "per-request temperature>0 decodes); the "
+                             "highest-mean-logprob candidate wins")
+    parser.add_argument("--diarize-session", type=str, default=None,
+                        metavar="NAME",
+                        help="whisper-family diarization (not in the "
+                             "PyTorch port yet)")
+    parser.add_argument("--speaker-threshold", type=float, default=0.75,
+                        help="cosine floor for diarization clustering and "
+                             "enrolled-name matching")
+    parser.add_argument("--speakers", type=str, default=None, metavar="NPZ",
+                        help="speaker recognition (not in the PyTorch port "
+                             "yet)")
+    parser.add_argument("--draft-hf", type=str, default=None, metavar="PATH",
+                        help="speculative decoding via a small same-vocab "
+                             "draft checkpoint (greedy-identical; a "
+                             "single-stream latency feature — pair with "
+                             "--batch 1)")
+    parser.add_argument("--gamma", type=int, default=4,
+                        help="draft tokens per verify step (--draft-hf)")
+    parser.add_argument("--lora", type=str, default=None, metavar="PATH",
+                        help="merge a LoRA adapter (finetune --lora "
+                             "output) into the --hf base weights at load")
+    parser.add_argument("--hotwords", type=str, default=None,
+                        metavar="PHRASES",
+                        help="comma-separated phrases whose tokens get a "
+                             "logit boost in every decode (fixed per "
+                             "server)")
+    parser.add_argument("--hotword-boost", type=float, default=4.0)
+    parser.add_argument("--hallucination-silence-threshold", type=float,
+                        default=None, metavar="SECONDS",
+                        help="drop segments that sit speech-free inside a "
+                             "silence run at least this long (VAD-informed "
+                             "hallucination filter)")
+    parser.add_argument("--length-penalty", type=float, default=1.0,
+                        help="GNMT length normalization exponent for beam "
+                             "scores (--beams)")
+    parser.add_argument("--repetition-penalty", type=float, default=None,
+                        help="CTRL-style penalty (>1 damps) on re-emitting "
+                             "already-generated text tokens")
+    parser.add_argument("--no-repeat-ngram", type=int, default=0,
+                        metavar="N",
+                        help="hard-ban completing any text n-gram already "
+                             "generated in the window (0 = off)")
+    add_device_arg(parser)
+    args = parser.parse_args(argv)
+    _refuse_unported(args)
+    device = cli_device(args)
+    if args.best_of < 1:
+        parser.error("--best-of must be >= 1")
+    if args.max_pending < 0:
+        parser.error("--max-pending must be >= 0")
+    if args.draft_hf and args.beams:
+        parser.error("--draft-hf is greedy-only; drop --beams")
+    if args.draft_hf and args.gamma < 1:
+        parser.error("--gamma must be >= 1")
+
+    temps = ((0.0, 0.2, 0.4, 0.6, 0.8, 1.0) if args.temperature_fallback
+             else (0.0,))
+    t = build_whisper_transcriber(args.hf, args.beams, args.batch,
+                                  None if args.language == "auto" else args.language,
+                                  True,
+                                  quantized=args.int8_kv,
+                                  int8_weights=args.int8_weights,
+                                  int8_encoder=args.int8_encoder,
+                                  fast_gelu=args.fast_gelu,
+                                  task=args.task,
+                                  word_timestamps=args.word_timestamps,
+                                  temperatures=temps,
+                                  best_of=args.best_of,
+                                  vad_filter=args.vad,
+                                  draft_hf=args.draft_hf,
+                                  speculative_gamma=args.gamma,
+                                  lora=args.lora, hotwords=args.hotwords,
+                                  hotword_boost=args.hotword_boost,
+                                  repetition_penalty=args.repetition_penalty,
+                                  no_repeat_ngram_size=args.no_repeat_ngram,
+                                  length_penalty=args.length_penalty,
+                                  hallucination_silence_threshold=(
+                                      args.hallucination_silence_threshold),
+                                  device=device)
+
+    server = serve(t, args.port, args.host, args.max_wait_ms,
+                   continuous=args.continuous,
+                   chunk_tokens=args.chunk_tokens,
+                   max_pending=args.max_pending or None,
+                   partial_interval=args.partial_interval)
+    if not args.no_warmup:
+        # Build and load the kernels and size the allocator now, not on
+        # the first user's request. The socket is already bound: early
+        # requests queue and get served the moment the loop starts.
+        print("warming up...", file=sys.stderr)
+        t0 = time.monotonic()
+        warmup(server)
+        print(f"warm in {time.monotonic() - t0:.1f}s", file=sys.stderr)
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port} (POST /transcribe, GET /healthz)",
+          flush=True)
+
+    # Graceful drain: SIGTERM (the orchestrator's stop signal) behaves
+    # like Ctrl-C — stop accepting, finish in-flight decodes, exit 0.
+    import signal
+
+    def _term(_signum, _frame):
+        raise KeyboardInterrupt
+
+    prev_term = None
+    try:
+        prev_term = signal.signal(signal.SIGTERM, _term)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if prev_term is not None:
+            # Restore the caller's handler: embedded runs (tests, library
+            # use) must not keep a global SIGTERM->KeyboardInterrupt hook
+            # after this server exits.
+            try:
+                signal.signal(signal.SIGTERM, prev_term)
+            except ValueError:
+                pass
+        drain(server, timeout_s=args.drain_timeout)
+        print("drained; bye", file=sys.stderr)
+    return 0
 
 
 if __name__ == "__main__":

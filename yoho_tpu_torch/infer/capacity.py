@@ -1,0 +1,196 @@
+"""Device-memory capacity model: a safe serving batch (``batch_size="auto"``).
+
+The port's counterpart of the JAX package's ``infer/capacity.py``, refit to
+the buffers the port allocates on a CUDA card. A suggestion is how many
+decode streams fit in the device's memory beside the weights. Per stream
+(one row of a decode batch), each term one of the port's own buffers:
+
+* cross-attention K/V (``Whisper.cross_kvs``) — int8 (int4: two codes a
+  byte) codes ``2 * n_text_layer * n_state * T`` with T the encoder length
+  padded to a multiple of 128 (1500 -> 1536), plus bf16 scales per (head,
+  position) ``2 * n_text_layer * n_head * T * 2`` bytes; float K/V keep the
+  model's type and the unpadded length;
+* self-attention cache (``Whisper.init_caches``) — ``2 * n_text_layer *
+  n_state * L`` cells, L the decode horizon rounded up to 128 (448 -> 512),
+  in the cache's type, or int8 codes plus bf16 scales per (head, position);
+  beams keep one cache per beam (the cross K/V stay one per stream);
+* the audio window (``n_samples`` f32), its log-mel (``n_frames * n_mels``
+  f32) and the encoder output (``n_audio_ctx * n_audio_state`` in the
+  model's type), which the decode holds;
+* staging: the encoder's live activations while a batch encodes, one block
+  at a time (eager PyTorch frees each block's temporaries), so
+  ``_STAGING_CELLS * n_audio_ctx * n_audio_state`` in the model's type
+  whatever the depth. These are not buffers the port sizes itself, and
+  they do not coexist with the caches (the encode peak comes before the
+  decode holds its K/V), so the term is what the encode peak needs beyond
+  the other terms, calibrated on the card: ``chip_smoke.py``'s
+  ``capacity`` line takes ``max_memory_allocated`` through log-mel,
+  encode, int8 cross-K/V, prefill and 8 decode steps at batch 16 and 32,
+  the slope per stream. On an NVIDIA H100 80GB HBM3 (700 W) the readings
+  left room for -1.4 tensors (whisper-small: the decode's hold sets its
+  peak), 3.7 (large-v3-turbo int8) and 4.8 (large-v3-turbo bf16), and
+  whisper-small's slope moved by 2.3 MB (one tensor at its width) between
+  two calls; 6 keeps the sum at or above every reading with about a
+  tensor to spare.
+
+The device's memory is ``torch.cuda.mem_get_info``'s total on the resolved
+device (the host's physical memory for a CPU device); the fixed cost is the
+model's parameters and buffers as stored (the int8 lanes' codes and scales,
+the float32 LayerNorms), a draft model's too, and a reserve for the CUDA
+context, cuBLAS workspaces and the allocator's rounding.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import torch
+
+# Held back beside the weights: the CUDA context, cuBLAS workspaces, the
+# caching allocator's rounding.
+RESERVE_BYTES = 1 << 30
+_LANE = 128  # the port pads cross K/V and rounds cache lengths to this
+# The encoder's peak beyond the other terms, in (n_audio_ctx x
+# n_audio_state) tensors of the model's type, calibrated on the card
+# (module doc).
+_STAGING_CELLS = 6
+
+
+# ---------------------------------------------------------------------------
+# Parameter counts (analytic, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def whisper_param_count(cfg) -> int:
+    """Parameters of a Whisper checkpoint from its dimensions."""
+    s_a, s_t = cfg.n_audio_state, cfg.n_text_state
+    # Conv stem: (n_mels -> s, k=3) then (s -> s, k=3), both biased.
+    conv = cfg.n_mels * s_a * 3 + s_a + s_a * s_a * 3 + s_a
+    # Encoder block: attn 4*s^2 (+q/v/out biases), MLP 8*s^2, 2 LNs.
+    enc = cfg.n_audio_layer * (12 * s_a * s_a + 12 * s_a) + 2 * s_a
+    # Decoder block: self 4*s^2 + cross 4*s^2 + MLP 8*s^2, 3 LNs.
+    dec = cfg.n_text_layer * (16 * s_t * s_t + 18 * s_t) + 2 * s_t
+    embed = cfg.n_vocab * s_t + cfg.n_text_ctx * s_t  # tied logits
+    return conv + enc + dec + embed
+
+
+def module_bytes(model: torch.nn.Module) -> int:
+    """Bytes of a module's parameters and buffers as stored on its device."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# Per-stream terms
+# ---------------------------------------------------------------------------
+
+def _round_up(n: int, quantum: int) -> int:
+    return ((n + quantum - 1) // quantum) * quantum
+
+
+def _kv_bytes(n_layer: int, n_state: int, n_head: int, t: int,
+              mode) -> int:
+    """K and V over ``t`` positions for ``n_layer`` layers: ``mode`` None
+    (or a float item size) for float values, "int8" or "int4" for codes
+    with bf16 scales per (head, position)."""
+    if mode in ("int8", "int4"):
+        codes = 2 * n_layer * n_state * t // (2 if mode == "int4" else 1)
+        return codes + 2 * n_layer * n_head * t * 2
+    return 2 * n_layer * n_state * t * int(mode)
+
+
+def stream_terms(cfg, *, horizon: Optional[int] = None, cross_kv="int8",
+                 cache_quantized: bool = True, cache_itemsize: int = 2,
+                 act_itemsize: int = 2, beams: int = 0) -> Dict[str, int]:
+    """Device bytes one decode stream holds, by buffer (module doc).
+
+    ``cross_kv``: "int8", "int4" or None (float K/V in the model's type);
+    ``cache_quantized``: an int8 self cache, else one of
+    ``cache_itemsize``-byte cells; ``act_itemsize``: the model's type;
+    ``beams``: caches per stream (0 and 1 mean one)."""
+    n_layer, n_state, n_head = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    horizon = cfg.n_text_ctx if horizon is None else horizon
+    enc_cells = cfg.n_audio_ctx * cfg.n_audio_state
+    if cross_kv in ("int8", "int4"):
+        cross = _kv_bytes(n_layer, n_state, n_head, _round_up(cfg.n_audio_ctx, _LANE),
+                          cross_kv)
+    else:
+        cross = _kv_bytes(n_layer, n_state, n_head, cfg.n_audio_ctx, act_itemsize)
+    cache = _kv_bytes(n_layer, n_state, n_head, _round_up(max(1, horizon), _LANE),
+                      "int8" if cache_quantized else cache_itemsize)
+    return {
+        "cross_kv": cross,
+        "self_cache": cache * max(1, beams),
+        "audio": cfg.n_samples * 4,
+        "mel": cfg.n_frames * cfg.n_mels * 4,
+        "encoder_out": enc_cells * act_itemsize,
+        "staging": _STAGING_CELLS * enc_cells * act_itemsize,
+    }
+
+
+def stream_bytes(cfg, **kw) -> int:
+    """The sum of :func:`stream_terms`."""
+    return sum(stream_terms(cfg, **kw).values())
+
+
+def device_memory_bytes(device) -> int:
+    """Memory of ``device``: ``torch.cuda.mem_get_info``'s total for a CUDA
+    device, the host's physical memory for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1])
+    if device.type == "cpu":
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    raise ValueError(f"no memory reading for device {device}")
+
+
+def suggest_batch_size(cfg, *, device_bytes: int, weight_bytes: Optional[int] = None,
+                       quantum: int = 8, max_batch: int = 512,
+                       extra_fixed_bytes: int = 0, extra_stream_bytes: int = 0,
+                       **terms) -> int:
+    """A serving batch that fits in ``device_bytes``.
+
+    ``weight_bytes``: the model as stored (default: the analytic parameter
+    count in bf16); ``extra_fixed_bytes`` / ``extra_stream_bytes``: what
+    the configuration alone cannot see (a draft model and its per-stream
+    buffers); ``terms``: :func:`stream_terms`' keywords. Returns at least
+    1, at most ``max_batch``, rounded down to ``quantum`` above it."""
+    if weight_bytes is None:
+        weight_bytes = whisper_param_count(cfg) * 2
+    budget = device_bytes - weight_bytes - RESERVE_BYTES - max(0, extra_fixed_bytes)
+    per_stream = stream_bytes(cfg, **terms) + max(0, extra_stream_bytes)
+    batch = min(max(0, budget) // per_stream, max_batch)
+    if batch >= quantum:
+        batch = (batch // quantum) * quantum
+    return max(1, int(batch))
+
+
+def _lane_kwargs(t, model, horizon: int) -> dict:
+    """:func:`stream_terms`' keywords under a ``Transcriber``'s settings
+    for ``model`` (its model or its draft)."""
+    q = t.quantized_cross_kv
+    return dict(horizon=horizon,
+                cross_kv={False: None, None: None, True: "int8"}.get(q, q),
+                cache_quantized=bool(t.quantized_cache),
+                cache_itemsize=torch.empty((), dtype=t.cache_dtype).element_size(),
+                act_itemsize=torch.empty((), dtype=model.dtype).element_size(),
+                beams=t.beams)
+
+
+def resolve_auto_batch(t) -> int:
+    """Resolve ``Transcriber(batch_size="auto")`` from its live settings:
+    its model (and draft) as stored on its device, the cross-K/V and cache
+    lanes, the beams and the speculative horizon."""
+    horizon, fixed, extra = t.max_len, 0, 0
+    if t.draft_model is not None:
+        # Both cache sets hold the stale-write workspace past the horizon
+        # (gamma + 2 slots); the draft encodes the same window.
+        horizon = t.max_len + t.speculative_gamma + 2
+        fixed = module_bytes(t.draft_model)
+        d_terms = stream_terms(t.draft_model.cfg,
+                               **_lane_kwargs(t, t.draft_model, horizon))
+        extra = sum(v for k, v in d_terms.items() if k not in ("audio", "mel"))
+    return suggest_batch_size(
+        t.model.cfg, device_bytes=device_memory_bytes(t.device),
+        weight_bytes=module_bytes(t.model), extra_fixed_bytes=fixed,
+        extra_stream_bytes=extra, **_lane_kwargs(t, t.model, horizon))

@@ -79,7 +79,7 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         *,
         token_table,
         family: str = "whisper",
-        batch_size: int = 8,
+        batch_size=8,  # int, or "auto" (infer/capacity.py)
         beams: int = 0,  # 0/1 = greedy
         length_penalty: float = 1.0,  # GNMT beam score normalization
         overlap_seconds: float = 5.0,
@@ -177,7 +177,6 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self.suppress_tokens = tuple(int(t) for t in suppress_tokens)
         self.repetition_penalty = repetition_penalty
         self.no_repeat_ngram_size = int(no_repeat_ngram_size)
-        self.batch_size = int(batch_size)
         self.language = language
         self.task = task
         self.timestamps = timestamps
@@ -204,6 +203,17 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self._logit_bias_entries = self._build_logit_bias(
             logit_bias, hotwords, hotword_boost)
         self._programs = {}
+        if isinstance(batch_size, str):
+            # "auto": the largest batch the device's memory holds under
+            # this transcriber's settings (infer/capacity.py).
+            if batch_size != "auto":
+                raise ValueError("batch_size must be an int or 'auto', "
+                                 f"got {batch_size!r}")
+            from yoho_tpu_torch.infer.capacity import resolve_auto_batch
+
+            self.batch_size = resolve_auto_batch(self)
+        else:
+            self.batch_size = int(batch_size)
 
     def _features(self, wins: np.ndarray) -> torch.Tensor:
         audio = torch.as_tensor(wins, dtype=torch.float32, device=self.device)
