@@ -38,6 +38,13 @@ Phases, one output line each (JSON after the phase name):
    continuous batching's reads of the cache with one position per row (16
    rows spread from 0 to 447, all at 200, all at 0, and the 5-query verify
    read at spread positions), whose bound counts each row's valid prefix.
+   The YOHO family's shapes (phase e2e-yoho): the log-mel of 16 windows of
+   164,080 samples (scipy framing, HTK, 128 mels, 1,024 frames), encoder
+   attention (16, 512, 6, 64) on 3 KV heads expanded, the bf16 cross read
+   (T 512) and the causal bf16 self read (T 256, pos 200) at 6 query heads
+   on 3 KV heads; then head dim 16 (the trained fixture's) at the fixture's
+   shapes and at the full-width batch; SDPA with ``enable_gqa`` beside each
+   attention line.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -167,11 +174,32 @@ Phases, one output line each (JSON after the phase name):
    decode steps at batch 16 and 32 for whisper-small (bf16) and
    large-v3-turbo int8; the slope per stream must be at most the model's
    predicted bytes per stream; the ``auto`` batch each resolves to.
-12. ``kernels``: one JSON object with every kernel's numbers; launches are
+12. ``e2e-yoho``: the YOHO family at the repo's default full width (dims
+   384, 6 heads on 3 KV heads, 4 + 4 blocks, 128 mels, 1,024 frames, 256
+   text positions, vocab 16,000, voiceprints of 256), seed-0 random weights
+   written as a session directory (``config.toml`` from the port's
+   ``DEFAULT_SESSION_TOML``, a tokenizer of exactly 16,000 ids built here,
+   ``weights/asr.ckpt``) and loaded back by ``load_transcriber(session=...)``
+   (bf16 weights and caches, float cross K/V, batch 16). One window through
+   the card's kernels against the same model in f32 on the CPU (encoder
+   output and 8 greedy steps' logits; tokens equal until a step whose f32
+   margin the measured logit difference explains); ``transcribe_many`` of
+   8 s, 25 s and 60 s twice (the same tokens; voiceprints of 256 unit
+   vectors; ``cluster_voiceprints`` labels); ``--int8-weights`` on the 8 s
+   request (its tokens' common prefix with bf16 stated); ``enroll`` of two
+   names from two WAV clips, then ``transcribe --speakers`` naming
+   segments; ``serve --session --continuous`` on port 0 answering one
+   request with the tokens of the library's ``ContinuousBatcher``; the
+   capacity model's YOHO bytes per stream against ``max_memory_allocated``
+   at batch 16 and 32 and the ``auto`` batch; then the trained fixture
+   (head dim 16) on the card: ``golden.json``'s text with the CPU port's
+   tokens. Every part counts launches from 0: mel, flash and decode
+   attention launch, w8a8 never.
+13. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
-   ``train`` phase's runs and ``e2e-cli``'s commands.
-13. The last line: ``{"ok": true, "device": {...}}``.
+   ``train`` phase's runs, ``e2e-cli``'s commands and ``e2e-yoho``'s parts.
+14. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -564,6 +592,7 @@ def kernel_checks(card: str) -> dict:
          draft_cross.k_q, draft_cross.v_q, draft_cross.k_scale, draft_cross.v_scale, None, 1,
          kv_len=draft_cross.kv_len)
     del kb, vb, qb, cross, self_kv, c4, draft_self, draft_cross
+    _yoho_kernel_checks(card, gen, flush, record)
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
     # rows): large-v3-turbo's fc1 (with the tanh GELU) and fc2, and
@@ -619,6 +648,113 @@ def kernel_checks(card: str) -> dict:
                quantize_bound_ms=bound(m * k * 3 + m * 4, {"fp32": 2 * m * k})[0])
         del x, w, xq, got, w_bf16
     return entries
+
+
+def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
+    """The YOHO serving path's kernel shapes (phase e2e-yoho): the full-width
+    model at batch 16 (the log-mel of 16 windows of 164,080 samples, scipy
+    framing, HTK, 128 mels, 1,024 frames; encoder attention (16, 512, 6, 64)
+    on 3 KV heads expanded; the bf16 cross read over 512 positions and the
+    causal bf16 self read over 256 at pos 200, 6 query heads on 3 KV heads),
+    then head dim 16 at the trained fixture's shapes (batch 3: encoder 32
+    positions, 4 heads on 2; cross 32, cache 128). SDPA is the library
+    yardstick (``enable_gqa`` on the unexpanded K/V)."""
+    import torch
+
+    from yoho_tpu_torch.audio.frontend import log_mel_spectrogram
+    from yoho_tpu_torch.core.config import YOHOConfig
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops import flash_attention as fa
+    from yoho_tpu_torch.ops import mel_kernel as mk
+
+    dev = torch.device("cuda")
+    sdpa_f = torch.nn.functional.scaled_dot_product_attention
+    cfg = YOHOConfig()
+    b, n, frames, n_freq = 16, cfg.n_samples, cfg.max_audio_len, cfg.n_fft // 2 + 1
+    audio = torch.randn((b, n), generator=gen, device=dev) * 0.1
+    kw = dict(sample_rate=16000, n_fft=cfg.n_fft, hop=cfg.stft_hop, n_mels=128,
+              mel_scale="htk", convention="scipy", log_floor=1e-13)
+    got = mk.fused_log_mel(audio, **kw)
+    if got.shape != (b, frames, 128):
+        raise AssertionError(f"yoho mel shape {tuple(got.shape)}")
+    err = check_close("mel yoho", got, log_mel_spectrogram(audio, **kw), 1e-3, 2e-3)
+    consts = mk._constants(16000, cfg.n_fft, cfg.stft_hop, 128, "htk", True)
+    nnz = int(consts[1][-1])
+    record(mk.KERNEL, "yoho scipy/HTK 128 mels 16x164080 (1024 frames)", err,
+           time_ms(lambda: mk.fused_log_mel(audio, **kw), 20, flush),
+           time_ms(lambda: log_mel_spectrogram(audio, **kw), 5, flush),
+           audio.numel() * 4 + got.numel() * 4 + sum(c.nbytes for c in consts),
+           {"tf32": 3 * 2 * b * frames * cfg.n_fft * 2 * n_freq,
+            "fp32": b * frames * (3 * n_freq + 2 * nnz)}, None, "rtol 1e-3, atol 2e-3",
+           main=False)
+    del audio, got
+
+    def flash_case(label, bq, tq, tk, heads, kvh, d, causal):
+        q = torch.randn((bq, tq, heads, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((bq, tk, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ke, ve = (x.repeat_interleave(heads // kvh, dim=2) for x in (k, v))
+        scale = d ** -0.5
+        err = check_close(f"flash {label}", fa.flash_attention(q, ke, ve, causal, scale),
+                          fa.attention_reference(q, ke, ve, causal, scale), 1e-2, 1e-2)
+        pairs = tq * (tq + 1) // 2 if causal else tq * tk
+
+        def sdpa():
+            return sdpa_f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          is_causal=causal, scale=scale, enable_gqa=True)
+
+        record(fa.KERNEL, label, err,
+               time_ms(lambda: fa.flash_attention(q, ke, ve, causal, scale), 20, flush),
+               time_ms(lambda: fa.attention_reference(q, ke, ve, causal, scale), 5, flush),
+               (q.numel() * 2 + ke.numel() * 2) * 2, {"bf16": 4 * bq * heads * pairs * d},
+               yardstick_ms(sdpa, flush), "rtol 1e-2, atol 1e-2", main=False)
+
+    def decode_case(label, bq, heads, kvh, d, t, s, pos):
+        qq = (torch.randn((bq, heads, s, d), generator=gen, device=dev) * d ** -0.5
+              ).to(torch.bfloat16)
+        k, v = (torch.randn((bq, kvh, d, t), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        groups = heads // kvh
+        args = (qq, k, v, None, None, pos, None, groups)
+        before = da.KERNEL.launches
+        got = da.fused_decode_attention(*args)
+        launches = da.KERNEL.launches - before
+        err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
+                          0.05, 0.02)
+        t_row = t if pos is None else min(t, pos + s)
+        keys = bq * (s * t if pos is None else sum(min(t, pos + i + 1) for i in range(s)))
+        nbytes = 2 * bq * kvh * d * t_row * 2 + 2 * qq.numel() * 2
+
+        def sdpa():
+            mask = None
+            if pos is not None:
+                mask = (torch.arange(t, device=dev)[None, :]
+                        <= pos + torch.arange(s, device=dev)[:, None])
+            return sdpa_f(qq, k.transpose(2, 3), v.transpose(2, 3), attn_mask=mask,
+                          scale=1.0, enable_gqa=True)
+
+        record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
+               time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
+               nbytes, {"bf16": 4 * heads * keys * d}, yardstick_ms(sdpa, flush),
+               "rtol 0.05, atol 0.02", main=False, launches_per_call=launches)
+
+    flash_case("yoho encoder 16x512x6x64 on 3 KV heads, bf16", 16, 512, 512, 6, 3, 64,
+               False)
+    decode_case("yoho cross bf16 S=1, 6 on 3 heads (T 512)", 16, 6, 3, 64, 512, 1, None)
+    decode_case("yoho self bf16 S=1 causal pos=200, 6 on 3 heads (T 256)", 16, 6, 3, 64, 256,
+                1, 200)
+    # Head dim 16 (FMA routes), the trained fixture at batch 3.
+    flash_case("D=16 fixture encoder 3x32x4x16 on 2 KV heads, bf16", 3, 32, 32, 4, 2, 16,
+               False)
+    flash_case("D=16 fixture decoder causal 3x16x4x16, bf16", 3, 16, 16, 4, 2, 16, True)
+    decode_case("D=16 fixture cross bf16 S=1, 4 on 2 heads (T 32)", 3, 4, 2, 16, 32, 1, None)
+    decode_case("D=16 fixture self bf16 S=1 causal pos=10, 4 on 2 heads (T 128)", 3, 4, 2,
+                16, 128, 1, 10)
+    # Head dim 16 at the full-width batch, where the time is more than the
+    # launch: the encoder shape and the cross read with 16-wide heads.
+    flash_case("D=16 encoder 16x512x24x16 on 12 KV heads, bf16", 16, 512, 512, 24, 12, 16,
+               False)
+    decode_case("D=16 cross bf16 S=1, 24 on 12 heads (T 512)", 16, 24, 12, 16, 512, 1, None)
 
 
 class _IdText:
@@ -2454,6 +2590,387 @@ def e2e_cli(card: str, kernels) -> dict:
     return total
 
 
+YOHO_SECONDS = (8, 25, 60)
+YOHO_PATH = ("mel_log_spectrogram", "flash_attention_forward", "decode_attention")
+
+
+def _yoho_requests():
+    """The three requests of e2e-yoho: 8 s, 25 s and 60 s of noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    return [(0.1 * rng.standard_normal(s * 16000)).astype(np.float32) for s in YOHO_SECONDS]
+
+
+def _yoho_tokenizer(vocab_size: int, max_audio_len: int):
+    """A session tokenizer of exactly ``vocab_size`` ids built here: the
+    3 + ``max_audio_len`` specials, the 256 bytes, then merges of byte
+    pairs in order (every text id renders as two bytes)."""
+    from yoho_tpu_torch.text.bpe import ByteBPE
+    from yoho_tpu_torch.text.tokenizer import YOHOTokenizer, yoho_special_tokens
+
+    specials = yoho_special_tokens(max_audio_len)
+    base = len(specials)
+    pairs = [(base + a, base + b) for a in range(256) for b in range(256)]
+    return YOHOTokenizer(ByteBPE(specials, pairs[: vocab_size - base - 256]))
+
+
+def _write_yoho_session(root: Path, name: str):
+    """A session directory for the full-width default YOHO configuration:
+    ``config.toml`` (the port's ``DEFAULT_SESSION_TOML``), the tokenizer and
+    ``weights/asr.ckpt`` (``save_params``) of seed-0 random f32 weights,
+    with two changes of scale so that the greedy decode holds segments: the
+    decoder blocks take std 0.1 (from seed 1) instead of 0.02 (at 0.02 the
+    residual stream is the token's own embedding and every step repeats its
+    input token), and the tied embedding's timestamp rows are 1.2 times as
+    large (without it no timestamp wins an argmax against 15,000 text ids,
+    so no window would hold a segment). Returns (config, tokenizer)."""
+    import torch
+
+    from yoho_tpu_torch.core.config import DEFAULT_SESSION_TOML, load_session_config
+    from yoho_tpu_torch.nn.params import init_random, to_jax_params
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+    from yoho_tpu_torch.train.checkpoint import save_params
+
+    (root / name / "weights").mkdir(parents=True)
+    (root / name / "config.toml").write_text(DEFAULT_SESSION_TOML)
+    config = load_session_config(name, root)
+    tok = _yoho_tokenizer(config.hyperparameters.tokenizer.vocab_size,
+                          config.yoho.max_audio_len)
+    tok.save(config.weights.tokenizer)
+    model = init_random(YOHOModel(config.yoho, tok.vocab_size,
+                                  config.hyperparameters.voiceprint_finetune.embedding_dim,
+                                  dtype=torch.float32), seed=SEED)
+    init_random(model.decoder.blocks, seed=SEED + 1, std=0.1)
+    with torch.no_grad():
+        model.decoder.token_embedding.weight[tok.timestamp_base:
+                                             tok.timestamp_base + tok.n_timestamps] *= 1.2
+    save_params(config.weights.asr, to_jax_params(model))
+    return config, tok
+
+
+def _yoho_cpu_reference(phase: str, tr, audio) -> dict:
+    """One window through the card's kernels (bf16) against the same model
+    on the CPU in float32 (plain versions): the encoder output, and the
+    logits of 8 greedy steps, the CPU teacher-forced on the card's tokens.
+    The tokens must agree step by step until the first step where the f32
+    logits' own top-2 margin is within twice that step's measured logit
+    difference (a flip the numbers explain), which ends the comparison."""
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+    from yoho_tpu_torch.ops.mel_kernel import fused_yoho_log_mel
+
+    model, cfg = tr.model, tr.model.cfg
+    ref = YOHOModel(cfg, model.vocab_size, model.voiceprint_dim, dtype=torch.float32,
+                    device="cpu")
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    window = np.zeros((1, cfg.n_samples), np.float32)
+    window[0, : min(len(audio), cfg.n_samples)] = audio[: cfg.n_samples]
+    steps = 8
+    with torch.inference_mode():
+        mel = fused_yoho_log_mel(torch.as_tensor(window, device="cuda"), cfg)
+        xa = model.encode_audio(mel)
+        ckv, caches = model.cross_kvs(xa), model.init_caches(1, torch.bfloat16)
+        xa_ref = ref.encode_audio(mel.cpu())
+        ckv_ref, caches_ref = ref.cross_kvs(xa_ref), ref.init_caches(1, torch.float32)
+        tok = torch.full((1, 1), tr.tokenizer.sot_id, dtype=torch.long)
+        rel_lg, agreed, first_diff = [], 0, None
+        for i in range(steps):
+            lg, _, caches = model.decode_step(tok.cuda(), caches, ckv, i)
+            lg_ref, _, caches_ref = ref.decode_step(tok, caches_ref, ckv_ref, i)
+            lg, lg_ref = lg[0, -1].float().cpu(), lg_ref[0, -1]
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"{phase}: non-finite logits on the card")
+            rel_lg.append(float((lg - lg_ref).norm() / lg_ref.norm()))
+            pick, pick_ref = int(lg.argmax()), int(lg_ref.argmax())
+            if first_diff is None:
+                if pick == pick_ref:
+                    agreed += 1
+                else:
+                    margin = float(lg_ref[pick_ref] - lg_ref[pick])
+                    allowed = 2 * float((lg - lg_ref).abs().max())
+                    if margin > allowed:
+                        raise AssertionError(
+                            f"{phase}: step {i}: card token {pick}, CPU {pick_ref}, f32 "
+                            f"margin {margin} above twice the logit difference {allowed}")
+                    first_diff = dict(step=i, f32_margin=margin, allowed=allowed)
+            tok = torch.tensor([[pick]])
+    rel_xa = float((xa.float().cpu() - xa_ref).norm() / xa_ref.norm())
+    if rel_xa > 3e-2 or max(rel_lg) > 5e-2:
+        raise AssertionError(f"{phase}: card vs CPU: encoder rel err {rel_xa}, logits "
+                             f"rel err {rel_lg}")
+    return dict(encoder_rel_err=rel_xa, logits_rel_err=rel_lg, steps=steps,
+                tokens_agreed=agreed, first_difference=first_diff,
+                tolerance="encoder 3e-2, logits 5e-2 (bf16 card vs f32 CPU)")
+
+
+def _yoho_stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8) -> dict:
+    """``max_memory_allocated`` above the weights through the YOHO log-mel,
+    encode, float cross K/V, the SOT prefill and ``steps`` decode steps on
+    bf16 caches, at each batch; the slope is the bytes per stream."""
+    import torch
+
+    from yoho_tpu_torch.ops.mel_kernel import fused_yoho_log_mel
+
+    peaks = {}
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            audio = 0.1 * torch.randn(b, cfg.n_samples, device="cuda", generator=g)
+            mel = fused_yoho_log_mel(audio, cfg)
+            del audio
+            xa = model.encode_audio(mel)
+            ckv = model.cross_kvs(xa)
+            caches = model.init_caches(b, torch.bfloat16)
+            tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+            for i in range(steps + 1):
+                logits, _, caches = model.decode_step(tok, caches, ckv, i,
+                                                      with_voiceprints=False)
+                tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            del mel, xa, ckv, caches, logits, tok
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+    lo, hi = batches
+    return dict(peak_bytes=peaks, per_stream=(peaks[hi] - peaks[lo]) / (hi - lo))
+
+
+def e2e_yoho(card: str, kernels) -> dict:
+    """Phase e2e-yoho: the YOHO family at the repo's default full width
+    through ``load_transcriber(session=...)``, the command lines (enroll,
+    transcribe --speakers, serve --session) and the trained fixture at head
+    dim 16. Returns the launches of its runs."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.infer import capacity
+    from yoho_tpu_torch.infer.continuous import ContinuousBatcher
+    from yoho_tpu_torch.infer.diarize import cluster_voiceprints
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.load import load_transcriber
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+
+    phase = "e2e-yoho"
+    total = {k.name: 0 for k in kernels}
+    report = {}
+
+    def measured(label, fn, want=YOHO_PATH):
+        """One part with every count set to 0 just before it and read just
+        after: the kernels of the path launched, w8a8 never."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        idle = [n for n in want if launches[n] == 0]
+        if idle or launches[W8A8.name]:
+            raise AssertionError(f"{phase} ({label}): launches {launches}")
+        for n, v in launches.items():
+            total[n] += v
+        report[label] = dict(wall_s=time.perf_counter() - t0, launches=launches)
+        return result
+
+    def tokens_of(results):
+        return [[int(x) for s in r.segments for x in s.tokens] for r in results]
+
+    audios = _yoho_requests()
+    with tempfile.TemporaryDirectory(prefix="yoho_session_smoke_") as tmp:
+        tmp = Path(tmp)
+        root, name = tmp / "sessions", "yoho-full"
+        t0 = time.perf_counter()
+        config, tok = _write_yoho_session(root, name)
+        report["session"] = dict(write_s=time.perf_counter() - t0, vocab=tok.vocab_size,
+                                 bytes=config.weights.asr.stat().st_size)
+        cfg = config.yoho
+        t0 = time.perf_counter()
+        tr = load_transcriber(session=name, root=str(root), batch=BATCH)
+        torch.cuda.synchronize()
+        report["session"]["load_s"] = time.perf_counter() - t0
+        if (cfg.dims, cfg.n_audio_heads, cfg.n_mel_bands, tr.model.vocab_size,
+                tr.model.voiceprint_dim) != (384, 6, 128, 16000, 256):
+            raise AssertionError(f"{phase}: not the full-width default: {cfg}")
+        report["reference"] = _yoho_cpu_reference(phase, tr, audios[0])
+
+        runs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            results = measured(f"transcribe-{i + 1}", lambda: tr.transcribe_many(audios))
+            runs.append((time.perf_counter() - t0, results))
+        (wall, results), (wall2, results2) = runs
+        toks = tokens_of(results)
+        if toks != tokens_of(results2):
+            raise AssertionError(f"{phase}: the second run gave other tokens")
+        # A segment whose slot would fall past the 256-token horizon carries
+        # no voiceprint (the JAX package's injection walk does the same).
+        segs = [s for r in results for s in r.segments]
+        vps = [s.voiceprint for s in segs if s.voiceprint is not None]
+        if not vps or any(v.shape != (256,) or not np.isfinite(v).all()
+                          or abs(float(np.linalg.norm(v)) - 1.0) > 1e-2 for v in vps):
+            raise AssertionError(f"{phase}: {len(segs)} segments, {len(vps)} voiceprints; "
+                                 "not unit vectors of 256")
+        labels = cluster_voiceprints(vps)
+        if any(lb is None for lb in labels) or all(s.speaker is None for s in segs):
+            raise AssertionError(f"{phase}: no speaker labels")
+        windows = sum(len(chunk_audio(a, tr.chunk_samples, tr.stride_samples)[1])
+                      for a in audios)
+        launches = report["transcribe-1"]["launches"]
+        batches = -(-windows // BATCH)
+        steps = launches["decode_attention"] // (2 * cfg.n_text_blocks * batches)
+        report["transcribe-1"].update(
+            windows=windows, batches=batches, decode_steps=steps,
+            audio_s_per_s=sum(YOHO_SECONDS) / wall, wall_s_second_run=wall2,
+            segments=len(segs), voiceprints=len(vps),
+            segment_tokens=sum(len(t) for t in toks), speakers=len(set(labels)))
+
+        # The weight-only int8 decoder on the 8 s request.
+        t8 = load_transcriber(session=name, root=str(root), batch=BATCH, int8_weights=True)
+        r8 = measured("int8-weights", lambda: t8.transcribe_many(audios[:1]))
+        a, b = tokens_of(r8)[0], toks[0]
+        same = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        report["int8-weights"].update(tokens=len(a), tokens_equal_bf16_prefix=same,
+                                      bf16_tokens=len(b), equal=a == b)
+        del t8
+
+        # Enrollment and naming through the command lines, on WAV files.
+        wavs = [_wav16(tmp / f"yoho{s}.wav", x) for s, x in zip(YOHO_SECONDS, audios)]
+        npz = tmp / "speakers.npz"
+        measured("enroll", lambda: _cli(["enroll", "--session", name, "--root", str(root),
+                                         "--out", str(npz), f"alice={wavs[0]}",
+                                         f"bob={wavs[1]}"]))
+        docs = [json.loads(x) for x in measured("transcribe-speakers", lambda: _cli(
+            ["transcribe", wavs[0], wavs[1], "--session", name, "--root", str(root),
+             "--batch", str(BATCH), "--speakers", str(npz), "--json"])).splitlines()]
+        named = sorted({s["speaker_name"] for d in docs for s in d["segments"]} - {None})
+        if not named or not set(named) <= {"alice", "bob"}:
+            raise AssertionError(f"{phase}: transcribe --speakers named {named}")
+        report["transcribe-speakers"]["names"] = named
+
+        # serve --session through the slot engine: one request on port 0,
+        # its tokens against the library's continuous batcher.
+        recorded, finalize = [], Transcriber._finalize_request
+
+        def recording_finalize(t, *a, **k):
+            res = finalize(t, *a, **k)
+            recorded.append(tokens_of([res])[0])
+            return res
+
+        lib = ContinuousBatcher(tr, chunk_tokens=16)
+        try:
+            # The server decodes the WAV file; so does the library here.
+            lib_tokens = tokens_of([measured("library-continuous",
+                                             lambda: lib.submit(wavs[1]))])[0]
+        finally:
+            lib.close()
+        from yoho_tpu_torch.cli import serve as serve_mod
+
+        made, real_serve, out = [], serve_mod.serve, {}
+        serve_mod.serve = lambda *a, **k: made.append(real_serve(*a, **k)) or made[-1]
+        Transcriber._finalize_request = recording_finalize
+
+        def run_server():
+            import contextlib
+            import io
+
+            with contextlib.redirect_stdout(io.StringIO()):
+                out["rc"] = serve_mod.main(["--session", name, "--root", str(root), "--port",
+                                            "0", "--batch", str(BATCH), "--continuous"])
+
+        def serve_one():
+            th = threading.Thread(target=run_server, daemon=True)
+            th.start()
+            deadline = time.monotonic() + 300
+            while not made:
+                if time.monotonic() > deadline or not th.is_alive():
+                    raise AssertionError(f"{phase}: the server did not start ({out})")
+                time.sleep(0.1)
+            port = made[0].server_address[1]
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/transcribe",
+                                         data=Path(wavs[1]).read_bytes(),
+                                         headers={"Content-Type": "audio/wav"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                doc = json.load(r)
+            made[0].shutdown()
+            th.join(120)
+            if th.is_alive() or out.get("rc") != 0:
+                raise AssertionError(f"{phase}: the server did not drain ({out})")
+            return doc
+
+        try:
+            doc = measured("serve-session", serve_one)
+        finally:
+            serve_mod.serve = real_serve
+            Transcriber._finalize_request = finalize
+        # The warmup's window finalizes before the loop serves the request,
+        # so the request is the last one finalized.
+        if not recorded or recorded[-1] != lib_tokens or not doc.get("segments"):
+            raise AssertionError(f"{phase}: serve --session's tokens differ from the "
+                                 "library's continuous batcher")
+        report["serve-session"].update(tokens=len(lib_tokens), tokens_equal_library=True,
+                                       segments=len(doc["segments"]))
+
+        # --batch auto and the capacity model at the YOHO widths.
+        measured_b = _yoho_stream_bytes_on_card(tr.model, cfg)
+        terms = capacity.stream_terms(cfg, "yoho", cross_kv=None, cache_quantized=False,
+                                      cache_itemsize=2, act_itemsize=2)
+        auto = load_transcriber(session=name, root=str(root), batch="auto")
+        cell = cfg.encoder_positions * cfg.dims * 2  # the staging term's unit
+        row = dict(predicted_bytes_per_stream=sum(terms.values()), predicted_terms=terms,
+                   measured_bytes_per_stream=measured_b["per_stream"],
+                   staging_cells_measured=(measured_b["per_stream"] - sum(terms.values())
+                                           + terms["staging"]) / cell,
+                   measured_peak_bytes_above_weights=measured_b["peak_bytes"],
+                   weight_bytes=capacity.module_bytes(tr.model), auto_batch=auto.batch_size)
+        emit("capacity", card=card, models={"yoho-default": row})
+        if row["predicted_bytes_per_stream"] < row["measured_bytes_per_stream"]:
+            raise AssertionError(f"{phase}: predicted {row['predicted_bytes_per_stream']} B "
+                                 f"per stream below the measured "
+                                 f"{row['measured_bytes_per_stream']}")
+        report["auto_batch"] = auto.batch_size
+        del tr, auto, lib
+
+    # The trained fixture (head dim 16): golden.json's text on the card,
+    # the tokens of the CPU port.
+    fix_root = Path(__file__).resolve().parent / "tests" / "fixtures" / "sessions"
+    golden = json.loads((fix_root / "tiny" / "golden.json").read_text())
+    card_t = load_transcriber(session="tiny", root=str(fix_root), batch=3)
+    cpu_t = load_transcriber(session="tiny", root=str(fix_root), batch=3, device="cpu")
+    clips = [_tone_clip(s, card_t.model.cfg.n_samples) for s in range(3)]
+    got = measured("fixture", lambda: card_t.transcribe_many(clips))
+    want = cpu_t.transcribe_many(clips)
+    texts = [r.text for r in got]
+    if texts != [g["text"] for g in golden] or tokens_of(got) != tokens_of(want):
+        raise AssertionError(f"{phase}: the fixture on the card gave {texts}; golden "
+                             f"{[g['text'] for g in golden]}")
+    report["fixture"].update(texts=texts, tokens_equal_cpu=True)
+    emit(phase, model="yoho default (dims 384, 6 heads on 3 KV heads, 4+4 blocks, "
+                      "128 mels, vocab 16000)", batch=BATCH, requests=list(YOHO_SECONDS),
+         card=card, launches=total, **report)
+    return total
+
+
+def _tone_clip(s: int, n_samples: int):
+    """The trained fixture's clips: ``tests/test_checkpoint_fixture.py``'s
+    ``_tone_clip`` (a tone of 440, 880 or 1320 Hz in low noise)."""
+    import numpy as np
+
+    audio = (np.random.default_rng(9).standard_normal(n_samples) * 0.002).astype(np.float32)
+    tone = 0.4 * np.sin(2 * np.pi * (440, 880, 1320)[s] * np.arange(4000) / 16000)
+    audio[800:800 + len(tone)] += tone.astype(np.float32)
+    return audio
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2490,7 +3007,7 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli):
+    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho):
         t0 = time.perf_counter()
         for name, n in phase(card, kernels).items():
             launches[name] += n

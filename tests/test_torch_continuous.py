@@ -384,6 +384,6 @@ def test_slot_engine_keeps_the_jax_refusals(setup):
         SlotEngine(t, chunk_tokens=0)
     with pytest.raises(ValueError, match="at least one slot"):
         SlotEngine(t, slots=-1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SlotEngine(SimpleNamespace(family="yoho"))
+    with pytest.raises(ValueError, match="unknown family"):
+        SlotEngine(SimpleNamespace(family="other"))
     assert ContinuousWhisperDecoder is SlotEngine

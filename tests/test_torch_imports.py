@@ -53,7 +53,12 @@ def test_every_module_imports_without_jax():
             "yoho_tpu_torch.cli.transcribe", "yoho_tpu_torch.cli.align",
             "yoho_tpu_torch.cli.evaluate", "yoho_tpu_torch.cli.doctor",
             "yoho_tpu_torch.cli.finetune", "yoho_tpu_torch.cli.distill",
-            "yoho_tpu_torch.cli.__main__", "yoho_tpu_torch.__main__"} <= set(mods)
+            "yoho_tpu_torch.cli.__main__", "yoho_tpu_torch.__main__",
+            # The YOHO family.
+            "yoho_tpu_torch.nn.yoho", "yoho_tpu_torch.nn.voiceprint",
+            "yoho_tpu_torch.text.bpe", "yoho_tpu_torch.text.tokenizer",
+            "yoho_tpu_torch.infer.speaker_pass", "yoho_tpu_torch.infer.diarize",
+            "yoho_tpu_torch.cli.enroll"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -175,3 +180,23 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
                           torch.ones(8), activation="gelu_tanh")
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
+
+
+def test_yoho_model_and_transcriber_need_device_cpu_without_cuda(monkeypatch):
+    from yoho_tpu_torch.core.config import YOHOConfig
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.voiceprint import VoiceprintEncoder
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+    from yoho_tpu_torch.text.bpe import ByteBPE
+    from yoho_tpu_torch.text.tokenizer import YOHOTokenizer, yoho_special_tokens
+
+    cfg = YOHOConfig(n_mel_bands=8, max_audio_len=8, max_text_len=4, dims=16,
+                     n_audio_heads=2, n_audio_blocks=1, n_text_heads=2, n_text_blocks=1)
+    tok = YOHOTokenizer(ByteBPE(yoho_special_tokens(8), []), use_native=False)
+    model = YOHOModel(cfg, tok.vocab_size, 8, device="cpu")
+    _no_cuda(monkeypatch)
+    for build in (lambda: YOHOModel(cfg, tok.vocab_size), lambda: VoiceprintEncoder(cfg),
+                  lambda: Transcriber(model, family="yoho", tokenizer=tok)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert Transcriber(model, family="yoho", tokenizer=tok, device="cpu").max_len == 4

@@ -574,3 +574,146 @@ def _flat(tree, prefix=""):
             yield from _flat(v, f"{prefix}{k}/")
         else:
             yield prefix + k, v
+
+
+# ---------------------------------------------------------------- head dim 16
+# The trained YOHO fixture (tests/fixtures/sessions/tiny) has dims 64 on 4
+# heads: head dim 16 in both attention kernels, at the tolerances above.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,t,kv_len,heads", [
+    (False, 32, 32, None, 4), (True, 16, 16, None, 4), (False, 16, 32, None, 4),
+    (False, 300, 300, 129, 3), (True, 256, 256, 200, 2), (False, 1500, 1500, None, 6)])
+def test_flash_kernel_head_dim_16(gen, dtype, causal, tq, t, kv_len, heads):
+    """Head dim 16 on FMAs in both types: the fixture's encoder (32
+    positions), its teacher-forced causal and cross passes, kv_len inside a
+    tile, and a long ragged sequence."""
+    q, k, v = (torch.randn((3, n, heads, 16), generator=gen, device="cuda").to(dtype)
+               for n in (tq, t, t))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.attention_reference(q, k, v, causal, 16 ** -0.5, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16", "f32"])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("s,pos", [(1, None), (3, None), (1, 10), (5, 0), (1, 200)])
+@pytest.mark.parametrize("t,kv_len", [(32, 32), (128, 128), (333, 300), (512, 512)])
+def test_decode_kernel_head_dim_16(gen, kind, groups, s, pos, t, kv_len):
+    """Head dim 16 for every K/V kind, with and without GQA groups: the
+    fixture's cross K/V (32 positions) and cache (128), element and word
+    copies (333), TMA tiles (512)."""
+    if pos is not None and pos + s > kv_len:
+        pos = kv_len - s
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    k, v = (torch.randn((2, 2, 16, t), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((2, 2 * groups, s, 16), generator=gen, device="cuda") * 0.5).to(q_dtype)
+    if kind in ("bf16", "f32"):
+        args, packing = (q, k, v, None, None), 1
+    else:
+        qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+        args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
+                                                  groups=groups, packing=packing)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
+                                                       groups=groups, packing=packing)
+    tol = (1e-4, 1e-5) if kind == "f32" else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+def test_decode_kernel_head_dim_16_per_row_pos(gen):
+    """Per-row positions at head dim 16 on the bf16 cache."""
+    k, v = (torch.randn((4, 2, 16, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((4, 4, 1, 16), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    pos = torch.tensor([0, 5, 60, 127], dtype=torch.int32, device="cuda")
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, groups=2)
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, groups=2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+def test_other_head_dims_raise(gen):
+    """Head dims other than 16 and 64 raise on the card, never fall back."""
+    q = torch.zeros((1, 2, 1, 32), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 32, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention.fused_decode_attention(q, k, k)
+    x = torch.zeros((1, 8, 2, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(x, x, x)
+
+
+# ------------------------------------------------- the YOHO serving shapes
+
+def test_mel_kernel_yoho_window(gen):
+    """The YOHO frontend's kernel call: scipy framing, HTK, 128 mels, a
+    164,080-sample window -> 1,024 frames, then the standardization."""
+    from yoho_tpu_torch.core.config import YOHOConfig
+
+    cfg = YOHOConfig()
+    audio = torch.randn((4, cfg.n_samples), generator=gen, device="cuda") * 0.2
+    got = mel_kernel.fused_yoho_log_mel(audio, cfg)
+    want = frontend.yoho_log_mel(audio, cfg)
+    assert got.shape == (4, 1024, 128)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+def test_flash_kernel_yoho_encoder_gqa(gen):
+    """The full-width YOHO encoder's attention: (16, 512, 6, 64) queries on
+    3 KV heads expanded as the model expands them (head h reads KV head
+    h // 2), bf16 on wgmma."""
+    q = torch.randn((16, 512, 6, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((16, 512, 3, 64), generator=gen, device="cuda")
+            .to(torch.bfloat16).repeat_interleave(2, dim=2) for _ in range(2))
+    got = flash_attention.flash_attention(q, k, v, scale=0.125)
+    want = flash_attention.attention_reference(q, k, v, False, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("t,pos", [(512, None), (256, 200)])
+def test_decode_kernel_yoho_reads(gen, t, pos):
+    """The full-width YOHO decode reads: the bf16 cross K/V (T 512) and the
+    causal bf16 self cache (T 256 at position 200), 6 query heads on 3 KV
+    heads (groups 2), batch 16."""
+    k, v = (torch.randn((16, 3, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((16, 6, 1, 64), generator=gen, device="cuda") * 0.125).to(torch.bfloat16)
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, groups=2)
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, groups=2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+def test_yoho_fixture_on_the_card(gen):
+    """The trained fixture (head dim 16) transcribes its three tone clips on
+    the card to golden.json's text, with the tokens of the same transcriber
+    on the CPU."""
+    import json
+    from pathlib import Path
+
+    from yoho_tpu_torch.load import load_transcriber
+
+    root = Path(__file__).parent / "fixtures" / "sessions"
+    golden = json.loads((root / "tiny" / "golden.json").read_text())
+    cards = load_transcriber(session="tiny", root=str(root), batch=3)
+    cpu = load_transcriber(session="tiny", root=str(root), batch=3, device="cpu")
+    n = cards.model.cfg.n_samples
+    clips = [_tone_clip(s, n) for s in range(3)]
+    got = cards.transcribe_many(clips)
+    want = cpu.transcribe_many(clips)
+    for r, w, g in zip(got, want, golden):
+        assert r.text == g["text"] == w.text
+        assert [s.tokens for s in r.segments] == [s.tokens for s in w.segments]
+
+
+def _tone_clip(s: int, n_samples: int) -> np.ndarray:
+    """tests/test_checkpoint_fixture.py's clips (that file imports JAX)."""
+    audio = (np.random.default_rng(9).standard_normal(n_samples) * 0.002).astype(np.float32)
+    tone = 0.4 * np.sin(2 * np.pi * (440, 880, 1320)[s] * np.arange(int(0.25 * 16000)) / 16000)
+    audio[800:800 + len(tone)] += tone.astype(np.float32)
+    return audio

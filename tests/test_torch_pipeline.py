@@ -9,6 +9,7 @@ and segments equal the JAX Transcriber's.
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -228,11 +229,19 @@ def test_sampling_rungs_are_seeded(tiny):
     assert segs and all(s.temperature == pytest.approx(0.7) for s in segs)
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"family": "yoho"}, {"diarize_encoder": object()},
-    {"diarize_variables": object()}, {"enrolled_speakers": {"a": [0.0]}},
-], ids=lambda kw: next(iter(kw)))
-def test_unported_options_raise(tiny, kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"mesh": object()}, NotImplementedError, "ROADMAP.md, Queue 1 item 11"),
+    ({"family": "yoho"}, ValueError, "needs a YOHOTokenizer"),
+    ({"diarize_encoder": SimpleNamespace(embedding_dim=4),
+      "enrolled_speakers": {"a": [0.0]}}, ValueError, "embedding dim 1"),
+    ({"diarize_variables": object()}, TypeError, "unknown arguments"),
+    ({"enrolled_speakers": {"a": [0.0]}}, ValueError, "needs diarize_encoder"),
+], ids=lambda v: next(iter(v)) if isinstance(v, dict) else "")
+def test_unported_options_raise(tiny, kw, exc, match):
+    """Only the mesh is not ported; the YOHO family and the speaker options
+    are, and refuse what the JAX class refuses; the JAX class's
+    ``diarize_variables`` has no counterpart (the port's encoder holds its
+    weights)."""
     _, _, _, _, model, table = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
+    with pytest.raises(exc, match=match):
         Transcriber(model, token_table=table, device="cpu", **kw)

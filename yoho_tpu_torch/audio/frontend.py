@@ -99,6 +99,14 @@ def stft_power(audio: torch.Tensor, n_fft: int, hop: int,
     return power
 
 
+def normalize_standardize(log_spec: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean/std standardization over (time, mel), with the
+    reference's std == 0 guard (the population std, as ``jnp.std``)."""
+    mean = log_spec.mean(dim=(-1, -2), keepdim=True)
+    std = log_spec.std(dim=(-1, -2), keepdim=True, correction=0)
+    return (log_spec - mean) / torch.where(std != 0, std, torch.ones_like(std))
+
+
 def normalize_whisper(log_spec: torch.Tensor) -> torch.Tensor:
     """OpenAI Whisper dynamic-range compression: clamp to per-sample
     max-8 dB, then (x + 4) / 4."""
@@ -140,3 +148,14 @@ def whisper_log_mel(audio: torch.Tensor, n_mels: int = 80,
         audio, sample_rate=sample_rate, n_fft=n_fft, hop=hop, n_mels=n_mels,
         mel_scale="slaney", convention="whisper", log_floor=1e-10)
     return normalize_whisper(log_spec)
+
+
+def yoho_log_mel(audio: torch.Tensor, config) -> torch.Tensor:
+    """The YOHO frontend: scipy STFT + HTK mel + log10 (floor 1e-13) +
+    per-sample standardization. (B, n_samples) -> (B, frames, n_mels),
+    1,024 frames for a 164,080-sample window."""
+    log_spec = log_mel_spectrogram(
+        audio, sample_rate=config.sample_rate, n_fft=config.n_fft,
+        hop=config.stft_hop, n_mels=config.n_mel_bands, mel_scale="htk",
+        convention="scipy", log_floor=1e-13)
+    return normalize_standardize(log_spec)

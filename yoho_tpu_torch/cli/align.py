@@ -4,8 +4,8 @@ The port's counterpart of the JAX package's ``cli/align.py``. Subtitle and
 karaoke tooling: given audio and its transcript, emit word timings without
 decoding (the text is teacher-forced through the decoder and aligned by
 DTW against the cross-attention map — ``Transcriber.align_many``,
-``infer/word_timestamps.py``). Whisper family (``--session`` is not in
-the port yet).
+``infer/word_timestamps.py``). Both families: ``--hf DIR`` or
+``--session NAME``.
 
 Inputs pair each audio file with a transcript: ``--text`` for a single
 file, or a sibling ``<stem>.txt`` next to each audio file. Output is
@@ -23,6 +23,7 @@ def main(argv=None):
         _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
+        build_yoho_transcriber,
     )
     from yoho_tpu_torch.utils.platform import add_device_arg, cli_device
 
@@ -33,9 +34,7 @@ def main(argv=None):
                              "longer material first)")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf", type=str, help="HF Whisper checkpoint directory")
-    src.add_argument("--session", type=str,
-                     help="YOHO training session name (not in the PyTorch "
-                          "port yet)")
+    src.add_argument("--session", type=str, help="YOHO training session name")
     parser.add_argument("--root", type=str, default="./sessions")
     parser.add_argument("--text", type=str, default=None,
                         help="the transcript (single audio file only); "
@@ -69,8 +68,12 @@ def main(argv=None):
         pairs.append((f, text))
 
     language = None if args.language == "auto" else args.language
-    t = build_whisper_transcriber(args.hf, 0, args.batch, language, True,
-                                  device=device)
+    if args.hf:
+        t = build_whisper_transcriber(args.hf, 0, args.batch, language, True,
+                                      device=device)
+    else:
+        t = build_yoho_transcriber(args.session, args.root, 0, args.batch,
+                                   device=device)
 
     all_words = t.align_many(pairs)
     for (f, _text), words in zip(pairs, all_words):

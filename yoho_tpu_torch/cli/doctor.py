@@ -223,7 +223,7 @@ def main(argv=None) -> int:
     if args.session:
         from yoho_tpu_torch.infer.pipeline import _not_ported
 
-        _not_ported("doctor --session (YOHO training sessions)", 12)
+        _not_ported("doctor --session (YOHO training sessions)", 16)
 
     rows = _check_package() + _check_deps() + _check_native() + _check_codecs()
     if not args.no_devices:

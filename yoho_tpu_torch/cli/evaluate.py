@@ -5,7 +5,7 @@ layout (LibriSpeech-style flat dir): ``<dir>/*.wav`` with sibling
 ``<stem>.txt`` reference transcripts, OR a ``transcripts/*.srt`` +
 ``audio/*`` corpus (the training layout). Speaker-attributed scoring
 (``--stm``, cpWER and DER with diarization) is not in the port yet
-(ROADMAP.md, Queue 1 item 12).
+(ROADMAP.md, Queue 1 item 16).
 
 Usage: ``python -m yoho_tpu_torch.cli evaluate <dir> --hf DIR
           [--limit N] [--beams 5] [--json]``
@@ -44,6 +44,8 @@ def main(argv=None):
         _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
+        build_yoho_transcriber,
+        load_voiceprint_encoder,
     )
     from yoho_tpu_torch.utils.platform import add_device_arg, cli_device
 
@@ -51,8 +53,7 @@ def main(argv=None):
     parser.add_argument("dataset", type=str)
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf", type=str)
-    src.add_argument("--session", type=str,
-                     help="YOHO training session (not in the PyTorch port yet)")
+    src.add_argument("--session", type=str, help="YOHO training session name")
     parser.add_argument("--root", type=str, default="./sessions")
     parser.add_argument("--language", type=str, default="en")
     parser.add_argument("--beams", type=int, default=0)
@@ -85,8 +86,8 @@ def main(argv=None):
                              "reference (not in the PyTorch port yet)")
     parser.add_argument("--diarize-session", type=str, default=None,
                         metavar="NAME",
-                        help="whisper-family diarization for --stm scoring "
-                             "(not in the PyTorch port yet)")
+                        help="whisper-family diarization (a session's "
+                             "stage-3 voiceprint encoder)")
     parser.add_argument("--speaker-threshold", type=float, default=0.75)
     add_device_arg(parser)
     args = parser.parse_args(argv)
@@ -95,14 +96,25 @@ def main(argv=None):
 
     from yoho_tpu_torch.eval.wer import cer, normalize_for_wer, wer
 
-    t = build_whisper_transcriber(args.hf, args.beams, args.batch,
-                                  None if args.language == "auto" else args.language,
-                                  True,
-                                  quantized=args.int8_kv,
-                                  int8_weights=args.int8_weights,
-                                  int8_encoder=args.int8_encoder,
-                                  fast_gelu=args.fast_gelu,
-                                  vad_filter=args.vad, device=device)
+    if args.hf:
+        diarize = (load_voiceprint_encoder(args.diarize_session, args.root, device)
+                   if args.diarize_session else None)
+        t = build_whisper_transcriber(args.hf, args.beams, args.batch,
+                                      None if args.language == "auto" else args.language,
+                                      True,
+                                      quantized=args.int8_kv,
+                                      int8_weights=args.int8_weights,
+                                      int8_encoder=args.int8_encoder,
+                                      fast_gelu=args.fast_gelu,
+                                      vad_filter=args.vad, diarize=diarize,
+                                      speaker_threshold=args.speaker_threshold,
+                                      device=device)
+    else:
+        t = build_yoho_transcriber(args.session, args.root, args.beams, args.batch,
+                                   int8_weights=args.int8_weights,
+                                   vad_filter=args.vad,
+                                   speaker_threshold=args.speaker_threshold,
+                                   device=device)
 
     if args.normalizer == "english":
         from yoho_tpu_torch.eval.english_normalizer import normalize_english as norm

@@ -31,11 +31,11 @@ call; the handler threads parse, wait and answer.
 
 Serving from Python: ``server = serve(transcriber, port, continuous=True)``,
 ``warmup(server)``, ``server.serve_forever()``, and ``drain(server)`` to
-stop. The command line (``main``, ``yoho-torch serve --hf DIR``) builds
-the transcriber from a local checkpoint directory (``cli/transcribe.py``)
-and does the same; ``--session``, ``--diarize-session``, ``--speakers``
-and ``--mesh`` are not in the port yet and raise, naming their
-ROADMAP.md item.
+stop. The command line (``main``, ``yoho-torch serve --hf DIR`` or
+``--session NAME``) builds the transcriber from a local checkpoint
+directory or a trained YOHO session (``cli/transcribe.py``) and does the
+same; ``--mesh`` is not in the port yet and raises, naming its ROADMAP.md
+item. Websocket streams track speakers across the stream.
 """
 
 from __future__ import annotations
@@ -376,14 +376,16 @@ def main(argv=None):
         _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
+        build_yoho_transcriber,
+        load_speakers_arg,
+        load_voiceprint_encoder,
     )
     from yoho_tpu_torch.utils.platform import add_device_arg, cli_device
 
     parser = argparse.ArgumentParser(description="Transcription HTTP server")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf", type=str, help="HF Whisper checkpoint directory")
-    src.add_argument("--session", type=str,
-                     help="YOHO training session (not in the PyTorch port yet)")
+    src.add_argument("--session", type=str, help="YOHO training session name")
     parser.add_argument("--root", type=str, default="./sessions")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", type=str, default="127.0.0.1")
@@ -455,14 +457,17 @@ def main(argv=None):
                              "highest-mean-logprob candidate wins")
     parser.add_argument("--diarize-session", type=str, default=None,
                         metavar="NAME",
-                        help="whisper-family diarization (not in the "
-                             "PyTorch port yet)")
+                        help="whisper-family diarization: embed segment "
+                             "spans with this session's trained voiceprint "
+                             "encoder and cluster")
     parser.add_argument("--speaker-threshold", type=float, default=0.75,
                         help="cosine floor for diarization clustering and "
                              "enrolled-name matching")
     parser.add_argument("--speakers", type=str, default=None, metavar="NPZ",
-                        help="speaker recognition (not in the PyTorch port "
-                             "yet)")
+                        help="speaker recognition: match diarized clusters "
+                             "against this 'enroll' file (needs voiceprints: "
+                             "a yoho session, or --diarize-session with the "
+                             "encoder used for enrollment)")
     parser.add_argument("--draft-hf", type=str, default=None, metavar="PATH",
                         help="speculative decoding via a small same-vocab "
                              "draft checkpoint (greedy-identical; a "
@@ -498,8 +503,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     _refuse_unported(args)
     device = cli_device(args)
+    if args.lora and not args.hf:
+        parser.error("--lora adapts an --hf whisper checkpoint")
     if args.best_of < 1:
         parser.error("--best-of must be >= 1")
+    if args.best_of > 1 and not args.hf:
+        parser.error("--best-of is a whisper-family option (--hf); the "
+                     "temperature quality ladder does not run on --session "
+                     "models")
+    if args.draft_hf and not args.hf:
+        parser.error("--draft-hf requires --hf (whisper family)")
     if args.max_pending < 0:
         parser.error("--max-pending must be >= 0")
     if args.draft_hf and args.beams:
@@ -509,6 +522,34 @@ def main(argv=None):
 
     temps = ((0.0, 0.2, 0.4, 0.6, 0.8, 1.0) if args.temperature_fallback
              else (0.0,))
+    enrolled = load_speakers_arg(args.speakers, args.hf, args.diarize_session,
+                                 parser.error)
+    if args.session:
+        for flag, on, why in (
+                ("--diarize-session", args.diarize_session,
+                 "the yoho family emits voiceprints in the decode forward "
+                 "pass and diarizes natively"),
+                ("--int8-encoder", args.int8_encoder,
+                 "W8A8 encoder serving is whisper-family only"),
+                ("--fast-gelu", args.fast_gelu,
+                 "the yoho family uses SwiGLU, not GELU")):
+            if on:
+                print(f"warning: {flag} is ignored with --session ({why})",
+                      file=sys.stderr)
+        t = build_yoho_transcriber(
+            args.session, args.root, args.beams, args.batch,
+            vad_filter=args.vad, enrolled_speakers=enrolled,
+            speaker_threshold=args.speaker_threshold,
+            word_timestamps=args.word_timestamps, hotwords=args.hotwords,
+            hotword_boost=args.hotword_boost,
+            repetition_penalty=args.repetition_penalty,
+            no_repeat_ngram_size=args.no_repeat_ngram,
+            length_penalty=args.length_penalty,
+            hallucination_silence_threshold=args.hallucination_silence_threshold,
+            device=device)
+        return _serve_main(t, args)
+    diarize = (load_voiceprint_encoder(args.diarize_session, args.root, device)
+               if args.diarize_session else None)
     t = build_whisper_transcriber(args.hf, args.beams, args.batch,
                                   None if args.language == "auto" else args.language,
                                   True,
@@ -530,7 +571,16 @@ def main(argv=None):
                                   length_penalty=args.length_penalty,
                                   hallucination_silence_threshold=(
                                       args.hallucination_silence_threshold),
+                                  diarize=diarize, enrolled_speakers=enrolled,
+                                  speaker_threshold=args.speaker_threshold,
                                   device=device)
+    return _serve_main(t, args)
+
+
+def _serve_main(t, args) -> int:
+    """Serve ``t`` as ``main`` was asked: warm up, print the bound address,
+    serve until SIGTERM or Ctrl-C, drain."""
+    import sys
 
     server = serve(t, args.port, args.host, args.max_wait_ms,
                    continuous=args.continuous,

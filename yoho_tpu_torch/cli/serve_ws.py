@@ -5,10 +5,9 @@ framing in ``yoho_tpu_torch/utils/websocket.py``: binary little-endian
 float32 PCM frames in, finalized-segment JSON messages (+ revisable
 ``partial`` captions) out, with flush/end ops, as a mixin over the HTTP
 Handler base (which provides ``_json``/``_submit``/``_client_gone`` and the
-``transcriber``/``batcher`` class attributes). The JAX server tracks
-speakers across a stream; the port has no speaker tracking yet (ROADMAP.md,
-Queue 1 item 12), and its segments carry no speaker, as the JAX tracker
-leaves a segment without a voiceprint.
+``transcriber``/``batcher`` class attributes). Speakers are tracked
+across a stream (``track_speakers``): stable stream-wide ids replace the
+per-window cluster ids at finalization.
 """
 
 from __future__ import annotations
@@ -93,6 +92,7 @@ class StreamEndpointMixin:
 
         stream = StreamingTranscriber(
             self.transcriber, window_decoder=_decode_shared,
+            track_speakers=True,
             partial_interval_seconds=getattr(self, "partial_interval",
                                              None))
 

@@ -1,17 +1,23 @@
-"""CLI: transcribe audio files with a HuggingFace Whisper checkpoint.
+"""CLI: transcribe audio files with a HuggingFace Whisper checkpoint or a
+trained YOHO session.
 
 The port's counterpart of the JAX package's ``cli/transcribe.py``: the
 same flags with the same names, defaults and meanings, on the GPU by
-default (``--device cpu`` for the plain PyTorch path). The checkpoint is a
-local directory (``nn/convert.py``); its text backend comes from the same
-directory (``text/gpt2_bpe.py``).
+default (``--device cpu`` for the plain PyTorch path).
 
-Not in the port yet, and refused with the ROADMAP.md item that brings
-them: ``--session`` (a trained YOHO session), ``--diarize-session``,
-``--speakers`` and ``--rttm`` (item 12), ``--mesh`` (item 11).
+* ``--hf DIR``: a local Whisper checkpoint directory (``nn/convert.py``);
+  its text backend comes from the same directory (``text/gpt2_bpe.py``);
+  ``--diarize-session`` diarizes with a session's voiceprint encoder;
+* ``--session NAME``: a trained YOHO session (``weights.yoho`` or
+  ``weights.asr`` with the session tokenizer), with native voiceprints
+  and diarization.
+
+``--speakers`` names speakers against an ``enroll`` file. Not in the port
+yet, and refused with the ROADMAP.md item that brings them: ``--rttm``
+(item 16), ``--mesh`` (item 11).
 
 Usage: ``python -m yoho_tpu_torch.cli transcribe file1.wav [file2.wav ...]
-          --hf DIR [--beams 5] [--language en] [--batch 8] [--json]``
+          (--hf DIR | --session NAME) [--beams 5] [--batch 8] [--json]``
 """
 
 import argparse
@@ -41,11 +47,8 @@ def _refuse_unported(args) -> None:
     """The flags of modules the port does not have yet."""
     from yoho_tpu_torch.infer.pipeline import _not_ported
 
-    for flag, attr, item in (("--session (the YOHO family)", "session", 12),
-                             ("--diarize-session", "diarize_session", 12),
-                             ("--speakers", "speakers", 12),
-                             ("--rttm (eval/diarization.py)", "rttm", 12),
-                             ("--stm (cpWER with diarization)", "stm", 12),
+    for flag, attr, item in (("--rttm (eval/diarization.py)", "rttm", 16),
+                             ("--stm (cpWER with diarization)", "stm", 16),
                              ("--mesh", "mesh", 11)):
         if getattr(args, attr, None):
             _not_ported(flag, item)
@@ -90,6 +93,105 @@ def load_whisper_model(hf_path: str, device, int8_weights: bool = False,
     return cfg, model
 
 
+def load_voiceprint_encoder(session: str, root: str, device=None):
+    """A session's trained ``VoiceprintEncoder`` (stage 3,
+    ``weights.voiceprint``) on ``device``, for whisper-family diarization
+    and ``enroll --diarize-session``."""
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.nn import params as nn_params
+    from yoho_tpu_torch.nn.voiceprint import VoiceprintEncoder
+    from yoho_tpu_torch.train.checkpoint import load_params
+
+    config = load_session_config(session, root)
+    params = load_params(config.weights.voiceprint)
+    if params is None:
+        raise FileNotFoundError(
+            f"No trained voiceprint encoder at {config.weights.voiceprint} "
+            "(run stage 3 first)")
+    enc = VoiceprintEncoder(
+        config.yoho,
+        embedding_dim=config.hyperparameters.voiceprint_finetune.embedding_dim,
+        device=device)
+    return nn_params.load_jax_params(enc, params)
+
+
+def load_yoho_session(session: str, root: str, device=None,
+                      int8_weights: bool = False, dtype=torch.bfloat16):
+    """A session's (tokenizer, ``YOHOModel``) on ``device``: the weights of
+    ``weights.yoho``, else ``weights.asr``; ``int8_weights`` quantizes the
+    float32 decoder (as the JAX package quantizes its float32 params), then
+    the float leaves are cast to ``dtype`` once."""
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.nn import params as nn_params
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+    from yoho_tpu_torch.text.tokenizer import YOHOTokenizer
+    from yoho_tpu_torch.train.checkpoint import load_params
+
+    config = load_session_config(session, root)
+    tok = YOHOTokenizer.load(config.weights.tokenizer)
+    vp_dim = config.hyperparameters.voiceprint_finetune.embedding_dim
+    params = None
+    for slot in (config.weights.yoho, config.weights.asr):
+        params = load_params(slot)
+        if params is not None:
+            break
+    if params is None:
+        raise FileNotFoundError(
+            f"No trained weights at {config.weights.yoho} or {config.weights.asr}")
+    if int8_weights:
+        from yoho_tpu_torch.nn.quantize import quantize_yoho_decoder
+
+        f32 = nn_params.load_jax_params(
+            YOHOModel(config.yoho, tok.vocab_size, vp_dim, device=device), params)
+        params = nn_params.to_jax_params(quantize_yoho_decoder(f32))
+        del f32
+    model = YOHOModel(config.yoho, tok.vocab_size, vp_dim, dtype=dtype,
+                      weights_int8=int8_weights, device=device)
+    return tok, nn_params.load_jax_params(model, params)
+
+
+def build_yoho_transcriber(session: str, root: str, beams: int, batch,
+                           int8_weights: bool = False, vad_filter: bool = False,
+                           enrolled_speakers=None, speaker_threshold: float = 0.75,
+                           word_timestamps: bool = False, hotwords=None,
+                           hotword_boost: float = 4.0, logit_bias=None,
+                           repetition_penalty=None, no_repeat_ngram_size: int = 0,
+                           length_penalty: float = 1.0,
+                           hallucination_silence_threshold=None, device=None):
+    """The JAX package's ``build_yoho_transcriber`` on the port: bf16
+    weights and caches, float cross K/V, on ``device`` (default CUDA;
+    raises without it)."""
+    from yoho_tpu_torch.core.device import resolve_device
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+
+    device = resolve_device(device)
+    tok, model = load_yoho_session(session, root, device, int8_weights)
+    return Transcriber(model, family="yoho", tokenizer=tok, batch_size=batch,
+                       beams=beams, cache_dtype=torch.bfloat16,
+                       length_penalty=length_penalty,
+                       hallucination_silence_threshold=hallucination_silence_threshold,
+                       vad_filter=vad_filter, enrolled_speakers=enrolled_speakers,
+                       speaker_threshold=speaker_threshold,
+                       word_timestamps=word_timestamps, hotwords=hotwords,
+                       hotword_boost=hotword_boost, logit_bias=logit_bias,
+                       repetition_penalty=repetition_penalty,
+                       no_repeat_ngram_size=no_repeat_ngram_size, device=device)
+
+
+def load_speakers_arg(speakers_path, hf, diarize_session, error):
+    """``--speakers`` for the transcribe and serve commands: the enrollment
+    file, refusing the whisper-family combination that can never match (no
+    voiceprints without a diarize encoder)."""
+    if not speakers_path:
+        return None
+    from yoho_tpu_torch.infer.diarize import load_enrolled
+
+    if hf and not diarize_session:
+        error("--speakers on the whisper family needs --diarize-session "
+              "(the segments have no voiceprints to match otherwise)")
+    return load_enrolled(speakers_path)
+
+
 def whisper_token_table(cfg, hf_path: str):
     """The token table of a checkpoint (v3 and multilingual from its
     vocabulary size) with the directory's text backend, or none."""
@@ -119,10 +221,13 @@ def build_whisper_transcriber(hf_path: str, beams: int, batch, language,
                               no_repeat_ngram_size: int = 0,
                               length_penalty: float = 1.0,
                               hallucination_silence_threshold=None,
+                              diarize=None, enrolled_speakers=None,
+                              speaker_threshold: float = 0.75,
                               device=None):
     """The JAX package's ``build_whisper_transcriber`` on the port: bf16
     weights, bf16 caches (int8 K/V with ``quantized``), on ``device``
-    (default CUDA; raises without it)."""
+    (default CUDA; raises without it). ``diarize``: a ``VoiceprintEncoder``
+    (``load_voiceprint_encoder``) for post-pass diarization."""
     from yoho_tpu_torch.core.device import resolve_device
     from yoho_tpu_torch.infer.pipeline import Transcriber
 
@@ -167,7 +272,9 @@ def build_whisper_transcriber(hf_path: str, beams: int, batch, language,
         draft_model=draft_model, speculative_gamma=speculative_gamma,
         hotwords=hotwords, hotword_boost=hotword_boost,
         logit_bias=logit_bias, repetition_penalty=repetition_penalty,
-        no_repeat_ngram_size=no_repeat_ngram_size, device=device,
+        no_repeat_ngram_size=no_repeat_ngram_size, diarize_encoder=diarize,
+        enrolled_speakers=enrolled_speakers, speaker_threshold=speaker_threshold,
+        device=device,
     )
 
 
@@ -297,9 +404,7 @@ def main(argv=None):
     parser.add_argument("files", nargs="+", type=str)
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--hf", type=str, help="HF Whisper checkpoint directory")
-    src.add_argument("--session", type=str,
-                     help="YOHO training session name (not in the PyTorch "
-                          "port yet)")
+    src.add_argument("--session", type=str, help="YOHO training session name")
     parser.add_argument("--root", type=str, default="./sessions")
     parser.add_argument("--language", type=str, default="en",
                         help='ISO code, or "auto" to detect per file')
@@ -358,14 +463,20 @@ def main(argv=None):
                              "PyTorch port yet)")
     parser.add_argument("--diarize-session", type=str, default=None,
                         metavar="NAME",
-                        help="whisper-family speaker diarization (not in "
-                             "the PyTorch port yet)")
+                        help="whisper-family speaker diarization: embed "
+                             "segment spans with this session's trained "
+                             "voiceprint encoder (stage 3) and cluster")
     parser.add_argument("--speaker-threshold", type=float, default=0.75,
                         help="cosine-similarity floor for diarization "
-                             "(with --diarize-session / --speakers)")
+                             "cluster merging AND enrolled-name matching "
+                             "(higher = more distinct speakers, fewer "
+                             "matches)")
     parser.add_argument("--speakers", type=str, default=None, metavar="NPZ",
-                        help="speaker recognition against a 'yoho enroll' "
-                             "file (not in the PyTorch port yet)")
+                        help="speaker recognition: match diarized clusters "
+                             "against this 'enroll' file and name segments "
+                             "(needs voiceprints: a yoho session, or "
+                             "--diarize-session with the same encoder used "
+                             "for enrollment)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="capture a torch.profiler trace of the "
                              "transcription into DIR/trace.json")
@@ -419,8 +530,45 @@ def main(argv=None):
     if args.best_of < 1:
         parser.error("--best-of must be >= 1")
 
+    if args.draft_hf and not args.hf:
+        parser.error("--draft-hf requires --hf (whisper family)")
+    if args.best_of > 1 and not args.hf:
+        parser.error("--best-of is a whisper-family option (--hf); the "
+                     "temperature quality ladder does not run on --session "
+                     "models")
+
     temps = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0) if args.temperature_fallback else (0.0,)
     language = None if args.language == "auto" else args.language
+    enrolled = load_speakers_arg(args.speakers, args.hf, args.diarize_session,
+                                 parser.error)
+    if args.session:
+        for flag, on, why in (
+                ("--lora", args.lora, "adapters are a whisper fine-tune "
+                 "artifact; yoho sessions load their own trained weights"),
+                ("--int8-encoder", args.int8_encoder,
+                 "W8A8 encoder serving is whisper-family only"),
+                ("--fast-gelu", args.fast_gelu,
+                 "the yoho family uses SwiGLU, not GELU"),
+                ("--diarize-session", args.diarize_session,
+                 "the yoho family emits voiceprints in the decode forward "
+                 "pass and diarizes natively")):
+            if on:
+                print(f"warning: {flag} is ignored with --session ({why})",
+                      file=sys.stderr)
+        t = build_yoho_transcriber(
+            args.session, args.root, args.beams, args.batch,
+            int8_weights=args.int8_weights, vad_filter=args.vad,
+            enrolled_speakers=enrolled, speaker_threshold=args.speaker_threshold,
+            word_timestamps=args.word_timestamps, hotwords=args.hotwords,
+            hotword_boost=args.hotword_boost,
+            repetition_penalty=args.repetition_penalty,
+            no_repeat_ngram_size=args.no_repeat_ngram,
+            length_penalty=args.length_penalty,
+            hallucination_silence_threshold=args.hallucination_silence_threshold,
+            device=device)
+        return _run(t, args)
+    diarize = (load_voiceprint_encoder(args.diarize_session, args.root, device)
+               if args.diarize_session else None)
     t = build_whisper_transcriber(args.hf, args.beams, args.batch,
                                   language, not args.no_timestamps,
                                   quantized=args.int8_kv,
@@ -443,8 +591,14 @@ def main(argv=None):
                                   length_penalty=args.length_penalty,
                                   hallucination_silence_threshold=(
                                       args.hallucination_silence_threshold),
+                                  diarize=diarize, enrolled_speakers=enrolled,
+                                  speaker_threshold=args.speaker_threshold,
                                   device=device)
+    return _run(t, args)
 
+
+def _run(t, args) -> int:
+    """Transcribe ``args.files`` with ``t`` and print or write the results."""
     from yoho_tpu_torch.utils.profiling import trace
 
     if args.output_dir:
@@ -467,7 +621,10 @@ def main(argv=None):
             else:
                 print(f"== {f}")
                 for s in result.segments:
-                    print(f"[{s.start:7.2f} - {s.end:7.2f}] {s.text}")
+                    spk = (f" [{s.speaker_name}]" if s.speaker_name
+                           else f" [spk{s.speaker}]"
+                           if s.speaker is not None else "")
+                    print(f"[{s.start:7.2f} - {s.end:7.2f}]{spk} {s.text}")
                     if s.words:
                         print("    " + " ".join(f"{w.word}({w.start:.2f})"
                                                 for w in s.words))

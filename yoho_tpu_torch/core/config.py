@@ -7,9 +7,10 @@ names the same model in both packages.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import tomllib
+from dataclasses import dataclass, field, fields
 from pathlib import Path
-from typing import List
+from typing import List, Union
 
 
 @dataclass(frozen=True)
@@ -83,26 +84,86 @@ WHISPER_PRESETS: dict[str, WhisperConfig] = {
 }
 
 
-# ---------------------------------------------------------------- training
-# The fields of the JAX package's session configuration that the training
-# dataloaders read (``yoho_tpu/core/config.py``: ``YOHOConfig``,
-# ``DatasetConfig``, ``SessionConfig``), as plain dataclasses with the same
-# names, defaults and derived sizes. The YOHO model's own fields come with
-# the YOHO family (ROADMAP Queue 1 item 12).
+# ---------------------------------------------------------------- sessions
+# The JAX package's session configuration (``yoho_tpu/core/config.py``:
+# ``YOHOConfig``, the per-stage hyperparameters, ``WeightsConfig``,
+# ``MeshConfig``, ``SessionConfig``, ``DEFAULT_SESSION_TOML`` and
+# ``load_session_config``) as plain dataclasses with the same names,
+# defaults and validation errors: the machine with the card has no
+# ``pydantic``. The mesh section is parsed and checked; the port does not
+# use it yet (ROADMAP.md Queue 1 item 11).
+
+
+def _build(cls, raw, where: str):
+    """A dataclass from a TOML table: nested tables build their field's
+    dataclass, unknown keys raise (pydantic's default would ignore them;
+    an unknown key here is a typo in a session file)."""
+    if isinstance(raw, cls):
+        return raw
+    if not isinstance(raw, dict):
+        raise ValueError(f"{where}: expected a table, got {type(raw).__name__}")
+    names = {f.name: f for f in fields(cls)}
+    unknown = sorted(set(raw) - set(names))
+    if unknown:
+        raise ValueError(f"{where}: unknown keys {unknown}")
+    kw = {}
+    for key, val in raw.items():
+        sub = _NESTED.get((cls.__name__, key))
+        if sub is not None:
+            val = _build(sub, val, f"{where}.{key}")
+        elif names[key].type in ("Path", Path):
+            val = Path(val)
+        kw[key] = val
+    return cls(**kw)
 
 
 @dataclass(frozen=True)
 class YOHOConfig:
-    """The audio frontend and context lengths of a training window, with
-    the reference's sample-count identity ``n_samples = n_fft +
-    (max_audio_len - 1) * stft_hop``."""
+    """Hyperparameters of the YOHO model and its audio frontend, with the
+    reference's sample-count identity ``n_samples = n_fft +
+    (max_audio_len - 1) * stft_hop`` (default 164,080 samples, about
+    10.25 s)."""
 
     sample_rate: int = 16000
     n_mel_bands: int = 128
     n_fft: int = 400
     stft_hop: int = 160
+
+    # Training context lengths; exceeding them degrades accuracy.
     max_audio_len: int = 1024  # STFT frames fed to the encoder
     max_text_len: int = 256  # decoder tokens
+
+    dims: int = 384
+
+    n_audio_heads: int = 6
+    n_audio_blocks: int = 4
+
+    n_text_heads: int = 6
+    n_text_blocks: int = 4
+
+    # Mixture-of-Experts (0 = dense). The port builds dense models only;
+    # a config with experts parses and validates as in the JAX package,
+    # and the model refuses it (ROADMAP.md Queue 1 item 16).
+    n_experts: int = 0
+    moe_in_decoder: bool = False
+    moe_every_n: int = 2
+    moe_top_k: int = 2
+    expert_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+
+    def __post_init__(self):
+        if self.n_experts > 0:
+            if self.moe_every_n < 1:
+                raise ValueError(
+                    f"moe_every_n must be >= 1, got {self.moe_every_n}")
+            if not 1 <= self.moe_top_k <= self.n_experts:
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) must be in "
+                    f"[1, n_experts={self.n_experts}]")
+            if self.expert_capacity_factor <= 0:
+                raise ValueError(
+                    "expert_capacity_factor must be > 0, got "
+                    f"{self.expert_capacity_factor}")
 
     @property
     def n_samples(self) -> int:
@@ -111,6 +172,11 @@ class YOHOConfig:
     @property
     def max_input_seconds(self) -> float:
         return self.n_samples / self.sample_rate
+
+    @property
+    def encoder_positions(self) -> int:
+        # The audio encoder halves time once (stride-2 pooling).
+        return self.max_audio_len // 2
 
 
 @dataclass(frozen=True)
@@ -123,19 +189,243 @@ class DatasetConfig:
 
 
 @dataclass(frozen=True)
-class TrainingASRHP:
+class TokenizerHP:
+    max_token_length: int = 32
+    vocab_size: int = 16000
+
+
+@dataclass(frozen=True)
+class TrainingHP:
+    learning_rate: float = 1e-3
+    final_learning_rate: float = 1e-5
+    batch_size: int = 16
+    accumulated_batches: int = 16
+    updates: int = 250_000
+    warmup_updates: int = 2500
+    validation_frequency: int = 25
+    validation_samples: int = 8
+    remat: bool = False
+
+
+@dataclass(frozen=True)
+class TrainingASRHP(TrainingHP):
     speechless_sample_ratio: float = 0.1
+    long_context_factor: int = 1
+
+    def __post_init__(self):
+        if self.long_context_factor < 1:
+            raise ValueError("long_context_factor must be >= 1")
+
+
+@dataclass(frozen=True)
+class TrainingReconstructionHP(TrainingHP):
+    kl_weight: float = 1e-3
+    latent_dim: int = 64
+
+
+@dataclass(frozen=True)
+class TrainingVoicePrintsHP(TrainingHP):
+    temperature: float = 0.07
+    embedding_dim: int = 256
 
 
 @dataclass(frozen=True)
 class Hyperparameters:
+    tokenizer: TokenizerHP = field(default_factory=TokenizerHP)
     transcribe_pretrain: TrainingASRHP = field(default_factory=TrainingASRHP)
+    reconstruct_pretrain: TrainingReconstructionHP = field(
+        default_factory=TrainingReconstructionHP)
+    voiceprint_finetune: TrainingVoicePrintsHP = field(
+        default_factory=lambda: TrainingVoicePrintsHP(updates=100_000,
+                                                      warmup_updates=1000))
+    transcribe_finetune: TrainingASRHP = field(default_factory=TrainingASRHP)
+
+
+@dataclass
+class WeightsConfig:
+    """Artifact slots per stage."""
+
+    tokenizer: Path = Path("./weights/tokenizer.model")
+    asr: Path = Path("./weights/asr.ckpt")
+    voice_reconstruction: Path = Path("./weights/voice_reconstruction.ckpt")
+    voiceprint: Path = Path("./weights/voiceprint.ckpt")
+    yoho: Path = Path("./weights/yoho.ckpt")
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's device mesh section (parsed and checked; unused
+    by the port until multi-GPU serving, ROADMAP.md Queue 1 item 11)."""
+
+    data: int = -1
+    model: int = 1
+    seq: int = -1
+    allowed_mem_fraction: float = 0.9
+
+    def __post_init__(self):
+        if self.model < 1:
+            raise ValueError("mesh.model must be >= 1")
+        if self.seq < 1 and self.seq != -1:
+            raise ValueError("mesh.seq must be >= 1 (or -1 = infer)")
+
+
+@dataclass
 class SessionConfig:
+    """One training session: the configuration and its artifact tree."""
+
     name: str = "session"
     yoho: YOHOConfig = field(default_factory=YOHOConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     hyperparameters: Hyperparameters = field(default_factory=Hyperparameters)
+    weights: WeightsConfig = field(default_factory=WeightsConfig)
     language_whitelist: List[str] = field(default_factory=lambda: ["en"])
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    sessions_root: Path = Path("./sessions")
+
+    @property
+    def path(self) -> Path:
+        return Path(self.sessions_root) / self.name
+
+    def reroot_weights(self) -> "SessionConfig":
+        """Re-root relative weight paths into the session directory
+        (idempotent: a path already under it is kept)."""
+        base = self.path
+        for f in fields(self.weights):
+            cur = Path(getattr(self.weights, f.name))
+            if not cur.is_absolute() and not cur.is_relative_to(base):
+                setattr(self.weights, f.name, base / cur)
+        return self
+
+
+_NESTED = {
+    ("SessionConfig", "yoho"): YOHOConfig,
+    ("SessionConfig", "dataset"): DatasetConfig,
+    ("SessionConfig", "hyperparameters"): Hyperparameters,
+    ("SessionConfig", "weights"): WeightsConfig,
+    ("SessionConfig", "mesh"): MeshConfig,
+    ("Hyperparameters", "tokenizer"): TokenizerHP,
+    ("Hyperparameters", "transcribe_pretrain"): TrainingASRHP,
+    ("Hyperparameters", "reconstruct_pretrain"): TrainingReconstructionHP,
+    ("Hyperparameters", "voiceprint_finetune"): TrainingVoicePrintsHP,
+    ("Hyperparameters", "transcribe_finetune"): TrainingASRHP,
+}
+
+
+DEFAULT_SESSION_TOML = """\
+language_whitelist = ['en']
+
+[mesh]
+data = -1
+model = 1
+# seq: ring-attention axis for long-context training (-1 = infer);
+# used only when a stage sets long_context_factor > 1.
+seq = -1
+allowed_mem_fraction = 0.90
+
+[yoho]
+sample_rate = 16000
+n_mel_bands = 128
+n_fft = 400
+stft_hop = 160
+max_audio_len = 1024
+max_text_len = 256
+dims = 384
+n_audio_heads = 6
+n_audio_blocks = 4
+n_text_heads = 6
+n_text_blocks = 4
+
+[dataset]
+noisy = './asr_dataset/noisy'
+clean = './asr_dataset/clean'
+finetune = './asr_dataset/finetune'
+ambient = './asr_dataset/ambient'
+speakers = './asr_dataset/speakers'
+
+[weights]
+tokenizer = './weights/tokenizer.model'
+asr = './weights/asr.ckpt'
+voice_reconstruction = './weights/voice_reconstruction.ckpt'
+voiceprint = './weights/voiceprint.ckpt'
+yoho = './weights/yoho.ckpt'
+
+[hyperparameters.tokenizer]
+max_token_length = 32
+vocab_size = 16000
+
+[hyperparameters.transcribe_pretrain]
+learning_rate = 0.001
+final_learning_rate = 0.00001
+batch_size = 16
+accumulated_batches = 16
+updates = 250000
+warmup_updates = 2500
+validation_frequency = 25
+validation_samples = 8
+speechless_sample_ratio = 0.1
+# Gradient-checkpoint every transformer block: exact, ~one extra forward,
+# O(depth) less activation memory (any [hyperparameters.*] section).
+remat = false
+# Train on clips N x the base window via sequence-parallel ring
+# attention over the mesh's seq axis (1 = off).
+long_context_factor = 1
+
+[hyperparameters.reconstruct_pretrain]
+learning_rate = 0.001
+final_learning_rate = 0.00001
+batch_size = 16
+accumulated_batches = 16
+updates = 250000
+warmup_updates = 2500
+validation_frequency = 25
+validation_samples = 8
+kl_weight = 0.001
+latent_dim = 64
+
+[hyperparameters.voiceprint_finetune]
+learning_rate = 0.001
+final_learning_rate = 0.00001
+batch_size = 16
+accumulated_batches = 16
+updates = 100000
+warmup_updates = 1000
+validation_frequency = 25
+validation_samples = 8
+temperature = 0.07
+embedding_dim = 256
+
+[hyperparameters.transcribe_finetune]
+learning_rate = 0.001
+final_learning_rate = 0.00001
+batch_size = 16
+accumulated_batches = 16
+updates = 250000
+warmup_updates = 2500
+validation_frequency = 25
+validation_samples = 8
+speechless_sample_ratio = 0.1
+"""
+
+
+def load_session_config(
+    name: str, sessions_root: Union[str, Path] = "./sessions"
+) -> SessionConfig:
+    """Load ``<sessions_root>/<name>/config.toml`` and re-root weight paths."""
+    sessions_root = Path(sessions_root)
+    path = sessions_root / name
+    cfg_file = path / "config.toml"
+    if not cfg_file.exists():
+        raise FileNotFoundError(
+            f"Cannot load session config; session '{name}' does not exist at {path}"
+        )
+    with open(cfg_file, "rb") as f:
+        raw = tomllib.load(f)
+    for reserved in ("name", "sessions_root"):
+        if reserved in raw:
+            raise ValueError(
+                f"{cfg_file}: top-level '{reserved}' is reserved (it is "
+                "derived from the session directory) — remove it")
+    config = _build(SessionConfig, dict(raw, name=name,
+                                        sessions_root=sessions_root),
+                    str(cfg_file))
+    return config.reroot_weights()

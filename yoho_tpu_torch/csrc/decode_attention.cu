@@ -16,6 +16,13 @@
 //                                 the type of q without scales
 //   out      (B, S, Hq, D)        the type of q
 //
+// Head dims: 64 (every whisper size, the full-width YOHO model) and 16
+// (the trained YOHO fixture: dims 64 on 4 heads). Lane l holds key and
+// value dims l and l + D/2, so at D = 16 only lanes 0-7 hold dims and the
+// other lanes add zeros to the score butterfly: a simple instantiation,
+// not a fast one. The tiles stay DK rows of 64 positions, so the TMA boxes
+// and swizzles are those of D = 64 with fewer rows.
+//
 // Bound on the H100: the cache bytes. Whisper-small's cross read at B=16
 // moves 2 x 16 x 12 x 64 x 1500 B = 36.9 MB of int8 codes (+ 1.2 MB of
 // scales) per launch, ~11 us at 3.35 TB/s; its operations (4*S*T*D per
@@ -67,7 +74,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int D = 64;                // every whisper size
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int PW = 16;               // positions per warp per chunk
@@ -75,7 +81,6 @@ constexpr int TC = WARPS * PW;       // positions per chunk
 constexpr int STAGES = 3;
 constexpr int MAX_CLUSTER = 8;       // the portable cluster size
 constexpr int BLOCKS_PER_SM = 2;     // the grid the cluster size aims at
-constexpr int PART = D + 2;          // a softmax state: acc[D], m, l
 
 enum { KV_INT8 = 0, KV_INT4 = 1, KV_FLOAT = 2 };
 
@@ -193,7 +198,7 @@ __device__ __forceinline__ float pair_sum(float x) {
   return x;
 }
 
-template <typename QT, int KIND, int SMAX>
+template <typename QT, int KIND, int SMAX, int D>
 __global__ void __launch_bounds__(THREADS)
 decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
             const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
@@ -203,6 +208,8 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
             int pos_all, const int* __restrict__ pos_rows, int mode) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
+  constexpr int HALF = D / 2;     // lane l < HALF holds dims l and l + HALF
+  constexpr int PART = D + 2;     // a softmax state: acc[D], m, l
   using L = Stage<E, DK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
@@ -222,6 +229,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_all;
   const int t_end = pos_rows != nullptr ? min(t_end_all, pos + S) : t_end_all;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool holds = lane < HALF;  // always at D = 64
   const bool scaled = k_scale != nullptr;
   const int n_chunks = (t_end + TC - 1) / TC;
   const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;  // chunks rank + i CL
@@ -341,15 +349,18 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     }
     const int tw = (rank + i * CL) * TC + warp * PW;  // this warp's first position
     if (tw < t_end) {
-      float k0[16], k1[16], v0[16], v1[16];  // dims lane and lane + 32
-      if constexpr (KIND == KV_INT4) {
+      float k0[16], k1[16], v0[16], v1[16];  // dims lane and lane + HALF
+      if (!holds) {
+#pragma unroll
+        for (int p = 0; p < 16; ++p) k0[p] = k1[p] = v0[p] = v1[p] = 0.f;
+      } else if constexpr (KIND == KV_INT4) {
         row16_int4(buf, lane, warp, k0, k1);
         row16_int4(buf + L::KV, lane, warp, v0, v1);
       } else {
         row16<E>(buf, lane, warp, k0);
-        row16<E>(buf, lane + 32, warp, k1);
+        row16<E>(buf, lane + HALF, warp, k1);
         row16<E>(buf + L::KV, lane, warp, v0);
-        row16<E>(buf + L::KV, lane + 32, warp, v1);
+        row16<E>(buf + L::KV, lane + HALF, warp, v1);
       }
       const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(buf + L::SCALES) + warp * PW;
       const float k_sc = scaled ? __bfloat162float(ks[pl]) : 1.f;
@@ -358,7 +369,8 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 #pragma unroll
       for (int s = 0; s < SMAX; ++s) {
         if (s >= S) break;
-        const float qa = q_s[s * D + lane], qb = q_s[s * D + lane + 32];
+        const float qa = holds ? q_s[s * D + lane] : 0.f;
+        const float qb = holds ? q_s[s * D + lane + HALF] : 0.f;
         float part[16];
 #pragma unroll
         for (int p = 0; p < 16; ++p) part[p] = fmaf(qb, k1[p], qa * k0[p]);
@@ -398,8 +410,10 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   for (int s = 0; s < SMAX; ++s) {
     if (s >= S) break;
     float* wp = wpart + (warp * S + s) * PART;
-    wp[lane] = acc[s][0];
-    wp[lane + 32] = acc[s][1];
+    if (holds) {
+      wp[lane] = acc[s][0];
+      wp[lane + HALF] = acc[s][1];
+    }
     if (lane == 0) wp[D] = m_w[s], wp[D + 1] = l_w[s];
   }
   __syncthreads();
@@ -437,7 +451,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   cluster.sync();  // no block leaves while a peer still reads its state
 }
 
-template <typename QT, int KIND, int SMAX>
+template <typename QT, int KIND, int SMAX, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                    void* out, int B, int Hq, int Hkv, int S, int T, int t_end, int causal,
                    int pos, const int* pos_rows, cudaStream_t stream) {
@@ -484,9 +498,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
   // 2: TMA; 3, 1: 8- or 4-byte cp.async words; 0: element copies.
   const int mode = tma ? 2 : rows_of(8) ? 3 : rows_of(4) ? 1 : 0;
 
+  constexpr int PART = D + 2;
   const size_t smem = 1024 + (size_t)STAGES * L::BYTES + 8 * STAGES +
                       sizeof(float) * ((size_t)S * D + (size_t)(WARPS + 1) * S * PART);
-  auto kern = decode_attn<QT, KIND, SMAX>;
+  auto kern = decode_attn<QT, KIND, SMAX, D>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -511,26 +526,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
   return cudaGetLastError();
 }
 
-template <typename QT, int KIND>
+template <typename QT, int KIND, int D>
 cudaError_t dispatch_s(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
                        int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (S <= 1) return launch<QT, KIND, 1>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (S <= 4) return launch<QT, KIND, 4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (S <= 32) return launch<QT, KIND, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 1) return launch<QT, KIND, 1, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 4) return launch<QT, KIND, 4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 32) return launch<QT, KIND, 32, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
   return cudaErrorInvalidValue;
 }
 
-template <typename QT>
+template <typename QT, int D>
 cudaError_t dispatch_kind(int kind, const void* q, const void* k, const void* v, const void* ks,
                           const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
                           int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
   switch (kind) {
-    case KV_INT8: return dispatch_s<QT, KV_INT8>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-    case KV_INT4: return dispatch_s<QT, KV_INT4>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename QT>
+cudaError_t dispatch_d(int Dh, int kind, const void* q, const void* k, const void* v,
+                       const void* ks, const void* vs, void* out, int B, int Hq, int Hkv, int S,
+                       int T, int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
+  if (Dh == 64)
+    return dispatch_kind<QT, 64>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (Dh == 16)
+    return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -540,8 +566,8 @@ YOHO_ERROR_STRING_FN
 // q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
 // 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
 // of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
-// (B ints on the device, each >= 0) is not null. D is 64. One launch; no
-// workspace.
+// (B ints on the device, each >= 0) is not null. Dh is 64 or 16. One
+// launch; no workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
@@ -549,13 +575,13 @@ extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void
                                 cudaStream_t stream) {
   int t_end = min(T, kv_len);
   if (causal && pos_rows == nullptr) t_end = min(t_end, pos + S);
-  if (t_end <= 0 || Dh != D || Hkv <= 0 || Hq % Hkv != 0 || (pos_rows != nullptr && !causal))
+  if (t_end <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (pos_rows != nullptr && !causal))
     return cudaErrorInvalidValue;
   if (q_dtype == 0)
-    return dispatch_kind<float>(kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, T, t_end,
-                                causal, pos, pos_rows, stream);
+    return dispatch_d<float>(Dh, kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, T, t_end,
+                             causal, pos, pos_rows, stream);
   if (q_dtype == 1)
-    return dispatch_kind<__nv_bfloat16>(kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S,
-                                        T, t_end, causal, pos, pos_rows, stream);
+    return dispatch_d<__nv_bfloat16>(Dh, kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S,
+                                     T, t_end, causal, pos, pos_rows, stream);
   return cudaErrorInvalidValue;
 }

@@ -44,6 +44,13 @@
 //
 // float32 keeps full FP32 arithmetic on FMAs from shared memory (TF32
 // would lose digits); it is not on the main path.
+//
+// Head dim 16 (the trained YOHO fixture: dims 64 on 4 heads) runs the FMA
+// kernel for both types: bf16 inputs are widened on load, P is rounded to
+// bf16 before the PV product as the reference rounds it, and the output
+// is rounded once. A 16-wide row is 32 bytes, narrower than the 128-byte
+// swizzle the wgmma path's tiles are built on; this instantiation is
+// simple and right, not fast.
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -510,15 +517,23 @@ YOHO_ERROR_STRING_FN
 
 // dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16 (wgmma + TMA; q, k and v
 // 16-byte aligned). q (B, Tq, H, D); k, v (B, Tk, H, D); keys >= kv_len
-// (1 <= kv_len <= Tk) are masked. D is 64, the head dim of every whisper size.
+// (1 <= kv_len <= Tk) are masked. D is 64 (every whisper size, the full-width
+// YOHO model) or 16 (FMAs for both types).
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
                                        const void* v, void* out, int B, int H, int Tq,
                                        int Tk, int kv_len, int D, float scale, int causal,
                                        cudaStream_t stream) {
-  if (D != 64 || kv_len < 1 || kv_len > Tk) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
-  if (dtype == 1)
+  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (D == 64) {
+    if (dtype == 0)
+      return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
     return wg::launch_wgmma(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
+  }
+  if (D == 16) {
+    if (dtype == 0)
+      return launch<float, 16>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
+    return launch<__nv_bfloat16, 16>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal,
+                                     stream);
+  }
   return cudaErrorInvalidValue;
 }

@@ -33,6 +33,15 @@ decode streams fit in the device's memory beside the weights. Per stream
   two calls; 6 keeps the sum at or above every reading with about a
   tensor to spare.
 
+The YOHO family (``family="yoho"``) has the same terms at its own widths:
+float cross K/V and caches of ``kv_heads * head_dim`` cells a position
+(the GQA KV width, half the model width), over ``encoder_positions``
+(512) and the decode horizon rounded to 128 (256), the 164,080-sample
+window, its 1,024 x 128 log-mel, and the encoder's 512 x ``dims``
+activations. Its staging term is 9 such tensors: the card's reading
+(``chip_smoke.py``'s e2e-yoho ``capacity`` line, NVIDIA H100 80GB HBM3,
+700 W) left room for 7.5 at the default width, above the 6 of whisper's.
+
 The device's memory is ``torch.cuda.mem_get_info``'s total on the resolved
 device (the host's physical memory for a CPU device); the fixed cost is the
 model's parameters and buffers as stored (the int8 lanes' codes and scales,
@@ -51,10 +60,11 @@ import torch
 # caching allocator's rounding.
 RESERVE_BYTES = 1 << 30
 _LANE = 128  # the port pads cross K/V and rounds cache lengths to this
-# The encoder's peak beyond the other terms, in (n_audio_ctx x
-# n_audio_state) tensors of the model's type, calibrated on the card
-# (module doc).
-_STAGING_CELLS = 6
+# The encoder's peak beyond the other terms, in (encoder positions x
+# encoder width) tensors of the model's type, calibrated on the card
+# (module doc): whisper's 4x GELU MLP and YOHO's 3x SwiGLU (gate, up and
+# their product live together).
+_STAGING_CELLS = {"whisper": 6, "yoho": 9}
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +82,20 @@ def whisper_param_count(cfg) -> int:
     dec = cfg.n_text_layer * (16 * s_t * s_t + 18 * s_t) + 2 * s_t
     embed = cfg.n_vocab * s_t + cfg.n_text_ctx * s_t  # tied logits
     return conv + enc + dec + embed
+
+
+def yoho_param_count(cfg, vocab_size: int, voiceprint_dim: int = 256) -> int:
+    """Parameters of the YOHO model (``nn/yoho.py``) from its dimensions:
+    the JAX package's count plus the RMSNorm scales and the voiceprint
+    head, which it leaves out."""
+    s = cfg.dims
+    conv = cfg.n_mel_bands * s * 3 + s * s * 3 + 2 * s + 2 * s  # + norm1, norm2
+    # GQA with kv_heads = q_heads // 2: q + out = 2*s^2, k + v = s^2;
+    # SwiGLU(3x) = 9*s^2 (encoder), SwiGLU(1.5x) = 4.5*s^2 (decoder), with
+    # 2 (encoder) and 4 (decoder) RMSNorms a block.
+    enc = cfg.n_audio_blocks * (int(12 * s * s) + 2 * s)
+    dec = cfg.n_text_blocks * (int(10.5 * s * s) + 4 * s)
+    return conv + enc + dec + s + vocab_size * s + s * voiceprint_dim
 
 
 def module_bytes(model: torch.nn.Module) -> int:
@@ -99,38 +123,56 @@ def _kv_bytes(n_layer: int, n_state: int, n_head: int, t: int,
     return 2 * n_layer * n_state * t * int(mode)
 
 
-def stream_terms(cfg, *, horizon: Optional[int] = None, cross_kv="int8",
-                 cache_quantized: bool = True, cache_itemsize: int = 2,
-                 act_itemsize: int = 2, beams: int = 0) -> Dict[str, int]:
+def _widths(cfg, family: str) -> tuple:
+    """(decoder layers, K/V cells a position, K/V heads, encoder positions,
+    encoder width, default horizon, mel cells) of a configuration."""
+    if family == "whisper":
+        return (cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head,
+                cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_text_ctx,
+                cfg.n_frames * cfg.n_mels)
+    if family == "yoho":
+        kvh = max(1, cfg.n_text_heads // 2)  # nn/yoho.py's KV heads
+        return (cfg.n_text_blocks, kvh * (cfg.dims // cfg.n_text_heads), kvh,
+                cfg.encoder_positions, cfg.dims, cfg.max_text_len,
+                cfg.max_audio_len * cfg.n_mel_bands)
+    raise ValueError(f"unknown family {family!r}")
+
+
+def stream_terms(cfg, family: str = "whisper", *, horizon: Optional[int] = None,
+                 cross_kv="int8", cache_quantized: bool = True,
+                 cache_itemsize: int = 2, act_itemsize: int = 2,
+                 beams: int = 0) -> Dict[str, int]:
     """Device bytes one decode stream holds, by buffer (module doc).
 
     ``cross_kv``: "int8", "int4" or None (float K/V in the model's type);
     ``cache_quantized``: an int8 self cache, else one of
     ``cache_itemsize``-byte cells; ``act_itemsize``: the model's type;
-    ``beams``: caches per stream (0 and 1 mean one)."""
-    n_layer, n_state, n_head = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
-    horizon = cfg.n_text_ctx if horizon is None else horizon
-    enc_cells = cfg.n_audio_ctx * cfg.n_audio_state
+    ``beams``: caches per stream (0 and 1 mean one). The YOHO family has
+    float K/V and caches only."""
+    n_layer, n_state, n_head, n_ctx, enc_state, default_horizon, mel = \
+        _widths(cfg, family)
+    staging = _STAGING_CELLS[family]
+    horizon = default_horizon if horizon is None else horizon
+    enc_cells = n_ctx * enc_state
     if cross_kv in ("int8", "int4"):
-        cross = _kv_bytes(n_layer, n_state, n_head, _round_up(cfg.n_audio_ctx, _LANE),
-                          cross_kv)
+        cross = _kv_bytes(n_layer, n_state, n_head, _round_up(n_ctx, _LANE), cross_kv)
     else:
-        cross = _kv_bytes(n_layer, n_state, n_head, cfg.n_audio_ctx, act_itemsize)
+        cross = _kv_bytes(n_layer, n_state, n_head, n_ctx, act_itemsize)
     cache = _kv_bytes(n_layer, n_state, n_head, _round_up(max(1, horizon), _LANE),
                       "int8" if cache_quantized else cache_itemsize)
     return {
         "cross_kv": cross,
         "self_cache": cache * max(1, beams),
         "audio": cfg.n_samples * 4,
-        "mel": cfg.n_frames * cfg.n_mels * 4,
+        "mel": mel * 4,
         "encoder_out": enc_cells * act_itemsize,
-        "staging": _STAGING_CELLS * enc_cells * act_itemsize,
+        "staging": staging * enc_cells * act_itemsize,
     }
 
 
-def stream_bytes(cfg, **kw) -> int:
+def stream_bytes(cfg, family: str = "whisper", **kw) -> int:
     """The sum of :func:`stream_terms`."""
-    return sum(stream_terms(cfg, **kw).values())
+    return sum(stream_terms(cfg, family, **kw).values())
 
 
 def device_memory_bytes(device) -> int:
@@ -144,21 +186,25 @@ def device_memory_bytes(device) -> int:
     raise ValueError(f"no memory reading for device {device}")
 
 
-def suggest_batch_size(cfg, *, device_bytes: int, weight_bytes: Optional[int] = None,
+def suggest_batch_size(cfg, family: str = "whisper", *, device_bytes: int,
+                       weight_bytes: Optional[int] = None,
+                       vocab_size: Optional[int] = None,
                        quantum: int = 8, max_batch: int = 512,
                        extra_fixed_bytes: int = 0, extra_stream_bytes: int = 0,
                        **terms) -> int:
     """A serving batch that fits in ``device_bytes``.
 
     ``weight_bytes``: the model as stored (default: the analytic parameter
-    count in bf16); ``extra_fixed_bytes`` / ``extra_stream_bytes``: what
+    count in bf16; a YOHO config needs ``vocab_size`` for it);
+    ``extra_fixed_bytes`` / ``extra_stream_bytes``: what
     the configuration alone cannot see (a draft model and its per-stream
     buffers); ``terms``: :func:`stream_terms`' keywords. Returns at least
     1, at most ``max_batch``, rounded down to ``quantum`` above it."""
     if weight_bytes is None:
-        weight_bytes = whisper_param_count(cfg) * 2
+        weight_bytes = 2 * (whisper_param_count(cfg) if family == "whisper"
+                            else yoho_param_count(cfg, vocab_size))
     budget = device_bytes - weight_bytes - RESERVE_BYTES - max(0, extra_fixed_bytes)
-    per_stream = stream_bytes(cfg, **terms) + max(0, extra_stream_bytes)
+    per_stream = stream_bytes(cfg, family, **terms) + max(0, extra_stream_bytes)
     batch = min(max(0, budget) // per_stream, max_batch)
     if batch >= quantum:
         batch = (batch // quantum) * quantum
@@ -187,10 +233,10 @@ def resolve_auto_batch(t) -> int:
         # (gamma + 2 slots); the draft encodes the same window.
         horizon = t.max_len + t.speculative_gamma + 2
         fixed = module_bytes(t.draft_model)
-        d_terms = stream_terms(t.draft_model.cfg,
+        d_terms = stream_terms(t.draft_model.cfg, t.family,
                                **_lane_kwargs(t, t.draft_model, horizon))
         extra = sum(v for k, v in d_terms.items() if k not in ("audio", "mel"))
     return suggest_batch_size(
-        t.model.cfg, device_bytes=device_memory_bytes(t.device),
+        t.model.cfg, t.family, device_bytes=device_memory_bytes(t.device),
         weight_bytes=module_bytes(t.model), extra_fixed_bytes=fixed,
         extra_stream_bytes=extra, **_lane_kwargs(t, t.model, horizon))

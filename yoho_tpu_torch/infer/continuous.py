@@ -16,9 +16,10 @@ result, and touch no device tensor.
 
 Greedy parity: a window decoded through slots gives the same tokens and
 quality signals as ``greedy_decode`` (``tests/test_torch_continuous.py``).
-Whisper family; slot decodes are greedy (no beams); speculative
-draft-verify and the temperature fallback ladder both compose (rungs > 0
-re-decode in the assemble step).
+Both families; slot decodes are greedy (no beams); speculative
+draft-verify and the whisper temperature fallback ladder both compose
+(rungs > 0 re-decode in the assemble step); a YOHO request's voiceprints
+come from one teacher-forced pass over its windows in the assemble step.
 """
 
 from __future__ import annotations
@@ -172,7 +173,7 @@ class ContinuousBatcher:
             return
         if req.language is not None:
             req.lang = req.language
-        elif t.language is not None:
+        elif t.language is not None or t.family != "whisper":
             req.lang = t.language
         else:
             (req.lang,), (req.lang_prob,) = t.detect_language_many(
@@ -205,7 +206,7 @@ class ContinuousBatcher:
             # fallback ladder and the teacher-forced post-passes (both
             # group windows identically; keyed by group start index).
             mel_cache: dict = {}
-            if len(t.temperatures) > 1:
+            if t.family == "whisper" and len(t.temperatures) > 1:
                 lengths = self._fallback_retry(req, lengths, aux, mel_cache)
             silent = t._silent_mask(lengths, aux)
             segs = [[] if silent[j] else
@@ -213,7 +214,11 @@ class ContinuousBatcher:
                                           int(lengths[j]))
                     for j in range(n)]
             t._attach_quality(segs, lengths, aux)
-            if t.word_timestamps and t.token_table.text_backend is not None:
+            if t.family == "yoho":
+                self._post_pass(req, lambda mel, tok, sl: t._attach_voiceprints(
+                    mel, tok, segs[sl], lengths[sl]), mel_cache)
+            if t.word_timestamps and (t.family == "yoho"
+                                      or t.token_table.text_backend is not None):
                 self._post_pass(req, lambda mel, tok, sl: t._attach_words(
                     mel, tok, lengths[sl], segs[sl]), mel_cache)
             per_window = segs
@@ -236,8 +241,9 @@ class ContinuousBatcher:
         return mel
 
     def _post_pass(self, req: _Request, fn, mel_cache: dict) -> None:
-        """Run a teacher-forced post-pass (the word-timestamp alignment;
-        the batched path does it inside transcribe_many, here windows
+        """Run a teacher-forced post-pass (YOHO voiceprints, the
+        word-timestamp alignment; the batched path does them inside
+        transcribe_many, here windows
         arrive from slots) over the request's windows in groups PADDED to
         the slot count, so one batch shape serves every request size.
         ``fn(mel, tokens, slice)`` receives the padded (S, ...) device

@@ -33,6 +33,19 @@ def make_whisper_step_fn(model, cross_kvs):
     return step
 
 
+def make_yoho_step_fn(model, cross_kvs):
+    """The same contract for the YOHO model; the step computes no
+    voiceprints (they come from one teacher-forced pass after decoding,
+    ``infer/speaker_pass.py``)."""
+
+    def step(tokens, caches, pos):
+        logits, _vp, caches = model.decode_step(tokens, caches, cross_kvs, pos,
+                                                with_voiceprints=False)
+        return logits, caches
+
+    return step
+
+
 def _suppress(logits: torch.Tensor, suppress_ids) -> torch.Tensor:
     if len(suppress_ids):
         ids = torch.as_tensor(list(suppress_ids), dtype=torch.long,

@@ -1,5 +1,5 @@
 """Decode-program construction and language identification for
-:class:`Transcriber` (whisper family).
+:class:`Transcriber`.
 
 The JAX package's ``infer/decode_programs.py``: prompt assembly, the
 suppress list, the SOT index for the no-speech probability, the logit
@@ -11,7 +11,10 @@ model at temperature 0, ``speculative_greedy_decode`` over the draft's own
 encoder output, cross-K/V and caches of both models; the
 teacher-forced alignment program of word timestamps; and language
 detection (one decoder step on ``<|startoftranscript|>`` over an
-unquantized cross-K/V and a float cache of 128 positions).
+unquantized cross-K/V and a float cache of 128 positions). The YOHO family
+(``family="yoho"``) prompts with ``<|startoftranscript|>`` alone, has no
+no-speech token, no SOT index and no timestamp rules, and decodes over
+float cross K/V and caches.
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ import torch
 from yoho_tpu_torch.audio.io import load_audio_f32
 
 from yoho_tpu_torch.infer.beam import beam_search
-from yoho_tpu_torch.infer.decode import greedy_decode, make_whisper_step_fn
-from yoho_tpu_torch.infer.speculative import (
-    make_verify_step_fn,
-    speculative_greedy_decode,
+from yoho_tpu_torch.infer.decode import (
+    greedy_decode,
+    make_whisper_step_fn,
+    make_yoho_step_fn,
 )
+from yoho_tpu_torch.infer.speculative import speculative_greedy_decode
 
 
 class DecodeProgramsMixin:
@@ -38,6 +42,8 @@ class DecodeProgramsMixin:
     def _prompt_ids(self, language: Optional[str] = None) -> List[int]:
         """Prompt for one stream; its length does not depend on the
         language, so every language shares one decode program."""
+        if self.family != "whisper":
+            return [self.tokenizer.sot_id]
         sot = self.token_table.sot_sequence(
             language or self.language or "en", self.task,
             timestamps=self.timestamps)
@@ -57,6 +63,9 @@ class DecodeProgramsMixin:
         shares one program."""
         if prompt_text is None:
             return self._prompt_ids(language)
+        if self.family != "whisper":
+            raise ValueError("per-request prompt is a whisper-family "
+                             "feature (<|startofprev|> conditioning)")
         tt = self.token_table
         if tt.text_backend is None:
             raise ValueError("per-request prompt needs a text backend to "
@@ -82,19 +91,21 @@ class DecodeProgramsMixin:
                        [str(p).strip() for p in hotwords if str(p).strip()])
             if not phrases:
                 raise ValueError(f"hotwords {hotwords!r} contains no phrases")
-            if self.token_table.text_backend is None:
+            if self.family == "whisper" and self.token_table.text_backend is None:
                 raise ValueError("hotwords need a text backend to tokenize "
                                  "the phrases")
             boosted = set()
             for phrase in phrases:
-                # Leading space: byte-BPE merges expect space-prefixed
-                # words mid-sentence.
-                boosted.update(int(t) for t in self.token_table.encode_text(" " + phrase))
+                # Leading space: GPT-2 byte-BPE merges expect space-prefixed
+                # words mid-sentence (the YOHO tokenizer adds its own).
+                ids = (self.token_table.encode_text(" " + phrase)
+                       if self.family == "whisper" else self.tokenizer.encode(phrase))
+                boosted.update(int(t) for t in ids)
             for tid in boosted:
                 entries[tid] = entries.get(tid, 0.0) + float(hotword_boost)
         if not entries:
             return {}
-        n_vocab = self.model.cfg.n_vocab
+        n_vocab = self._n_vocab()
         bad = [t for t in entries if t < 0 or t >= n_vocab]
         if bad:
             raise ValueError(
@@ -110,11 +121,18 @@ class DecodeProgramsMixin:
             return None
         from yoho_tpu_torch.infer.logit_rules import make_repetition_rules
 
-        bannable = np.zeros((self.model.cfg.n_vocab,), bool)
-        bannable[: self.token_table.eot] = True
+        bannable = np.zeros((self._n_vocab(),), bool)
+        if self.family == "whisper":
+            bannable[: self.token_table.eot] = True
+        else:
+            bannable[self.tokenizer.bpe.n_special:] = True
         return make_repetition_rules(self.repetition_penalty,
                                      self.no_repeat_ngram_size,
                                      n_prompt=n_prompt, bannable=bannable)
+
+    def _n_vocab(self) -> int:
+        return (self.model.cfg.n_vocab if self.family == "whisper"
+                else self.model.vocab_size)
 
     def _bias_logits_fn(self):
         """None, or ``logits -> logits`` adding the configured per-token
@@ -144,7 +162,7 @@ class DecodeProgramsMixin:
         bias_fn = self._bias_logits_fn()
         rep_fn = self._repetition_rules_fn(prompt_len)
         ts_fn = (make_timestamp_rules(self.token_table, prompt_len)
-                 if self.timestamps else None)
+                 if self.family == "whisper" and self.timestamps else None)
         if bias_fn is None and rep_fn is None and ts_fn is None:
             return None
 
@@ -160,19 +178,30 @@ class DecodeProgramsMixin:
         return logits_fn
 
     def _suppress_ids(self):
+        if self.family != "whisper":
+            return tuple(dict.fromkeys(self.suppress_tokens))
         sup = list(self.token_table.non_speech_tokens)
         if not self.timestamps:
             sup += list(range(self.token_table.timestamp_begin,
                               self.token_table.n_vocab))
         return tuple(dict.fromkeys(sup + list(self.suppress_tokens)))
 
-    def _make_step(self, cross_kvs):
-        return make_whisper_step_fn(self.model, cross_kvs)
+    def _make_step(self, cross_kvs, model=None):
+        """The decode step of ``model`` (default: the transcriber's; the
+        draft's for speculative decoding) over ``cross_kvs``."""
+        make = make_whisper_step_fn if self.family == "whisper" else make_yoho_step_fn
+        return make(model or self.model, cross_kvs)
 
-    def _sot_index(self, prompt_len: int) -> int:
+    def _no_speech_id(self) -> Optional[int]:
+        return self.token_table.no_speech if self.family == "whisper" else None
+
+    def _sot_index(self, prompt_len: int) -> Optional[int]:
         """Position of <|startoftranscript|> in a prompt of this length
-        (every prompt ends with the SOT sequence); the no-speech
-        probability is read at this position's output."""
+        (every whisper prompt ends with the SOT sequence); the no-speech
+        probability is read at this position's output. None for the YOHO
+        family."""
+        if self.family != "whisper":
+            return None
         n_sot = len(self.token_table.sot_sequence(
             self.language or "en", self.task, timestamps=self.timestamps))
         return max(prompt_len - n_sot, 0)
@@ -207,7 +236,7 @@ class DecodeProgramsMixin:
             prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                      device=self.device)
             kw = dict(suppress_ids=suppress, logits_fn=logits_fn, return_aux=True,
-                      no_speech_id=self.token_table.no_speech,
+                      no_speech_id=self._no_speech_id(),
                       sot_index=self._sot_index(prompt_len))
             if k:
                 # The cross-K/V stay untiled: the K beams of a stream share
@@ -230,7 +259,7 @@ class DecodeProgramsMixin:
                 d_caches = d_model.init_caches(batch, self.cache_dtype, horizon,
                                                self.quantized_cache)
                 tokens, lengths, aux = speculative_greedy_decode(
-                    make_verify_step_fn(model, ckv), make_verify_step_fn(d_model, d_ckv),
+                    self._make_step(ckv), self._make_step(d_ckv, d_model),
                     t_caches, d_caches, prompt, self.max_len, self.eot, gamma=gamma,
                     stats=self.speculative_stats, **kw)
             else:
@@ -240,6 +269,8 @@ class DecodeProgramsMixin:
                 tokens, lengths, aux = greedy_decode(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
                     temperature=temperature, generator=gen, **kw)
+            if "no_speech_prob" not in aux:
+                aux["no_speech_prob"] = torch.zeros((batch,), dtype=torch.float32)
             return (tokens.cpu().numpy(), lengths.cpu().numpy(),
                     {k: v.cpu().numpy() for k, v in aux.items()})
 

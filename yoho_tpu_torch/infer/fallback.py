@@ -112,7 +112,8 @@ class FallbackLadderMixin:
         just to discover nothing needs retrying)."""
         ladder = tuple(temperatures) if temperatures is not None \
             else self.temperatures
-        if len(ladder) <= 1 or self.beams > 1:  # beam search has no rungs
+        # Beam search has no rungs; the YOHO family has no quality ladder.
+        if len(ladder) <= 1 or self.family != "whisper" or self.beams > 1:
             return
 
         prompt_len = None if prompt is None else prompt.shape[1]
@@ -147,6 +148,8 @@ class FallbackLadderMixin:
         avg_lp = self._mean_logprob(
             lengths, {"sum_logprob": np.asarray(aux["sum_logprob"])
                       [: len(lengths)]}, n_prompt)
+        if self.family != "whisper":  # no <|nospeech|> token
+            return np.zeros(len(lengths), bool)
         return (ns > self.no_speech_threshold) & (avg_lp < self.logprob_threshold)
 
     def _attach_quality(self, segs: List[List[Segment]], lengths: np.ndarray,

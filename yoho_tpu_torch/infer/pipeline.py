@@ -1,19 +1,30 @@
-"""High-level transcription API (whisper family): audio in, timed
-segments out.
+"""High-level transcription API: audio in, timed segments (and, for the
+YOHO family, voiceprints and speakers) out.
 
 The JAX package's ``infer/pipeline.py::Transcriber``: audio (an array or a
 file path, decoded and resampled on the host by ``audio/io.py``) is cut
-into fixed 30 s windows, the windows of all requests are pooled and decoded
-``batch_size`` at a time (log-mel kernel -> encoder -> cross-K/V -> greedy,
-speculative or beam decode with the logit rules), and segments are
-stitched back per request. The request options: beam search with a length
-penalty, language auto-detection, word timestamps and forced alignment,
-logit bias and hotwords, repetition rules, previous-text conditioning
-(window by window), the host energy VAD (``vad_filter``) with its map
-back to the source timeline, the silence-hallucination filter, and
-speculative decoding with a draft model. Options of the JAX class that
-this port does not have yet raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+into fixed windows (30 s for whisper, 10.25 s for YOHO), the windows of
+all requests are pooled and decoded ``batch_size`` at a time (log-mel
+kernel -> encoder -> cross-K/V -> greedy, speculative or beam decode with
+the logit rules), and segments are stitched back per request. Two token
+schemes:
+
+* ``family="whisper"``: OpenAI's (``token_table``, a WhisperTokenTable),
+  with the request options: beam search with a length penalty, language
+  auto-detection, word timestamps and forced alignment, logit bias and
+  hotwords, repetition rules, previous-text conditioning (window by
+  window), the host energy VAD (``vad_filter``) with its map back to the
+  source timeline, the silence-hallucination filter, speculative decoding
+  with a draft model, and diarization by a ``VoiceprintEncoder``
+  (``diarize_encoder``);
+* ``family="yoho"``: the session tokenizer's (``tokenizer``, a
+  YOHOTokenizer): ``<|t-frame|>`` timestamp tokens, and ``<|voiceprint|>``
+  slots whose decoder states give speaker embeddings in one teacher-forced
+  pass, clustered into speakers and named against enrolled voiceprints
+  (``infer/speaker_pass.py``).
+
+Options of the JAX class that this port does not have yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,7 +43,8 @@ from yoho_tpu_torch.infer.decode_programs import DecodeProgramsMixin
 from yoho_tpu_torch.infer.fallback import FallbackLadderMixin
 from yoho_tpu_torch.infer.longform import Segment, chunk_audio, stitch_segments
 from yoho_tpu_torch.infer.rendering import RenderingMixin
-from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+from yoho_tpu_torch.infer.speaker_pass import SpeakerPassMixin
+from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel, fused_yoho_log_mel
 
 
 @dataclass
@@ -56,10 +68,11 @@ _NO_OVERRIDES = ("per-request prompt/temperature overrides don't compose with "
                  "instead)")
 
 
-class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
-    """Audio arrays or files in, timed segments out (whisper family; greedy
-    decode with the temperature fallback ladder, speculative greedy decode
-    with a draft model, or beam search).
+class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
+                  SpeakerPassMixin):
+    """Audio arrays or files in, timed segments out (greedy decode with the
+    temperature fallback ladder, speculative greedy decode with a draft
+    model, or beam search; see the module doc for the two families).
 
     ``device=None`` runs on CUDA and raises when CUDA is absent; the model
     must already live on the resolved device.
@@ -71,14 +84,16 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
     with the target's greedy tokens as the result. The draft's weights live
     in its module, so the JAX class's ``draft_variables`` has no
     counterpart here (``nn.params.load_jax_params`` carries a JAX draft
-    tree into it)."""
+    tree into it); nor has ``diarize_variables`` (the port's
+    ``VoiceprintEncoder`` holds its weights)."""
 
     def __init__(
         self,
         model,
         *,
-        token_table,
         family: str = "whisper",
+        tokenizer=None,  # YOHOTokenizer (yoho family)
+        token_table=None,  # WhisperTokenTable (whisper family)
         batch_size=8,  # int, or "auto" (infer/capacity.py)
         beams: int = 0,  # 0/1 = greedy
         length_penalty: float = 1.0,  # GNMT beam score normalization
@@ -108,17 +123,16 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         hallucination_silence_threshold: Optional[float] = None,
         draft_model=None,
         speculative_gamma: int = 4,
+        diarize_encoder=None,  # VoiceprintEncoder (whisper-family diarization)
+        enrolled_speakers=None,  # {name: voiceprint} for speaker recognition
+        speaker_threshold: float = 0.75,  # cosine: cluster merge + naming
         device=None,
         **unported,
     ):
-        if family != "whisper":
-            _not_ported(f"family={family!r}", 12)
-        for name, item in (("mesh", 11),
-                           ("diarize_encoder", 12), ("diarize_variables", 12),
-                           ("enrolled_speakers", 12),
-                           ("speaker_threshold", 12)):
-            if unported.pop(name, None) not in (None, False, 0):
-                _not_ported(name, item)
+        if family not in ("whisper", "yoho"):
+            raise ValueError(f"unknown family {family!r}")
+        if unported.pop("mesh", None) is not None:
+            _not_ported("mesh", 11)
         if unported:
             raise TypeError(f"unknown arguments {sorted(unported)}")
         if task not in ("transcribe", "translate"):
@@ -132,6 +146,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         if no_repeat_ngram_size < 0:
             raise ValueError(
                 f"no_repeat_ngram_size must be >= 0, got {no_repeat_ngram_size}")
+        if condition_on_previous_text and family != "whisper":
+            raise ValueError("condition_on_previous_text is a whisper "
+                             "family feature")
         if condition_on_previous_text and beams and beams > 1:
             raise ValueError("condition_on_previous_text currently supports "
                              "greedy (+temperature fallback) decoding only")
@@ -150,18 +167,46 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
             if int(speculative_gamma) < 1:
                 raise ValueError(f"speculative_gamma must be >= 1, got "
                                  f"{speculative_gamma}")
-            dc, tc = draft_model.cfg, model.cfg
-            if (dc.n_vocab, dc.n_mels) != (tc.n_vocab, tc.n_mels):
-                raise ValueError(f"draft vocab/mels {(dc.n_vocab, dc.n_mels)} "
-                                 f"!= target's {(tc.n_vocab, tc.n_mels)}")
+            def vocab_mels(m):
+                return ((m.cfg.n_vocab, m.cfg.n_mels) if family == "whisper"
+                        else (m.vocab_size, m.cfg.n_mel_bands))
+
+            if vocab_mels(draft_model) != vocab_mels(model):
+                raise ValueError(f"draft vocab/mels {vocab_mels(draft_model)} "
+                                 f"!= target's {vocab_mels(model)}")
             if draft_model.device != self.device:
                 raise ValueError(f"draft model is on {draft_model.device}, "
                                  f"transcriber on {self.device}")
-        if token_table is None:
+        if family == "whisper" and token_table is None:
             raise ValueError("whisper family needs a WhisperTokenTable")
+        if family == "yoho" and tokenizer is None:
+            raise ValueError("yoho family needs a YOHOTokenizer")
+        self.diarize_encoder = diarize_encoder
+        self.speaker_threshold = float(speaker_threshold)
+        self.enrolled_speakers = dict(enrolled_speakers or {})
+        if self.enrolled_speakers:
+            # An embedding-space mismatch fails here, not after the decode.
+            if family == "whisper":
+                if diarize_encoder is None:
+                    raise ValueError(
+                        "enrolled_speakers on the whisper family needs "
+                        "diarize_encoder= (whisper segments carry no "
+                        "voiceprints to match otherwise)")
+                expected = int(diarize_encoder.embedding_dim)
+            else:
+                expected = int(model.voiceprint_dim)
+            for nm, emb in self.enrolled_speakers.items():
+                got = int(np.asarray(emb).shape[-1])
+                if got != expected:
+                    raise ValueError(
+                        f"enrolled speaker {nm!r} has embedding dim {got}, "
+                        f"but this transcriber produces dim-{expected} "
+                        "voiceprints — re-enroll with the same embedder "
+                        "(enroll, same session / --diarize-session)")
 
         self.model = model
         self.family = family
+        self.tokenizer = tokenizer
         self.token_table = token_table
         self.beams = max(0, int(beams))
         self.length_penalty = float(length_penalty)
@@ -170,8 +215,11 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         self.no_speech_threshold = no_speech_threshold
         self.logprob_threshold = logprob_threshold
         self.word_timestamps = word_timestamps
-        self.quantized_cross_kv = quantized_cross_kv
-        self.quantized_cache = quantized_cache
+        # The YOHO family decodes over float cross K/V and caches: the JAX
+        # package ignores the quantization flags for it, and so does this.
+        whisper = family == "whisper"
+        self.quantized_cross_kv = quantized_cross_kv if whisper else False
+        self.quantized_cache = quantized_cache and whisper
         self.initial_prompt = initial_prompt
         self.condition_on_previous_text = condition_on_previous_text
         self.suppress_tokens = tuple(int(t) for t in suppress_tokens)
@@ -193,9 +241,14 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         cfg = model.cfg
         self.sample_rate = cfg.sample_rate
         self.chunk_samples = cfg.n_samples
-        self.hop = cfg.hop_length
-        self.max_len = cfg.n_text_ctx
-        self.eot = token_table.eot
+        if family == "whisper":
+            self.hop = cfg.hop_length
+            self.max_len = cfg.n_text_ctx
+            self.eot = token_table.eot
+        else:
+            self.hop = cfg.stft_hop
+            self.max_len = cfg.max_text_len
+            self.eot = tokenizer.eot_id
         overlap = min(int(overlap_seconds * self.sample_rate), self.chunk_samples // 2)
         self.stride_samples = self.chunk_samples - overlap
         # Fixed per Transcriber: bias -> repetition -> timestamp rules run
@@ -217,7 +270,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
 
     def _features(self, wins: np.ndarray) -> torch.Tensor:
         audio = torch.as_tensor(wins, dtype=torch.float32, device=self.device)
-        return fused_whisper_log_mel(audio, n_mels=self.model.cfg.n_mels)
+        if self.family == "whisper":
+            return fused_whisper_log_mel(audio, n_mels=self.model.cfg.n_mels)
+        return fused_yoho_log_mel(audio, self.model.cfg)
 
     def _prepare_audio(self, audio, sample_rate: Optional[int]) -> np.ndarray:
         """A file path (decoded and resampled by ``audio/io.py``) or an
@@ -381,7 +436,8 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
         vad_maps = [p[1] for p in pairs]
 
         req_lang_probs: List[Optional[float]] = [None] * n
-        if self.language is None and any(o is None for o in overrides):
+        if (self.language is None and self.family == "whisper"
+                and any(o is None for o in overrides)):
             # Detect only the requests without an override.
             need = [i for i, o in enumerate(overrides) if o is None]
             detected, det_probs = self.detect_language_many(
@@ -432,6 +488,7 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
                         for j in range(actual)]
                 self._attach_quality(segs, lengths, aux, n_prompt=plen)
                 # The full padded batch: only rows with segments are read.
+                self._attach_voiceprints(mel, tokens, segs, lengths)
                 self._attach_words(mel, tokens, lengths, segs, n_prompt=plen)
                 for j, g in enumerate(chunk):
                     per_window[g] = segs[j]
@@ -453,11 +510,12 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin):
                           ) -> TranscriptionResult:
         """One request's decoded windows -> TranscriptionResult: stitch,
         map VAD-condensed times back to the source, drop silence
-        hallucinations, join the text."""
+        hallucinations, diarize and name speakers, join the text."""
         segments = stitch_segments(per_window, list(starts), self.sample_rate,
                                    self.chunk_samples, self.stride_samples)
         segments = self._remap_segments(segments, vmap)
         segments = self._drop_silence_hallucinations(segments, original_audio)
+        self._apply_speaker_passes(segments, original_audio)
         text = " ".join(s.text for s in segments if s.text).strip()
         return TranscriptionResult(text=text, segments=segments, language=language,
                                    language_probability=language_probability)

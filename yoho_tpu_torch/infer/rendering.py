@@ -1,12 +1,14 @@
-"""Token-stream rendering for :class:`Transcriber` (whisper family):
-timestamped segments, text, word timings and forced alignment.
+"""Token-stream rendering for :class:`Transcriber`: timestamped segments,
+text, word timings and forced alignment.
 
-The whisper half of the JAX package's ``infer/rendering.py``: segment
+The JAX package's ``infer/rendering.py``, both families: segment
 parsing, word timestamps by DTW over the teacher-forced cross-attention
 map (``_attach_words``), forced alignment of a known transcript
 (``align``, ``align_many``), the map of VAD-condensed times back to the
 source audio (``_remap_segments``) and the silence-hallucination filter
-(``_drop_silence_hallucinations``).
+(``_drop_silence_hallucinations``). The YOHO family's timestamps are
+``<|t-frame|>`` tokens, one STFT hop each; its text goes through the
+session tokenizer, whose byte pieces carry their own leading spaces.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ class RenderingMixin:
     """Segment parsing / rendering half of the Transcriber."""
 
     def _decode_piece(self, tid: int) -> str:
+        if self.family == "yoho":
+            return self.tokenizer.bpe.id_to_piece(int(tid))
         tb = self.token_table.text_backend
         piece = tb.convert_ids_to_tokens([int(tid)])[0]
         return self._space_piece(piece)
@@ -38,8 +42,11 @@ class RenderingMixin:
         return piece.replace("Ġ", " ")
 
     def _is_text_token(self, t: int) -> bool:
-        """Plain text ids only (no specials or timestamps)."""
-        return t < self.token_table.eot
+        """Plain text ids only (no specials, timestamps or voiceprint
+        slots)."""
+        if self.family == "whisper":
+            return t < self.token_table.eot
+        return t >= self.tokenizer.bpe.n_special
 
     def _words(self, text_ids: Sequence[int], frames: np.ndarray, probs: np.ndarray,
                max_duration: float) -> List[WordTiming]:
@@ -57,7 +64,9 @@ class RenderingMixin:
         of the whole padded batch (rows without segments are skipped).
         ``n_prompt`` keeps prompt positions out of the words: a prompted
         request's prompt holds text tokens."""
-        if not self.word_timestamps or self.token_table.text_backend is None:
+        if not self.word_timestamps:
+            return
+        if self.family == "whisper" and self.token_table.text_backend is None:
             return
         skip = n_prompt if n_prompt is not None else len(self._prompt_ids())
         b = tokens.shape[0]
@@ -86,6 +95,10 @@ class RenderingMixin:
         """(prompt_ids, text_ids) for a teacher-forced alignment pass; an
         auto-detecting transcriber aligns against English (forced alignment
         is language-insensitive up to the tokenizer's text)."""
+        if self.family == "yoho":
+            tok = self.tokenizer
+            return ([tok.sot_id], [int(t) for t in tok.encode(text.strip())
+                                   if self._is_text_token(t)])
         tt = self.token_table
         return (tt.sot_sequence(self.language or "en", "transcribe",
                                 timestamps=False),
@@ -157,32 +170,48 @@ class RenderingMixin:
                 close(prev_end, new_start, cur)
             return new_start
 
-        tt = self.token_table
+        if self.family == "whisper":
+            tt = self.token_table
+            is_timestamp, seconds = tt.is_timestamp, tt.timestamp_seconds
+
+            def skipped(t):  # the specials
+                return t >= tt.eot
+        else:
+            tok = self.tokenizer
+            frame_s = self.hop / self.sample_rate
+            is_timestamp = tok.is_timestamp
+
+            def seconds(t):  # one <|t-frame|> token per STFT hop
+                return (t - tok.timestamp_base) * frame_s
+
+            def skipped(t):
+                return t in (tok.sot_id, tok.eot_id, tok.voiceprint_id)
         cur: List[int] = []
         start: Optional[float] = None
         prev_end = 0.0
         for t in toks:
-            if tt.is_timestamp(t):
-                ts = tt.timestamp_seconds(t)
+            if is_timestamp(t):
+                ts = seconds(t)
                 if start is None:
                     start = open_segment(ts, cur, prev_end)
                     cur = []
                 else:
                     close(start, ts, cur)
                     cur, start, prev_end = [], None, ts
-            elif t >= tt.eot:
-                continue  # specials
-            else:
+            elif not skipped(t):
                 cur.append(t)
-        if cur:
-            # Truncated tail (no closing timestamp): close at the window
-            # end, clamped — the opening timestamp may exceed the window.
+        # Truncated tail (no closing timestamp): close at the window end,
+        # clamped (the opening timestamp may exceed the window). The YOHO
+        # scheme keeps a tail only after an opening timestamp.
+        if cur and (self.family == "whisper" or start is not None):
             end = max(self.chunk_samples / self.sample_rate,
                       start if start is not None else prev_end)
             close(start if start is not None else prev_end, end, cur)
         return segs
 
     def _render(self, ids: Sequence[int]) -> str:
+        if self.family == "yoho":
+            return self.tokenizer.decode(ids).strip()
         try:
             return self.token_table.decode_text(ids).strip()
         except RuntimeError:

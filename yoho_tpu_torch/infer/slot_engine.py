@@ -1,4 +1,4 @@
-"""Slot-based decode engine for continuous batching (whisper family).
+"""Slot-based decode engine for continuous batching (both families).
 
 The JAX package's ``infer/slot_engine.py``. The batched decode programs
 (``infer/decode.py``) run a batch of windows to completion: a stream that
@@ -241,11 +241,8 @@ class SlotEngine:
     def __init__(self, transcriber, slots: Optional[int] = None,
                  chunk_tokens: int = 16):
         t = transcriber
-        family = getattr(t, "family", "whisper")
-        if family != "whisper":
-            from yoho_tpu_torch.infer.pipeline import _not_ported
-
-            _not_ported(f"continuous batching of family={family!r}", 12)
+        if t.family not in ("whisper", "yoho"):
+            raise ValueError(f"unknown family {t.family!r}")
         if t.beams > 1:
             raise ValueError("continuous batching is greedy-only (no beams)")
         if t.temperatures and t.temperatures[0] != 0.0:
@@ -283,7 +280,7 @@ class SlotEngine:
         self.device = t.device
 
         self._rules = None
-        if t.timestamps:
+        if t.family == "whisper" and t.timestamps:
             from yoho_tpu_torch.infer.whisper_rules import make_timestamp_rules
 
             self._rules = make_timestamp_rules(t.token_table, self.prompt_len)
@@ -305,7 +302,7 @@ class SlotEngine:
                 return model.init_caches(batch, t.cache_dtype, horizon, t.quantized_cache)
 
             def step(toks, caches, ckv, pos):
-                return model.decode_step(toks, caches, ckv, pos)
+                return t._make_step(ckv, model)(toks, caches, pos)
 
             def encode_one(windows):
                 return model.cross_kvs(model.encode_audio(t._features(windows)),
@@ -336,7 +333,7 @@ class SlotEngine:
         self.spec = EngineSpec(
             slots=S, prompt_len=self.prompt_len, max_len=self.max_len, ext=self.ext,
             eot=self.eot, gamma=self.gamma, chunk_tokens=self.chunk_tokens,
-            ns_id=t.token_table.no_speech, sot_pos=t._sot_index(self.prompt_len),
+            ns_id=t._no_speech_id(), sot_pos=t._sot_index(self.prompt_len),
             pick=self._pick, init_caches=init_caches, step=step,
             encode_one=encode_one, **draft_surfaces)
         if self.draft:

@@ -16,6 +16,7 @@ from typing import List
 
 import numpy as np
 
+from yoho_tpu_torch.infer.diarize import OnlineSpeakerTracker, diarize_segments
 from yoho_tpu_torch.infer.longform import Segment, window_ownership_bounds
 
 
@@ -29,9 +30,11 @@ class StreamingTranscriber:
         CONCURRENT streams' windows pool into shared batches/slots
         instead of each paying a lone B=1 decode.
 
-        ``track_speakers=True`` (the JAX package's online speaker tracker
-        over finalized segments) is not in the port yet: it raises,
-        naming its ROADMAP.md item.
+        ``track_speakers=True`` runs an
+        :class:`yoho_tpu_torch.infer.diarize.OnlineSpeakerTracker` over
+        finalized segments: stable stream-wide speaker ids (never revised
+        once emitted) and, with enrolled voiceprints on the transcriber,
+        ``speaker_name``. Partials get tentative, read-only labels.
 
         ``partial_interval_seconds`` (opt-in, live captions): without it
         the first hypothesis appears only once a FULL window of audio has
@@ -45,10 +48,11 @@ class StreamingTranscriber:
         in the JAX package's tests/test_streaming.py); the cost is one
         extra B=1 decode per interval through the same decode program (the
         window is padded to chunk_samples either way)."""
+        self._tracker = None
         if track_speakers:
-            from yoho_tpu_torch.infer.pipeline import _not_ported
-
-            _not_ported("track_speakers (the online speaker tracker)", 12)
+            self._tracker = OnlineSpeakerTracker(
+                threshold=getattr(transcriber, "speaker_threshold", 0.75),
+                enrolled=getattr(transcriber, "enrolled_speakers", None))
         self.t = transcriber
         self._window_decoder = window_decoder
         if partial_interval_seconds is not None:
@@ -109,7 +113,16 @@ class StreamingTranscriber:
         segs = ([] if silent[0]
                 else t._tokens_to_segments(tokens[0], int(lengths[0])))
         t._attach_quality([segs], lengths, aux)
+        t._attach_voiceprints(mel[:1], tokens[:1], [segs], lengths[:1])
         t._attach_words(mel[:1], tokens[:1], lengths[:1], [segs])
+        if (segs and self._tracker is not None and t.family != "yoho"
+                and t.diarize_encoder is not None):
+            # Whisper-family voiceprints come from the post-pass encoder
+            # (only _finalize_request runs it; this path attaches them
+            # itself, or the tracker has nothing to track). The YOHO family
+            # keeps its native voiceprints: one embedding space.
+            diarize_segments(segs, audio, t.sample_rate, t.diarize_encoder,
+                             threshold=getattr(t, "speaker_threshold", 0.75))
         # shifted(0) quantizes times to the same 1 ms grid the hook path's
         # segments already carry (stitch_segments rounds inside
         # _finalize_request) — midpoint ownership in _finalize and the
@@ -142,6 +155,10 @@ class StreamingTranscriber:
         elif final:
             self._pending = []
         out.sort(key=lambda s: (s.start, s.end))
+        if self._tracker is not None:
+            # Stable stream-wide ids, assigned at finalization and never
+            # revised; partials do not move the centroids.
+            self._tracker.assign(out)
         self._emitted.extend(out)
         return out
 
@@ -248,7 +265,9 @@ class StreamingTranscriber:
         the provisional decode of the still-incomplete tail window — on
         the absolute timeline. Live captions show these immediately; a
         later overlapping window may revise them, so they must be
-        replaced (not appended) by the next partial or final batch."""
+        replaced (not appended) by the next partial or final batch. With
+        ``track_speakers``, partials carry tentative speaker labels (a
+        read-only nearest-centroid match)."""
         sr = self.t.sample_rate
         out = [seg.shifted(start / sr)
                for start, segs in self._pending for seg in segs]
@@ -266,6 +285,8 @@ class StreamingTranscriber:
                 abs_seg = seg.shifted(start / sr)
                 if (abs_seg.start + abs_seg.end) / 2 >= covered:
                     out.append(abs_seg)
+        if self._tracker is not None:
+            self._tracker.peek(out)
         return out
 
     def text(self) -> str:

@@ -8,11 +8,13 @@ object in one call, the construction the command lines perform
 >>> t = yoho_tpu_torch.load_transcriber(hf="/models/whisper-small", batch=16)
 >>> t.transcribe("meeting.wav").text
 
+or, for a trained YOHO session (native voiceprints and diarization):
+
+>>> t = yoho_tpu_torch.load_transcriber(session="main", root="./sessions")
+
 ``hf`` is a local checkpoint directory (no hub download). The model runs
-on CUDA unless ``device="cpu"`` is passed. A trained YOHO session
-(``session=``), diarization (``diarize_session=``, ``speakers=``) and a
-device mesh (``mesh=``) are not in the port yet and raise, naming their
-ROADMAP.md item.
+on CUDA unless ``device="cpu"`` is passed. A device mesh (``mesh=``) is not
+in the port yet and raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,24 +59,69 @@ def load_transcriber(
     device=None,  # None = CUDA (raises without it); "cpu" for the plain path
 ):
     """Build a ready :class:`yoho_tpu_torch.infer.pipeline.Transcriber`
-    from an HF Whisper checkpoint directory (``hf=``). Knobs mirror the
-    ``transcribe``/``serve`` flags; see those commands' ``--help``."""
+    from an HF Whisper checkpoint directory (``hf=``) or a trained YOHO
+    session (``session=`` + ``root=``). Knobs mirror the
+    ``transcribe``/``serve`` flags; see those commands' ``--help``.
+    Whisper-only knobs raise on the yoho family instead of being dropped."""
     from yoho_tpu_torch.infer.pipeline import _not_ported
 
     if (hf is None) == (session is None):
         raise ValueError("pass exactly one of hf= or session=")
-    for name, val, item in (("session=", session, 12),
-                            ("diarize_session=", diarize_session, 12),
-                            ("speakers=", speakers, 12), ("mesh=", mesh, 11)):
-        if val is not None:
-            _not_ported(name, item)
+    if mesh is not None:
+        _not_ported("mesh=", 11)
     if language == "auto":  # the CLI sentinel for per-file detection
         language = None
+    enrolled = speakers
+    if isinstance(speakers, (str, bytes)) or hasattr(speakers, "__fspath__"):
+        from yoho_tpu_torch.infer.diarize import load_enrolled
+
+        enrolled = load_enrolled(speakers)
     temps = ((0.0, 0.2, 0.4, 0.6, 0.8, 1.0) if temperature_fallback
              else (0.0,))
 
-    from yoho_tpu_torch.cli.transcribe import build_whisper_transcriber
+    from yoho_tpu_torch.cli.transcribe import (
+        build_whisper_transcriber,
+        build_yoho_transcriber,
+        load_voiceprint_encoder,
+    )
 
+    if session is not None:
+        for name, val, default in (
+            ("task", task, "transcribe"),
+            ("language", language, "en"),
+            ("timestamps", timestamps, True),
+            ("int8_kv", int8_kv, False),
+            ("int8_encoder", int8_encoder, False),
+            ("fast_gelu", fast_gelu, False),
+            ("temperature_fallback", temperature_fallback, False),
+            ("best_of", best_of, 1),
+            ("initial_prompt", initial_prompt, None),
+            ("condition_on_previous_text", condition_on_previous_text, False),
+            ("diarize_session", diarize_session, None),
+            ("draft_hf", draft_hf, None),
+            ("lora", lora, None),
+        ):
+            if val != default:
+                raise ValueError(f"{name}= is a whisper-family option "
+                                 "(the yoho family diarizes natively and "
+                                 "decodes its own token scheme)")
+        return build_yoho_transcriber(
+            session, root, beams, batch, int8_weights=int8_weights,
+            vad_filter=vad, enrolled_speakers=enrolled,
+            speaker_threshold=speaker_threshold,
+            word_timestamps=word_timestamps, hotwords=hotwords,
+            hotword_boost=hotword_boost, logit_bias=logit_bias,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram, length_penalty=length_penalty,
+            hallucination_silence_threshold=hallucination_silence_threshold,
+            device=device)
+
+    diarize = (load_voiceprint_encoder(diarize_session, root, device)
+               if diarize_session else None)
+    if enrolled and diarize is None:
+        raise ValueError("speakers= on the whisper family needs "
+                         "diarize_session= (whisper segments carry no "
+                         "voiceprints to match otherwise)")
     return build_whisper_transcriber(
         hf, beams, batch, language, timestamps,
         quantized=int8_kv, int8_weights=int8_weights,
@@ -89,4 +136,5 @@ def load_transcriber(
         no_repeat_ngram_size=no_repeat_ngram,
         length_penalty=length_penalty,
         hallucination_silence_threshold=hallucination_silence_threshold,
-        device=device)
+        diarize=diarize, enrolled_speakers=enrolled,
+        speaker_threshold=speaker_threshold, device=device)

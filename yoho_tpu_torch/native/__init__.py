@@ -1,10 +1,14 @@
-"""Native (C++) host audio decoders, bound via ctypes.
+"""Native (C++) host code, bound via ctypes: audio decoders and the BPE
+tokenizer.
 
-A copy of the JAX package's ``native/__init__.py`` for the audio half of
-its sources (the port imports nothing of ``yoho_tpu``):
+A copy of the JAX package's ``native/__init__.py`` for the sources the
+port uses (the port imports nothing of ``yoho_tpu``):
 
   * ``wav.cpp``      — WAV/PCM decode (mono-mix + int -> f32).
   * ``flac.cpp``     — FLAC decode and encode.
+  * ``bpe.cpp``      — byte-level BPE trainer and encoder (the YOHO
+                       tokenizer's fast path; ``text/bpe.py`` is the
+                       oracle).
   * ``avdecode.cpp`` — any other container/codec through the system libav
                        libraries, built as its own library.
 
@@ -13,7 +17,8 @@ with ``g++`` at first use into ``yoho_tpu_torch/_build/`` (gitignored),
 keyed on a hash of the sources and the host CPU. Where ``g++`` or the
 libav headers are missing, the reference's documented behaviour holds:
 the pure-Python FLAC and WAV decoders (``audio/flac.py``, ``audio/io.py``)
-do the work, and libav reports itself unavailable. Each binding returns
+and BPE (``text/bpe.py``) do the work, and libav reports itself
+unavailable. Each binding returns
 None in that case, and the callers in ``audio/io.py`` pick the Python path.
 """
 
@@ -32,7 +37,7 @@ import numpy as np
 
 _SRC_DIR = Path(__file__).parent
 BUILD_DIR = _SRC_DIR.parent / "_build"
-_MAIN_SOURCES = ("wav.cpp", "flac.cpp")
+_MAIN_SOURCES = ("wav.cpp", "flac.cpp", "bpe.cpp")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_FAILED = False
@@ -93,8 +98,8 @@ def _built(prefix: str, srcs: list, cmd_prefix: list, link: tuple = ()) -> Path:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the WAV/FLAC library; None when it cannot
-    be built here."""
+    """Load (building if needed) the WAV/FLAC/BPE library; None when it
+    cannot be built here."""
     global _LIB, _LIB_FAILED
     if _LIB is not None or _LIB_FAILED:
         return _LIB
@@ -126,6 +131,20 @@ def _configure(lib: ctypes.CDLL) -> None:
     ]
     lib.yoho_free.restype = None
     lib.yoho_free.argtypes = [ctypes.c_void_p]
+    lib.yoho_bpe_train.restype = ctypes.c_int64
+    lib.yoho_bpe_train.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p),
+    ]
+    lib.yoho_bpe_load.restype = ctypes.c_void_p
+    lib.yoho_bpe_load.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.yoho_bpe_free_model.restype = None
+    lib.yoho_bpe_free_model.argtypes = [ctypes.c_void_p]
+    lib.yoho_bpe_encode.restype = ctypes.c_int64
+    lib.yoho_bpe_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+    ]
     lib.yoho_flac_decode.restype = ctypes.c_int64
     lib.yoho_flac_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64,
@@ -294,3 +313,54 @@ def flac_encode_native(pcm: np.ndarray, sample_rate: int, bps: int = 16,
         return ctypes.string_at(ptr, int(size))
     finally:
         lib.yoho_free(ptr)
+
+
+def bpe_train_native(corpus, vocab_size: int, max_token_len: int, specials) -> Optional[str]:
+    """Train a BPE model in C++ -> model text (YOHOBPE v1 format); None when
+    the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    text = "\n".join(corpus).encode("utf-8")
+    spec = "\n".join(specials).encode("utf-8")
+    out = ctypes.c_char_p()
+    n = lib.yoho_bpe_train(text, len(text), vocab_size, max_token_len, spec,
+                           ctypes.byref(out))
+    if n < 0:
+        return None
+    try:
+        return ctypes.string_at(out, n).decode("utf-8")
+    finally:
+        lib.yoho_free(ctypes.cast(out, ctypes.c_void_p))
+
+
+class NativeBPEEncoder:
+    """ctypes handle to the C++ BPE encoder; encodes plain text spans."""
+
+    def __init__(self, model_text: str):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        data = model_text.encode("utf-8")
+        self._lib = lib
+        self._handle = lib.yoho_bpe_load(data, len(data))
+        if not self._handle:
+            raise RuntimeError("failed to parse BPE model in native backend")
+
+    def encode(self, text: str) -> np.ndarray:
+        data = text.encode("utf-8")
+        ids = ctypes.POINTER(ctypes.c_int32)()
+        n = self._lib.yoho_bpe_encode(self._handle, data, len(data), ctypes.byref(ids))
+        if n < 0:
+            raise RuntimeError("native BPE encode failed")
+        try:
+            if n == 0:
+                return np.empty((0,), np.int32)
+            return np.ctypeslib.as_array(ids, shape=(n,)).copy()
+        finally:
+            self._lib.yoho_free(ctypes.cast(ids, ctypes.c_void_p))
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._lib.yoho_bpe_free_model(handle)

@@ -1,6 +1,7 @@
-"""Whisper layers: multi-head attention with decode caches, MLP, LayerNorm.
+"""Layers: whisper's multi-head attention with decode caches, MLP and
+LayerNorm; YOHO's grouped-query attention with RoPE, SwiGLU and RMSNorm.
 
-The whisper subset of the JAX package's ``nn/layers.py``, with OpenAI's
+The JAX package's ``nn/layers.py``. Whisper keeps OpenAI's
 attention semantics: biases on q/v/out but not k, and the 0.25-power scale
 ``head_dim**-0.25`` on both q and k. Attention modes:
 
@@ -27,6 +28,19 @@ trained: :class:`QuantizedDense` (weight-only, the decoder's
 ``weights_int8``), :class:`Int8Dense` (W8A8 through the w8a8 kernel, the
 encoder MLPs' ``encoder_int8``) and :class:`QuantizedEmbed` (the tied
 embedding with per-row scales).
+
+The YOHO family (:class:`GroupedQueryAttention`, :class:`SwiGLU`,
+:class:`RMSNorm`, :func:`rope_angles`, :func:`apply_rope`) follows the JAX
+layers of the same names: bias-free projections, rotary positions on
+interleaved even/odd pairs (not the half-split convention), queries scaled
+by ``head_dim**-0.5`` after the rotation, every query head attending its
+own group's KV head (head h reads KV head ``h // groups``). The flax
+``DenseGeneral`` projections to (heads, head_dim) are :class:`DenseGeneral`
+here, an ``nn.Linear`` of width heads x head_dim that remembers the split
+(``nn/params.py`` reshapes the (in, H, D) kernels). Full modes expand the
+KV heads with ``repeat_interleave`` (``jnp.repeat`` on the head axis) and
+run through the flash kernel; cached modes give ``groups`` to the decode
+attention kernel, which reads each KV head once for its group.
 """
 
 from __future__ import annotations
@@ -44,7 +58,7 @@ from yoho_tpu_torch.nn.kv_cache import (
     QuantizedKVCache,
     attend_quantized,
 )
-from yoho_tpu_torch.ops.decode_attention import fused_decode_attention
+from yoho_tpu_torch.ops.decode_attention import fused_decode_attention, is_row_pos
 from yoho_tpu_torch.ops.flash_attention import flash_attention
 from yoho_tpu_torch.ops.w8a8_dense import quantize_rows as quantize_act_rows  # noqa: F401
 from yoho_tpu_torch.ops.w8a8_dense import w8a8_dense
@@ -168,6 +182,211 @@ class QuantizedEmbed(nn.Module):
         with full_fp32():
             y = F.linear(x.float(), self.weight_q.float())
         return y * self.weight_scale
+
+
+class RMSNorm(nn.Module):
+    """flax's ``nn.RMSNorm``: epsilon 1e-6, the mean square in float32, the
+    float32 scale applied to the float32 product, one rounding to
+    ``dtype``; the parameter keeps flax's name, ``scale``."""
+
+    def __init__(self, n_state: int, dtype=torch.float32, device=None,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(n_state, dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mul = torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps) * self.scale
+        return (xf * mul).to(self.dtype)
+
+
+class DenseGeneral(nn.Linear):
+    """flax ``DenseGeneral`` projecting to ``features`` = (heads, head_dim),
+    bias-free: an ``nn.Linear`` to heads x head_dim whose output is viewed
+    as (..., heads, head_dim)."""
+
+    def __init__(self, in_features: int, features: Tuple[int, int],
+                 dtype=torch.float32, device=None):
+        super().__init__(in_features, features[0] * features[1], bias=False,
+                         dtype=dtype, device=device)
+        self.features = tuple(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).unflatten(-1, self.features)
+
+
+class QuantizedDenseGeneral(QuantizedDense):
+    """Weight-only int8 :class:`DenseGeneral` (the JAX package's
+    ``QuantizedDenseGeneral``): per-output-channel scales over (h, hd)."""
+
+    def __init__(self, in_features: int, features: Tuple[int, int],
+                 dtype=torch.float32, device=None):
+        super().__init__(in_features, features[0] * features[1], bias=False,
+                         dtype=dtype, device=device)
+        self.features = tuple(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).unflatten(-1, self.features)
+
+
+class SwiGLU(nn.Module):
+    """Gated MLP: down(silu(gate(x)) * up(x)), bias-free."""
+
+    def __init__(self, d_in: int, hidden_dim: int, dtype=torch.float32,
+                 device=None, weights_int8: bool = False):
+        super().__init__()
+        kw = dict(bias=False, dtype=dtype, device=device)
+        dense = QuantizedDense if weights_int8 else nn.Linear
+        self.gate = dense(d_in, hidden_dim, **kw)
+        self.up = dense(d_in, hidden_dim, **kw)
+        self.down = dense(hidden_dim, d_in, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                variant: str = "standard", base: float = 10000.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (..., head_dim // 2) for the given positions, f32.
+
+    ``standard``: theta_i = base^(-2i/d). ``decade``: theta_i = 10^-i with
+    positions starting at 1 (the reference's spectrum)."""
+    half = head_dim // 2
+    i = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    if variant == "standard":
+        freqs = torch.pow(torch.tensor(base, dtype=torch.float32,
+                                       device=positions.device), -i * 2.0 / head_dim)
+        pos = positions.float()
+    elif variant == "decade":
+        freqs = torch.pow(torch.tensor(10.0, dtype=torch.float32,
+                                       device=positions.device), -i)
+        pos = positions.float() + 1.0
+    else:
+        raise ValueError(f"unknown rope variant {variant!r}")
+    ang = pos[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs (x[2i], x[2i+1]): x (B, S, H, D), cos/sin
+    (S, D/2), or (B, S, D/2) for per-row positions. In x's type, as the
+    JAX package computes it (the f32 tables promote and the result is
+    rounded once)."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    if cos.ndim == 3:  # (B, S, D/2) -> (B, S, 1, D/2)
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    else:
+        c, s = cos[:, None, :], sin[:, None, :]  # (S, 1, D/2)
+    r1 = x1 * c - x2 * s
+    r2 = x1 * s + x2 * c
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _positions(n: int, pos, device) -> torch.Tensor:
+    """RoPE positions of ``n`` new tokens at offset ``pos``: (n,), or
+    (B, n) for a per-row ``pos`` tensor (continuous batching)."""
+    steps = torch.arange(n, device=device)
+    if pos is None:
+        return steps
+    if is_row_pos(pos):
+        return pos.long()[:, None] + steps[None, :]
+    return steps + int(pos)
+
+
+class GroupedQueryAttention(nn.Module):
+    """GQA with RoPE and decode caches (the JAX package's
+    ``GroupedQueryAttention``). Modes:
+
+    * full self-attention ``forward(x)``, causal with ``causal=True``;
+    * full cross-attention ``forward(x, xa=encoder_out)``: keys rotated by
+      their own positions;
+    * cached self decode ``forward(x, cache=..., pos=i)`` -> (out, cache);
+    * cached cross decode ``forward(x, cross_kv=(k, v), pos=i)`` with K/V
+      from :meth:`kv` (rotated, time-minor); queries rotated by ``pos``.
+      Beam search passes B*K query rows against the untiled (B, ...) K/V:
+      the beams fold into the query axis after the rotation."""
+
+    def __init__(self, q_heads: int, dims: int, kv_heads: Optional[int] = None,
+                 rope_variant: str = "standard", dtype=torch.float32,
+                 device=None, weights_int8: bool = False):
+        super().__init__()
+        kvh = kv_heads or q_heads
+        if q_heads % kvh:
+            raise ValueError(f"q_heads ({q_heads}) must be divisible by "
+                             f"kv_heads ({kvh})")
+        if dims % q_heads:
+            raise ValueError(f"dims ({dims}) must be divisible by q_heads "
+                             f"({q_heads})")
+        self.q_heads, self.kv_heads, self.dims = q_heads, kvh, dims
+        self.groups = q_heads // kvh
+        self.head_dim = dims // q_heads
+        self.rope_variant = rope_variant
+        kw = dict(dtype=dtype, device=device)
+        dg = QuantizedDenseGeneral if weights_int8 else DenseGeneral
+        self.q_proj = dg(dims, (q_heads, self.head_dim), **kw)
+        self.k_proj = dg(dims, (kvh, self.head_dim), **kw)
+        self.v_proj = dg(dims, (kvh, self.head_dim), **kw)
+        self.out_proj = (QuantizedDense if weights_int8 else nn.Linear)(
+            dims, dims, bias=False, **kw)
+
+    def _rope(self, x: torch.Tensor, n: int, pos=None) -> torch.Tensor:
+        cos, sin = rope_angles(_positions(n, pos, x.device), self.head_dim,
+                               self.rope_variant)
+        return apply_rope(x, cos, sin)
+
+    def _expand(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """KV heads -> query heads: head h reads KV head h // groups."""
+        return t.repeat_interleave(self.groups, dim) if self.groups > 1 else t
+
+    def kv(self, xa: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K/V from the encoder output, keys rotated by
+        their positions; time-minor (B, Hkv, D, T)."""
+        k = self._rope(self.k_proj(xa), xa.shape[1])
+        return _bhdt(k), _bhdt(self.v_proj(xa))
+
+    def attention_map(self, x: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+        """Head-averaged cross-attention weights (B, S, T) in f32 (the
+        word-timestamp alignment signal), with the decode's rotations."""
+        q = _bhsd(self._rope(self.q_proj(x), x.shape[1])) * self.head_dim ** -0.5
+        k = self._expand(_bhdt(self._rope(self.k_proj(xa), xa.shape[1])), 1)
+        with full_fp32():
+            scores = torch.einsum("bhsd,bhdt->bhst", q.float(), k.float())
+        return torch.softmax(scores, dim=-1).mean(dim=1)
+
+    def forward(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
+                causal: bool = False, cache: Optional[KVCache] = None,
+                pos: Optional[Union[int, torch.Tensor]] = None,
+                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        b, s = x.shape[:2]
+        q = self._rope(self.q_proj(x), s, pos)  # (B, S, Hq, D)
+        if cache is None and cross_kv is None:
+            # Full modes: unscaled q (the flash kernel scales the f32
+            # scores; head_dim**-0.5 is a power of two for D = 16 and 64,
+            # so this equals scaling q first), KV heads expanded.
+            src = x if xa is None else xa
+            k = self._rope(self.k_proj(src), src.shape[1], pos)
+            out = flash_attention(q, self._expand(k, 2),
+                                  self._expand(self.v_proj(src), 2),
+                                  causal=causal, scale=self.head_dim ** -0.5)
+            return self.out_proj(out.reshape(b, s, self.dims))
+        q = _bhsd(q) * self.head_dim ** -0.5
+        if cross_kv is not None:
+            k, v = cross_kv
+            fold = _beam_fold(b, k.shape[0])
+            if fold > 1:
+                q = _fold_queries(q, fold)
+            out = fused_decode_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                         groups=self.groups)
+            return self.out_proj(out.reshape(b, s, self.dims))
+        k = _bhdt(self._rope(self.k_proj(x), s, pos))
+        cache = cache.update(pos, k, _bhdt(self.v_proj(x)))
+        out = fused_decode_attention(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                                     pos=pos, groups=self.groups)
+        return self.out_proj(out.reshape(b, s, self.dims)), cache
 
 
 class MultiHeadAttention(nn.Module):

@@ -8,7 +8,12 @@ leaves by kind:
 
 * a ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in);
 * a ``Conv`` kernel is (k, in, out); ``nn.Conv1d.weight`` is (out, in, k);
-* a ``LayerNorm`` has ``scale`` where PyTorch has ``weight``;
+* a ``LayerNorm`` has ``scale`` where PyTorch has ``weight``; the port's
+  ``RMSNorm`` keeps flax's ``scale``;
+* a ``DenseGeneral`` kernel (the GQA projections) is (in, H, D); the
+  port's ``DenseGeneral`` is an ``nn.Linear`` with weight (H*D, in), and
+  an int8 one's ``kernel_q`` (in, H, D) / ``kernel_scale`` (1, H, D) become
+  ``weight_q`` (H*D, in) / ``weight_scale`` (H*D,);
 * an ``Embed`` table is ``embedding``; the tied logits read the same table;
 * ``positional_embedding`` is a bare parameter and keeps its name;
 * the int8 lanes' leaves (``nn/quantize.py``): ``kernel_q`` (in, out) int8
@@ -57,9 +62,21 @@ def _torch_name(path: tuple) -> str:
     return ".".join(mods + [leaf])
 
 
-def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+def _state_name(path: tuple, state: Mapping) -> str:
+    """The port's name of a flax leaf; a leaf whose port tensor keeps
+    flax's own name (the RMSNorm ``scale``) keeps it."""
+    name = _torch_name(path)
+    if name in state:
+        return name
+    return ".".join(name.split(".")[:-1] + [path[-1]])
+
+
+def _torch_layout(leaf: str, arr: np.ndarray, ndim: int) -> np.ndarray:
+    """``arr`` in the layout of a port tensor of ``ndim`` dimensions."""
     if leaf in ("kernel", "kernel_q") and arr.ndim == 2:  # (in, out) -> (out, in)
         return arr.T
+    if leaf in ("kernel", "kernel_q") and arr.ndim == 3 and ndim == 2:
+        return arr.reshape(arr.shape[0], -1).T  # DenseGeneral (in, H, D)
     if leaf == "kernel" and arr.ndim == 3:   # Conv (k, in, out) -> (out, in, k)
         return arr.transpose(2, 1, 0)
     if leaf in ("kernel_scale", "embedding_scale"):  # (1, out) / (V, 1) -> 1-D
@@ -76,9 +93,20 @@ def _jax_module_path(name: str) -> Tuple[str, ...]:
 def _jax_leaf(mod: nn.Module, pname: str):
     """The JAX leaf name of ``mod.<pname>`` and the function that views a
     tensor of its shape in the JAX layout."""
-    from yoho_tpu_torch.nn.layers import QuantizedEmbed, _Int8Weights
+    from yoho_tpu_torch.nn.layers import (
+        DenseGeneral,
+        QuantizedDenseGeneral,
+        QuantizedEmbed,
+        _Int8Weights,
+    )
 
     same = lambda t: t  # noqa: E731
+    if isinstance(mod, DenseGeneral) and pname == "weight":
+        return "kernel", lambda t: t.T.unflatten(1, mod.features)
+    if isinstance(mod, QuantizedDenseGeneral) and pname in ("weight_q", "weight_scale"):
+        return (("kernel_q", lambda t: t.T.unflatten(1, mod.features))
+                if pname == "weight_q"
+                else ("kernel_scale", lambda t: t.reshape(1, *mod.features)))
     if isinstance(mod, nn.Linear) and pname == "weight":
         return "kernel", lambda t: t.T
     if isinstance(mod, nn.Conv1d) and pname == "weight":
@@ -148,22 +176,24 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     codes must arrive as int8 and keep their type."""
     state = model.state_dict(keep_vars=True)
     flat = _flatten(params)
-    names = {_torch_name(p): p for p in flat}
+    names = {_state_name(p, state): p for p in flat}
     missing = sorted(set(state) - set(names))
     unexpected = sorted(set(names) - set(state))
     if missing or unexpected:
         raise KeyError(f"params do not match the module: missing {missing}, "
                        f"unexpected {unexpected}")
     for name, path in names.items():
-        arr = _torch_layout(path[-1], flat[path])
         dst = state[name]
+        arr = _torch_layout(path[-1], flat[path], dst.ndim)
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} -> {name} "
                              f"{tuple(dst.shape)}")
         if dst.is_floating_point():
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(arr, np.float32)))
+            # "W": a read-only array (a JAX leaf, a mapped file) is copied
+            # first; torch.from_numpy warns on one.
+            dst.copy_(torch.from_numpy(np.require(arr, np.float32, ("C", "W"))))
         elif arr.dtype == np.int8 and dst.dtype == torch.int8:
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            dst.copy_(torch.from_numpy(np.require(arr, None, ("C", "W"))))
         else:
             raise TypeError(f"{'/'.join(path)}: {arr.dtype} -> {name} {dst.dtype}")
     return model
@@ -172,9 +202,12 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
     """Random weights from a seed, made on the model's device: normal(0,
-    std) matrices and embeddings, zero biases, unit LayerNorm scales. The
+    std) matrices and embeddings, zero biases, unit LayerNorm and RMSNorm
+    scales. The
     int8 lanes' buffers are left alone: a random int8 model is a random
     float model put through ``nn/quantize.py``."""
+    from yoho_tpu_torch.nn.layers import RMSNorm
+
     gen = None
     for _, mod in model.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
@@ -182,7 +215,7 @@ def init_random(model: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module
                 gen = torch.Generator(device=p.device).manual_seed(seed)
             if pname == "bias":
                 p.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, RMSNorm)):
                 p.fill_(1.0)
             else:
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device,

@@ -1,5 +1,5 @@
-"""Post-training int8 quantization for serving: the whisper half of the JAX
-package's ``nn/quantize.py``.
+"""Post-training int8 quantization for serving: the JAX package's
+``nn/quantize.py``.
 
 Two schemes, both symmetric absmax with one f32 scale per output channel
 (``max(absmax / 127, 1e-12)``, codes ``clip(round(w / scale), -127, 127)``),
@@ -9,7 +9,9 @@ bit-exact with the JAX functions on the same float weights:
   ``weights_int8``): q/k/v/out and fc1/fc2 of every decoder block become
   :class:`~yoho_tpu_torch.nn.layers.QuantizedDense`, the tied token
   embedding a :class:`~yoho_tpu_torch.nn.layers.QuantizedEmbed` with one
-  scale per row.
+  scale per row. :func:`quantize_yoho_decoder` does the same for the YOHO
+  decoder: the GQA q/k/v (``DenseGeneral``, one scale per (head, dim)
+  channel), out_proj, the SwiGLU and the voiceprint head.
 * **Encoder, W8A8** (:func:`quantize_whisper_encoder` -> ``encoder_int8``):
   fc1/fc2 of every encoder block become
   :class:`~yoho_tpu_torch.nn.layers.Int8Dense` (activations quantized at run
@@ -17,7 +19,7 @@ bit-exact with the JAX functions on the same float weights:
   stem and the LayerNorms stay in the model's type.
 
 The two touch disjoint modules and compose. Both work in place on a float
-port ``Whisper`` and on its own device, so a model on the card quantizes its
+port model and on its own device, so a model on the card quantizes its
 weights there, and return the model.
 """
 
@@ -26,7 +28,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yoho_tpu_torch.nn.layers import Int8Dense, QuantizedDense, QuantizedEmbed
+from yoho_tpu_torch.nn.layers import (
+    DenseGeneral,
+    Int8Dense,
+    QuantizedDense,
+    QuantizedDenseGeneral,
+    QuantizedEmbed,
+)
 from yoho_tpu_torch.ops.w8a8_dense import quantize_rows
 
 _DENSE_NAMES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
@@ -64,17 +72,21 @@ def _quantized(linear: nn.Linear, cls, dtype, **kw) -> nn.Module:
     return _fill(layer, quantize_dense_params(linear.weight, linear.bias))
 
 
-@torch.no_grad()
-def quantize_whisper_decoder(model):
-    """A float ``Whisper`` -> its ``weights_int8`` form (in place)."""
-    dec = model.decoder
+def _quantize_embedding(dec, dtype) -> None:
     emb = dec.token_embedding
     if not isinstance(emb, nn.Embedding):
         raise ValueError("the decoder is quantized already")
     dec.token_embedding = _fill(
-        QuantizedEmbed(emb.num_embeddings, emb.embedding_dim, dtype=model.dtype,
+        QuantizedEmbed(emb.num_embeddings, emb.embedding_dim, dtype=dtype,
                        device=emb.weight.device),
         quantize_embed_params(emb.weight))
+
+
+@torch.no_grad()
+def quantize_whisper_decoder(model):
+    """A float ``Whisper`` -> its ``weights_int8`` form (in place)."""
+    dec = model.decoder
+    _quantize_embedding(dec, model.dtype)
     for blk in dec.blocks:
         for sub in (blk.attn, blk.cross_attn, blk.mlp):
             for name in _DENSE_NAMES:
@@ -94,4 +106,27 @@ def quantize_whisper_encoder(model):
             raise ValueError("the encoder MLPs are quantized already")
         mlp.fc1 = _quantized(mlp.fc1, Int8Dense, model.dtype, activation="gelu_tanh")
         mlp.fc2 = _quantized(mlp.fc2, Int8Dense, model.dtype)
+    return model
+
+
+@torch.no_grad()
+def quantize_yoho_decoder(model):
+    """A float ``YOHOModel`` -> its ``weights_int8`` form (in place). The
+    JAX function refuses a decoder with Mixture-of-Experts blocks; a port
+    ``YOHOModel`` refuses experts when it is built, so none reaches here."""
+    dec = model.decoder
+    _quantize_embedding(dec, model.dtype)
+    dec.voiceprint_head = _quantized(dec.voiceprint_head, QuantizedDense, model.dtype)
+    for blk in dec.blocks:
+        for attn in (blk.attn, blk.cross_attn):
+            for name in ("q_proj", "k_proj", "v_proj"):
+                lin: DenseGeneral = getattr(attn, name)
+                layer = QuantizedDenseGeneral(lin.in_features, lin.features,
+                                              dtype=model.dtype,
+                                              device=lin.weight.device)
+                setattr(attn, name, _fill(layer, quantize_dense_params(lin.weight)))
+            attn.out_proj = _quantized(attn.out_proj, QuantizedDense, model.dtype)
+        for name in ("gate", "up", "down"):
+            setattr(blk.mlp, name,
+                    _quantized(getattr(blk.mlp, name), QuantizedDense, model.dtype))
     return model

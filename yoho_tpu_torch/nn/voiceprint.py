@@ -1,0 +1,68 @@
+"""Voiceprint (speaker-embedding) encoder and its contrastive loss.
+
+The JAX package's ``nn/voiceprint.py``: the YOHO audio encoder, pooled
+over time (optionally under a per-frame mask) and projected into an
+L2-normalized speaker embedding; ``nt_xent_loss`` is supervised NT-Xent
+(clips of the same speaker are positives). Whisper-family diarization
+(``--diarize-session``) and ``enroll --diarize-session`` embed audio spans
+with it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from yoho_tpu_torch.core.config import YOHOConfig
+from yoho_tpu_torch.core.device import resolve_device
+from yoho_tpu_torch.nn.yoho import YOHOAudioEncoder, l2_normalize
+
+
+class VoiceprintEncoder(nn.Module):
+    def __init__(self, cfg: YOHOConfig, embedding_dim: int = 256,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embedding_dim = embedding_dim
+        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device)
+        self.proj = nn.Linear(cfg.dims, embedding_dim, bias=False, dtype=dtype,
+                              device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.proj.weight.device
+
+    def forward(self, mel: torch.Tensor,
+                time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T_mel, M) [+ a (B, T_mel) frame mask] -> (B, E), unit norm.
+        The mask pools to the encoder's rate (two mel frames a position)."""
+        h = self.encoder(mel)  # (B, T_mel // 2, D)
+        if time_mask is not None:
+            m = time_mask.to(h.dtype)
+            t2 = h.shape[1]
+            m = m[:, : 2 * t2].reshape(m.shape[0], t2, 2).amax(dim=-1)
+            denom = torch.clamp_min(m.sum(dim=1, keepdim=True), 1.0)
+            pooled = (h * m[:, :, None]).sum(dim=1) / denom
+        else:
+            pooled = h.mean(dim=1)
+        return l2_normalize(self.proj(pooled))
+
+
+def nt_xent_loss(embeddings: torch.Tensor, speaker_ids: torch.Tensor,
+                 temperature: float = 0.07) -> torch.Tensor:
+    """Supervised NT-Xent: for each anchor, the positives are the other
+    clips of its speaker; every non-self pair is in the denominator."""
+    sim = embeddings @ embeddings.T / temperature
+    n = embeddings.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=embeddings.device)
+    pos = (speaker_ids[:, None] == speaker_ids[None, :]) & ~eye
+    sim = sim.masked_fill(eye, torch.finfo(sim.dtype).min)
+    log_prob = torch.log_softmax(sim, dim=1)
+    pos_count = torch.clamp_min(pos.sum(dim=1), 1)
+    per_anchor = -(log_prob * pos).sum(dim=1) / pos_count
+    has_pos = pos.any(dim=1)
+    return (torch.where(has_pos, per_anchor, torch.zeros_like(per_anchor)).sum()
+            / torch.clamp_min(has_pos.sum(), 1))

@@ -1,0 +1,303 @@
+"""The YOHO model: GQA + RoPE + RMSNorm + SwiGLU encoder-decoder with a
+voiceprint (speaker-embedding) head.
+
+The JAX package's ``nn/yoho.py`` with the same parameter names (see
+``nn/params.py``): a conv stem (3-tap convolutions padded one frame on
+each side, as flax's ``SAME``, and a stride-2 max pool that drops an odd
+last frame, as flax's ``VALID``) halving time 1024 -> 512, KV heads =
+query heads // 2, no absolute positions (RoPE only), an RMSNorm of the
+encoder output inside every decoder block before its cross-attention
+(``ln_kv``), tied-embedding logits accumulated in float32, and a
+voiceprint head whose output is L2-normalized with ``max(norm, 1e-6)``.
+
+Full-sequence attention (the encoder's, and the teacher-forcing decoder's
+causal self and cross) runs through the flash kernel with the KV heads
+expanded; every decode read of the self cache and of the cross K/V runs
+through the decode attention kernel with ``groups``. The cross K/V and the
+self cache are float (the model's type): the YOHO family has no int8 K/V
+lane. ``weights_int8`` is the weight-only int8 decoder
+(``nn/quantize.py::quantize_yoho_decoder``). Mixture-of-Experts configs
+(``n_experts > 0``) are refused (ROADMAP.md Queue 1 item 16).
+
+In the model's type the rotated queries and keys are rounded to it, so the
+kernels read bf16 operands; the JAX package lets its f32 rotation tables
+promote them to f32. In float32 the two compute the same.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yoho_tpu_torch.core.config import YOHOConfig
+from yoho_tpu_torch.core.device import full_fp32, resolve_device
+from yoho_tpu_torch.nn.kv_cache import KVCache
+from yoho_tpu_torch.nn.layers import (
+    GroupedQueryAttention,
+    QuantizedDense,
+    QuantizedEmbed,
+    RMSNorm,
+    SwiGLU,
+    realized_token_probs_streamed,
+)
+
+
+def _dense_only(cfg: YOHOConfig) -> None:
+    if cfg.n_experts > 0:
+        from yoho_tpu_torch.infer.pipeline import _not_ported
+
+        _not_ported("YOHO Mixture-of-Experts (n_experts > 0)", 16)
+
+
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x / max(||x||, 1e-6) over the last axis."""
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
+
+
+class YOHOEncoderBlock(nn.Module):
+    def __init__(self, q_heads: int, kv_heads: int, dims: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ln1 = RMSNorm(dims, **kw)
+        self.attn = GroupedQueryAttention(q_heads, dims, kv_heads, **kw)
+        self.ln2 = RMSNorm(dims, **kw)
+        self.mlp = SwiGLU(dims, int(dims * 3), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class YOHODecoderBlock(nn.Module):
+    def __init__(self, q_heads: int, kv_heads: int, dims: int,
+                 dtype=torch.float32, device=None, weights_int8: bool = False):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.ln1 = RMSNorm(dims, **kw)
+        self.attn = GroupedQueryAttention(q_heads, dims, kv_heads,
+                                          weights_int8=weights_int8, **kw)
+        self.ln2 = RMSNorm(dims, **kw)
+        self.ln_kv = RMSNorm(dims, **kw)
+        self.cross_attn = GroupedQueryAttention(q_heads, dims, kv_heads,
+                                                weights_int8=weights_int8, **kw)
+        self.ln3 = RMSNorm(dims, **kw)
+        self.mlp = SwiGLU(dims, int(dims * 1.5), weights_int8=weights_int8, **kw)
+
+    def forward(self, x, xa):
+        x = x + self.attn(self.ln1(x), causal=True)
+        x = x + self.cross_attn(self.ln2(x), xa=self.ln_kv(xa))
+        return x + self.mlp(self.ln3(x))
+
+    def step(self, x, cache: KVCache, cross_kv, pos):
+        a, cache = self.attn(self.ln1(x), cache=cache, pos=pos)
+        x = x + a
+        x = x + self.cross_attn(self.ln2(x), cross_kv=cross_kv, pos=pos)
+        return x + self.mlp(self.ln3(x)), cache
+
+    def cross_kv(self, xa):
+        return self.cross_attn.kv(self.ln_kv(xa))
+
+
+class YOHOAudioEncoder(nn.Module):
+    """Conv stem, then the GQA blocks: (B, frames, mels) -> (B, frames // 2,
+    dims)."""
+
+    def __init__(self, cfg: YOHOConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        _dense_only(cfg)
+        c = cfg
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = nn.Conv1d(c.n_mel_bands, c.dims, 3, padding=1, **kw)
+        self.norm1 = RMSNorm(c.dims, **kw)
+        self.conv2 = nn.Conv1d(c.dims, c.dims, 3, padding=1, **kw)
+        self.norm2 = RMSNorm(c.dims, **kw)
+        self.blocks = nn.ModuleList(
+            YOHOEncoderBlock(c.n_audio_heads, max(1, c.n_audio_heads // 2),
+                             c.dims, **kw)
+            for _ in range(c.n_audio_blocks))
+
+    def stem(self, mel: torch.Tensor) -> torch.Tensor:
+        """(B, S_frames, n_mels) -> (B, S_frames // 2, dims)."""
+        x = mel.to(self.dtype).transpose(1, 2)
+        with full_fp32():  # a float32 model's convolutions, not TF32
+            x = self.conv1(x).transpose(1, 2)
+            x = F.silu(self.norm1(x)).transpose(1, 2)
+            x = F.max_pool1d(x, 2, 2)
+            x = self.conv2(x).transpose(1, 2)
+        return F.silu(self.norm2(x))
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.run_blocks(self.stem(mel))
+
+
+class YOHOTextDecoder(nn.Module):
+    """Token embedding, GQA blocks with cross-attention, RMSNorm, tied
+    logits and the voiceprint head."""
+
+    def __init__(self, cfg: YOHOConfig, vocab_size: int, voiceprint_dim: int = 256,
+                 dtype=torch.float32, device=None, weights_int8: bool = False):
+        super().__init__()
+        _dense_only(cfg)
+        c = cfg
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.token_embedding = (QuantizedEmbed if weights_int8 else nn.Embedding)(
+            vocab_size, c.dims, **kw)
+        self.blocks = nn.ModuleList(
+            YOHODecoderBlock(c.n_text_heads, max(1, c.n_text_heads // 2), c.dims,
+                             weights_int8=weights_int8, **kw)
+            for _ in range(c.n_text_blocks))
+        self.ln = RMSNorm(c.dims, **kw)
+        self.voiceprint_head = (QuantizedDense if weights_int8 else nn.Linear)(
+            c.dims, voiceprint_dim, bias=False, **kw)
+
+    def _hidden(self, tokens, xa):
+        x = self.token_embedding(tokens)
+        for blk in self.blocks:
+            x = blk(x, xa)
+        return self.ln(x)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits accumulated and kept in float32."""
+        if isinstance(self.token_embedding, QuantizedEmbed):
+            return self.token_embedding.logits(h)
+        with full_fp32():
+            return F.linear(h.float(), self.token_embedding.weight.float())
+
+    def _voiceprints(self, h: torch.Tensor) -> torch.Tensor:
+        return l2_normalize(self.voiceprint_head(h))
+
+    def forward(self, tokens, xa):
+        return self._logits(self._hidden(tokens, xa))
+
+    def cross_attention_map(self, tokens, xa, with_probs: bool = False):
+        """Teacher-forced forward collecting the word-alignment signal: the
+        cross-attention weights averaged over the heads of the upper half of
+        the decoder blocks, (B, S_text, T_audio) f32; with ``with_probs``
+        also the realized-token probabilities (B, S_text) of the same
+        forward. Each block RMSNorms the encoder output (``ln_kv``) before
+        its cross-attention, as the main forward does."""
+        x = self.token_embedding(tokens)
+        align_from = len(self.blocks) // 2
+        acc = None
+        for i, blk in enumerate(self.blocks):
+            x = x + blk.attn(blk.ln1(x), causal=True)
+            x_in = blk.ln2(x)
+            xa_in = blk.ln_kv(xa)
+            if i >= align_from:
+                w = blk.cross_attn.attention_map(x_in, xa_in)
+                acc = w if acc is None else acc + w
+            x = x + blk.cross_attn(x_in, xa=xa_in)
+            x = x + blk.mlp(blk.ln3(x))
+        amap = acc / max(len(self.blocks) - align_from, 1)
+        if not with_probs:
+            return amap
+        return amap, realized_token_probs_streamed(self.ln(x), self._logits, tokens)
+
+    def with_voiceprints(self, tokens, xa):
+        """(f32 logits, L2-normalized voiceprint embeddings per position)."""
+        h = self._hidden(tokens, xa)
+        return self._logits(h), self._voiceprints(h)
+
+    def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
+                    quantized: bool = False) -> List[KVCache]:
+        """Float caches, one per block, with a horizon rounded up to a
+        multiple of 128. The YOHO family has no int8 cache lane."""
+        if quantized:
+            raise ValueError("the YOHO family decodes with float caches "
+                             "(no quantized_cache lane)")
+        c = self.cfg
+        aligned = -(-(max_len or c.max_text_len) // 128) * 128
+        device = self.ln.scale.device
+        return [KVCache.zeros(batch, max(1, c.n_text_heads // 2), aligned,
+                              c.dims // c.n_text_heads, dtype or self.dtype,
+                              device=device)
+                for _ in range(c.n_text_blocks)]
+
+    def cross_kvs(self, xa, quantize=False):
+        """Per-block cross K/V (rotated keys), once per window, float in the
+        model's type. The YOHO family has no quantized cross-K/V lane."""
+        if quantize:
+            raise ValueError("the YOHO family decodes with float cross K/V "
+                             "(no quantized_cross_kv lane)")
+        return [blk.cross_kv(xa) for blk in self.blocks]
+
+    def decode_step(self, tokens, caches, cross_kvs, pos, with_voiceprints: bool = True):
+        """Cached step: tokens (B, S_new) at ``pos`` (an int or a per-row
+        (B,) tensor). Returns (f32 logits, voiceprints or None, caches)."""
+        x = self.token_embedding(tokens)
+        new_caches = []
+        for blk, cache, ckv in zip(self.blocks, caches, cross_kvs):
+            x, nc = blk.step(x, cache, ckv, pos)
+            new_caches.append(nc)
+        h = self.ln(x)
+        vp = self._voiceprints(h) if with_voiceprints else None
+        return self._logits(h), vp, new_caches
+
+
+class YOHOModel(nn.Module):
+    """Joint ASR + diarization + speaker-recognition model.
+
+    ``device=None`` places it on CUDA (and raises when CUDA is absent);
+    ``device="cpu"`` runs the plain PyTorch path. Parameters start
+    uninitialized: fill them with ``nn.params.load_jax_params`` or
+    ``nn.params.init_random``."""
+
+    def __init__(self, cfg: YOHOConfig, vocab_size: int, voiceprint_dim: int = 256,
+                 dtype=torch.float32, weights_int8: bool = False, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.vocab_size = vocab_size
+        self.voiceprint_dim = voiceprint_dim
+        self.dtype = dtype
+        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device)
+        self.decoder = YOHOTextDecoder(cfg, vocab_size, voiceprint_dim, dtype=dtype,
+                                       device=device, weights_int8=weights_int8)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.ln.scale.device
+
+    @property
+    def weights_int8(self) -> bool:
+        return isinstance(self.decoder.token_embedding, QuantizedEmbed)
+
+    def forward(self, tokens: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
+        # Argument order (text, audio), as the JAX model's __call__.
+        return self.decoder(tokens, self.encoder(mel))
+
+    def encode_audio(self, mel):
+        return self.encoder(mel)
+
+    def decode_text(self, tokens, xa):
+        return self.decoder(tokens, xa)
+
+    def cross_attention_map(self, tokens, xa, with_probs: bool = False):
+        return self.decoder.cross_attention_map(tokens, xa, with_probs)
+
+    def forward_with_voiceprints(self, tokens, mel):
+        return self.decoder.with_voiceprints(tokens, self.encoder(mel))
+
+    def cross_kvs(self, xa, quantize=False):
+        return self.decoder.cross_kvs(xa, quantize)
+
+    def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
+                    quantized: bool = False):
+        return self.decoder.init_caches(batch, dtype, max_len, quantized)
+
+    def decode_step(self, tokens, caches, cross_kvs, pos, with_voiceprints: bool = True):
+        return self.decoder.decode_step(tokens, caches, cross_kvs, pos,
+                                        with_voiceprints)

@@ -47,7 +47,7 @@ KERNEL = CudaKernel(
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4, _FLOAT = 0, 1, 2
-_HEAD_DIMS = (64,)  # every whisper size
+_HEAD_DIMS = (16, 64)  # the trained YOHO fixture; whisper and full-width YOHO
 MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
 

@@ -7,8 +7,9 @@ The kernel computes framing -> windowed DFT (3xTF32 on the tensor cores)
 matrix to device memory; the plain version is
 ``audio.frontend.log_mel_spectrogram`` (the same matmul-DFT math). The
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises. Normalization (the whisper clamp)
-needs per-sample statistics and stays outside the kernel.
+tensor it launches the kernel or raises. Normalization (the whisper clamp,
+the YOHO per-sample standardization) needs per-sample statistics and stays
+outside the kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from yoho_tpu_torch.audio.frontend import (
     _dft_bases,
     _hann_periodic,
     log_mel_spectrogram,
+    normalize_standardize,
     normalize_whisper,
     pad_for_convention,
 )
@@ -146,3 +148,17 @@ def fused_whisper_log_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor
     return normalize_whisper(
         fused_log_mel(audio, n_mels=n_mels, mel_scale="slaney",
                       convention="whisper", log_floor=1e-10))
+
+
+def fused_yoho_log_mel(audio: torch.Tensor, config) -> torch.Tensor:
+    """The YOHO frontend through the kernel (scipy framing, HTK filters,
+    log floor 1e-13), then the per-sample standardization over (time,
+    mel): drop-in for ``audio.frontend.yoho_log_mel``."""
+    if getattr(audio, "ndim", None) != 2:
+        raise ValueError(
+            "expected audio of shape (batch, n_samples), got "
+            f"{getattr(audio, 'shape', type(audio))}")
+    return normalize_standardize(
+        fused_log_mel(audio, sample_rate=config.sample_rate, n_fft=config.n_fft,
+                      hop=config.stft_hop, n_mels=config.n_mel_bands,
+                      mel_scale="htk", convention="scipy", log_floor=1e-13))

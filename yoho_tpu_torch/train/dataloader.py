@@ -14,9 +14,9 @@ it (``train/utils/config.py:33``, SURVEY.md §2.1).
 The port's copy of the JAX package's ``train/dataloader.py`` (``Dataloader``
 and ``TranscriptionDataloader``): batches are numpy arrays made on the host,
 as in the JAX package, and the same seed gives the same batches in both.
-``TranscriptionDataloader``'s YOHO targets need the YOHO tokenizer, which
-comes with the YOHO family (ROADMAP Queue 1 item 12, as do the
-``AudioChunkDataloader`` and ``SpeakerDataloader``); the whisper targets of
+``TranscriptionDataloader``'s YOHO targets come with the YOHO train stages
+(ROADMAP Queue 1 item 16, as do the ``AudioChunkDataloader`` and
+``SpeakerDataloader``); the whisper targets of
 ``train/whisper_finetune.py`` need none of it.
 """
 
@@ -515,7 +515,8 @@ class TranscriptionDataloader(Dataloader):
     # ------------------------------------------------------------------
     def get_batch(self, idx: int):
         """YOHO targets (timestamp and voiceprint tokens through the YOHO
-        tokenizer) come with the YOHO family; subclasses render their own."""
+        tokenizer) come with the YOHO train stages; subclasses render their
+        own."""
         from yoho_tpu_torch.infer.pipeline import _not_ported
 
-        _not_ported("YOHO training targets (the YOHO tokenizer)", 12)
+        _not_ported("YOHO training targets (the train stages)", 16)

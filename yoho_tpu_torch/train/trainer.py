@@ -1,7 +1,7 @@
 """The training pieces the whisper trainers share with the JAX package's
 ``train/trainer.py``: the masked next-token loss and the restore of a
 train state from a checkpoint. The YOHO ``ASRTrainer`` comes with the
-YOHO family (ROADMAP Queue 1 item 12).
+YOHO train stages (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
