@@ -44,7 +44,11 @@ Phases, one output line each (JSON after the phase name):
    (T 512) and the causal bf16 self read (T 256, pos 200) at 6 query heads
    on 3 KV heads; then head dim 16 (the trained fixture's) at the fixture's
    shapes and at the full-width batch; SDPA with ``enable_gqa`` beside each
-   attention line.
+   attention line. Phase e2e-yoho-train's: the teacher-forced decoder's
+   causal (16, 256, 6, 64) and cross 256 x 512 flash passes, and head dims
+   32 (12 heads on 6) and 128 (4 on 2) at the encoder, causal, cross and
+   decode-read shapes, timed in bf16, then checked (untimed) in f32 and
+   bf16 at S = 1, 4 and 32 with groups 1 and 2.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -77,7 +81,9 @@ Phases, one output line each (JSON after the phase name):
    ``torch.profiler`` and a ``profile`` line gives the device time of the
    top kernels and of each of the port's own kernel functions, and the
    device's busy share of the untraced run's wall time; the trace must
-   hold no combine kernel (decode attention is one launch).
+   hold no combine kernel (decode attention is one launch). With
+   ``--profile`` phase e2e-yoho-train also traces its third stage-1
+   mini-step.
 7. ``e2e-files``: whisper-small as in ``e2e``, with ``vad_filter`` and
    ``hallucination_silence_threshold`` 2.0, on the same three requests
    written as files: 12 s as a stereo int16 WAV at 44.1 kHz, 30 s as a
@@ -195,11 +201,32 @@ Phases, one output line each (JSON after the phase name):
    (head dim 16) on the card: ``golden.json``'s text with the CPU port's
    tokens. Every part counts launches from 0: mel, flash and decode
    attention launch, w8a8 never.
-13. ``kernels``: one JSON object with every kernel's numbers; launches are
+13. ``e2e-yoho-train``: a YOHO user's first path. A synthetic SRT corpus
+   from the seed (6 tracks of 60 s); ``create-session``; ``run-session 0``
+   (the tokenizer; its round trip checked); the script's 16,000-id
+   tokenizer put at ``weights.tokenizer`` (stage 0's vocabulary on this
+   corpus is about 1,300), so that ``run-session 1 --max-updates 2
+   --compute-dtype bf16`` trains the full-width default model at the
+   default hyperparameters (batch 16, 16 accumulated batches: 32
+   mini-steps; validation after each update). Checks: two finite update
+   and validation losses, the export written, mel, flash and decode
+   attention launched. It prints ms per mini-step (synchronized; median
+   and range after the first), trained audio-s/s, ``max_memory_allocated``,
+   the validations' decode steps and the launches. The export is served by
+   ``transcribe --session --rttm`` over 16 windows and the RTTM scored by
+   ``score-diarization`` against one made from the SRTs (the DER after 2
+   updates means nothing; it must parse). Then the default session with 8
+   experts in every other block of both stacks (2 mini-steps with the
+   auxiliary loss, one batch of 16 served, one MoE layer on the card
+   against the CPU port in f32), and one batch of 16 each from seed-0
+   random sessions at head dims 32 (dims 384, 12 heads) and 128 (dims 512,
+   4 heads), each with one window against the CPU in f32 as in e2e-yoho.
+14. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
-   ``train`` phase's runs, ``e2e-cli``'s commands and ``e2e-yoho``'s parts.
-14. The last line: ``{"ok": true, "device": {...}}``.
+   ``train`` phase's runs, ``e2e-cli``'s commands and the parts of
+   ``e2e-yoho`` and ``e2e-yoho-train``.
+15. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -689,14 +716,20 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
            main=False)
     del audio, got
 
-    def flash_case(label, bq, tq, tk, heads, kvh, d, causal):
-        q = torch.randn((bq, tq, heads, d), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((bq, tk, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+    def flash_case(label, bq, tq, tk, heads, kvh, d, causal, dtype=torch.bfloat16,
+                   timed=True):
+        q = torch.randn((bq, tq, heads, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((bq, tk, kvh, d), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         ke, ve = (x.repeat_interleave(heads // kvh, dim=2) for x in (k, v))
         scale = d ** -0.5
+        tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
         err = check_close(f"flash {label}", fa.flash_attention(q, ke, ve, causal, scale),
-                          fa.attention_reference(q, ke, ve, causal, scale), 1e-2, 1e-2)
+                          fa.attention_reference(q, ke, ve, causal, scale), tol, tol)
+        if not timed:
+            emit("kernel", name=fa.KERNEL.name, case=label, max_abs_err=err,
+                 tolerance=f"rtol {tol}, atol {tol}")
+            return
         pairs = tq * (tq + 1) // 2 if causal else tq * tk
 
         def sdpa():
@@ -709,18 +742,22 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                (q.numel() * 2 + ke.numel() * 2) * 2, {"bf16": 4 * bq * heads * pairs * d},
                yardstick_ms(sdpa, flush), "rtol 1e-2, atol 1e-2", main=False)
 
-    def decode_case(label, bq, heads, kvh, d, t, s, pos):
+    def decode_case(label, bq, heads, kvh, d, t, s, pos, dtype=torch.bfloat16, timed=True):
         qq = (torch.randn((bq, heads, s, d), generator=gen, device=dev) * d ** -0.5
-              ).to(torch.bfloat16)
-        k, v = (torch.randn((bq, kvh, d, t), generator=gen, device=dev).to(torch.bfloat16)
+              ).to(dtype)
+        k, v = (torch.randn((bq, kvh, d, t), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         groups = heads // kvh
         args = (qq, k, v, None, None, pos, None, groups)
         before = da.KERNEL.launches
         got = da.fused_decode_attention(*args)
         launches = da.KERNEL.launches - before
-        err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
-                          0.05, 0.02)
+        tol = (0.05, 0.02) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+        err = check_close(f"decode {label}", got, da.decode_attention_reference(*args), *tol)
+        if not timed:
+            emit("kernel", name=da.KERNEL.name, case=label, max_abs_err=err,
+                 tolerance=f"rtol {tol[0]}, atol {tol[1]}")
+            return
         t_row = t if pos is None else min(t, pos + s)
         keys = bq * (s * t if pos is None else sum(min(t, pos + i + 1) for i in range(s)))
         nbytes = 2 * bq * kvh * d * t_row * 2 + 2 * qq.numel() * 2
@@ -755,6 +792,36 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
     flash_case("D=16 encoder 16x512x24x16 on 12 KV heads, bf16", 16, 512, 512, 24, 12, 16,
                False)
     decode_case("D=16 cross bf16 S=1, 24 on 12 heads (T 512)", 16, 24, 12, 16, 512, 1, None)
+    # Stage-1 training's teacher-forced decoder (phase e2e-yoho-train): the
+    # causal self pass (16, 256, 6, 64) and the cross pass 256 x 512.
+    flash_case("yoho train decoder causal 16x256x6x64 on 3 KV heads, bf16", 16, 256, 256, 6,
+               3, 64, True)
+    flash_case("yoho train decoder cross 16x256x512x6x64 on 3 KV heads, bf16", 16, 256, 512,
+               6, 3, 64, False)
+    # Head dims 32 (dims 384 on 12 heads, 6 KV heads) and 128 (dims 512 on 4
+    # heads, 2 KV heads): the FMA flash route, float K/V in decode attention.
+    for d, heads in ((32, 12), (128, 4)):
+        kvh = heads // 2
+        flash_case(f"D={d} encoder 16x512x{heads}x{d} on {kvh} KV heads, bf16", 16, 512, 512,
+                   heads, kvh, d, False)
+        flash_case(f"D={d} decoder causal 16x256x{heads}x{d}, bf16", 16, 256, 256, heads, kvh,
+                   d, True)
+        flash_case(f"D={d} decoder cross 16x256x512x{heads}x{d}, bf16", 16, 256, 512, heads,
+                   kvh, d, False)
+        decode_case(f"D={d} cross bf16 S=1, {heads} on {kvh} heads (T 512)", 16, heads, kvh,
+                    d, 512, 1, None)
+        decode_case(f"D={d} self bf16 S=1 causal pos=200, {heads} on {kvh} heads (T 256)", 16,
+                    heads, kvh, d, 256, 1, 200)
+        # Every type and query instantiation, groups 1 and 2 (checks only).
+        flash_case(f"D={d} encoder 4x512x{heads}x{d}, f32", 4, 512, 512, heads, kvh, d, False,
+                   torch.float32, timed=False)
+        flash_case(f"D={d} causal 4x256x{heads}x{d}, f32", 4, 256, 256, heads, kvh, d, True,
+                   torch.float32, timed=False)
+        for dtype in (torch.float32, torch.bfloat16):
+            for s_, pos in ((1, None), (4, 100), (32, 200)):
+                for g in (1, 2):
+                    decode_case(f"D={d} {str(dtype)[6:]} S={s_} pos={pos} groups {g} (T 256)",
+                                4, 2 * g, 2, d, 256, s_, pos, dtype, timed=False)
 
 
 class _IdText:
@@ -803,15 +870,17 @@ PATHS = (
 )
 
 
-def _emit_profile(phase: str, runs, by_name: dict, card: str, **extra) -> None:
-    """The ``profile`` line of a traced second run: device busy time against
-    the untraced first run's wall, the top kernels, the port's kernels."""
+def _emit_profile(phase: str, runs, by_name: dict, card: str,
+                  run: str = "second run, device activity traced", **extra) -> None:
+    """The ``profile`` line of a traced run (``runs[1]``): device busy time
+    against the untraced run's wall (``runs[0]``), the top kernels, the
+    port's kernels."""
     # Decode attention is one launch per call: no second combine pass.
     if any("combine" in name for name in by_name):
         raise AssertionError(f"{phase}: a combine kernel ran: {sorted(by_name)}")
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", path=phase, run="second run, device activity traced",
+    emit("profile", path=phase, run=run,
          traced_wall_ms=runs[1][0] * 1e3, untraced_wall_ms=runs[0][0] * 1e3,
          device_busy_ms=busy, device_busy_share=busy / (runs[0][0] * 1e3),
          top_device_ms={k[:90]: round(v, 3) for k, v in top},
@@ -2615,9 +2684,10 @@ def _yoho_tokenizer(vocab_size: int, max_audio_len: int):
     return YOHOTokenizer(ByteBPE(specials, pairs[: vocab_size - base - 256]))
 
 
-def _write_yoho_session(root: Path, name: str):
+def _write_yoho_session(root: Path, name: str, edits=()):
     """A session directory for the full-width default YOHO configuration:
-    ``config.toml`` (the port's ``DEFAULT_SESSION_TOML``), the tokenizer and
+    ``config.toml`` (the port's ``DEFAULT_SESSION_TOML``, with each (old,
+    new) of ``edits`` replaced in it), the tokenizer and
     ``weights/asr.ckpt`` (``save_params``) of seed-0 random f32 weights,
     with two changes of scale so that the greedy decode holds segments: the
     decoder blocks take std 0.1 (from seed 1) instead of 0.02 (at 0.02 the
@@ -2633,7 +2703,7 @@ def _write_yoho_session(root: Path, name: str):
     from yoho_tpu_torch.train.checkpoint import save_params
 
     (root / name / "weights").mkdir(parents=True)
-    (root / name / "config.toml").write_text(DEFAULT_SESSION_TOML)
+    (root / name / "config.toml").write_text(_edited(DEFAULT_SESSION_TOML, edits))
     config = load_session_config(name, root)
     tok = _yoho_tokenizer(config.hyperparameters.tokenizer.vocab_size,
                           config.yoho.max_audio_len)
@@ -2647,6 +2717,14 @@ def _write_yoho_session(root: Path, name: str):
                                              tok.timestamp_base + tok.n_timestamps] *= 1.2
     save_params(config.weights.asr, to_jax_params(model))
     return config, tok
+
+
+def _edited(text: str, edits) -> str:
+    for old, new in edits:
+        if old not in text:
+            raise AssertionError(f"session TOML has no {old!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def _yoho_cpu_reference(phase: str, tr, audio) -> dict:
@@ -2740,6 +2818,38 @@ def _yoho_stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8) -> 
     return dict(peak_bytes=peaks, per_stream=(peaks[hi] - peaks[lo]) / (hi - lo))
 
 
+def _part_counter(phase: str, kernels):
+    """``(measured, total, report)`` for a phase made of parts:
+    ``measured(label, fn, want)`` sets every launch count to 0 just before
+    ``fn`` and reads them just after, fails unless each kernel of ``want``
+    (default: the YOHO path's three) launched and w8a8 did not, adds the
+    counts to ``total`` and the part's wall and launches to ``report``."""
+    import torch
+
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+
+    total = {k.name: 0 for k in kernels}
+    report = {}
+
+    def measured(label, fn, want=YOHO_PATH):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        idle = [n for n in want if launches[n] == 0]
+        if idle or launches[W8A8.name]:
+            raise AssertionError(f"{phase} ({label}): launches {launches}")
+        for n, v in launches.items():
+            total[n] += v
+        report[label] = dict(wall_s=time.perf_counter() - t0, launches=launches)
+        return result
+
+    return measured, total, report
+
+
 def e2e_yoho(card: str, kernels) -> dict:
     """Phase e2e-yoho: the YOHO family at the repo's default full width
     through ``load_transcriber(session=...)``, the command lines (enroll,
@@ -2758,29 +2868,9 @@ def e2e_yoho(card: str, kernels) -> dict:
     from yoho_tpu_torch.infer.longform import chunk_audio
     from yoho_tpu_torch.infer.pipeline import Transcriber
     from yoho_tpu_torch.load import load_transcriber
-    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
 
     phase = "e2e-yoho"
-    total = {k.name: 0 for k in kernels}
-    report = {}
-
-    def measured(label, fn, want=YOHO_PATH):
-        """One part with every count set to 0 just before it and read just
-        after: the kernels of the path launched, w8a8 never."""
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels}
-        idle = [n for n in want if launches[n] == 0]
-        if idle or launches[W8A8.name]:
-            raise AssertionError(f"{phase} ({label}): launches {launches}")
-        for n, v in launches.items():
-            total[n] += v
-        report[label] = dict(wall_s=time.perf_counter() - t0, launches=launches)
-        return result
+    measured, total, report = _part_counter(phase, kernels)
 
     def tokens_of(results):
         return [[int(x) for s in r.segments for x in s.tokens] for r in results]
@@ -2959,6 +3049,228 @@ def e2e_yoho(card: str, kernels) -> dict:
          card=card, launches=total, **report)
     return total
 
+def _yoho_windows(n: int, seed: int):
+    """``n`` one-window requests (10 s of noise each): one batch of 16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal(160_000)).astype(np.float32) for _ in range(n)]
+
+
+def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
+    """Phase e2e-yoho-train: a YOHO user's first path on the card. A
+    synthetic SRT corpus from the seed; ``create-session``; ``run-session
+    0`` (the tokenizer); the phase's own 16,000-id tokenizer put in its
+    place so that stage 1 trains the full-width default model (stage 0's
+    vocabulary on this small corpus is far below 16,000); ``run-session 1
+    --max-updates 2 --compute-dtype bf16`` at the default hyperparameters
+    (batch 16, 16 accumulated batches: 32 mini-steps) with validation after
+    each update; the exported ``weights.asr`` served by ``transcribe
+    --session --rttm`` and scored by ``score-diarization`` against RTTM
+    made from the corpus's SRTs. Then the same default session with 8
+    experts in encoder and decoder (two mini-steps, one batch of 16 served,
+    one MoE layer on the card against the CPU port in f32), and one batch
+    each of seed-0 random sessions at head dims 32 and 128 against the CPU
+    in f32. With ``trace`` the third mini-step of stage 1 is traced
+    (device time by kernel against the untraced steps' median). Returns the
+    launches of its parts."""
+    import copy
+    import statistics
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.eval.diarization import SpeakerTurn, compose_rttm
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.load import load_transcriber
+    from yoho_tpu_torch.nn.moe import MoESwiGLU, collect_aux_losses, dropped_fraction
+    from yoho_tpu_torch.ops.decode_attention import KERNEL as DECODE
+    from yoho_tpu_torch.text.srt import parse_srt
+    from yoho_tpu_torch.text.tokenizer import YOHOTokenizer
+    from yoho_tpu_torch.audio.io import load_audio_f32
+    from yoho_tpu_torch.train.trainer import ASRTrainer
+
+    phase = "e2e-yoho-train"
+    measured, total, report = _part_counter(phase, kernels)
+    train_path = ("mel_log_spectrogram", "flash_attention_forward")
+    with tempfile.TemporaryDirectory(prefix="yoho_train_smoke_") as tmp:
+        tmp = Path(tmp)
+        corpus, root = tmp / "corpus", tmp / "sessions"
+        _train_corpus(corpus, tracks=6, seconds=60)
+        _cli(["create-session", "train", "--root", str(root)])
+        cfg_path = root / "train" / "config.toml"
+        cfg_path.write_text(_edited(cfg_path.read_text(), (
+            ("'./asr_dataset/noisy'", f"'{corpus}'"),
+            ("validation_frequency = 25\nvalidation_samples = 8\nspeechless_sample_ratio = 0.1\n"
+             "# Gradient", "validation_frequency = 1\nvalidation_samples = 8\n"
+             "speechless_sample_ratio = 0.1\n# Gradient"))))
+        t0 = time.perf_counter()
+        _cli(["run-session", "train", "0", "--root", str(root)])
+        config = load_session_config("train", root)
+        tok0 = YOHOTokenizer.load(config.weights.tokenizer)
+        text = "the water house people"
+        if tok0.decode(tok0.encode(text)) != text:
+            raise AssertionError(f"{phase}: stage 0's tokenizer does not round-trip {text!r}")
+        report["stage-0"] = dict(wall_s=time.perf_counter() - t0, vocab=tok0.vocab_size)
+        cfg, hp = config.yoho, config.hyperparameters.transcribe_pretrain
+        _yoho_tokenizer(config.hyperparameters.tokenizer.vocab_size,
+                        cfg.max_audio_len).save(config.weights.tokenizer)
+
+        # Stage 1 through the command line; each mini-step timed between
+        # synchronizations, each validation's decode steps counted.
+        step_ms, val_steps, real = [], [], (ASRTrainer._train_step, ASRTrainer._validate)
+        traced = {}
+
+        def timed_step(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if trace and len(step_ms) == 2:
+                loss, traced["by_name"] = _profiled(lambda: real[0](self, *a))
+            else:
+                loss = real[0](self, *a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return loss
+
+        def counted_validate(self, update):
+            before = DECODE.launches
+            out = real[1](self, update)
+            val_steps.append((DECODE.launches - before) // (2 * cfg.n_text_blocks))
+            return out
+
+        ASRTrainer._train_step, ASRTrainer._validate = timed_step, counted_validate
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            measured("stage-1", lambda: _cli(
+                ["run-session", "train", "1", "--root", str(root), "--max-updates", "2",
+                 "--compute-dtype", "bf16"]))
+        finally:
+            ASRTrainer._train_step, ASRTrainer._validate = real
+        peak = torch.cuda.max_memory_allocated()
+        rows = [line.split(",") for line in
+                (config.path / "stages" / "1" / "metrics.csv").read_text().splitlines()[1:]]
+        losses = [float(r[2]) for r in rows]
+        mini = hp.accumulated_batches * 2
+        if (len(rows) != 2 or len(step_ms) != mini or not all(np.isfinite(losses))
+                or not all(r[3] for r in rows) or len(val_steps) != 2
+                or not config.weights.asr.exists()):
+            raise AssertionError(f"{phase}: stage 1 rows {rows}, {len(step_ms)} mini-steps, "
+                                 f"validations {val_steps}")
+        after_first = step_ms[1:]
+        if trace:
+            _emit_profile(phase, [(statistics.median(after_first) / 1e3, None),
+                                  (step_ms[2] / 1e3, None)], traced["by_name"], card,
+                          run="stage-1 mini-step 3 traced (untraced: the median step)")
+        report["stage-1"].update(
+            batch=hp.batch_size, accumulated=hp.accumulated_batches, mini_steps=len(step_ms),
+            update_losses=losses, val_losses=[float(r[3]) for r in rows],
+            step_ms_first=step_ms[0], step_ms_median=statistics.median(after_first),
+            step_ms_range=[min(after_first), max(after_first)],
+            trained_audio_s_per_s=hp.batch_size * cfg.max_input_seconds
+            / (statistics.median(after_first) / 1e3),
+            max_memory_allocated=peak, validation_decode_steps=val_steps,
+            launches_per_mini_step={k: v / len(step_ms) for k, v in
+                                    report["stage-1"]["launches"].items()})
+
+        # The export served with --rttm over one batch of 16 windows, and
+        # scored against RTTM from the corpus's SRTs.
+        # Whole tracks, then a prefix of the next one, to fill 16 windows at
+        # the transcriber's stride (5 s of overlap).
+        stride = cfg.n_samples - min(5 * 16000, cfg.n_samples // 2)
+        hyp, ref, cut = tmp / "hyp", tmp / "ref", tmp / "cut"
+        ref.mkdir()
+        cut.mkdir()
+        chosen, windows = [], 0
+        for path in sorted((corpus / "audio").glob("*.wav")):
+            audio = load_audio_f32(str(path), 16000)
+            n = len(chunk_audio(audio, cfg.n_samples, stride)[1])
+            seconds = len(audio) // 16000
+            while windows + n > BATCH and seconds > 1:
+                seconds -= 1
+                n = len(chunk_audio(audio[: seconds * 16000], cfg.n_samples, stride)[1])
+            if windows + n > BATCH:
+                break
+            if seconds * 16000 < len(audio):
+                path = Path(_wav16(cut / path.name, audio[: seconds * 16000]))
+            subs = parse_srt((corpus / "transcripts" / f"{path.stem}.srt").read_text())
+            turns = [SpeakerTurn(c.start.total_seconds(), c.end.total_seconds(), "spk")
+                     for c in subs if c.end.total_seconds() <= seconds]
+            (ref / f"{path.stem}.rttm").write_text(compose_rttm(turns, path.stem))
+            chosen.append(str(path))
+            windows += n
+            if windows == BATCH:
+                break
+        docs = measured("transcribe-export", lambda: _cli(
+            ["transcribe", *chosen, "--session", "train", "--root", str(root), "--batch",
+             str(BATCH), "--rttm", str(hyp), "--json"])).splitlines()
+        score = json.loads(_cli(["score-diarization", str(ref), str(hyp), "--json"])
+                           .splitlines()[-1])
+        if (len(docs) != len(chosen) or sorted(score["recordings"])
+                != sorted(Path(p).stem for p in chosen)):
+            raise AssertionError(f"{phase}: transcribe --rttm / score-diarization: {score}")
+        report["transcribe-export"].update(
+            files=len(chosen), windows=windows, der=score["der"],
+            segments=sum(len(json.loads(d)["segments"]) for d in docs))
+
+        # Mixture of experts: 8 experts in every other block of both stacks.
+        _cli(["create-session", "moe", "--root", str(root)])
+        moe_path = root / "moe" / "config.toml"
+        moe_path.write_text(_edited(moe_path.read_text(), (
+            ("n_text_blocks = 4\n", "n_text_blocks = 4\nn_experts = 8\nmoe_in_decoder = true\n"),
+            ("'./asr_dataset/noisy'", f"'{corpus}'"))))
+        moe_cfg = load_session_config("moe", root)
+        _yoho_tokenizer(16000, cfg.max_audio_len).save(moe_cfg.weights.tokenizer)
+        moe_hp = replace(moe_cfg.hyperparameters.transcribe_pretrain, accumulated_batches=1,
+                         validation_frequency=1000)
+        trainer = ASRTrainer(moe_cfg, hp=moe_hp, compute_dtype=torch.bfloat16)
+        n_moe = sum(isinstance(m, MoESwiGLU) for m in trainer.model.modules())
+        measured("moe-train", lambda: trainer.run(max_updates=2), want=train_path)
+        aux = float(collect_aux_losses(trainer.model).detach())
+        moe_losses = list(trainer.update_losses)
+        if n_moe != 4 or not all(np.isfinite(moe_losses)) or not aux > 0:
+            raise AssertionError(f"{phase}: MoE layers {n_moe}, losses {moe_losses}, "
+                                 f"aux {aux}")
+        mlp = trainer.model.encoder.blocks[1].mlp
+        x = torch.randn((2, cfg.encoder_positions, cfg.dims), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+        with torch.no_grad():
+            got = mlp(x)
+            want = copy.deepcopy(mlp).cpu()(x.cpu())
+        moe_err = check_close("MoE layer card vs CPU f32", got.cpu(), want, 1e-4, 1e-5)
+        del trainer
+        moe_t = load_transcriber(session="moe", root=str(root), batch=BATCH)
+        res = measured("moe-serve", lambda: moe_t.transcribe_many(_yoho_windows(BATCH, 1)))
+        report["moe-train"].update(experts=8, moe_layers=n_moe, mini_steps=2,
+                                   update_losses=moe_losses)
+        report["moe"] = dict(aux_loss=aux, dropped_fraction=dropped_fraction(moe_t.model),
+                             layer_max_abs_err=moe_err, layer_tolerance="rtol 1e-4, atol 1e-5",
+                             served=len(res))
+        del moe_t
+
+        # Head dims 32 and 128 at the default depth: one batch each, and one
+        # window against the CPU in f32.
+        for d, dims, heads in ((32, 384, 12), (128, 512, 4)):
+            name = f"d{d}"
+            _write_yoho_session(root, name, (
+                ("dims = 384", f"dims = {dims}"),
+                ("n_audio_heads = 6", f"n_audio_heads = {heads}"),
+                ("n_text_heads = 6", f"n_text_heads = {heads}")))
+            t = load_transcriber(session=name, root=str(root), batch=BATCH)
+            if t.model.decoder.blocks[0].attn.head_dim != d:
+                raise AssertionError(f"{phase}: head dim {t.model.decoder.blocks[0].attn.head_dim}")
+            reqs = _yoho_windows(BATCH, d)
+            ref_d = _yoho_cpu_reference(phase, t, reqs[0])
+            res = measured(f"serve-D{d}", lambda: t.transcribe_many(reqs))
+            report[f"serve-D{d}"].update(dims=dims, heads=heads, kv_heads=heads // 2,
+                                         windows=len(res), reference=ref_d)
+            del t
+    emit(phase, model="yoho default (dims 384, 6 heads on 3 KV heads, 4+4 blocks, 128 mels, "
+                      "vocab 16000)", card=card, launches=total, **report)
+    return total
+
 
 def _tone_clip(s: int, n_samples: int):
     """The trained fixture's clips: ``tests/test_checkpoint_fixture.py``'s
@@ -3007,9 +3319,11 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho):
+    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho,
+                  e2e_yoho_train):
+        kw = {"trace": "--profile" in argv} if phase is e2e_yoho_train else {}
         t0 = time.perf_counter()
-        for name, n in phase(card, kernels).items():
+        for name, n in phase(card, kernels, **kw).items():
             launches[name] += n
         emit("phase-wall", path=phase.__name__.replace("_", "-"),
              seconds=time.perf_counter() - t0)

@@ -245,12 +245,12 @@ def test_int8_lanes_load_the_jax_quantized_weights(env):
             assert torch.equal(g, torch.from_numpy(np.asarray(w, np.float32)).to(g.dtype)), k
 
 
-@pytest.mark.parametrize("cmd,flag,item", [
-    ("transcribe", "--rttm", 16), ("transcribe", "--mesh", 11), ("evaluate", "--stm", 16),
-    ("serve", "--mesh", 11)])
+@pytest.mark.parametrize("cmd,flag,item", [("transcribe", "--mesh", 11), ("serve", "--mesh", 11)])
 def test_unported_flags_name_their_item(env, cmd, flag, item):
     """The flags the port does not have yet (``--session``,
-    ``--diarize-session`` and ``--speakers`` came with the YOHO family)."""
+    ``--diarize-session`` and ``--speakers`` came with the YOHO family,
+    ``--rttm`` and ``--stm`` with its scoring:
+    ``tests/test_torch_diarization.py``)."""
     first = {"transcribe": [env["wavs"][0]], "evaluate": [str(env["data"])]}.get(cmd, [])
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         _port([cmd, *first, flag, "x", "--hf", env["hf"]])
@@ -279,13 +279,16 @@ def test_doctor_passes_and_flags_missing_weights(env, tmp_path):
                                                        str(tmp_path)], rc=1).splitlines()]
     status = {r["check"]: r["status"] for r in rows}
     assert status["hf:weights"] == "FAIL" and status["hf:tokenizer"] == "warn"
-    with pytest.raises(NotImplementedError, match="item 16"):
-        doctor.main(["--session", "main"])
+    # --session checks a training session (tests/test_torch_diarization.py
+    # holds it to the JAX command); a missing one fails.
+    rows = [json.loads(x) for x in _run(doctor.main, [
+        "--json", "--no-devices", "--session", "main", "--root", str(tmp_path)],
+        rc=1).splitlines()]
+    assert {r["check"]: r["status"] for r in rows}["session"] == "FAIL"
 
 
-UNPORTED = {"create-session": 16, "run-session": 16, "score-diarization": 16,
-            "cache-corpus": 15, "import-corpus": 15, "split-tracks": 15,
-            "plot-metrics": 15, "summary": 16}
+UNPORTED = {"cache-corpus": 15, "import-corpus": 15, "split-tracks": 15,
+            "plot-metrics": 15}
 
 
 def test_umbrella_lists_the_commands(capsys):

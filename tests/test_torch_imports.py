@@ -58,7 +58,11 @@ def test_every_module_imports_without_jax():
             "yoho_tpu_torch.nn.yoho", "yoho_tpu_torch.nn.voiceprint",
             "yoho_tpu_torch.text.bpe", "yoho_tpu_torch.text.tokenizer",
             "yoho_tpu_torch.infer.speaker_pass", "yoho_tpu_torch.infer.diarize",
-            "yoho_tpu_torch.cli.enroll"} <= set(mods)
+            "yoho_tpu_torch.cli.enroll",
+            # YOHO scoring, MoE and the session commands.
+            "yoho_tpu_torch.nn.moe", "yoho_tpu_torch.eval.diarization",
+            "yoho_tpu_torch.cli.score_diarization", "yoho_tpu_torch.cli.summary",
+            "yoho_tpu_torch.cli.create_session", "yoho_tpu_torch.cli.run_session"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -73,7 +77,11 @@ def test_training_modules_import_none_of_the_jax_stack():
             "yoho_tpu_torch.nn.lora", "yoho_tpu_torch.nn.export",
             "yoho_tpu_torch.audio.augment", "yoho_tpu_torch.text.corpus",
             "yoho_tpu_torch.text.standardize", "yoho_tpu_torch.text.langdetect",
-            "yoho_tpu_torch.text.numbers", "yoho_tpu_torch.text.lang_corpus"]
+            "yoho_tpu_torch.text.numbers", "yoho_tpu_torch.text.lang_corpus",
+            # YOHO session training (stages 0-1).
+            "yoho_tpu_torch.train.session",
+            "yoho_tpu_torch.train.stages.stage0_tokenizer",
+            "yoho_tpu_torch.train.stages.stage1_asr_pretrain"]
     assert set(mods) <= set(_modules())
     code = (
         "import importlib, json, sys\n"

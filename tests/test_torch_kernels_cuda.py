@@ -638,15 +638,88 @@ def test_decode_kernel_head_dim_16_per_row_pos(gen):
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
 
 
+# -------------------------------------------------------- head dims 32, 128
+# YOHO sessions of dims 384 on 12 heads (32) or 512 on 4 heads (128): the
+# FMA flash route in both types, float K/V in the decode kernel.
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,t,kv_len,heads", [
+    (False, 512, 512, None, 4), (True, 256, 256, None, 4), (False, 256, 512, None, 2),
+    (False, 300, 300, 129, 3), (True, 256, 256, 200, 2), (False, 77, 77, None, 3)])
+def test_flash_kernel_head_dims_32_128(gen, d, dtype, causal, tq, t, kv_len, heads):
+    """Head dims 32 and 128 on FMAs: the YOHO encoder (512), teacher-forced
+    causal (256) and cross (256 x 512) passes, kv_len inside a tile, ragged
+    lengths."""
+    q, k, v = (torch.randn((3, n, heads, d), generator=gen, device="cuda").to(dtype)
+               for n in (tq, t, t))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.attention_reference(q, k, v, causal, d ** -0.5, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("s,pos", [(1, None), (4, None), (32, None), (1, 200), (4, 0),
+                                   (32, 100)])
+@pytest.mark.parametrize("t,kv_len", [(256, 256), (333, 300), (512, 512)])
+def test_decode_kernel_head_dims_32_128(gen, d, q_dtype, groups, s, pos, t, kv_len):
+    """Float K/V at head dims 32 and 128, S = 1, 4 and 32 (every query
+    instantiation), groups 1 and 2, every load branch (TMA tiles, words,
+    element copies), scalar causal positions."""
+    if pos is not None and pos + s > kv_len:
+        pos = kv_len - s
+    k, v = (torch.randn((2, 2, d, t), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
+         ).to(q_dtype)
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
+                                                  groups=groups)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
+                                                       groups=groups)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4, 32])
+def test_decode_kernel_head_dims_32_128_per_row_pos(gen, d, q_dtype, s):
+    """Per-row positions at head dims 32 and 128 on a float cache of 256."""
+    k, v = (torch.randn((4, 2, d, 256), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((4, 4, s, d), generator=gen, device="cuda") * d ** -0.5).to(q_dtype)
+    pos = torch.tensor([0, 5, 60, 256 - s], dtype=torch.int32, device="cuda")
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, groups=2)
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, groups=2)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
 def test_other_head_dims_raise(gen):
-    """Head dims other than 16 and 64 raise on the card, never fall back."""
-    q = torch.zeros((1, 2, 1, 32), device="cuda", dtype=torch.bfloat16)
-    k = torch.zeros((1, 2, 32, 128), device="cuda", dtype=torch.bfloat16)
+    """Head dims outside 16, 32, 64 and 128, and int8/int4 K/V at 32 or
+    128, raise on the card, never fall back."""
+    q = torch.zeros((1, 2, 1, 48), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 48, 128), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         decode_attention.fused_decode_attention(q, k, k)
-    x = torch.zeros((1, 8, 2, 32), device="cuda", dtype=torch.bfloat16)
+    x = torch.zeros((1, 8, 2, 48), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(x, x, x)
+    for d in (32, 128):
+        kf = torch.randn((1, 2, d, 128), device="cuda").to(torch.bfloat16)
+        qd = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
+        for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
+            qkv = quant(kf, kf)
+            with pytest.raises(ValueError, match="head dim"):
+                decode_attention.fused_decode_attention(
+                    qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
 
 
 # ------------------------------------------------- the YOHO serving shapes

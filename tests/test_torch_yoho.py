@@ -282,12 +282,18 @@ def test_session_config_matches_jax(tmp_path):
     (dict(n_experts=4, expert_capacity_factor=0), "expert_capacity_factor must be > 0"),
 ])
 def test_moe_validation_raises_as_jax_and_the_model_refuses_experts(kw, match):
+    """Invalid MoE settings raise in both packages; a valid MoE config now
+    builds its experts in every moe_every_n-th encoder block
+    (``tests/test_torch_moe.py`` holds the MoE model to JAX)."""
+    from yoho_tpu_torch.nn.moe import MoESwiGLU
+
     with pytest.raises(ValueError, match=match):
         jcfg.YOHOConfig(**kw)
     with pytest.raises(ValueError, match=match):
         tcfg.YOHOConfig(**kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        YOHOModel(tcfg.YOHOConfig(**SMALL, n_experts=2), VOCAB, device="cpu")
+    m = YOHOModel(tcfg.YOHOConfig(**SMALL, n_experts=2), VOCAB, device="cpu")
+    assert [type(b.mlp) is MoESwiGLU for b in m.encoder.blocks] == [False, True]
+    assert not any(isinstance(b.mlp, MoESwiGLU) for b in m.decoder.blocks)
 
 
 def test_init_random_is_seeded_and_unit_norms():

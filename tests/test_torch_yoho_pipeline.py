@@ -323,3 +323,84 @@ def test_streaming_tracks_speakers(bf16):
     assert stream.text() == GOLDEN[0]["text"]
     with_vp = [s for s in out if s.voiceprint is not None]
     assert with_vp and all(isinstance(s.speaker, int) for s in with_vp)
+
+
+# ------------------------------------------------------- scoring commands
+
+def _wavs(clips, d: Path) -> list:
+    import wave
+
+    paths = []
+    for s, clip in enumerate(clips):
+        path = d / f"clip{s}.wav"
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(clip, -1, 1) * 32767).astype("<i2").tobytes())
+        paths.append(str(path))
+    return paths
+
+
+def _stdout(main, argv) -> str:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+def test_transcribe_rttm_matches_jax(bf16, tmp_path):
+    """``transcribe --session tiny --rttm DIR``: one RTTM per input with the
+    text JAX's command writes (its ``_write_sidecars`` over the JAX
+    transcriber's results on the same WAV files), and the bulk mode's
+    rebuild from saved JSON."""
+    from argparse import Namespace
+
+    from yoho_tpu.cli.transcribe import _write_sidecars
+    from yoho_tpu_torch.cli.__main__ import main as port
+
+    jt, _, clips, _, _ = bf16
+    wavs = _wavs(clips, tmp_path)
+    for f, r in zip(wavs, jt.transcribe_many(wavs)):
+        _write_sidecars(f, r, Namespace(srt=None, vtt=None, rttm=str(tmp_path / "jax")))
+    # --output-dir: a re-run skips the decoded files and rebuilds their
+    # RTTM from the saved JSON, as it was.
+    base = ["--session", "tiny", "--root", str(ROOT), "--batch", "3", "--device", "cpu",
+            "--output-dir", str(tmp_path / "bulk")]
+    _stdout(port, ["transcribe", *wavs, *base, "--rttm", str(tmp_path / "port")])
+    _stdout(port, ["transcribe", *wavs, *base, "--rttm", str(tmp_path / "rebuilt")])
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == ["clip0.rttm", "clip1.rttm", "clip2.rttm"]
+    for name in names:
+        got = (tmp_path / "port" / name).read_text()
+        assert got == (tmp_path / "jax" / name).read_text() and got.startswith("SPEAKER")
+        assert (tmp_path / "rebuilt" / name).read_text() == got
+
+
+def test_evaluate_stm_matches_jax(bf16, tmp_path, capsys):
+    """``evaluate --stm``: cpWER by diarized speaker and DER against an STM
+    reference; the port command's report equals JAX's ``_evaluate_stm`` on
+    the JAX transcriber."""
+    from argparse import Namespace
+
+    from yoho_tpu.cli.evaluate import _evaluate_stm
+    from yoho_tpu.eval.wer import normalize_for_wer
+    from yoho_tpu_torch.cli.__main__ import main as port
+
+    jt, _, clips, _, _ = bf16
+    _wavs(clips[:2], tmp_path)
+    stm = tmp_path / "ref.stm"
+    stm.write_text("clip0 1 alice 0.0 1.0 hello world\n"
+                   "clip1 1 bob 0.0 2.0 good morning\n", encoding="utf-8")
+    args = Namespace(stm=str(stm), dataset=str(tmp_path), limit=None, json=True)
+    assert _evaluate_stm(jt, args, normalize_for_wer) == 0
+    want = json.loads(capsys.readouterr().out.splitlines()[-1])
+    got = json.loads(_stdout(port, ["evaluate", str(tmp_path), "--session", "tiny", "--root",
+                                    str(ROOT), "--stm", str(stm), "--batch", "3", "--json",
+                                    "--device", "cpu"]).splitlines()[-1])
+    assert got == want and got["files"] == 2 and got["ref_speakers"] == 2
+    with pytest.raises(SystemExit):
+        port(["evaluate", str(tmp_path), "--hf", "x", "--stm", str(stm), "--device", "cpu"])

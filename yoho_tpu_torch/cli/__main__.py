@@ -19,19 +19,21 @@ COMMANDS = {
                  "Fine-tune a Whisper checkpoint on an SRT corpus"),
     "distill": ("yoho_tpu_torch.cli.distill",
                 "Distill a small draft Whisper for speculative decoding"),
-    "create-session": (16, "Scaffold a training session"),
-    "run-session": (16, "Run a training stage (0-4)"),
+    "create-session": ("yoho_tpu_torch.cli.create_session", "Scaffold a training session"),
+    "run-session": ("yoho_tpu_torch.cli.run_session",
+                    "Run a training stage (0-1; 2-4 not ported: Queue 1 item 16)"),
     "plot-metrics": (15, "Live metrics dashboard for a session"),
     "split-tracks": (15, "Split long (audio, SRT) pairs into chunks"),
     "cache-corpus": (15, "Transcode a corpus to FLAC for fast decode"),
     "import-corpus": (15, "Import CommonVoice/LibriSpeech/LJSpeech/CSV "
                           "corpora into the SRT training layout"),
-    "summary": (16, "Model/param summary"),
+    "summary": ("yoho_tpu_torch.cli.summary", "Model/param summary"),
     "enroll": ("yoho_tpu_torch.cli.enroll",
                "Enroll speaker voiceprints for recognition"),
     "align": ("yoho_tpu_torch.cli.align",
               "Forced alignment: word timings for known transcripts"),
-    "score-diarization": (16, "DER between reference and hypothesis RTTM"),
+    "score-diarization": ("yoho_tpu_torch.cli.score_diarization",
+                          "DER between reference and hypothesis RTTM"),
     "doctor": ("yoho_tpu_torch.cli.doctor",
                "Environment self-check (CUDA, kernels, codecs, checkpoints)"),
 }

@@ -198,6 +198,27 @@ def _check_hf(path: str) -> list:
     return rows
 
 
+def _check_session(name: str, root: str) -> list:
+    from yoho_tpu_torch.core.config import load_session_config
+
+    try:
+        config = load_session_config(name, root)
+    except FileNotFoundError as e:
+        return [("session", FAIL, str(e))]
+    except Exception as e:
+        return [("session", FAIL, f"config.toml invalid: {e}")]
+    rows = [("session", OK, f"{root}/{name}/config.toml parses")]
+    for slot in ("tokenizer", "asr", "voice_reconstruction",
+                 "voiceprint", "yoho"):
+        path = getattr(config.weights, slot, None)
+        if path is None:
+            continue
+        exists = Path(path).exists()
+        rows.append((f"session:weights.{slot}", OK if exists else WARN,
+                     f"{path} ({'present' if exists else 'not trained yet'})"))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="yoho-torch doctor",
@@ -206,8 +227,8 @@ def main(argv=None) -> int:
                         help="also validate a local HF Whisper checkpoint "
                              "directory (weights/config/tokenizer files)")
     parser.add_argument("--session", type=str, default=None, metavar="NAME",
-                        help="validate a training session (not in the "
-                             "PyTorch port yet)")
+                        help="also validate a training session's config "
+                             "and weight artifacts")
     parser.add_argument("--root", type=str, default="./sessions")
     parser.add_argument("--device-timeout", type=float, default=30.0,
                         metavar="SECONDS",
@@ -220,11 +241,6 @@ def main(argv=None) -> int:
     parser.add_argument("--json", action="store_true",
                         help="machine-readable output, one JSON per check")
     args = parser.parse_args(argv)
-    if args.session:
-        from yoho_tpu_torch.infer.pipeline import _not_ported
-
-        _not_ported("doctor --session (YOHO training sessions)", 16)
-
     rows = _check_package() + _check_deps() + _check_native() + _check_codecs()
     if not args.no_devices:
         dev = _check_devices(args.device_timeout)
@@ -232,6 +248,8 @@ def main(argv=None) -> int:
         rows += _check_kernels(cuda=dev[0][1] == OK)
     if args.hf:
         rows += _check_hf(args.hf)
+    if args.session:
+        rows += _check_session(args.session, args.root)
 
     failed = False
     for name, status, detail in rows:

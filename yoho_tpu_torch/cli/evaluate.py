@@ -3,9 +3,9 @@
 The port's counterpart of the JAX package's ``cli/evaluate.py``. Dataset
 layout (LibriSpeech-style flat dir): ``<dir>/*.wav`` with sibling
 ``<stem>.txt`` reference transcripts, OR a ``transcripts/*.srt`` +
-``audio/*`` corpus (the training layout). Speaker-attributed scoring
-(``--stm``, cpWER and DER with diarization) is not in the port yet
-(ROADMAP.md, Queue 1 item 16).
+``audio/*`` corpus (the training layout). ``--stm FILE`` scores
+speaker-attributed transcripts instead: cpWER by diarized speaker and
+DER, against a NIST STM reference.
 
 Usage: ``python -m yoho_tpu_torch.cli evaluate <dir> --hf DIR
           [--limit N] [--beams 5] [--json]``
@@ -13,6 +13,7 @@ Usage: ``python -m yoho_tpu_torch.cli evaluate <dir> --hf DIR
 
 import argparse
 import json as jsonlib
+import sys
 from pathlib import Path
 
 
@@ -37,6 +38,96 @@ def collect_pairs(root: Path, limit=None):
             if txt.exists():
                 pairs.append((wav, txt.read_text(encoding="utf-8").strip()))
     return pairs[:limit] if limit else pairs
+
+
+def _resolve_audio(root: Path, fid: str):
+    from yoho_tpu_torch.train.dataloader import AUDIO_SUFFIXES
+
+    for base in (root, root / "audio"):
+        for suf in AUDIO_SUFFIXES:
+            cand = base / (fid + suf)
+            if cand.exists():
+                return cand
+    return None
+
+
+def _evaluate_stm(t, args, norm) -> int:
+    """Speaker-attributed evaluation (cpWER) against an STM reference:
+    transcribe each STM file with diarization on, concatenate hypothesis
+    text per diarized speaker, and score with the minimum-permutation
+    assignment (``eval.wer.cp_wer``); DER from the same run."""
+    from yoho_tpu_torch.eval.diarization import (
+        DERBreakdown,
+        diarization_error_rate,
+        parse_stm_turns,
+        segments_to_turns,
+    )
+    from yoho_tpu_torch.eval.wer import (
+        EditStats,
+        cp_wer,
+        parse_stm,
+        stm_rows,
+        texts_by_speaker,
+    )
+
+    rows = stm_rows(Path(args.stm).read_text(encoding="utf-8"))
+    per_file = parse_stm(rows)
+    ref_turns = parse_stm_turns(rows)
+    root = Path(args.dataset)
+    files = []
+    for fid in sorted(per_file):
+        path = _resolve_audio(root, fid)
+        if path is None:
+            print(f"warning: no audio for STM file id {fid!r} under {root}",
+                  file=sys.stderr)
+            continue
+        files.append((fid, path))
+    files = files[: args.limit] if args.limit else files
+    if not files:
+        print("no (audio, STM reference) pairs found")
+        return 1
+
+    results = t.transcribe_many([str(p) for _fid, p in files])
+    total = EditStats(0, 0, 0, 0)
+    der_total = DERBreakdown(0.0, 0.0, 0.0, 0.0)
+    n_ref_speakers = n_hyp_speakers = 0
+    for (fid, _path), result in zip(files, results):
+        ref = {k: norm(v) for k, v in per_file[fid].items()}
+        hyp = {k: norm(v) for k, v in texts_by_speaker(result.segments).items()}
+        n_ref_speakers += len(ref)
+        n_hyp_speakers += len(hyp)
+        _rate, st = cp_wer(ref, hyp, normalize=False)
+        total.substitutions += st.substitutions
+        total.insertions += st.insertions
+        total.deletions += st.deletions
+        total.hits += st.hits
+        # The same STM carries utterance times: DER from the same run
+        # (NIST 0.25 s collar).
+        d = diarization_error_rate(ref_turns[fid], segments_to_turns(result.segments),
+                                   collar=0.25)
+        der_total.missed += d.missed
+        der_total.false_alarm += d.false_alarm
+        der_total.confusion += d.confusion
+        der_total.total_reference += d.total_reference
+    report = {
+        "files": len(files),
+        "cpwer": round(total.rate, 4),
+        "der": round(der_total.der, 4),
+        "der_missed_s": round(der_total.missed, 2),
+        "der_false_alarm_s": round(der_total.false_alarm, 2),
+        "der_confusion_s": round(der_total.confusion, 2),
+        "ref_speakers": n_ref_speakers,
+        "hyp_speakers": n_hyp_speakers,
+        "substitutions": total.substitutions,
+        "insertions": total.insertions,
+        "deletions": total.deletions,
+    }
+    if args.json:
+        print(jsonlib.dumps(report))
+    else:
+        for k, v in report.items():
+            print(f"{k:14s} {v}")
+    return 0
 
 
 def main(argv=None):
@@ -82,8 +173,8 @@ def main(argv=None):
                              "(contractions, spelled numbers -> digits) so "
                              "WER is comparable to published numbers")
     parser.add_argument("--stm", type=str, default=None, metavar="FILE",
-                        help="speaker-attributed cpWER against a NIST STM "
-                             "reference (not in the PyTorch port yet)")
+                        help="speaker-attributed cpWER (and DER) against a "
+                             "NIST STM reference; needs diarization")
     parser.add_argument("--diarize-session", type=str, default=None,
                         metavar="NAME",
                         help="whisper-family diarization (a session's "
@@ -91,6 +182,9 @@ def main(argv=None):
     parser.add_argument("--speaker-threshold", type=float, default=0.75)
     add_device_arg(parser)
     args = parser.parse_args(argv)
+    if args.stm and args.hf and not args.diarize_session:
+        parser.error("--stm cpWER on the whisper family needs "
+                     "--diarize-session (no voiceprints otherwise)")
     _refuse_unported(args)
     device = cli_device(args)
 
@@ -120,6 +214,9 @@ def main(argv=None):
         from yoho_tpu_torch.eval.english_normalizer import normalize_english as norm
     else:
         norm = normalize_for_wer
+
+    if args.stm:
+        return _evaluate_stm(t, args, norm)
 
     pairs = collect_pairs(Path(args.dataset), args.limit)
     if not pairs:

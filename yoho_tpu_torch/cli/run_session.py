@@ -1,0 +1,77 @@
+"""``yoho-torch run-session``: start or resume a training stage of a
+session (the JAX package's ``cli/run_session.py``).
+
+Stage 0 trains the tokenizer and stage 1 pretrains transcription
+(``ASRTrainer``), on the GPU unless ``--device cpu``. Stages 2-4 (voice
+reconstruction, the voiceprint encoder, joint fine-tuning) are not in the
+port yet and exit naming ROADMAP.md Queue 1 item 16 (its part B). A
+device mesh is item 11: this runs on one device.
+
+Usage: ``python -m yoho_tpu_torch.cli run-session <name> <stage 0-4>
+          [--root ./sessions] [--max-updates N] [--compute-dtype bf16]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from dataclasses import asdict
+
+import torch
+
+STAGE_HELP = (
+    "Stage of training to start/resume:\n"
+    "\t0 - Train tokenizer\n"
+    "\t1 - Pretrain transcription without voiceprints\n"
+    "\t2 - Train voice reconstruction (not in the port yet)\n"
+    "\t3 - Finetune voiceprint encoder (not in the port yet)\n"
+    "\t4 - Finetune transcription with voiceprints (not in the port yet)"
+)
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def main(argv=None):
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.utils.platform import add_device_arg, cli_device
+
+    parser = argparse.ArgumentParser(
+        prog="yoho-torch run-session",
+        description="Starts/Resumes the training of a session",
+        formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("name", type=str, help="Name of the session")
+    parser.add_argument("stage", type=int, choices=[0, 1, 2, 3, 4], help=STAGE_HELP)
+    parser.add_argument("--root", type=str, default="./sessions")
+    parser.add_argument("--max-updates", type=int, default=None)
+    parser.add_argument("--compute-dtype", choices=sorted(_DTYPES), default="f32",
+                        help="autocast type of the training forward (float32 "
+                             "parameters and optimizer state either way)")
+    add_device_arg(parser)
+    args = parser.parse_args(argv)
+    if args.stage >= 2:
+        from yoho_tpu_torch.infer.pipeline import _not_ported
+
+        try:
+            _not_ported(f"training stage {args.stage} (stages 2-4: "
+                        "nn/reconstruction.py and the stage 2-4 trainers)", 16)
+        except NotImplementedError as e:
+            print(f"yoho-torch run-session: {e}", file=sys.stderr)
+            return 2
+
+    config = load_session_config(args.name, args.root)
+    print("Loaded config:")
+    print(json.dumps(asdict(config), indent=4, default=str))
+    if args.stage == 0:
+        from yoho_tpu_torch.train.stages.stage0_tokenizer import main as stage_main
+
+        stage_main(config)
+    else:
+        from yoho_tpu_torch.train.stages.stage1_asr_pretrain import main as stage_main
+
+        stage_main(config, max_updates=args.max_updates, device=cli_device(args),
+                   compute_dtype=_DTYPES[args.compute_dtype])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,9 +12,10 @@ default (``--device cpu`` for the plain PyTorch path).
   ``weights.asr`` with the session tokenizer), with native voiceprints
   and diarization.
 
-``--speakers`` names speakers against an ``enroll`` file. Not in the port
-yet, and refused with the ROADMAP.md item that brings them: ``--rttm``
-(item 16), ``--mesh`` (item 11).
+``--speakers`` names speakers against an ``enroll`` file; ``--rttm``
+writes a diarization RTTM per input (score it with ``score-diarization``).
+Not in the port yet, and refused with the ROADMAP.md item that brings it:
+``--mesh`` (item 11).
 
 Usage: ``python -m yoho_tpu_torch.cli transcribe file1.wav [file2.wav ...]
           (--hf DIR | --session NAME) [--beams 5] [--batch 8] [--json]``
@@ -47,9 +48,7 @@ def _refuse_unported(args) -> None:
     """The flags of modules the port does not have yet."""
     from yoho_tpu_torch.infer.pipeline import _not_ported
 
-    for flag, attr, item in (("--rttm (eval/diarization.py)", "rttm", 16),
-                             ("--stm (cpWER with diarization)", "stm", 16),
-                             ("--mesh", "mesh", 11)):
+    for flag, attr, item in (("--mesh", "mesh", 11),):
         if getattr(args, attr, None):
             _not_ported(flag, item)
 
@@ -302,8 +301,8 @@ def _result_payload(f, result) -> dict:
 
 
 def _write_sidecars(f, result, args) -> None:
-    """Per-file subtitle artifacts (--srt/--vtt), shared by the streaming
-    output path and --output-dir bulk mode."""
+    """Per-file subtitle and diarization artifacts (--srt/--vtt/--rttm),
+    shared by the streaming output path and --output-dir bulk mode."""
     from pathlib import Path
 
     stem = Path(f).stem
@@ -323,13 +322,20 @@ def _write_sidecars(f, result, args) -> None:
             out = Path(args.vtt) / f"{stem}.vtt"
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(compose_vtt(subs), encoding="utf-8")
+    if args.rttm:
+        from yoho_tpu_torch.eval.diarization import compose_rttm, segments_to_turns
+
+        out = Path(args.rttm) / f"{stem}.rttm"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(compose_rttm(segments_to_turns(result.segments), stem),
+                       encoding="utf-8")
 
 
 def _sidecars_from_json(f, doc_path, args) -> None:
-    """Rebuild --srt/--vtt for a bulk-skipped file from its saved JSON (no
-    re-decode): the stored segments carry everything the sidecar
+    """Rebuild --srt/--vtt/--rttm for a bulk-skipped file from its saved
+    JSON (no re-decode): the stored segments carry everything the sidecar
     composers read."""
-    if not (args.srt or args.vtt):
+    if not (args.srt or args.vtt or args.rttm):
         return
     from types import SimpleNamespace
 
@@ -459,8 +465,8 @@ def main(argv=None):
     parser.add_argument("--vtt", type=str, default=None, metavar="DIR",
                         help="also write <stem>.vtt per input into DIR")
     parser.add_argument("--rttm", type=str, default=None, metavar="DIR",
-                        help="diarization RTTM per input (not in the "
-                             "PyTorch port yet)")
+                        help="also write <stem>.rttm diarization per input "
+                             "into DIR (score with score-diarization)")
     parser.add_argument("--diarize-session", type=str, default=None,
                         metavar="NAME",
                         help="whisper-family speaker diarization: embed "

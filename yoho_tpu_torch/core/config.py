@@ -141,9 +141,9 @@ class YOHOConfig:
     n_text_heads: int = 6
     n_text_blocks: int = 4
 
-    # Mixture-of-Experts (0 = dense). The port builds dense models only;
-    # a config with experts parses and validates as in the JAX package,
-    # and the model refuses it (ROADMAP.md Queue 1 item 16).
+    # Mixture-of-Experts (0 = dense): every moe_every_n-th encoder block
+    # (and decoder block with moe_in_decoder) carries nn/moe.py's top-k
+    # MoE MLP, as in the JAX package.
     n_experts: int = 0
     moe_in_decoder: bool = False
     moe_every_n: int = 2

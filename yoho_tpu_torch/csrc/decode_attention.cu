@@ -16,12 +16,19 @@
 //                                 the type of q without scales
 //   out      (B, S, Hq, D)        the type of q
 //
-// Head dims: 64 (every whisper size, the full-width YOHO model) and 16
-// (the trained YOHO fixture: dims 64 on 4 heads). Lane l holds key and
-// value dims l and l + D/2, so at D = 16 only lanes 0-7 hold dims and the
-// other lanes add zeros to the score butterfly: a simple instantiation,
-// not a fast one. The tiles stay DK rows of 64 positions, so the TMA boxes
-// and swizzles are those of D = 64 with fewer rows.
+// Head dims: 64 (every whisper size, the full-width YOHO model), and 16,
+// 32 and 128 for YOHO sessions (the trained fixture is dims 64 on 4 heads;
+// 32 and 128 for K/V in the type of q only: the YOHO family has no int8 or
+// int4 K/V). Lane l < STR holds the NPL key and value dims l + STR j: two
+// dims (STR = D/2) up to D = 64, so at D = 16 and 32 only lanes 0-7 or
+// 0-15 hold dims and the others add zeros to the score butterfly, and four
+// (STR = 32) at D = 128. These are simple instantiations, not fast ones. The
+// tiles stay DK rows of 64 positions, so the TMA boxes and swizzles are
+// those of D = 64 with fewer or more rows (D = 128 bf16: a 64 x 128 box,
+// 33 KB a stage). When the chunks are done the warps' and the block's
+// softmax states take the stage memory over, which keeps f32 K/V at D = 128
+// with 32 queries (three 66.5 KB stages, 83 KB of states) inside the 227 KB
+// a block may have.
 //
 // Bound on the H100: the cache bytes. Whisper-small's cross read at B=16
 // moves 2 x 16 x 12 x 64 x 1500 B = 36.9 MB of int8 codes (+ 1.2 MB of
@@ -66,6 +73,7 @@
 //   cluster barrier keeps every block alive while its peers read it.
 #include <cooperative_groups.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "tma.cuh"
@@ -208,14 +216,19 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
             int pos_all, const int* __restrict__ pos_rows, int mode) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
-  constexpr int HALF = D / 2;     // lane l < HALF holds dims l and l + HALF
+  constexpr int NPL = D > 64 ? D / 32 : 2;  // dims per lane
+  constexpr int STR = D / NPL;    // lane l < STR holds dims l + STR j, j < NPL
+  static_assert(KIND != KV_INT4 || NPL == 2, "int4 holds dims l and l + D/2 in one byte");
   constexpr int PART = D + 2;     // a softmax state: acc[D], m, l
   using L = Stage<E, DK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * L::BYTES);
+  // After the last chunk the states take the stages' memory over; the
+  // barriers and q lie past both.
+  const int region = max(STAGES * L::BYTES, (int)sizeof(float) * (WARPS + 1) * S * PART);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (region + 7) / 8 * 8);
   float* q_s = reinterpret_cast<float*>(bars + STAGES);  // S x D
-  float* wpart = q_s + S * D;                            // WARPS x S x PART
+  float* wpart = reinterpret_cast<float*>(smem);         // WARPS x S x PART
   float* bpart = wpart + WARPS * S * PART;               // S x PART: this block's state
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -229,7 +242,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_all;
   const int t_end = pos_rows != nullptr ? min(t_end_all, pos + S) : t_end_all;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool holds = lane < HALF;  // always at D = 64
+  const bool holds = lane < STR;  // always at D = 64 and 128
   const bool scaled = k_scale != nullptr;
   const int n_chunks = (t_end + TC - 1) / TC;
   const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;  // chunks rank + i CL
@@ -326,9 +339,13 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   for (int i = tid; i < S * D; i += THREADS) q_s[i] = to_f32<QT>(q[(size_t)bh * S * D + i]);
   __syncthreads();
 
-  float m_w[SMAX], l_w[SMAX], acc[SMAX][2];
+  float m_w[SMAX], l_w[SMAX], acc[SMAX][NPL];
 #pragma unroll
-  for (int s = 0; s < SMAX; ++s) m_w[s] = YOHO_NEG_INF, l_w[s] = 0.f, acc[s][0] = acc[s][1] = 0.f;
+  for (int s = 0; s < SMAX; ++s) {
+    m_w[s] = YOHO_NEG_INF, l_w[s] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) acc[s][j] = 0.f;
+  }
   const int pl = lane >> 1;  // the position whose full score this lane holds
 
   for (int i = 0; i < my_n; ++i) {
@@ -349,18 +366,21 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     }
     const int tw = (rank + i * CL) * TC + warp * PW;  // this warp's first position
     if (tw < t_end) {
-      float k0[16], k1[16], v0[16], v1[16];  // dims lane and lane + HALF
+      float kr[NPL][16], vr[NPL][16];  // dims lane + STR j
       if (!holds) {
 #pragma unroll
-        for (int p = 0; p < 16; ++p) k0[p] = k1[p] = v0[p] = v1[p] = 0.f;
+        for (int j = 0; j < NPL; ++j)
+#pragma unroll
+          for (int p = 0; p < 16; ++p) kr[j][p] = vr[j][p] = 0.f;
       } else if constexpr (KIND == KV_INT4) {
-        row16_int4(buf, lane, warp, k0, k1);
-        row16_int4(buf + L::KV, lane, warp, v0, v1);
+        row16_int4(buf, lane, warp, kr[0], kr[1]);
+        row16_int4(buf + L::KV, lane, warp, vr[0], vr[1]);
       } else {
-        row16<E>(buf, lane, warp, k0);
-        row16<E>(buf, lane + HALF, warp, k1);
-        row16<E>(buf + L::KV, lane, warp, v0);
-        row16<E>(buf + L::KV, lane + HALF, warp, v1);
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+          row16<E>(buf, lane + STR * j, warp, kr[j]);
+          row16<E>(buf + L::KV, lane + STR * j, warp, vr[j]);
+        }
       }
       const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(buf + L::SCALES) + warp * PW;
       const float k_sc = scaled ? __bfloat162float(ks[pl]) : 1.f;
@@ -369,11 +389,16 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 #pragma unroll
       for (int s = 0; s < SMAX; ++s) {
         if (s >= S) break;
-        const float qa = holds ? q_s[s * D + lane] : 0.f;
-        const float qb = holds ? q_s[s * D + lane + HALF] : 0.f;
+        float qd[NPL];
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) qd[j] = holds ? q_s[s * D + lane + STR * j] : 0.f;
         float part[16];
 #pragma unroll
-        for (int p = 0; p < 16; ++p) part[p] = fmaf(qb, k1[p], qa * k0[p]);
+        for (int p = 0; p < 16; ++p) {
+          part[p] = qd[0] * kr[0][p];
+#pragma unroll
+          for (int j = 1; j < NPL; ++j) part[p] = fmaf(qd[j], kr[j][p], part[p]);
+        }
         const float x = butterfly16(part, lane) * k_sc;
         const bool valid = t < t_end && (!causal || t <= pos + s);
         const float m_new = fmaxf(m_w[s], pair_max(valid ? x : YOHO_NEG_INF));
@@ -382,17 +407,19 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
         l_w[s] = l_w[s] * alpha + pair_sum(p);
         m_w[s] = m_new;
         const float w = round_as<QT>(p * v_sc);
-        float a0 = acc[s][0] * alpha, a1 = acc[s][1] * alpha;
+        float a[NPL];
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) a[j] = acc[s][j] * alpha;
 #pragma unroll
         for (int pp = 0; pp < 16; ++pp) {
           const float wp = __shfl_sync(0xffffffffu, w, 2 * pp);
           if (tw + pp < t_end) {  // positions past t_end may hold stale bytes
-            a0 = fmaf(wp, v0[pp], a0);
-            a1 = fmaf(wp, v1[pp], a1);
+#pragma unroll
+            for (int j = 0; j < NPL; ++j) a[j] = fmaf(wp, vr[j][pp], a[j]);
           }
         }
-        acc[s][0] = a0;
-        acc[s][1] = a1;
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) acc[s][j] = a[j];
       }
     }
     if (words) __syncthreads();  // every warp is done with this stage
@@ -405,14 +432,16 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     }
   }
 
-  // The warps' states -> this block's state.
+  // The warps' states -> this block's state, in the stages' memory once
+  // every warp is done with its last chunk (every load has landed).
+  __syncthreads();
 #pragma unroll
   for (int s = 0; s < SMAX; ++s) {
     if (s >= S) break;
     float* wp = wpart + (warp * S + s) * PART;
     if (holds) {
-      wp[lane] = acc[s][0];
-      wp[lane + HALF] = acc[s][1];
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) wp[lane + STR * j] = acc[s][j];
     }
     if (lane == 0) wp[D] = m_w[s], wp[D + 1] = l_w[s];
   }
@@ -499,8 +528,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
   const int mode = tma ? 2 : rows_of(8) ? 3 : rows_of(4) ? 1 : 0;
 
   constexpr int PART = D + 2;
-  const size_t smem = 1024 + (size_t)STAGES * L::BYTES + 8 * STAGES +
-                      sizeof(float) * ((size_t)S * D + (size_t)(WARPS + 1) * S * PART);
+  const size_t states = sizeof(float) * (size_t)(WARPS + 1) * S * PART;
+  const size_t smem = 1024 + (std::max((size_t)STAGES * L::BYTES, states) + 7) / 8 * 8 + 8 * STAGES +
+                      sizeof(float) * (size_t)S * D;
   auto kern = decode_attn<QT, KIND, SMAX, D>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
@@ -556,6 +586,12 @@ cudaError_t dispatch_d(int Dh, int kind, const void* q, const void* k, const voi
     return dispatch_kind<QT, 64>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
   if (Dh == 16)
     return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  // 32 and 128: K/V in the type of q only (YOHO sessions).
+  if (kind != KV_FLOAT) return cudaErrorInvalidValue;
+  if (Dh == 32)
+    return dispatch_s<QT, KV_FLOAT, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (Dh == 128)
+    return dispatch_s<QT, KV_FLOAT, 128>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
   return cudaErrorInvalidValue;
 }
 
@@ -566,8 +602,8 @@ YOHO_ERROR_STRING_FN
 // q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
 // 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
 // of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
-// (B ints on the device, each >= 0) is not null. Dh is 64 or 16. One
-// launch; no workspace.
+// (B ints on the device, each >= 0) is not null. Dh is 64 or 16 (every
+// kind), or 32 or 128 (kind 2 only). One launch; no workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,

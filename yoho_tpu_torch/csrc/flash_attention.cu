@@ -45,12 +45,17 @@
 // float32 keeps full FP32 arithmetic on FMAs from shared memory (TF32
 // would lose digits); it is not on the main path.
 //
-// Head dim 16 (the trained YOHO fixture: dims 64 on 4 heads) runs the FMA
+// Head dims 16, 32 and 128 (YOHO sessions: the trained fixture is dims 64
+// on 4 heads; dims 384 on 12 heads or 512 on 4 give 32 and 128) run the FMA
 // kernel for both types: bf16 inputs are widened on load, P is rounded to
 // bf16 before the PV product as the reference rounds it, and the output
-// is rounded once. A 16-wide row is 32 bytes, narrower than the 128-byte
-// swizzle the wgmma path's tiles are built on; this instantiation is
-// simple and right, not fast.
+// is rounded once. The wgmma path's tiles are built on one 64-wide bf16 row
+// per 128-byte swizzle; these instantiations are simple and right, not
+// fast. Their shared memory, BQ (D+1) + BK (D+1) + BK D + BQ (BK+1) floats,
+// is 41.7 KB at D = 32 and 115.5 KB at D = 128 (over the 48 KB default,
+// granted by allow_smem as for every launch).
+#include <type_traits>
+
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -518,7 +523,7 @@ YOHO_ERROR_STRING_FN
 // dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16 (wgmma + TMA; q, k and v
 // 16-byte aligned). q (B, Tq, H, D); k, v (B, Tk, H, D); keys >= kv_len
 // (1 <= kv_len <= Tk) are masked. D is 64 (every whisper size, the full-width
-// YOHO model) or 16 (FMAs for both types).
+// YOHO model) or 16, 32, 128 (FMAs for both types).
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
                                        const void* v, void* out, int B, int H, int Tq,
                                        int Tk, int kv_len, int D, float scale, int causal,
@@ -529,11 +534,15 @@ extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
       return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
     return wg::launch_wgmma(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
   }
-  if (D == 16) {
+  auto fma_route = [&](auto d) -> cudaError_t {
+    constexpr int DD = decltype(d)::value;
     if (dtype == 0)
-      return launch<float, 16>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
-    return launch<__nv_bfloat16, 16>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal,
+      return launch<float, DD>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
+    return launch<__nv_bfloat16, DD>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal,
                                      stream);
-  }
+  };
+  if (D == 16) return fma_route(std::integral_constant<int, 16>{});
+  if (D == 32) return fma_route(std::integral_constant<int, 32>{});
+  if (D == 128) return fma_route(std::integral_constant<int, 128>{});
   return cudaErrorInvalidValue;
 }

@@ -95,6 +95,16 @@ def yoho_param_count(cfg, vocab_size: int, voiceprint_dim: int = 256) -> int:
     # 2 (encoder) and 4 (decoder) RMSNorms a block.
     enc = cfg.n_audio_blocks * (int(12 * s * s) + 2 * s)
     dec = cfg.n_text_blocks * (int(10.5 * s * s) + 4 * s)
+    # A Mixture-of-Experts block (nn/moe.py) holds n_experts SwiGLUs and an
+    # s x n_experts router in place of its one SwiGLU.
+    n = cfg.n_experts
+    if n > 0:
+        every = cfg.moe_every_n
+        moe_enc = sum(i % every == every - 1 for i in range(cfg.n_audio_blocks))
+        moe_dec = sum(i % every == every - 1 for i in range(cfg.n_text_blocks)) \
+            if cfg.moe_in_decoder else 0
+        enc += moe_enc * ((n - 1) * 3 * s * int(s * 3) + s * n)
+        dec += moe_dec * ((n - 1) * 3 * s * int(s * 1.5) + s * n)
     return conv + enc + dec + s + vocab_size * s + s * voiceprint_dim
 
 

@@ -167,6 +167,17 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
             if int(speculative_gamma) < 1:
                 raise ValueError(f"speculative_gamma must be >= 1, got "
                                  f"{speculative_gamma}")
+            tgt_cfg = model.cfg
+            if getattr(tgt_cfg, "n_experts", 0) and getattr(tgt_cfg, "moe_in_decoder", False):
+                # A verify step's tokens compete for per-expert capacity,
+                # where a one-token greedy step never drops: the committed
+                # tokens could differ from the target's own greedy ones.
+                raise ValueError(
+                    "speculative decoding does not support moe_in_decoder "
+                    "targets (S>1 verify changes MoE capacity routing, "
+                    "breaking greedy exactness) — serve the MoE decoder "
+                    "without a draft model")
+
             def vocab_mels(m):
                 return ((m.cfg.n_vocab, m.cfg.n_mels) if family == "whisper"
                         else (m.vocab_size, m.cfg.n_mel_bands))

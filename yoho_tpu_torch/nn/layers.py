@@ -45,6 +45,7 @@ attention kernel, which reads each KV head once for its group.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -364,14 +365,18 @@ class GroupedQueryAttention(nn.Module):
         b, s = x.shape[:2]
         q = self._rope(self.q_proj(x), s, pos)  # (B, S, Hq, D)
         if cache is None and cross_kv is None:
-            # Full modes: unscaled q (the flash kernel scales the f32
-            # scores; head_dim**-0.5 is a power of two for D = 16 and 64,
-            # so this equals scaling q first), KV heads expanded.
+            # Full modes, KV heads expanded. The flash kernel scales the
+            # f32 scores, which equals scaling q first (as JAX does) when
+            # head_dim**-0.5 is a power of two (D = 16, 64); otherwise
+            # (D = 32, 128) q is scaled in its own type, as JAX scales it.
+            scale = self.head_dim ** -0.5
+            if math.frexp(scale)[0] != 0.5:
+                q, scale = q * scale, 1.0
             src = x if xa is None else xa
             k = self._rope(self.k_proj(src), src.shape[1], pos)
             out = flash_attention(q, self._expand(k, 2),
                                   self._expand(self.v_proj(src), 2),
-                                  causal=causal, scale=self.head_dim ** -0.5)
+                                  causal=causal, scale=scale)
             return self.out_proj(out.reshape(b, s, self.dims))
         q = _bhsd(q) * self.head_dim ** -0.5
         if cross_kv is not None:

@@ -15,7 +15,10 @@ leaves by kind:
   an int8 one's ``kernel_q`` (in, H, D) / ``kernel_scale`` (1, H, D) become
   ``weight_q`` (H*D, in) / ``weight_scale`` (H*D,);
 * an ``Embed`` table is ``embedding``; the tied logits read the same table;
-* ``positional_embedding`` is a bare parameter and keeps its name;
+* ``positional_embedding`` is a bare parameter and keeps its name, as do
+  the MoE experts' stacked (E, in, out) ``kernel`` leaves
+  (``mlp/experts/gate/kernel``), which keep flax's layout; the MoE
+  ``router`` is a bias-free ``Dense``;
 * the int8 lanes' leaves (``nn/quantize.py``): ``kernel_q`` (in, out) int8
   becomes the buffer ``weight_q`` (out, in), ``kernel_scale`` (1, out)
   ``weight_scale`` (out,), ``embedding_q`` (V, D) ``weight_q`` and
@@ -184,7 +187,10 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
                        f"unexpected {unexpected}")
     for name, path in names.items():
         dst = state[name]
-        arr = _torch_layout(path[-1], flat[path], dst.ndim)
+        # A port tensor under flax's own leaf name (an RMSNorm ``scale``,
+        # the stacked experts' ``kernel``) keeps flax's layout.
+        arr = flat[path] if name.rsplit(".", 1)[-1] == path[-1] else \
+            _torch_layout(path[-1], flat[path], dst.ndim)
         if tuple(arr.shape) != tuple(dst.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} -> {name} "
                              f"{tuple(dst.shape)}")

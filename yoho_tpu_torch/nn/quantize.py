@@ -111,9 +111,15 @@ def quantize_whisper_encoder(model):
 
 @torch.no_grad()
 def quantize_yoho_decoder(model):
-    """A float ``YOHOModel`` -> its ``weights_int8`` form (in place). The
-    JAX function refuses a decoder with Mixture-of-Experts blocks; a port
-    ``YOHOModel`` refuses experts when it is built, so none reaches here."""
+    """A float ``YOHOModel`` -> its ``weights_int8`` form (in place). A
+    decoder with Mixture-of-Experts blocks is refused, as the JAX package
+    refuses it."""
+    cfg = model.cfg
+    if cfg.n_experts > 0 and cfg.moe_in_decoder:
+        raise ValueError(
+            "weights_int8 decoder serving does not support MoE "
+            "decoder blocks (moe_in_decoder) — serve the MoE "
+            "decoder in bf16/f32 or keep the decoder dense")
     dec = model.decoder
     _quantize_embedding(dec, model.dtype)
     dec.voiceprint_head = _quantized(dec.voiceprint_head, QuantizedDense, model.dtype)

@@ -16,8 +16,12 @@ expanded; every decode read of the self cache and of the cross K/V runs
 through the decode attention kernel with ``groups``. The cross K/V and the
 self cache are float (the model's type): the YOHO family has no int8 K/V
 lane. ``weights_int8`` is the weight-only int8 decoder
-(``nn/quantize.py::quantize_yoho_decoder``). Mixture-of-Experts configs
-(``n_experts > 0``) are refused (ROADMAP.md Queue 1 item 16).
+(``nn/quantize.py::quantize_yoho_decoder``). With ``n_experts > 0``
+every ``moe_every_n``-th encoder block (and decoder block, with
+``moe_in_decoder``) carries a :class:`nn.moe.MoESwiGLU` in place of its
+SwiGLU (:func:`encoder_block_kwargs`, :func:`decoder_block_kwargs`).
+``remat=True`` checkpoints every block while a gradient is recorded, as
+the JAX package's ``maybe_remat`` does.
 
 In the model's type the rotated queries and keys are rounded to it, so the
 kernels read bf16 operands; the JAX package lets its f32 rotation tables
@@ -31,6 +35,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yoho_tpu_torch.core.config import YOHOConfig
 from yoho_tpu_torch.core.device import full_fp32, resolve_device
@@ -43,13 +48,49 @@ from yoho_tpu_torch.nn.layers import (
     SwiGLU,
     realized_token_probs_streamed,
 )
+from yoho_tpu_torch.nn.moe import MoESwiGLU
 
 
-def _dense_only(cfg: YOHOConfig) -> None:
-    if cfg.n_experts > 0:
-        from yoho_tpu_torch.infer.pipeline import _not_ported
+def encoder_block_kwargs(cfg: YOHOConfig, index: int) -> dict:
+    """Constructor keywords of encoder block ``index``: every
+    ``moe_every_n``-th block (index % n == n - 1) is MoE when
+    ``n_experts > 0``."""
+    moe = cfg.n_experts > 0 and index % cfg.moe_every_n == cfg.moe_every_n - 1
+    return dict(q_heads=cfg.n_audio_heads, kv_heads=max(1, cfg.n_audio_heads // 2),
+                dims=cfg.dims, n_experts=cfg.n_experts if moe else 0,
+                moe_top_k=cfg.moe_top_k,
+                expert_capacity_factor=cfg.expert_capacity_factor)
 
-        _not_ported("YOHO Mixture-of-Experts (n_experts > 0)", 16)
+
+def decoder_block_kwargs(cfg: YOHOConfig, index: int) -> dict:
+    """Constructor keywords of decoder block ``index``: MoE only when both
+    ``n_experts > 0`` and ``moe_in_decoder``."""
+    moe = (cfg.n_experts > 0 and cfg.moe_in_decoder
+           and index % cfg.moe_every_n == cfg.moe_every_n - 1)
+    return dict(q_heads=cfg.n_text_heads, kv_heads=max(1, cfg.n_text_heads // 2),
+                dims=cfg.dims, n_experts=cfg.n_experts if moe else 0,
+                moe_top_k=cfg.moe_top_k,
+                expert_capacity_factor=cfg.expert_capacity_factor)
+
+
+def _mlp(dims: int, hidden: int, n_experts: int, moe_top_k: int,
+         expert_capacity_factor: float, weights_int8: bool = False, **kw) -> nn.Module:
+    if n_experts > 0:
+        if weights_int8:
+            raise ValueError(
+                "weights_int8 decoder serving does not support MoE "
+                "decoder blocks (moe_in_decoder) — serve the MoE "
+                "decoder in bf16/f32 or keep the decoder dense")
+        return MoESwiGLU(dims, n_experts, hidden, top_k=moe_top_k,
+                         capacity_factor=expert_capacity_factor, **kw)
+    return SwiGLU(dims, hidden, weights_int8=weights_int8, **kw)
+
+
+def _run(blk, remat: bool, *args):
+    """One block, checkpointed when ``remat`` and a gradient is recorded."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, *args, use_reentrant=False)
+    return blk(*args)
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -58,14 +99,16 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class YOHOEncoderBlock(nn.Module):
-    def __init__(self, q_heads: int, kv_heads: int, dims: int,
+    def __init__(self, q_heads: int, kv_heads: int, dims: int, n_experts: int = 0,
+                 moe_top_k: int = 2, expert_capacity_factor: float = 2.0,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.ln1 = RMSNorm(dims, **kw)
         self.attn = GroupedQueryAttention(q_heads, dims, kv_heads, **kw)
         self.ln2 = RMSNorm(dims, **kw)
-        self.mlp = SwiGLU(dims, int(dims * 3), **kw)
+        self.mlp = _mlp(dims, int(dims * 3), n_experts, moe_top_k,
+                        expert_capacity_factor, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -73,7 +116,8 @@ class YOHOEncoderBlock(nn.Module):
 
 
 class YOHODecoderBlock(nn.Module):
-    def __init__(self, q_heads: int, kv_heads: int, dims: int,
+    def __init__(self, q_heads: int, kv_heads: int, dims: int, n_experts: int = 0,
+                 moe_top_k: int = 2, expert_capacity_factor: float = 2.0,
                  dtype=torch.float32, device=None, weights_int8: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
@@ -85,7 +129,8 @@ class YOHODecoderBlock(nn.Module):
         self.cross_attn = GroupedQueryAttention(q_heads, dims, kv_heads,
                                                 weights_int8=weights_int8, **kw)
         self.ln3 = RMSNorm(dims, **kw)
-        self.mlp = SwiGLU(dims, int(dims * 1.5), weights_int8=weights_int8, **kw)
+        self.mlp = _mlp(dims, int(dims * 1.5), n_experts, moe_top_k,
+                        expert_capacity_factor, weights_int8=weights_int8, **kw)
 
     def forward(self, x, xa):
         x = x + self.attn(self.ln1(x), causal=True)
@@ -106,21 +151,21 @@ class YOHOAudioEncoder(nn.Module):
     """Conv stem, then the GQA blocks: (B, frames, mels) -> (B, frames // 2,
     dims)."""
 
-    def __init__(self, cfg: YOHOConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: YOHOConfig, dtype=torch.float32, device=None,
+                 remat: bool = False):
         super().__init__()
-        _dense_only(cfg)
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         self.conv1 = nn.Conv1d(c.n_mel_bands, c.dims, 3, padding=1, **kw)
         self.norm1 = RMSNorm(c.dims, **kw)
         self.conv2 = nn.Conv1d(c.dims, c.dims, 3, padding=1, **kw)
         self.norm2 = RMSNorm(c.dims, **kw)
         self.blocks = nn.ModuleList(
-            YOHOEncoderBlock(c.n_audio_heads, max(1, c.n_audio_heads // 2),
-                             c.dims, **kw)
-            for _ in range(c.n_audio_blocks))
+            YOHOEncoderBlock(**encoder_block_kwargs(c, i), **kw)
+            for i in range(c.n_audio_blocks))
 
     def stem(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, S_frames, n_mels) -> (B, S_frames // 2, dims)."""
@@ -134,7 +179,7 @@ class YOHOAudioEncoder(nn.Module):
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = _run(blk, self.remat, x)
         return x
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
@@ -146,19 +191,19 @@ class YOHOTextDecoder(nn.Module):
     logits and the voiceprint head."""
 
     def __init__(self, cfg: YOHOConfig, vocab_size: int, voiceprint_dim: int = 256,
-                 dtype=torch.float32, device=None, weights_int8: bool = False):
+                 dtype=torch.float32, device=None, weights_int8: bool = False,
+                 remat: bool = False):
         super().__init__()
-        _dense_only(cfg)
         c = cfg
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         self.token_embedding = (QuantizedEmbed if weights_int8 else nn.Embedding)(
             vocab_size, c.dims, **kw)
         self.blocks = nn.ModuleList(
-            YOHODecoderBlock(c.n_text_heads, max(1, c.n_text_heads // 2), c.dims,
-                             weights_int8=weights_int8, **kw)
-            for _ in range(c.n_text_blocks))
+            YOHODecoderBlock(**decoder_block_kwargs(c, i), weights_int8=weights_int8, **kw)
+            for i in range(c.n_text_blocks))
         self.ln = RMSNorm(c.dims, **kw)
         self.voiceprint_head = (QuantizedDense if weights_int8 else nn.Linear)(
             c.dims, voiceprint_dim, bias=False, **kw)
@@ -166,15 +211,21 @@ class YOHOTextDecoder(nn.Module):
     def _hidden(self, tokens, xa):
         x = self.token_embedding(tokens)
         for blk in self.blocks:
-            x = blk(x, xa)
+            x = _run(blk, self.remat, x, xa)
         return self.ln(x)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding logits accumulated and kept in float32."""
+        """Tied-embedding logits accumulated and kept in float32, also under
+        autocast (training), where both operands are first rounded to the
+        compute type, as the JAX package casts them to its ``dtype``."""
         if isinstance(self.token_embedding, QuantizedEmbed):
             return self.token_embedding.logits(h)
-        with full_fp32():
-            return F.linear(h.float(), self.token_embedding.weight.float())
+        emb = self.token_embedding.weight
+        if torch.is_autocast_enabled(h.device.type):
+            dt = torch.get_autocast_dtype(h.device.type)
+            h, emb = h.to(dt), emb.to(dt)
+        with torch.autocast(h.device.type, enabled=False), full_fp32():
+            return F.linear(h.float(), emb.float())
 
     def _voiceprints(self, h: torch.Tensor) -> torch.Tensor:
         return l2_normalize(self.voiceprint_head(h))
@@ -256,16 +307,18 @@ class YOHOModel(nn.Module):
     ``nn.params.init_random``."""
 
     def __init__(self, cfg: YOHOConfig, vocab_size: int, voiceprint_dim: int = 256,
-                 dtype=torch.float32, weights_int8: bool = False, device=None):
+                 dtype=torch.float32, weights_int8: bool = False, device=None,
+                 remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.vocab_size = vocab_size
         self.voiceprint_dim = voiceprint_dim
         self.dtype = dtype
-        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device)
+        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device, remat=remat)
         self.decoder = YOHOTextDecoder(cfg, vocab_size, voiceprint_dim, dtype=dtype,
-                                       device=device, weights_int8=weights_int8)
+                                       device=device, weights_int8=weights_int8,
+                                       remat=remat)
 
     @property
     def device(self) -> torch.device:

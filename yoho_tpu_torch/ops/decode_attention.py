@@ -47,7 +47,10 @@ KERNEL = CudaKernel(
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8, _INT4, _FLOAT = 0, 1, 2
-_HEAD_DIMS = (16, 64)  # the trained YOHO fixture; whisper and full-width YOHO
+# 64: whisper and the full-width YOHO model; 16, 32, 128: YOHO sessions,
+# whose K/V are floats (32 and 128 are built for float K/V only)
+_HEAD_DIMS = (16, 32, 64, 128)
+_INT_HEAD_DIMS = (16, 64)
 MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -161,6 +164,9 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
         raise ValueError("integer K/V need scales; float K/V take none")
     if d not in _HEAD_DIMS:
         raise ValueError(f"decode kernel head dim {d} not in {_HEAD_DIMS}")
+    if kind != _FLOAT and d not in _INT_HEAD_DIMS:
+        raise ValueError(f"decode kernel takes int8/int4 K/V at head dims "
+                         f"{_INT_HEAD_DIMS} only, got {d}")
     if kind != _FLOAT and (k_scale.shape != (b, hkv, 1, t)
                            or k_scale.dtype != torch.bfloat16
                            or v_scale.shape != k_scale.shape

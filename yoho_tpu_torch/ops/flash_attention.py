@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``ops/flash_attention.py::
 flash_attention``. Same (B, S, H, D) layout and unscaled inputs: pass
 ``scale``. ``kv_len`` masks the keys at and past it (padded keys), as the
 TPU kernel's ``kv_len`` does. At head dim 64 bf16 runs on Hopper's wgmma
-fed by TMA (sm_90a), f32 on FMAs; head dim 16 (the trained YOHO fixture)
-runs on FMAs in both types, and any other head dim raises. The wrapper
+fed by TMA (sm_90a), f32 on FMAs; head dims 16, 32 and 128 (YOHO
+sessions) run on FMAs in both types, and any other head dim raises. The wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.
 
@@ -33,7 +33,8 @@ KERNEL = CudaKernel(
     replaces="yoho_tpu/ops/flash_attention.py:116 _flash_forward_impl")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64)  # the trained YOHO fixture; whisper and full-width YOHO
+# 64: whisper and the full-width YOHO model; 16, 32, 128: YOHO sessions
+_HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = torch.finfo(torch.float32).min
 
 

@@ -14,10 +14,10 @@ it (``train/utils/config.py:33``, SURVEY.md §2.1).
 The port's copy of the JAX package's ``train/dataloader.py`` (``Dataloader``
 and ``TranscriptionDataloader``): batches are numpy arrays made on the host,
 as in the JAX package, and the same seed gives the same batches in both.
-``TranscriptionDataloader``'s YOHO targets come with the YOHO train stages
-(ROADMAP Queue 1 item 16, as do the ``AudioChunkDataloader`` and
-``SpeakerDataloader``); the whisper targets of
-``train/whisper_finetune.py`` need none of it.
+``TranscriptionDataloader`` renders the YOHO targets (stage 1, the
+``ASRTrainer``); ``train/whisper_finetune.py`` renders its own whisper
+targets. ``AudioChunkDataloader`` and ``SpeakerDataloader`` (stages 2-3)
+are not in the port yet (ROADMAP Queue 1 item 16, part B).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import bisect
 import datetime as dt
 import multiprocessing as mp
 import os
+import re
 import warnings
 from abc import ABC, abstractmethod
 from collections import OrderedDict
@@ -40,10 +41,16 @@ from yoho_tpu_torch.core.config import SessionConfig
 from yoho_tpu_torch.text.corpus import iter_transcripts
 from yoho_tpu_torch.text.srt import parse_srt
 from yoho_tpu_torch.text.standardize import standardize_text
+from yoho_tpu_torch.text.tokenizer import EOT, SOT, VOICEPRINT
 
 # Suffix search order = decode-cost order: raw/lossless fast paths first,
 # so a `yoho cache-corpus` FLAC sitting next to the original mp3/m4a wins
 # automatically (cli/cache_corpus.py).
+# Control-token-shaped spans in subtitle text ("<|endoftranscript|>", a
+# literal "<|t-5|>"): stripped from the data, so only the tokens the
+# targets inject are special.
+_SPECIALISH_RE = re.compile(r"<\|[^<>|]*\|>")
+
 AUDIO_SUFFIXES = (".npy", ".flac", ".wav", ".mp3", ".mp4", ".m4a", ".ogg", ".opus")
 
 
@@ -514,9 +521,70 @@ class TranscriptionDataloader(Dataloader):
 
     # ------------------------------------------------------------------
     def get_batch(self, idx: int):
-        """YOHO targets (timestamp and voiceprint tokens through the YOHO
-        tokenizer) come with the YOHO train stages; subclasses render their
-        own."""
-        from yoho_tpu_torch.infer.pipeline import _not_ported
+        """-> (audio (B, n_samples) f32, tokens (B, max_text_len) int32,
+        loss_mask (B, max_text_len) uint8), and with ``return_spans`` the
+        per-utterance sample spans (B, U, 2) int32 and their validity (B, U)
+        uint8, U = ``max_utterances``. Each utterance is rendered as
+        ``<|t-s|>text<|t-e|><|voiceprint|>`` after SOT (frames ``sample //
+        stft_hop``, clipped to the last frame), then EOT; targets are cut at
+        ``max_text_len``, and the mask zeroes padding and voiceprint slots."""
+        cfg = self.config.yoho
+        rng = np.random.default_rng((self.seed, self._epoch, idx))
+        i = idx * self.batch_size
 
-        _not_ported("YOHO training targets (the train stages)", 16)
+        samples = []
+        for k in range(self.batch_size):
+            if self.speechless_ratio > 0 and rng.uniform() < self.speechless_ratio:
+                samples.append(self._speechless_sample(rng))
+                continue
+            sample_idx = int(self.index_table[(i + k) % len(self.index_table)])
+            # Reject-and-advance, bounded by one wrap of the corpus.
+            for _attempt in range(int(self.sizes[-1])):
+                audio, utts = self._load_sample(rng, sample_idx)
+                if audio is not None:
+                    break
+                sample_idx = int((sample_idx + 1) % self.sizes[-1])
+            else:
+                raise RuntimeError(
+                    "every sample in the corpus exceeded n_samples after "
+                    "augmentation — clips are too long for "
+                    f"max_input_seconds={cfg.max_input_seconds:.1f}s")
+            samples.append((audio, utts))
+
+        audio_batch = np.stack([s[0] for s in samples])
+        tokens_batch = []
+        for _audio, utts in samples:
+            transcript = SOT
+            for start, end, content in utts:
+                sf = int(min(start // cfg.stft_hop, cfg.max_audio_len - 1))
+                ef = int(min(end // cfg.stft_hop, cfg.max_audio_len - 1))
+                content = _SPECIALISH_RE.sub("", content)
+                transcript += f"<|t-{sf}|>{content}<|t-{ef}|>{VOICEPRINT}"
+            transcript += EOT
+            tokens_batch.append(self.tokenizer.encode(transcript))
+
+        T = cfg.max_text_len
+        lengths = np.asarray([len(t) for t in tokens_batch])
+        tokens = np.zeros((self.batch_size, T), np.int32)
+        for r, t in enumerate(tokens_batch):
+            tokens[r, : min(len(t), T)] = t[:T]
+
+        loss_mask = np.zeros((self.batch_size, T), np.uint8)
+        vp_id = self.tokenizer.voiceprint_id
+        for r, L in enumerate(lengths):
+            loss_mask[r, : min(int(L), T)] = 1
+            loss_mask[r][tokens[r] == vp_id] = 0  # voiceprint slots carry no CE loss
+
+        if not self.return_spans:
+            return audio_batch, tokens, loss_mask
+
+        # Spans in the order of the voiceprint tokens: stage 4 pairs span u
+        # with the u-th <|voiceprint|> slot.
+        U = self.max_utterances
+        spans = np.zeros((self.batch_size, U, 2), np.int32)
+        span_valid = np.zeros((self.batch_size, U), np.uint8)
+        for r, (_audio, utts) in enumerate(samples):
+            for u, (start, end, _text) in enumerate(utts[:U]):
+                spans[r, u] = (max(0, start), min(cfg.n_samples, max(0, end)))
+                span_valid[r, u] = 1
+        return audio_batch, tokens, loss_mask, spans, span_valid

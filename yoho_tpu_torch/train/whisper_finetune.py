@@ -68,11 +68,15 @@ from yoho_tpu_torch.train.optim import (
     Adafactor,
     AdamW,
     MultiSteps,
-    apply_updates,
     trainable,
     warmup_cosine_decay_schedule,
 )
-from yoho_tpu_torch.train.trainer import masked_ce_loss, restore_train_state, unflatten_tree
+from yoho_tpu_torch.train.trainer import (
+    TrainLoop,
+    masked_ce_loss,
+    restore_train_state,
+    unflatten_tree,
+)
 
 
 def _shim_session(data_dir, cfg: WhisperConfig,
@@ -212,7 +216,7 @@ def _f32_tree(tree):
     return np.asarray(tree, np.float32)
 
 
-class WhisperFinetuner:
+class WhisperFinetuner(TrainLoop):
     """Fine-tune a Whisper model on an SRT corpus. ``params`` is a flax
     params tree (the JAX package's layout, e.g. ``train.checkpoint.
     load_params``) or a port ``Whisper`` module, which is trained in place
@@ -393,18 +397,8 @@ class WhisperFinetuner:
         return tree
 
     # ------------------------------------------------------------------
-    def _autocast(self):
-        return torch.autocast(self.device.type, dtype=self.compute_dtype,
-                              enabled=self.compute_dtype != torch.float32)
-
     def _mel(self, audio: torch.Tensor) -> torch.Tensor:
         return fused_whisper_log_mel(audio.float(), n_mels=self.cfg.n_mels)
-
-    def _place(self, batch):
-        audio, tokens, mask = (torch.from_numpy(np.asarray(x)) for x in batch[:3])
-        return (audio.to(self.device, torch.float32, non_blocking=True),
-                tokens.to(self.device, torch.long, non_blocking=True),
-                mask.to(self.device, torch.uint8, non_blocking=True))
 
     def _loss(self, model, mel, tokens, mask) -> torch.Tensor:
         with self._autocast():
@@ -417,19 +411,6 @@ class WhisperFinetuner:
         with torch.no_grad():
             mel = self._mel(audio)
         return self._loss(self.model, mel, tokens, mask)
-
-    def _train_step(self, audio, tokens, mask) -> torch.Tensor:
-        """One mini-step: loss, gradient, MultiSteps update. Returns the
-        loss (a device scalar, not read here)."""
-        loss = self._batch_loss(audio, tokens, mask)
-        params = [t for t, _ in self._train.values()]
-        grads = torch.autograd.grad(loss, params)
-        grads = {k: view(g) for (k, (_, view)), g in zip(self._train.items(), grads)}
-        updates = self.optimizer.update(grads, self.opt_state, self._leaves)
-        if updates is not None:
-            apply_updates(self._leaves, updates)
-        self.step += 1
-        return loss.detach()
 
     def _eval_context(self):
         """Full forwards with the merged weights: under LoRA each merge is
@@ -487,48 +468,10 @@ class WhisperFinetuner:
 
     # ------------------------------------------------------------------
     def run(self, progress: bool = False) -> Path:
-        acc = self.accumulated_batches
-        target_steps = self.updates * acc
-        ckpt = AsyncCheckpointer(self.checkpoint_path, install_sigterm=True)
-        pbar = None
-        if progress:
-            from tqdm import tqdm
-
-            pbar = tqdm(initial=self.step // acc, total=self.updates)
-        self.update_losses: List[float] = []
-        acc_loss, seen = None, 0
-        completed = False
-        try:
-            while self.step < target_steps:
-                step = self.step
-                batch = self._place(self.train_dataloader.get_prepared_batch())
-                loss = self._train_step(*batch).double()
-                acc_loss = loss if acc_loss is None else acc_loss + loss
-                seen += 1
-                if step % acc == acc - 1:
-                    update = (step + 1) // acc
-                    batch_loss = float(acc_loss) / max(seen, 1)  # one sync per update
-                    self.update_losses.append(batch_loss)
-                    acc_loss, seen = None, 0
-                    if pbar is not None:
-                        pbar.update()
-                        pbar.set_postfix_str(f"loss {batch_loss:.4e}")
-                    val_loss = None
-                    if (self.validation_frequency > 0
-                            and update % self.validation_frequency == 0):
-                        val_loss = self._validate(update)
-                        self._save_checkpoint(ckpt)
-                    self.metrics.log(update, self.lr_schedule(update), batch_loss, val_loss)
-            completed = True
-        finally:
-            self._save_checkpoint(ckpt)
-            ckpt.close()
-            self.train_dataloader.terminate()
-            self.val_dataloader.terminate()
-            if completed:
-                self.export()
-            if pbar is not None:
-                pbar.close()
+        """Train ``updates`` applied updates; ``update_losses`` keeps each
+        update's mean mini-step loss. Exports at the end."""
+        self._run_updates(self.updates, self.accumulated_batches, self.validation_frequency,
+                          progress, self.export)
         return self.out_dir
 
     def _save_checkpoint(self, ckpt: AsyncCheckpointer) -> None:
