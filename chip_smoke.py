@@ -221,6 +221,27 @@ Phases, one output line each (JSON after the phase name):
    against the CPU port in f32), and one batch of 16 each from seed-0
    random sessions at head dims 32 (dims 384, 12 heads) and 128 (dims 512,
    4 heads), each with one window against the CPU in f32 as in e2e-yoho.
+   Between stage 1's serving and MoE, the rest of the session's path: the
+   corpus tools (``import-corpus --speakers`` of a generic CSV of 8
+   speakers x 4 clips of 3-6 s, each speaker at its own pitch, into the
+   session's ``speakers/``; ``cache-corpus`` of the training corpus, the
+   stage-2 dataloader's files and batches unchanged and all FLAC;
+   ``split-tracks`` of one 60 s track, every subtitle whole inside one
+   chunk), then ``run-session 2``, ``3`` and ``4 --max-updates 1
+   --compute-dtype bf16`` at the default hyperparameters (16 mini-steps of
+   batch 16 each). Checks: one finite update loss each, the three exports
+   written, mel 1 and flash 6 / 4 / 16 launches per mini-step (decode 0,
+   w8a8 never); stage 3's encoder at its first step equal to stage 2's
+   export and stage 4's student to stage 1's, leaf for leaf; stage 4's
+   teacher bit-equal to stage 3's export after the run; one stage-4
+   batch's CE (2e-2 relative) and voiceprint loss (5e-2 absolute) on the
+   card against the CPU port in f32. It prints per stage ms per mini-step
+   (median and range after the first), trained audio-s/s,
+   ``max_memory_allocated`` (and what was held before) and the launches.
+   Stage 4's export (``weights.yoho``) is served by ``transcribe --session
+   --rttm`` over the same 16 windows (the served weights the export's in
+   bf16; segment voiceprints of 256 at unit norm, and the voiceprint head
+   teacher-forced on one window) and scored by ``score-diarization``.
 14. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
@@ -3071,7 +3092,9 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
     experts in encoder and decoder (two mini-steps, one batch of 16 served,
     one MoE layer on the card against the CPU port in f32), and one batch
     each of seed-0 random sessions at head dims 32 and 128 against the CPU
-    in f32. With ``trace`` the third mini-step of stage 1 is traced
+    in f32. Between the export's serving and MoE, the corpus tools and
+    stages 2-4 of the same session (``_corpus_tools``,
+    ``_train_stages_2_4``). With ``trace`` the third mini-step of stage 1 is traced
     (device time by kernel against the untraced steps' median). Returns the
     launches of its parts."""
     import copy
@@ -3215,6 +3238,10 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
             files=len(chosen), windows=windows, der=score["der"],
             segments=sum(len(json.loads(d)["segments"]) for d in docs))
 
+        # The corpus tools, then stages 2-4 on the same session.
+        report["corpus-tools"] = _corpus_tools(phase, tmp, corpus, root)
+        _train_stages_2_4(phase, measured, report, root, chosen, ref, tmp)
+
         # Mixture of experts: 8 experts in every other block of both stacks.
         _cli(["create-session", "moe", "--root", str(root)])
         moe_path = root / "moe" / "config.toml"
@@ -3270,6 +3297,291 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
     emit(phase, model="yoho default (dims 384, 6 heads on 3 KV heads, 4+4 blocks, 128 mels, "
                       "vocab 16000)", card=card, launches=total, **report)
     return total
+
+
+# Launches per mini-step of stages 2-4 (mel, flash attention forward): stage
+# 2 the encoder's 4 blocks and the VAE decoder's 2, stage 3 the encoder's 4,
+# stage 4 the student's 4 encoder + 4 causal + 4 cross and the teacher's 4
+# (its encoder once per batch, every span mask pooling its output).
+STAGE_LAUNCHES = {2: (1, 6), 3: (1, 4), 4: (1, 16)}
+
+
+def _speaker_csv(src: Path) -> None:
+    """A generic-CSV corpus for ``import-corpus --speakers``: 8 speakers x 4
+    clips of 3-6 s, each speaker a voiced tone (three harmonics, a 3 Hz
+    tremolo) at its own pitch in low noise, from the seed."""
+    import numpy as np
+
+    sr, rng = 16000, np.random.default_rng(SEED + 20)
+    (src / "clips").mkdir(parents=True)
+    rows = ["audio,transcript,speaker"]
+    for s in range(8):
+        f0 = 110.0 + 35.0 * s
+        for c in range(4):
+            t = np.arange(int(rng.uniform(3.0, 6.0) * sr)) / sr
+            x = sum(0.2 / h * np.sin(2 * np.pi * h * f0 * t) for h in (1, 2, 3))
+            x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) + 0.005 * rng.standard_normal(len(t))
+            _wav16(src / "clips" / f"s{s}_c{c}.wav", x.astype(np.float32))
+            rows.append(f"clips/s{s}_c{c}.wav,{TRAIN_WORDS[s]} {TRAIN_WORDS[c]},spk{s}")
+    (src / "index.csv").write_text("\n".join(rows) + "\n")
+
+
+def _corpus_tools(phase: str, tmp: Path, corpus: Path, root: Path) -> dict:
+    """``import-corpus --speakers`` of a generic CSV into the session's
+    ``speakers/`` layout (the session TOML pointed at it), ``cache-corpus``
+    of the training corpus (the stage-2 dataloader keeps one file per stem:
+    its files and batches unchanged, all FLAC), ``split-tracks`` of one 60 s
+    track (every subtitle whole inside one chunk)."""
+    import shutil
+    import wave
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.text.srt import parse_srt
+    from yoho_tpu_torch.train.dataloader import AudioChunkDataloader
+
+    t0 = time.perf_counter()
+    src, spk = tmp / "speaker_src", tmp / "speaker_corpus"
+    _speaker_csv(src)
+    _cli(["import-corpus", str(src), str(spk), "--format", "csv", "--audio-col", "audio",
+          "--text-col", "transcript", "--speaker-col", "speaker", "--speakers", "--copy", "-q"])
+    layout = {d.name: len(list(d.iterdir())) for d in (spk / "speakers").iterdir()}
+    if layout != {f"spk{s}": 4 for s in range(8)} or \
+            len(list((spk / "transcripts").iterdir())) != 32:
+        raise AssertionError(f"{phase}: import-corpus speakers/ layout {layout}")
+    cfg_path = root / "train" / "config.toml"
+    cfg_path.write_text(_edited(cfg_path.read_text(), (
+        ("'./asr_dataset/speakers'", f"'{spk / 'speakers'}'"),)))
+    config = load_session_config("train", root)
+
+    def chunks():
+        dl = AudioChunkDataloader(config, config.hyperparameters.reconstruct_pretrain.batch_size,
+                                  use_multiprocessing=False)
+        return dl.files, dl.get_num_batches(), len(dl.chunks)
+
+    files, batches, n_chunks = chunks()
+    _cli(["cache-corpus", str(corpus), "--workers", "1"])
+    files2, batches2, n_chunks2 = chunks()
+    if ([p.stem for p in files2] != [p.stem for p in files] or (batches2, n_chunks2)
+            != (batches, n_chunks) or any(p.suffix != ".flac" for p in files2)):
+        raise AssertionError(f"{phase}: cache-corpus: {len(files)} -> {len(files2)} files, "
+                             f"{batches} -> {batches2} batches")
+
+    split_src = tmp / "split_src"
+    track = sorted((corpus / "audio").glob("*.wav"))[0]
+    for sub, f in (("audio", track), ("transcripts", corpus / "transcripts" / f"{track.stem}.srt")):
+        (split_src / sub).mkdir(parents=True, exist_ok=True)
+        shutil.copy(f, split_src / sub / f.name)
+    _cli(["split-tracks", str(split_src), str(tmp / "split"), "--approx_duration", "20",
+          "--workers", "1"])
+    n_subs = len(list(parse_srt((split_src / "transcripts" / f"{track.stem}.srt").read_text())))
+    placed, n_split = 0, 0
+    for srt in sorted((tmp / "split" / "transcripts").iterdir()):
+        with wave.open(str(tmp / "split" / "audio" / f"{srt.stem}.wav")) as w:
+            seconds = w.getnframes() / w.getframerate()
+        n_split += 1
+        for c in parse_srt(srt.read_text()):
+            if not 0 <= c.start.total_seconds() < c.end.total_seconds() <= seconds:
+                raise AssertionError(f"{phase}: split-tracks chunk {srt.stem} ({seconds} s) "
+                                     f"cuts {c}")
+            placed += 1
+    if placed != n_subs or n_split < 2:
+        raise AssertionError(f"{phase}: split-tracks kept {placed} of {n_subs} subtitles "
+                             f"in {n_split} chunks")
+    return dict(wall_s=time.perf_counter() - t0, speakers=8, speaker_clips=32,
+                flac_files=len(files2), stage2_batches=batches2, stage2_chunks=n_chunks2,
+                split_chunks=n_split, subtitles=n_subs)
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A flax tree as {'/'-joined path: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_tree(v, p) if isinstance(v, dict) else {p: v})
+    return out
+
+
+def _leaves_equal(got: dict, want: dict) -> int:
+    """Leaf for leaf bit-equal flax trees (numpy leaves); the leaf count."""
+    import numpy as np
+
+    got, want = _flat_tree(got), _flat_tree(want)
+    bad = sorted(k for k in got
+                 if k not in want or not np.array_equal(np.asarray(got[k]), np.asarray(want[k])))
+    if bad or set(got) != set(want):
+        raise AssertionError(f"leaves differ: {bad[:5]}, keys {sorted(set(got) ^ set(want))[:5]}")
+    return len(got)
+
+
+def _train_stages_2_4(phase: str, measured, report: dict, root: Path, chosen, ref: Path,
+                      tmp: Path) -> None:
+    """``run-session 2``, ``3`` and ``4 --max-updates 1 --compute-dtype bf16``
+    of the default session ``train`` at its hyperparameters (batch 16 x 16
+    accumulated: 16 mini-steps each), each mini-step timed between
+    synchronizations and its launches checked against ``STAGE_LAUNCHES``;
+    stage 3's encoder at its first step equal to stage 2's export, stage
+    4's student at its first step equal to stage 1's export and its teacher
+    bit-unchanged (stage 3's export) after the run; one stage-4 batch's CE
+    and voiceprint loss on the card against the CPU port in f32; stage 4's
+    export served with ``--rttm`` and scored."""
+    import copy
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import jax_leaves, to_jax_params
+    from yoho_tpu_torch.train.checkpoint import load_params
+    from yoho_tpu_torch.train.stages.stage2_reconstruction import ReconstructionTrainer
+    from yoho_tpu_torch.train.stages.stage3_voiceprint import VoiceprintTrainer
+    from yoho_tpu_torch.train.stages.stage4_joint_finetune import JointTrainer
+
+    config = load_session_config("train", root)
+    cfg, hps = config.yoho, config.hyperparameters
+    hp_of = {2: hps.reconstruct_pretrain, 3: hps.voiceprint_finetune,
+             4: hps.transcribe_finetune}
+    slot_of = {2: config.weights.voice_reconstruction, 3: config.weights.voiceprint,
+               4: config.weights.yoho}
+
+    def stage(n, cls, probe):
+        label, step_ms, seen = f"stage-{n}", [], {}
+        real = cls._train_step
+
+        def timed_step(self, *a):
+            if not step_ms:
+                seen["trainer"], seen["probe"] = self, probe(self)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = real(self, *a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return loss
+
+        cls._train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        try:
+            measured(label, lambda: _cli(
+                ["run-session", "train", str(n), "--root", str(root), "--max-updates", "1",
+                 "--compute-dtype", "bf16"]), want=("mel_log_spectrogram",
+                                                    "flash_attention_forward"))
+        finally:
+            cls._train_step = real
+        peak = torch.cuda.max_memory_allocated()
+        hp = hp_of[n]
+        rows = [line.split(",") for line in
+                (config.path / "stages" / str(n) / "metrics.csv").read_text().splitlines()[1:]]
+        losses = [float(r[2]) for r in rows]
+        launches = report[label]["launches"]
+        per_step = {k: v / max(len(step_ms), 1) for k, v in launches.items()}
+        mel, flash = STAGE_LAUNCHES[n]
+        if (len(rows) != 1 or not all(np.isfinite(losses)) or len(step_ms)
+                != hp.accumulated_batches or not slot_of[n].exists()
+                or (per_step["mel_log_spectrogram"], per_step["flash_attention_forward"],
+                    per_step["decode_attention"]) != (mel, flash, 0)):
+            raise AssertionError(f"{phase}: {label} rows {rows}, {len(step_ms)} mini-steps, "
+                                 f"launches per mini-step {per_step}")
+        after_first = step_ms[1:]
+        report[label].update(
+            batch=hp.batch_size, accumulated=hp.accumulated_batches, mini_steps=len(step_ms),
+            update_losses=losses, step_ms_first=step_ms[0],
+            step_ms_median=statistics.median(after_first),
+            step_ms_range=[min(after_first), max(after_first)],
+            trained_audio_s_per_s=hp.batch_size * cfg.max_input_seconds
+            / (statistics.median(after_first) / 1e3),
+            max_memory_allocated=peak, memory_held_before=held,
+            launches_per_mini_step=per_step, export=slot_of[n].name)
+        return seen
+
+    stage(2, ReconstructionTrainer, lambda tr: None)
+    s3 = stage(3, VoiceprintTrainer, lambda tr: _leaves_equal(
+        to_jax_params(tr.model.encoder),
+        load_params(config.weights.voice_reconstruction)["encoder"]))
+    report["stage-3"]["warm_start_leaves_equal_stage2_encoder"] = s3["probe"]
+    s4 = stage(4, JointTrainer, lambda tr: _leaves_equal(
+        to_jax_params(tr.model), load_params(config.weights.asr)))
+    tr = s4.pop("trainer")
+    teacher = _leaves_equal(to_jax_params(tr.teacher), load_params(config.weights.voiceprint))
+
+    # One batch's CE and voiceprint loss: the card (bf16 autocast) against a
+    # float32 copy of the trained model and teacher on the CPU.
+    batch = tr.train_dataloader.get_batch(0)
+    with torch.no_grad():
+        card_losses = [float(x) for x in tr._losses(*tr._place(batch))]
+        cpu = copy.copy(tr)
+        cpu.device, cpu.compute_dtype = torch.device("cpu"), torch.float32
+        cpu.model, cpu.teacher = copy.deepcopy(tr.model).cpu(), copy.deepcopy(tr.teacher).cpu()
+        cpu_losses = [float(x) for x in cpu._losses(*cpu._place(batch))]
+    del cpu, tr
+    (ce, vp), (ce_ref, vp_ref) = card_losses, cpu_losses
+    if not (np.isfinite(card_losses).all() and abs(ce - ce_ref) <= 2e-2 * abs(ce_ref)
+            and abs(vp - vp_ref) <= 5e-2):
+        raise AssertionError(f"{phase}: stage-4 losses card {card_losses}, CPU {cpu_losses}")
+    report["stage-4"].update(
+        student_start_leaves_equal_stage1_export=s4["probe"],
+        teacher_leaves_unchanged=teacher,
+        batch_losses=dict(card_bf16=dict(ce=ce, voiceprint=vp),
+                          cpu_f32=dict(ce=ce_ref, voiceprint=vp_ref),
+                          tolerance="CE 2e-2 relative, voiceprint loss 5e-2 absolute "
+                                    "(bf16 card vs f32 CPU)"))
+
+    # Stage 4's export served (transcribe --session prefers weights.yoho):
+    # the served weights are the export's in bf16, every segment carries a
+    # unit voiceprint of 256; the RTTM scores against the SRTs' (ref).
+    served, many = [], Transcriber.transcribe_many
+
+    def recording(t, *a, **k):
+        served.append(t)
+        return many(t, *a, **k)
+
+    hyp = tmp / "hyp-stage4"
+    Transcriber.transcribe_many = recording
+    try:
+        docs = measured("transcribe-stage-4", lambda: _cli(
+            ["transcribe", *chosen, "--session", "train", "--root", str(root), "--batch",
+             str(BATCH), "--rttm", str(hyp), "--json"])).splitlines()
+    finally:
+        Transcriber.transcribe_many = many
+    # Each served tensor is the export's leaf in that tensor's type (bf16
+    # matrices, float32 norm scales).
+    export = _flat_tree(load_params(config.weights.yoho))
+    served_leaves = jax_leaves(served[0].model)
+    bad = [k for k, t in served_leaves.items() if not torch.equal(
+        t.detach().cpu(), torch.from_numpy(np.array(export[k])).to(t.dtype))]
+    if bad or set(served_leaves) != set(export):
+        raise AssertionError(f"{phase}: the served weights are not weights.yoho: {bad[:5]}")
+    segments = [seg for d in docs for seg in json.loads(d)["segments"]]
+    norms = [float(np.linalg.norm(seg["voiceprint"])) for seg in segments]
+    if (len(docs) != len(chosen) or served[0].model.voiceprint_dim != 256
+            or any(len(seg["voiceprint"]) != 256 for seg in segments)
+            or not all(abs(n - 1) < 1e-2 for n in norms)):
+        raise AssertionError(f"{phase}: stage-4 export served: {len(docs)} docs, norms {norms}")
+    # The served voiceprint head on one window, teacher-forced from SOT at
+    # every position (the random-weight run may decode no segment).
+    from yoho_tpu_torch.audio.io import load_audio_f32
+    from yoho_tpu_torch.ops.mel_kernel import fused_yoho_log_mel
+
+    window = np.zeros((1, cfg.n_samples), np.float32)
+    audio = load_audio_f32(chosen[0], cfg.sample_rate)[: cfg.n_samples]
+    window[0, : len(audio)] = audio
+    dev = served[0].model.device
+    with torch.inference_mode():
+        mel = fused_yoho_log_mel(torch.as_tensor(window, device=dev), cfg)
+        tokens = torch.full((1, cfg.max_text_len), served[0].tokenizer.sot_id,
+                            dtype=torch.long, device=dev)
+        vp = served[0].model.forward_with_voiceprints(tokens, mel)[1].float()
+    vp_norm = vp.norm(dim=-1)
+    if vp.shape[-1] != 256 or not bool(((vp_norm - 1).abs() < 1e-2).all()):
+        raise AssertionError(f"{phase}: served voiceprints {tuple(vp.shape)}, norms "
+                             f"{float(vp_norm.min())}-{float(vp_norm.max())}")
+    score = json.loads(_cli(["score-diarization", str(ref), str(hyp), "--json"])
+                       .splitlines()[-1])
+    report["transcribe-stage-4"].update(
+        files=len(chosen), segments=len(segments), segment_voiceprints=len(norms),
+        voiceprint_dim=int(vp.shape[-1]), teacher_forced_voiceprints=int(vp.shape[1]),
+        der=score["der"])
 
 
 def _tone_clip(s: int, n_samples: int):

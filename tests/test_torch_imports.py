@@ -62,7 +62,14 @@ def test_every_module_imports_without_jax():
             # YOHO scoring, MoE and the session commands.
             "yoho_tpu_torch.nn.moe", "yoho_tpu_torch.eval.diarization",
             "yoho_tpu_torch.cli.score_diarization", "yoho_tpu_torch.cli.summary",
-            "yoho_tpu_torch.cli.create_session", "yoho_tpu_torch.cli.run_session"} <= set(mods)
+            "yoho_tpu_torch.cli.create_session", "yoho_tpu_torch.cli.run_session",
+            # Training stages 2-4 and the corpus tools.
+            "yoho_tpu_torch.nn.reconstruction",
+            "yoho_tpu_torch.train.stages.stage2_reconstruction",
+            "yoho_tpu_torch.train.stages.stage3_voiceprint",
+            "yoho_tpu_torch.train.stages.stage4_joint_finetune",
+            "yoho_tpu_torch.cli.import_corpus", "yoho_tpu_torch.cli.cache_corpus",
+            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics"} <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -81,12 +88,20 @@ def test_training_modules_import_none_of_the_jax_stack():
             # YOHO session training (stages 0-1).
             "yoho_tpu_torch.train.session",
             "yoho_tpu_torch.train.stages.stage0_tokenizer",
-            "yoho_tpu_torch.train.stages.stage1_asr_pretrain"]
+            "yoho_tpu_torch.train.stages.stage1_asr_pretrain",
+            # Stages 2-4 and the corpus tools (matplotlib only when plotting).
+            "yoho_tpu_torch.nn.reconstruction",
+            "yoho_tpu_torch.train.stages.stage2_reconstruction",
+            "yoho_tpu_torch.train.stages.stage3_voiceprint",
+            "yoho_tpu_torch.train.stages.stage4_joint_finetune",
+            "yoho_tpu_torch.cli.import_corpus", "yoho_tpu_torch.cli.cache_corpus",
+            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics"]
     assert set(mods) <= set(_modules())
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = ('jax', 'flax', 'optax', 'msgpack', 'safetensors', 'ml_dtypes', 'yoho_tpu')\n"
+        "bad = ('jax', 'flax', 'optax', 'msgpack', 'safetensors', 'ml_dtypes', 'yoho_tpu',\n"
+        "       'matplotlib')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in bad)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)

@@ -235,8 +235,11 @@ def test_save_params_is_read_by_the_jax_package(tmp_path):
     assert tck.load_params(tmp_path / "absent.msgpack") is None
     back = tck.load_params(path, _f32_tree(tree))
     assert dict(_flat(back)).keys() == dict(_flat(tree)).keys()
+    # As flax's from_state_dict: saved keys the template lacks are ignored,
+    # a template key the saved tree lacks raises.
+    assert tck.load_params(path, {"encoder": {}}) == {"encoder": {}}
     with pytest.raises(ValueError, match="keys"):
-        tck.load_params(path, {"encoder": {}})
+        tck.load_params(path, {"encoder": {}, "absent": {}})
 
 
 def _f32_tree(tree):

@@ -18,7 +18,8 @@ trains in its own session directory. Checked, on the CPU:
   resumes at the checkpointed step, and ``weights.asr`` loads in JAX's
   ``load_params`` and serves through ``load_transcriber``;
 * ``create-session``, ``run-session`` 0 and 1 through the command line;
-  stages 2-4 exit naming their ROADMAP item.
+  stages 3 and 4 stop as JAX's do without their inputs
+  (``tests/test_torch_yoho_stages.py`` trains stages 2-4).
 """
 
 import contextlib
@@ -325,7 +326,8 @@ def test_checkpoint_resume_and_export(short_runs):
 
 def test_run_session_command_line(corpus, tmp_path, capsys):
     """create-session, run-session 0 and 1 (one update) in the port;
-    stages 2-4 name their item."""
+    stage 3 needs a speakers corpus and stage 4 stage 3's export, and
+    without them both raise ``FileNotFoundError``."""
     from yoho_tpu_torch.cli.__main__ import main
 
     root = tmp_path / "sessions"
@@ -338,9 +340,9 @@ def test_run_session_command_line(corpus, tmp_path, capsys):
                  "--device", "cpu"]) == 0
     assert (root / "cli" / "weights" / "asr.ckpt").exists()
     assert len((root / "cli" / "stages" / "1" / "metrics.csv").read_text().splitlines()) == 2
-    for stage in ("2", "3", "4"):
-        assert main(["run-session", "cli", stage, "--root", str(root)]) == 2
-        assert "Queue 1 item 16" in capsys.readouterr().err
+    for stage, missing in (("3", "speaker dirs"), ("4", "stage-3 voiceprint artifact")):
+        with pytest.raises(FileNotFoundError, match=missing):
+            main(["run-session", "cli", stage, "--root", str(root), "--device", "cpu"])
 
 
 def test_trainer_refuses_a_mesh_and_long_context(sessions):

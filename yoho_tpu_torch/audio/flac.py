@@ -610,6 +610,36 @@ def encode_flac(samples: np.ndarray, sample_rate: int, bps: int = 16,
     return bytes(out)
 
 
+def flac_stream_info(data: bytes) -> Tuple[int, int, int, int]:
+    """``(sample_rate, channels, bps, total_samples)`` from the mandatory
+    STREAMINFO block — header-only, no frame decode; ``data`` may be just
+    the file's first 42+ bytes. ``total_samples == 0`` means "unknown"
+    per the spec. Raises ``ValueError`` on ANY malformed/truncated input
+    (the single exception contract ``decode_flac`` also keeps).
+
+    The one STREAMINFO parser shared by the full decoder below and
+    header-only consumers (``cli/import_corpus.probe_duration``)."""
+    try:
+        if data[:4] != b"fLaC":
+            raise ValueError("not a FLAC stream")
+        r = BitReader(data)
+        r.pos = 32
+        r.bits(1)  # last-block flag
+        if r.bits(7) != 0:
+            raise ValueError("first metadata block is not STREAMINFO")
+        r.bits(24)  # block length
+        r.bits(16); r.bits(16); r.bits(24); r.bits(24)  # blocksizes/framesizes
+        sr = r.bits(20)
+        nch = r.bits(3) + 1
+        bps = r.bits(5) + 1
+        total = r.bits(36)
+        if sr == 0:
+            raise ValueError("STREAMINFO sample rate 0 is invalid")
+        return sr, nch, bps, total
+    except (IndexError, OverflowError) as e:
+        raise ValueError(f"truncated FLAC header: {e}") from e
+
+
 def decode_flac(data: bytes) -> Tuple[np.ndarray, int, int]:
     """Decode a FLAC stream -> ((n, channels) int32, sample_rate, bps).
 

@@ -1,9 +1,8 @@
 """Umbrella CLI: ``yoho-torch <command> ...`` (also ``python -m
 yoho_tpu_torch.cli`` and ``python -m yoho_tpu_torch``).
 
-The JAX package's command table. The commands the port has run; each
-command it does not have yet exits non-zero with a message naming the
-ROADMAP.md item that brings it.
+The JAX package's command table: every command of the JAX package runs in
+the port.
 """
 
 from __future__ import annotations
@@ -20,13 +19,16 @@ COMMANDS = {
     "distill": ("yoho_tpu_torch.cli.distill",
                 "Distill a small draft Whisper for speculative decoding"),
     "create-session": ("yoho_tpu_torch.cli.create_session", "Scaffold a training session"),
-    "run-session": ("yoho_tpu_torch.cli.run_session",
-                    "Run a training stage (0-1; 2-4 not ported: Queue 1 item 16)"),
-    "plot-metrics": (15, "Live metrics dashboard for a session"),
-    "split-tracks": (15, "Split long (audio, SRT) pairs into chunks"),
-    "cache-corpus": (15, "Transcode a corpus to FLAC for fast decode"),
-    "import-corpus": (15, "Import CommonVoice/LibriSpeech/LJSpeech/CSV "
-                          "corpora into the SRT training layout"),
+    "run-session": ("yoho_tpu_torch.cli.run_session", "Run a training stage (0-4)"),
+    "plot-metrics": ("yoho_tpu_torch.cli.plot_metrics",
+                     "Live metrics dashboard for a session"),
+    "split-tracks": ("yoho_tpu_torch.cli.split_tracks",
+                     "Split long (audio, SRT) pairs into chunks"),
+    "cache-corpus": ("yoho_tpu_torch.cli.cache_corpus",
+                     "Transcode a corpus to FLAC for fast decode"),
+    "import-corpus": ("yoho_tpu_torch.cli.import_corpus",
+                      "Import CommonVoice/LibriSpeech/LJSpeech/CSV "
+                      "corpora into the SRT training layout"),
     "summary": ("yoho_tpu_torch.cli.summary", "Model/param summary"),
     "enroll": ("yoho_tpu_torch.cli.enroll",
                "Enroll speaker voiceprints for recognition"),
@@ -42,9 +44,8 @@ COMMANDS = {
 def _usage() -> str:
     lines = ["usage: yoho-torch <command> [args...]", "", "commands:"]
     width = max(map(len, COMMANDS))
-    for name, (target, desc) in COMMANDS.items():
-        note = "" if isinstance(target, str) else f"  (not ported: Queue 1 item {target})"
-        lines.append(f"  {name:<{width}}  {desc}{note}")
+    for name, (_module, desc) in COMMANDS.items():
+        lines.append(f"  {name:<{width}}  {desc}")
     lines.append("")
     lines.append("run 'yoho-torch <command> --help' for command arguments")
     return "\n".join(lines)
@@ -61,16 +62,7 @@ def main(argv=None) -> int:
             print(f"yoho-torch: unknown command {name!r}\n\n{_usage()}",
                   file=sys.stderr)
             return 2
-        target = COMMANDS[name][0]
-        if not isinstance(target, str):
-            from yoho_tpu_torch.infer.pipeline import _not_ported
-
-            try:
-                _not_ported(f"the {name} command", target)
-            except NotImplementedError as e:
-                print(f"yoho-torch: {e}", file=sys.stderr)
-            return 2
-        module = importlib.import_module(target)
+        module = importlib.import_module(COMMANDS[name][0])
         return module.main(argv[1:]) or 0
     except BrokenPipeError:  # e.g. `yoho-torch --help | head`
         return 0

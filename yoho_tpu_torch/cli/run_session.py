@@ -1,11 +1,11 @@
 """``yoho-torch run-session``: start or resume a training stage of a
 session (the JAX package's ``cli/run_session.py``).
 
-Stage 0 trains the tokenizer and stage 1 pretrains transcription
-(``ASRTrainer``), on the GPU unless ``--device cpu``. Stages 2-4 (voice
-reconstruction, the voiceprint encoder, joint fine-tuning) are not in the
-port yet and exit naming ROADMAP.md Queue 1 item 16 (its part B). A
-device mesh is item 11: this runs on one device.
+Stage 0 trains the tokenizer (on the host); stages 1-4 (transcription
+pretraining, voice reconstruction, the voiceprint encoder, joint
+fine-tuning) train on the GPU unless ``--device cpu``, at ``--compute-dtype``
+under autocast. A device mesh is ROADMAP.md Queue 1 item 11: this runs on
+one device.
 
 Usage: ``python -m yoho_tpu_torch.cli run-session <name> <stage 0-4>
           [--root ./sessions] [--max-updates N] [--compute-dtype bf16]``
@@ -14,8 +14,8 @@ Usage: ``python -m yoho_tpu_torch.cli run-session <name> <stage 0-4>
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
-import sys
 from dataclasses import asdict
 
 import torch
@@ -24,11 +24,13 @@ STAGE_HELP = (
     "Stage of training to start/resume:\n"
     "\t0 - Train tokenizer\n"
     "\t1 - Pretrain transcription without voiceprints\n"
-    "\t2 - Train voice reconstruction (not in the port yet)\n"
-    "\t3 - Finetune voiceprint encoder (not in the port yet)\n"
-    "\t4 - Finetune transcription with voiceprints (not in the port yet)"
+    "\t2 - Train voice reconstruction\n"
+    "\t3 - Finetune voiceprint encoder\n"
+    "\t4 - Finetune transcription with voiceprints"
 )
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+_STAGE_MODULES = {1: "stage1_asr_pretrain", 2: "stage2_reconstruction",
+                  3: "stage3_voiceprint", 4: "stage4_joint_finetune"}
 
 
 def main(argv=None):
@@ -48,16 +50,6 @@ def main(argv=None):
                              "parameters and optimizer state either way)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    if args.stage >= 2:
-        from yoho_tpu_torch.infer.pipeline import _not_ported
-
-        try:
-            _not_ported(f"training stage {args.stage} (stages 2-4: "
-                        "nn/reconstruction.py and the stage 2-4 trainers)", 16)
-        except NotImplementedError as e:
-            print(f"yoho-torch run-session: {e}", file=sys.stderr)
-            return 2
-
     config = load_session_config(args.name, args.root)
     print("Loaded config:")
     print(json.dumps(asdict(config), indent=4, default=str))
@@ -66,8 +58,8 @@ def main(argv=None):
 
         stage_main(config)
     else:
-        from yoho_tpu_torch.train.stages.stage1_asr_pretrain import main as stage_main
-
+        stage_main = importlib.import_module(
+            f"yoho_tpu_torch.train.stages.{_STAGE_MODULES[args.stage]}").main
         stage_main(config, max_updates=args.max_updates, device=cli_device(args),
                    compute_dtype=_DTYPES[args.compute_dtype])
     return 0

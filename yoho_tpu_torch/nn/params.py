@@ -3,7 +3,8 @@ seed.
 
 A flax ``params`` tree (nested dicts of numpy arrays, as
 ``train/checkpoint.py::load_params`` returns it after ``jax.device_get``)
-maps onto the PyTorch modules by name: ``blocks_3`` -> ``blocks.3``, and the
+maps onto the PyTorch modules by name: ``blocks_3`` -> ``blocks.3`` (the
+VAE's ``dec_blocks_0`` -> ``dec_blocks.0``), and the
 leaves by kind:
 
 * a ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in);
@@ -57,7 +58,7 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 def _torch_name(path: tuple) -> str:
     *mods, leaf = path
-    mods = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", m) for m in mods]
+    mods = [re.sub(r"^((?:dec_)?blocks)_(\d+)$", r"\1.\2", m) for m in mods]
     leaf = {"kernel": "weight", "scale": "weight", "embedding": "weight",
             "kernel_q": "weight_q", "kernel_scale": "weight_scale",
             "embedding_q": "weight_q",
@@ -88,8 +89,9 @@ def _torch_layout(leaf: str, arr: np.ndarray, ndim: int) -> np.ndarray:
 
 
 def _jax_module_path(name: str) -> Tuple[str, ...]:
-    """``encoder.blocks.3.attn`` -> ('encoder', 'blocks_3', 'attn')."""
-    return tuple(re.sub(r"(^|\.)blocks\.(\d+)", r"\1blocks_\2", name).split(".")) \
+    """``encoder.blocks.3.attn`` -> ('encoder', 'blocks_3', 'attn'); the
+    VAE's ``dec_blocks.0`` -> 'dec_blocks_0'."""
+    return tuple(re.sub(r"(^|\.)((?:dec_)?blocks)\.(\d+)", r"\1\2_\3", name).split(".")) \
         if name else ()
 
 

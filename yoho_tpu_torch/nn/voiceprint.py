@@ -5,7 +5,8 @@ over time (optionally under a per-frame mask) and projected into an
 L2-normalized speaker embedding; ``nt_xent_loss`` is supervised NT-Xent
 (clips of the same speaker are positives). Whisper-family diarization
 (``--diarize-session``) and ``enroll --diarize-session`` embed audio spans
-with it.
+with it; stage 3 trains it, and stage 4's frozen teacher embeds every
+utterance span of a batch from one encoder pass (:meth:`embed_spans`).
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ from yoho_tpu_torch.nn.yoho import YOHOAudioEncoder, l2_normalize
 
 class VoiceprintEncoder(nn.Module):
     def __init__(self, cfg: YOHOConfig, embedding_dim: int = 256,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.embedding_dim = embedding_dim
-        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device)
+        self.encoder = YOHOAudioEncoder(cfg, dtype=dtype, device=device, remat=remat)
         self.proj = nn.Linear(cfg.dims, embedding_dim, bias=False, dtype=dtype,
                               device=device)
 
@@ -39,16 +40,21 @@ class VoiceprintEncoder(nn.Module):
                 time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T_mel, M) [+ a (B, T_mel) frame mask] -> (B, E), unit norm.
         The mask pools to the encoder's rate (two mel frames a position)."""
-        h = self.encoder(mel)  # (B, T_mel // 2, D)
         if time_mask is not None:
-            m = time_mask.to(h.dtype)
-            t2 = h.shape[1]
-            m = m[:, : 2 * t2].reshape(m.shape[0], t2, 2).amax(dim=-1)
-            denom = torch.clamp_min(m.sum(dim=1, keepdim=True), 1.0)
-            pooled = (h * m[:, :, None]).sum(dim=1) / denom
-        else:
-            pooled = h.mean(dim=1)
-        return l2_normalize(self.proj(pooled))
+            return self.embed_spans(mel, time_mask[:, None])[:, 0]
+        return l2_normalize(self.proj(self.encoder(mel).mean(dim=1)))
+
+    def embed_spans(self, mel: torch.Tensor, time_masks: torch.Tensor) -> torch.Tensor:
+        """(B, T_mel, M) and U frame masks (B, U, T_mel) -> (B, U, E): one
+        encoder pass, then each mask's pooled embedding, equal to
+        ``forward(mel, time_masks[:, u])`` for every u (the mask enters
+        only the pooling)."""
+        h = self.encoder(mel)  # (B, T_mel // 2, D)
+        m = time_masks.to(h.dtype)
+        t2 = h.shape[1]
+        m = m[..., : 2 * t2].unflatten(-1, (t2, 2)).amax(dim=-1)  # (B, U, T2)
+        denom = torch.clamp_min(m.sum(dim=-1, keepdim=True), 1.0)
+        return l2_normalize(self.proj(torch.bmm(m, h) / denom))
 
 
 def nt_xent_loss(embeddings: torch.Tensor, speaker_ids: torch.Tensor,

@@ -56,13 +56,17 @@ def _write(path: Path, tree) -> None:
 
 
 def _restore(template, state, where: str = "params"):
-    """flax's ``from_state_dict`` for nested dicts: the same keys at every
-    level, a leaf's shape kept; the leaves come from ``state``."""
+    """flax's ``from_state_dict`` for nested dicts: every template key must
+    be in the saved tree (``ValueError`` otherwise), saved keys the template
+    lacks are ignored (stage 3 takes the ``encoder`` out of the stage-2
+    artifact this way); the leaves come from ``state``. Unlike flax, a
+    leaf of another shape than the template's raises ``ValueError``."""
     if isinstance(template, dict):
-        if not isinstance(state, dict) or set(map(str, template)) != set(state):
-            have = sorted(state) if isinstance(state, dict) else type(state).__name__
-            raise ValueError(f"the saved tree at {where} has keys {have}, the "
-                             f"template {sorted(map(str, template))}")
+        missing = (sorted(set(map(str, template)) - set(state))
+                   if isinstance(state, dict) else type(state).__name__)
+        if missing:
+            raise ValueError(f"the saved tree at {where} lacks the template's "
+                             f"keys {missing}")
         return {k: _restore(v, state[str(k)], f"{where}/{k}") for k, v in template.items()}
     shape = tuple(getattr(template, "shape", ()))
     if tuple(getattr(state, "shape", ())) != shape:
@@ -274,8 +278,8 @@ def save_params(path, params) -> None:
 
 def load_params(path, template=None):
     """Restore a params artifact (the JAX package's or the port's); None if
-    absent. With a ``template`` the tree must match it key for key and
-    shape for shape, as flax's ``from_state_dict`` requires."""
+    absent. With a ``template`` the result is the saved tree cut to the
+    template's keys, each of the template's shape (:func:`_restore`)."""
     path = Path(path)
     if not path.exists():
         return None

@@ -16,8 +16,8 @@ and ``TranscriptionDataloader``): batches are numpy arrays made on the host,
 as in the JAX package, and the same seed gives the same batches in both.
 ``TranscriptionDataloader`` renders the YOHO targets (stage 1, the
 ``ASRTrainer``); ``train/whisper_finetune.py`` renders its own whisper
-targets. ``AudioChunkDataloader`` and ``SpeakerDataloader`` (stages 2-3)
-are not in the port yet (ROADMAP Queue 1 item 16, part B).
+targets. ``AudioChunkDataloader`` (stage 2) and ``SpeakerDataloader``
+(stage 3) draw from the same per-batch numpy streams as JAX's.
 """
 
 from __future__ import annotations
@@ -588,3 +588,136 @@ class TranscriptionDataloader(Dataloader):
                 spans[r, u] = (max(0, start), min(cfg.n_samples, max(0, end)))
                 span_valid[r, u] = 1
         return audio_batch, tokens, loss_mask, spans, span_valid
+
+
+# ---------------------------------------------------------------------------
+class AudioChunkDataloader(Dataloader):
+    """Audio-only fixed-length chunks from the noisy+clean corpora (stage 2
+    reconstruction pretraining needs no transcripts)."""
+
+    def __init__(self, config: SessionConfig, batch_size: int, seed: int = 0,
+                 augment: bool = False, dirs: Optional[Sequence[Path]] = None,
+                 shard: Tuple[int, int] = (0, 1), **kwargs):
+        self.config = config
+        self.seed = seed
+        self.augment = augment
+        self.shard = shard
+        cfg = config.yoho
+
+        files: List[Path] = []
+        for d in (dirs or [config.dataset.noisy, config.dataset.clean]):
+            files += list_audio_files(Path(d) / "audio")
+        if not files:
+            raise FileNotFoundError(
+                f"No audio files under {[str(d) for d in (dirs or [])] or 'noisy/clean'}"
+            )
+
+        self.files = files
+        # Chunk index: (file_idx, chunk_idx) pairs, computed from durations
+        # (cached decode: get_batch re-reads the same files immediately).
+        self.chunks: List[Tuple[int, int]] = []
+        for fi, f in enumerate(files):
+            audio = self._cached_audio(f, cfg.sample_rate)
+            n = max(1, len(audio) // cfg.n_samples)
+            self.chunks += [(fi, ci) for ci in range(n)]
+        if shard[1] > 1:
+            # Multi-host: disjoint chunk stride per process.
+            sharded = self.chunks[shard[0]::shard[1]]
+            if not sharded:
+                raise ValueError(
+                    f"{len(self.chunks)} chunks — fewer than the "
+                    f"{shard[1]} processes sharding them")
+            self.chunks = sharded
+        super().__init__(batch_size, **kwargs)
+
+    def get_num_batches(self) -> int:
+        return max(1, len(self.chunks) // self.batch_size)
+
+    def get_batch(self, idx: int):
+        cfg = self.config.yoho
+        # Fold the epoch so augmentation noise differs across epochs
+        # (chunks themselves are deterministic slices).
+        rng = np.random.default_rng((self.seed, self._epoch, idx))
+        out = np.zeros((self.batch_size, cfg.n_samples), np.float32)
+        for k in range(self.batch_size):
+            fi, ci = self.chunks[(idx * self.batch_size + k) % len(self.chunks)]
+            audio = self._cached_audio(self.files[fi], cfg.sample_rate)
+            start = ci * cfg.n_samples
+            clip = audio[start : start + cfg.n_samples]
+            if self.augment:
+                clip = augmenter(clip, cfg.sample_rate, rng)[: cfg.n_samples]
+            out[k, : len(clip)] = clip
+        return (out,)
+
+
+class SpeakerDataloader(Dataloader):
+    """Speaker-labeled clips for contrastive training (stage 3).
+
+    Dataset layout: ``dataset.speakers/<speaker_name>/*.wav``. Each batch
+    holds ``batch_size // clips_per_speaker`` distinct speakers with
+    ``clips_per_speaker`` (augmented) clips each -> in-batch positives.
+    Returns (audio (B, n_samples) f32, speaker_ids (B,) int32).
+    """
+
+    def __init__(self, config: SessionConfig, batch_size: int,
+                 clips_per_speaker: int = 2, seed: int = 0, augment: bool = True,
+                 shard: Tuple[int, int] = (0, 1), **kwargs):
+        if batch_size % clips_per_speaker:
+            raise ValueError(
+                f"per-process batch size {batch_size} must be divisible "
+                f"by clips_per_speaker={clips_per_speaker} (on a cluster "
+                "the global batch_size is divided by process_count first, "
+                "so batch_size/process_count must divide it)")
+        self.config = config
+        self.clips_per_speaker = clips_per_speaker
+        self.seed = seed
+        self.augment = augment
+        # Sampling (not permutation) based: decorrelate processes by
+        # folding the shard index into every batch's RNG stream.
+        self.shard = shard
+        cfg = config.yoho
+
+        root = Path(config.dataset.speakers)
+        self.speakers: List[Tuple[str, List[Path]]] = []
+        if root.exists():
+            for spk_dir in sorted(p for p in root.iterdir() if p.is_dir()):
+                files = list_audio_files(spk_dir)
+                if files:
+                    self.speakers.append((spk_dir.name, files))
+        if len(self.speakers) < 2:
+            raise FileNotFoundError(
+                f"Need >=2 speaker dirs with audio under {root} "
+                "(layout: speakers/<name>/*.wav)"
+            )
+        super().__init__(batch_size, **kwargs)
+
+    def get_num_batches(self) -> int:
+        total_clips = sum(len(f) for _n, f in self.speakers)
+        return max(1, total_clips // self.batch_size)
+
+    def get_batch(self, idx: int):
+        cfg = self.config.yoho
+        # Sampling-based loader: without the epoch in the stream, every
+        # epoch would replay epoch 1's speaker/clip/augment draws exactly.
+        rng = np.random.default_rng((self.seed, self.shard[0],
+                                     self._epoch, idx))
+        n_spk = self.batch_size // self.clips_per_speaker
+        chosen = rng.choice(len(self.speakers), size=n_spk,
+                            replace=len(self.speakers) < n_spk)
+        audio = np.zeros((self.batch_size, cfg.n_samples), np.float32)
+        ids = np.zeros((self.batch_size,), np.int32)
+        row = 0
+        for spk_idx in chosen:
+            _name, files = self.speakers[int(spk_idx)]
+            for _c in range(self.clips_per_speaker):
+                f = files[int(rng.integers(len(files)))]
+                clip = load_audio_f32(f, cfg.sample_rate)
+                if len(clip) > cfg.n_samples:
+                    off = int(rng.integers(0, len(clip) - cfg.n_samples + 1))
+                    clip = clip[off : off + cfg.n_samples]
+                if self.augment:
+                    clip = augmenter(clip, cfg.sample_rate, rng)[: cfg.n_samples]
+                audio[row, : len(clip)] = clip
+                ids[row] = int(spk_idx)
+                row += 1
+        return audio, ids

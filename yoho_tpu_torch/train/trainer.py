@@ -1,6 +1,7 @@
-"""The YOHO stage-1/4 ASR trainer on one GPU, and the pieces the whisper
-trainers share with it: the masked next-token loss and the restore of a
-train state from a checkpoint. The JAX package's ``train/trainer.py``.
+"""The YOHO stage-1/4 ASR trainer on one GPU, the loop every trainer of
+the port shares, and the pieces the whisper trainers share with it: the
+masked next-token loss and the restore of a train state from a
+checkpoint. The JAX package's ``train/trainer.py``.
 
 :class:`ASRTrainer` keeps the JAX recipe: batches from
 ``TranscriptionDataloader`` (numpy, made on the host, the same for a
@@ -19,6 +20,12 @@ for stage 1, ``weights.yoho`` for stage 4) in the JAX params format,
 written only when ``run()`` completes. As the port's whisper fine-tuner
 does, a resumed run continues the training batches where the checkpoint
 left them (the JAX package starts them again).
+
+:class:`SessionTrainer` is what the session stages 1-4 share (the stage
+directory, metrics, the optimizer from the stage's hyperparameters, the
+train state and its checkpoint, the weights slot); stages 2 and 3
+(``train/stages/``) train without validation and checkpoint every
+``validation_frequency`` updates, as JAX's do.
 
 A device mesh and ``long_context_factor > 1`` (ring attention, a
 multi-device program) are ROADMAP Queue 1 item 11.
@@ -97,22 +104,27 @@ def restore_train_state(leaves: Dict[str, torch.Tensor], opt_state: dict,
 
 class TrainLoop:
     """The mini-step loop the port's trainers share (``WhisperFinetuner``,
-    ``WhisperDistiller``, ``ASRTrainer``). A subclass sets ``device``,
-    ``compute_dtype``, ``optimizer`` and ``opt_state``, ``_train`` (JAX path
-    -> (trained tensor, JAX-layout view)) and ``_leaves`` (those views),
-    ``step`` (mini-steps), ``train_dataloader``, ``val_dataloader``,
-    ``metrics``, ``lr_schedule`` and ``checkpoint_path``, and implements
-    ``_batch_loss``, ``_validate`` and ``_save_checkpoint``."""
+    ``WhisperDistiller`` and the session trainers). A subclass sets
+    ``device``, ``compute_dtype``, ``optimizer`` and ``opt_state``,
+    ``_train`` (JAX path -> (trained tensor, JAX-layout view)) and
+    ``_leaves`` (those views), ``step`` (mini-steps), ``train_dataloader``,
+    ``val_dataloader`` (None: no validation), ``metrics``, ``lr_schedule``
+    and ``checkpoint_path``, the types of its batch's arrays on the device
+    (``_batch_types``), and implements ``_batch_loss`` (one argument per
+    array), ``_validate`` and ``_save_checkpoint``."""
+
+    _batch_types = (torch.float32, torch.long, torch.uint8)  # audio, tokens, mask
+    val_dataloader = None
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.compute_dtype,
                               enabled=self.compute_dtype != torch.float32)
 
     def _place(self, batch):
-        audio, tokens, mask = (torch.from_numpy(np.asarray(x)) for x in batch[:3])
-        return (audio.to(self.device, torch.float32, non_blocking=True),
-                tokens.to(self.device, torch.long, non_blocking=True),
-                mask.to(self.device, torch.uint8, non_blocking=True))
+        """The batch's first ``len(_batch_types)`` arrays on the device, each
+        in its type."""
+        return tuple(torch.from_numpy(np.asarray(x)).to(self.device, t, non_blocking=True)
+                     for x, t in zip(batch, self._batch_types))
 
     def gradients(self, loss: torch.Tensor):
         """d loss / d every trained tensor; zeros for a tensor the loss does
@@ -121,12 +133,12 @@ class TrainLoop:
         return torch.autograd.grad(loss, [t for t, _ in self._train.values()],
                                    allow_unused=True, materialize_grads=True)
 
-    def _train_step(self, audio, tokens, mask) -> torch.Tensor:
+    def _train_step(self, *batch) -> torch.Tensor:
         """One mini-step: loss, gradient, MultiSteps update. Returns the
         loss (a device scalar, not read here)."""
         from yoho_tpu_torch.train.optim import apply_updates
 
-        loss = self._batch_loss(audio, tokens, mask)
+        loss = self._batch_loss(*batch)
         grads = self.gradients(loss)
         grads = {k: view(g) for (k, (_, view)), g in zip(self._train.items(), grads)}
         updates = self.optimizer.update(grads, self.opt_state, self._leaves)
@@ -138,9 +150,10 @@ class TrainLoop:
     def _run_updates(self, updates: int, accumulated: int, validation_frequency: int,
                      progress: bool, export) -> None:
         """Mini-steps until ``updates`` applied updates; per update the mean
-        loss (kept in ``update_losses``, one host sync), a validation and a
-        checkpoint every ``validation_frequency``-th (<= 0: never), a
-        ``metrics.csv`` row with the schedule's value at the applied update.
+        loss (kept in ``update_losses``, one host sync), a checkpoint every
+        ``validation_frequency``-th (<= 0: never) after a validation where
+        there is a ``val_dataloader``, a ``metrics.csv`` row with the
+        schedule's value at the applied update.
         A checkpoint at exit; ``export()`` only when the loop completed, so
         a crashed re-run never overwrites a good artifact."""
         from yoho_tpu_torch.train.checkpoint import AsyncCheckpointer
@@ -172,7 +185,8 @@ class TrainLoop:
                         pbar.set_postfix_str(f"loss {batch_loss:.4e}")
                     val_loss = None
                     if validation_frequency > 0 and update % validation_frequency == 0:
-                        val_loss = self._validate(update)
+                        if self.val_dataloader is not None:
+                            val_loss = self._validate(update)
                         self._save_checkpoint(ckpt)
                     self.metrics.log(update, self.lr_schedule(update), batch_loss, val_loss)
             completed = True
@@ -180,83 +194,53 @@ class TrainLoop:
             self._save_checkpoint(ckpt)
             ckpt.close()
             self.train_dataloader.terminate()
-            self.val_dataloader.terminate()
+            if self.val_dataloader is not None:
+                self.val_dataloader.terminate()
             if completed:
                 export()
             if pbar is not None:
                 pbar.close()
 
 
-class ASRTrainer(TrainLoop):
-    """Transcription (pre)training of a YOHO session. ``stage=1`` trains
-    without voiceprint supervision (``weights.asr``); ``stage=4`` reuses the
-    loop for ``weights.yoho``. ``init_params``: a flax params tree to start
-    from (default: ``init_random`` with seed 0).
+class SessionTrainer(TrainLoop):
+    """What the YOHO session stages share: ``_setup`` (the stage directory,
+    ``metrics.csv``, AdamW on the stage's warmup-cosine schedule under
+    ``MultiSteps``), ``_init_state`` (the trained leaves of ``self.model``,
+    the optimizer state, a resume from the checkpoint), the mel kernel,
+    the checkpoint, ``run`` and the export of ``self.model`` to the stage's
+    weights slot (``weights_path``) when the run completes.
     ``device``: CUDA unless ``"cpu"``; ``compute_dtype``: the autocast type
     (float32 turns autocast off)."""
 
-    def __init__(self, config: SessionConfig, tokenizer=None, stage: int = 1,
-                 hp: Optional[TrainingHP] = None, mesh=None,
-                 use_multiprocessing: bool = False,
-                 checkpoint_name: str = "checkpoint.msgpack", init_params=None, dataloader_kwargs: Optional[dict] = None,
-                 compute_dtype=torch.float32, device=None):
+    def _setup(self, config: SessionConfig, stage: int, hp: TrainingHP, mesh, device,
+               compute_dtype, validations: bool = False,
+               checkpoint_name: str = "checkpoint.msgpack") -> None:
         from yoho_tpu_torch.infer.pipeline import _not_ported
-        from yoho_tpu_torch.nn import params as nn_params
-        from yoho_tpu_torch.nn.yoho import YOHOModel
-        from yoho_tpu_torch.text.tokenizer import YOHOTokenizer
-        from yoho_tpu_torch.train.dataloader import TranscriptionDataloader
         from yoho_tpu_torch.train.metrics import MetricsWriter
         from yoho_tpu_torch.train.optim import AdamW, MultiSteps, warmup_cosine_decay_schedule
         from yoho_tpu_torch.train.session import stage_dir
 
         if mesh is not None:
             _not_ported("multi-device data parallelism (mesh)", 11)
-        self.config = config
-        self.stage = stage
-        self.hp = hp or (config.hyperparameters.transcribe_pretrain if stage == 1
-                         else config.hyperparameters.transcribe_finetune)
-        if int(getattr(self.hp, "long_context_factor", 1) or 1) > 1:
+        if int(getattr(hp, "long_context_factor", 1) or 1) > 1:
             _not_ported("long-context training (long_context_factor > 1: "
                         "ring attention over a device mesh)", 11)
+        self.config, self.stage, self.hp = config, stage, hp
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.stage_path = stage_dir(config, stage)
         self.checkpoint_path = self.stage_path / checkpoint_name
         self.metrics = MetricsWriter(self.stage_path / "metrics.csv",
-                                     self.stage_path / "validations.jsonl")
-        self.tokenizer = tokenizer or YOHOTokenizer.load(config.weights.tokenizer)
-
-        self.model = YOHOModel(config.yoho, self.tokenizer.vocab_size, dtype=torch.float32,
-                               device=self.device, remat=self.hp.remat)
-        if init_params is None:
-            nn_params.init_random(self.model, seed=0)
-        else:
-            nn_params.load_jax_params(self.model, init_params)
-
-        dl_kwargs = dict(
-            config=config, tokenizer=self.tokenizer,
-            # Each stage's own ratio (stage 4 has its own field).
-            speechless_ratio=getattr(self.hp, "speechless_sample_ratio", 0.0),
-            batch_size=self.hp.batch_size, shuffle=True,
-            use_multiprocessing=use_multiprocessing, disable_warnings=True,
-            warmup_queue=False, **(dataloader_kwargs or {}))
-        self.train_dataloader = TranscriptionDataloader((0.0, 0.9), seed=0, **dl_kwargs)
-        try:
-            self.val_dataloader = TranscriptionDataloader((0.9, 1.0), seed=1, **dl_kwargs)
-        except FileNotFoundError:
-            # Tiny corpora: a reshuffled train slice.
-            self.val_dataloader = TranscriptionDataloader((0.0, 1.0), seed=1, **dl_kwargs)
-
+                                     self.stage_path / "validations.jsonl" if validations
+                                     else None)
         # Horizons in applied updates: the inner optimizer and its schedule
         # step once per update, not per accumulated mini-step.
-        warmup = self.hp.warmup_updates
-        total = max(self.hp.updates, warmup + 1)
+        warmup = hp.warmup_updates
         self.lr_schedule = warmup_cosine_decay_schedule(
-            0.0, self.hp.learning_rate, warmup, total, self.hp.final_learning_rate)
-        self.optimizer = MultiSteps(AdamW(self.lr_schedule), self.hp.accumulated_batches)
-        self._init_state()
+            0.0, hp.learning_rate, warmup, max(hp.updates, warmup + 1),
+            hp.final_learning_rate)
+        self.optimizer = MultiSteps(AdamW(self.lr_schedule), hp.accumulated_batches)
 
-    # ------------------------------------------------------------------
     def _init_state(self) -> None:
         from yoho_tpu_torch.nn import params as nn_params
 
@@ -276,9 +260,76 @@ class ASRTrainer(TrainLoop):
 
         return fused_yoho_log_mel(audio.float(), self.config.yoho)
 
-    def _batch_loss(self, audio, tokens, mask) -> torch.Tensor:
-        """The loss whose gradient a train step takes: masked CE, plus
-        ``moe_aux_weight`` x the mean MoE auxiliary loss with experts."""
+    def run(self, max_updates: Optional[int] = None, progress: bool = False) -> None:
+        """Train to ``max_updates`` (default ``hp.updates``) applied updates;
+        ``update_losses`` keeps each update's mean mini-step loss."""
+        self._run_updates(max_updates or self.hp.updates, self.hp.accumulated_batches,
+                          self.hp.validation_frequency, progress, self._export_weights)
+
+    def _save_checkpoint(self, ckpt) -> None:
+        ckpt.save(self.step, unflatten_tree(dict(self._leaves)), self.opt_state)
+
+    def _export_weights(self) -> None:
+        """``self.model`` as a flax params tree in ``weights_path``."""
+        from yoho_tpu_torch.nn import params as nn_params
+        from yoho_tpu_torch.train.checkpoint import save_params
+
+        save_params(self.weights_path, nn_params.to_jax_params(self.model))
+
+
+class ASRTrainer(SessionTrainer):
+    """Transcription (pre)training of a YOHO session. ``stage=1`` trains
+    without voiceprint supervision (``weights.asr``); ``stage=4`` reuses the
+    loop for ``weights.yoho``. ``model``: the ``YOHOModel`` to train
+    (default: one at the session's widths, float32 on ``device``);
+    ``init_params``: a flax params tree to start from (default:
+    ``init_random`` with seed 0)."""
+
+    def __init__(self, config: SessionConfig, tokenizer=None, stage: int = 1,
+                 hp: Optional[TrainingHP] = None, mesh=None,
+                 use_multiprocessing: bool = False,
+                 checkpoint_name: str = "checkpoint.msgpack", model=None, init_params=None,
+                 dataloader_kwargs: Optional[dict] = None,
+                 compute_dtype=torch.float32, device=None):
+        from yoho_tpu_torch.nn import params as nn_params
+        from yoho_tpu_torch.nn.yoho import YOHOModel
+        from yoho_tpu_torch.text.tokenizer import YOHOTokenizer
+        from yoho_tpu_torch.train.dataloader import TranscriptionDataloader
+
+        hp = hp or (config.hyperparameters.transcribe_pretrain if stage == 1
+                    else config.hyperparameters.transcribe_finetune)
+        self._setup(config, stage, hp, mesh, device, compute_dtype, validations=True,
+                    checkpoint_name=checkpoint_name)
+        self.weights_path = config.weights.asr if stage == 1 else config.weights.yoho
+        self.tokenizer = tokenizer or YOHOTokenizer.load(config.weights.tokenizer)
+
+        self.model = model or YOHOModel(config.yoho, self.tokenizer.vocab_size,
+                                        dtype=torch.float32, device=self.device,
+                                        remat=self.hp.remat)
+        if init_params is None:
+            nn_params.init_random(self.model, seed=0)
+        else:
+            nn_params.load_jax_params(self.model, init_params)
+
+        dl_kwargs = dict(
+            config=config, tokenizer=self.tokenizer,
+            # Each stage's own ratio (stage 4 has its own field).
+            speechless_ratio=getattr(self.hp, "speechless_sample_ratio", 0.0),
+            batch_size=self.hp.batch_size, shuffle=True,
+            use_multiprocessing=use_multiprocessing, disable_warnings=True,
+            warmup_queue=False, **(dataloader_kwargs or {}))
+        self.train_dataloader = TranscriptionDataloader((0.0, 0.9), seed=0, **dl_kwargs)
+        try:
+            self.val_dataloader = TranscriptionDataloader((0.9, 1.0), seed=1, **dl_kwargs)
+        except FileNotFoundError:
+            # Tiny corpora: a reshuffled train slice.
+            self.val_dataloader = TranscriptionDataloader((0.0, 1.0), seed=1, **dl_kwargs)
+        self._init_state()
+
+    def _asr_loss(self, audio, tokens, mask) -> torch.Tensor:
+        """Masked CE, plus ``moe_aux_weight`` x the mean MoE auxiliary loss
+        with experts: stage 1's training loss and every stage's validation
+        loss (JAX's ``_val_loss``)."""
         from yoho_tpu_torch.nn.moe import collect_aux_losses
 
         cfg = self.config.yoho
@@ -290,6 +341,10 @@ class ASRTrainer(TrainLoop):
         if cfg.n_experts > 0:
             loss = loss + cfg.moe_aux_weight * collect_aux_losses(self.model).to(loss.device)
         return loss
+
+    def _batch_loss(self, audio, tokens, mask) -> torch.Tensor:
+        """The loss whose gradient a train step takes."""
+        return self._asr_loss(audio, tokens, mask)
 
     @torch.no_grad()
     def _decode_samples(self, audio, prompt):
@@ -313,7 +368,7 @@ class ASRTrainer(TrainLoop):
         tokens = np.concatenate([val_batch[1][:n], train_batch[1][:n]])
         masks = np.concatenate([val_batch[2][:n], train_batch[2][:n]])
         with torch.no_grad():
-            val_loss = float(self._batch_loss(*self._place(val_batch)))
+            val_loss = float(self._asr_loss(*self._place(val_batch)[:3]))
         prompt = torch.full((2 * n, 1), self.tokenizer.sot_id, dtype=torch.long,
                             device=self.device)
         decoded, _lengths = self._decode_samples(
@@ -328,22 +383,3 @@ class ASRTrainer(TrainLoop):
         predicted = [self.tokenizer.decode(row) for row in decoded]
         self.metrics.write_validation(correct[:n], predicted[:n], correct[n:], predicted[n:])
         return val_loss
-
-    # ------------------------------------------------------------------
-    def run(self, max_updates: Optional[int] = None, progress: bool = False) -> None:
-        """Train to ``max_updates`` (default ``hp.updates``) applied updates;
-        ``update_losses`` keeps each update's mean mini-step loss."""
-        self._run_updates(max_updates or self.hp.updates, self.hp.accumulated_batches,
-                          self.hp.validation_frequency, progress, self._export_weights)
-
-    def _save_checkpoint(self, ckpt) -> None:
-        ckpt.save(self.step, unflatten_tree(dict(self._leaves)), self.opt_state)
-
-    def _export_weights(self) -> None:
-        """The stage's params artifact in its ``weights.*`` slot (stage 1:
-        ``weights.asr``, stage 4: ``weights.yoho``), a flax params tree."""
-        from yoho_tpu_torch.nn import params as nn_params
-        from yoho_tpu_torch.train.checkpoint import save_params
-
-        target = self.config.weights.asr if self.stage == 1 else self.config.weights.yoho
-        save_params(target, nn_params.to_jax_params(self.model))
