@@ -242,12 +242,38 @@ Phases, one output line each (JSON after the phase name):
    --rttm`` over the same 16 windows (the served weights the export's in
    bf16; segment voiceprints of 256 at unit norm, and the voiceprint head
    teacher-forced on one window) and scored by ``score-diarization``.
-14. ``kernels``: one JSON object with every kernel's numbers; launches are
+14. ``e2e-mesh``: the serving path over a (data, model) mesh of
+   ``torch.distributed`` ranks (NCCL) at world = the cards present, at most
+   4: in this process at world 1, else one process per card started with
+   the launcher's environment (``--mesh-rank``; rank 0 reports). It prints
+   ``world`` and the mesh. whisper-small from an HF directory the exporter
+   writes (seed-0 random weights, bf16, int8 cross-K/V and cache, batch
+   16) through ``load_transcriber(mesh="1xW")`` on the three requests of
+   the e2e phases, in turns with an unsharded ``load_transcriber`` of the
+   same directory (plain, mesh, mesh, plain): the tokens equal at world 1
+   (above it each decoded row equals the unsharded one up to a first
+   difference inside a tie, ``_tie_check``: in bf16 each rank rounds its
+   partial sums), the comm layer's collectives equal the prediction
+   (``_mesh_predicted``: per encode 2 all-reduces a block, per decode step
+   3 a layer, plus the embedding's reduce and the logits gather where the
+   vocabulary divides the axis, 4 data gathers a batch), the walls of
+   both, the peak memory above what was held under the capacity model's
+   bytes a rank; ``--int8-encoder`` on the 12 s request (w8a8 launches);
+   the default YOHO session at full width (one batch of 16 windows, its
+   rows held as whisper's, the predicted collectives with the voiceprint
+   pass); ``yoho_encode_long`` at seq W on 4,096 frames and
+   ``pipeline_encode`` at pipe W with 2 microbatches, both in f32 against
+   ``encode_audio`` of the same input (1e-4 of the output's magnitude),
+   with their sends, receives, gathers and broadcasts counted. mel, flash
+   and decode attention launch on the mesh path (w8a8 under
+   ``--int8-encoder`` only); the unsharded references' launches are not
+   counted. The process group is destroyed at the end.
+15. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
-   ``train`` phase's runs, ``e2e-cli``'s commands and the parts of
-   ``e2e-yoho`` and ``e2e-yoho-train``.
-15. The last line: ``{"ok": true, "device": {...}}``.
+   ``train`` phase's runs, ``e2e-cli``'s commands, the parts of
+   ``e2e-yoho`` and ``e2e-yoho-train`` and ``e2e-mesh``'s mesh runs.
+16. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -256,6 +282,7 @@ Any failure exits non-zero before the last line. Needs CUDA and the
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3595,6 +3622,331 @@ def _tone_clip(s: int, n_samples: int):
     return audio
 
 
+MESH_MAX_WORLD = 4
+
+
+def _mesh_predicted(cfg, family: str, world: int, batches: int, steps: int):
+    """The comm layer's collectives one rank makes for ``batches`` decoded
+    batches of ``steps`` decode steps in all on a 1 x ``world`` mesh: a
+    layer is sharded when the partition rules shard it (attention by whole
+    KV-head groups, the vocabulary when its rows divide the axis), so each
+    sharded attention and MLP reduces once per pass, the sharded embedding
+    reduces its lookup and gathers the logits once per step, and each of
+    the decode program's 4 result arrays (the YOHO family's voiceprint
+    pass: one more, with its own encoder and decoder pass) is gathered over
+    ``data`` once per batch. Returns (counts, all-reduces per encode,
+    all-reduces per decode step)."""
+    if family == "whisper":
+        heads = cfg.n_text_head
+        attn = int(heads % world == 0)
+        enc = cfg.n_audio_layer * (attn + 1)
+        dec = cfg.n_text_layer * (2 * attn + 1)
+        vocab, passes = cfg.n_vocab, 0
+    else:
+        q, kvh = cfg.n_audio_heads, max(1, cfg.n_audio_heads // 2)
+        attn = int(q % world == 0 and kvh % world == 0)
+        enc = cfg.n_audio_blocks * (attn + 1)
+        dec = cfg.n_text_blocks * (2 * attn + 1)
+        vocab, passes = 16000, batches
+    emb = int(vocab % world == 0)
+    out = {"all_reduce/model": batches * enc + steps * (dec + emb) + passes * (enc + dec + emb),
+           "all_gather/model": emb * (steps + passes),
+           "all_gather/data": 4 * batches + passes}
+    return {k: v for k, v in out.items() if v}, enc, dec + emb
+
+
+def _mesh_recorded(tr) -> tuple:
+    """Patches a transcriber to keep the raw tokens of each batch it
+    decodes and, per batch, the top-2 of its processed logits at each
+    (row, position): ``_tie_check``'s reference. Returns the two lists."""
+    import torch
+
+    raw, top2 = [], []
+    build, decode = tr._logits_fn, tr._decode_with_fallback
+
+    def recording(prompt_len):
+        rules = build(prompt_len)
+
+        def fn(logits, tokens, pos):
+            out = logits if rules is None else rules(logits, tokens, pos)
+            if pos == prompt_len:  # a new batch's first pick
+                top2.append(torch.full((out.shape[0], tr.max_len, 2), float("nan"),
+                                       device=out.device))
+            top2[-1][:, pos] = torch.topk(out, 2, dim=-1).values
+            return out
+
+        return fn
+
+    def recorded(*args, **kw):
+        out = decode(*args, **kw)
+        raw.append(out[0])
+        return out
+
+    tr._logits_fn, tr._decode_with_fallback = recording, recorded
+    return raw, top2
+
+
+def _mesh_tie_check(phase: str, label: str, world: int, ref_raw, ref_top2, mesh_raw) -> dict:
+    """The mesh path's raw decode rows against the unsharded path's, batch
+    by batch: equal at world 1 (a group of one computes the unsharded
+    arithmetic); above it, equal up to a first difference inside a tie
+    (``_tie_check``: in bf16 each rank rounds its partial sums)."""
+    if len(ref_raw) != len(mesh_raw):
+        raise AssertionError(f"{phase} ({label}): {len(mesh_raw)} batches decoded over the "
+                             f"mesh, {len(ref_raw)} unsharded")
+    out = dict(rows_checked=0, rows_diverging=0, largest_margin_at_divergence_bf16_ulps=0.0)
+    for ref, top2, got in zip(ref_raw, ref_top2, mesh_raw):
+        top2 = top2.float().cpu().numpy()
+        tie = _tie_check(phase, label, list(enumerate(got)),
+                         {j: (ref[j], top2[j]) for j in range(len(ref))})
+        out["rows_checked"] += tie["rows_checked"]
+        out["rows_diverging"] += tie["rows_diverging"]
+        out["largest_margin_at_divergence_bf16_ulps"] = max(
+            out["largest_margin_at_divergence_bf16_ulps"],
+            tie["largest_margin_at_divergence_bf16_ulps"])
+    if world == 1 and out["rows_diverging"]:
+        raise AssertionError(f"{phase} ({label}): {out['rows_diverging']} rows differ at world 1")
+    return out
+
+
+def _mesh_rank(card: str, kernels, world: int) -> dict:
+    """One rank of phase e2e-mesh (the module doc, item 14); rank 0 prints
+    the phase's lines. Returns this rank's launches on the mesh path."""
+    import tempfile
+
+    import torch
+
+    from yoho_tpu_torch.cli.transcribe import load_yoho_session
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer import capacity
+    from yoho_tpu_torch.infer.longform import chunk_audio
+    from yoho_tpu_torch.load import load_transcriber
+    from yoho_tpu_torch.nn.export import export_hf_whisper
+    from yoho_tpu_torch.nn.params import init_random, to_jax_params
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.parallel import mesh as pm
+    from yoho_tpu_torch.parallel.long_encoder import yoho_encode_long
+    from yoho_tpu_torch.parallel.pipeline import pipeline_encode
+
+    phase = "e2e-mesh"
+    spec = f"1x{world}"
+    lead = int(os.environ.get("RANK", 0)) == 0
+    total = {k.name: 0 for k in kernels}
+    report = {}
+
+    def measured(label, fn, want=YOHO_PATH, w8a8=False, count=True):
+        """Runs ``fn`` with every launch count and the comm layer's counts
+        set to 0 just before it and read just after; ``count=False`` (the
+        unsharded references) keeps its launches out of the phase's."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        pm.reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        idle = [n for n in want if launches[n] == 0]
+        if idle or (launches[W8A8.name] > 0) != w8a8:
+            raise AssertionError(f"{phase} ({label}): launches {launches}")
+        if count:
+            for n, v in launches.items():
+                total[n] += v
+        report[label] = dict(wall_s=wall, launches=launches, collectives=dict(pm.COUNTS))
+        return result
+
+    def tokens(results):
+        return [[int(x) for s in r.segments for x in s.tokens] for r in results]
+
+    mesh = pm.parse_mesh(spec)  # NCCL; a group of one, in process, at world 1
+    with tempfile.TemporaryDirectory(prefix="yoho_mesh_smoke_") as tmp:
+        tmp = Path(tmp)
+        # whisper-small from an HF directory of seed-0 random weights.
+        cfg = WHISPER_PRESETS["small"]
+        hf = tmp / "whisper-small"
+        export_hf_whisper(to_jax_params(init_random(Whisper(cfg, dtype=torch.float32),
+                                                    seed=SEED)), cfg, hf)
+        audios = _requests()
+        kw = dict(hf=str(hf), batch=BATCH, int8_kv=True)
+        plain, sharded = load_transcriber(**kw), load_transcriber(mesh=mesh, **kw)
+        (ref_raw, ref_top2), (mesh_raw, _) = _mesh_recorded(plain), _mesh_recorded(sharded)
+        want = tokens(measured("whisper-plain", lambda: plain.transcribe_many(audios),
+                               count=False))
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = tokens(measured("whisper-mesh", lambda: sharded.transcribe_many(audios)))
+        peak = torch.cuda.max_memory_allocated() - before
+        again = tokens(measured("whisper-mesh-2", lambda: sharded.transcribe_many(audios)))
+        measured("whisper-plain-2", lambda: plain.transcribe_many(audios), count=False)
+        tie = _mesh_tie_check(phase, "whisper", world, ref_raw, ref_top2, mesh_raw)
+        if again != got or (world == 1 and got != want):
+            raise AssertionError(f"{phase}: the mesh path's whisper tokens differ from "
+                                 "the unsharded Transcriber's (or between its runs)")
+        windows = sum(len(chunk_audio(a, sharded.chunk_samples, sharded.stride_samples)[1])
+                      for a in audios)
+        batches = -(-windows // BATCH)
+        run = report["whisper-mesh"]
+        steps = run["launches"]["decode_attention"] // (2 * cfg.n_text_layer)
+        predicted, per_encode, per_step = _mesh_predicted(cfg, "whisper", world, batches,
+                                                          steps)
+        if run["collectives"] != predicted:
+            raise AssertionError(f"{phase}: collectives {run['collectives']}, "
+                                 f"predicted {predicted}")
+        # The capacity model's bytes for the batch on one rank: the K/V
+        # terms hold this rank's heads, the rest is whole.
+        terms = capacity.stream_terms(cfg, "whisper", **capacity._lane_kwargs(
+            sharded, sharded.model, sharded.max_len))
+        kv = terms["cross_kv"] + terms["self_cache"]
+        per_rank = BATCH * (-(-kv // world) + sum(terms.values()) - kv)
+        if peak > per_rank:
+            raise AssertionError(f"{phase}: {peak} bytes above what was held, the capacity "
+                                 f"model allows {per_rank} a rank")
+        whisper = dict(
+            model="whisper-small", batch=BATCH, windows=windows, batches=batches,
+            decode_steps=steps, tokens_equal_unsharded=got == want, tie_check=tie,
+            collectives=run["collectives"],
+            predicted=predicted, all_reduces_per_encode=per_encode,
+            all_reduces_per_decode_step=per_step,
+            wall_s={k: report[k]["wall_s"] for k in ("whisper-plain", "whisper-mesh",
+                                                     "whisper-mesh-2", "whisper-plain-2")},
+            peak_bytes_above_held=peak, capacity_bytes_per_rank=per_rank,
+            weights_bytes_per_rank=capacity.module_bytes(sharded.model))
+        del plain, sharded
+
+        # --int8-encoder on one request: the W8A8 MLPs stay whole (their
+        # int8 leaves match no sharding rule), and w8a8 launches.
+        kw8 = dict(kw, int8_encoder=True)
+        plain8, sharded8 = load_transcriber(**kw8), load_transcriber(mesh=mesh, **kw8)
+        want8 = tokens([measured("whisper-int8-encoder-plain",
+                                 lambda: plain8.transcribe(audios[0]), w8a8=True,
+                                 count=False)])
+        got8 = tokens([measured("whisper-int8-encoder-mesh",
+                                lambda: sharded8.transcribe(audios[0]), w8a8=True)])
+        w8a8_launches = report["whisper-int8-encoder-mesh"]["launches"][W8A8.name]
+        if (world == 1 and got8 != want8) or w8a8_launches != 2 * cfg.n_audio_layer:
+            raise AssertionError(f"{phase}: --int8-encoder tokens equal: {got8 == want8}, "
+                                 f"w8a8 launches {w8a8_launches}")
+        whisper["int8_encoder"] = dict(tokens_equal_unsharded=got8 == want8,
+                                       w8a8_launches=w8a8_launches)
+        del plain8, sharded8
+
+        # The default YOHO session at full width.
+        root = tmp / "sessions"
+        config, _ = _write_yoho_session(root, "default")
+        ycfg = config.yoho
+        ykw = dict(session="default", root=str(root), batch=BATCH)
+        yplain, ysharded = load_transcriber(**ykw), load_transcriber(mesh=mesh, **ykw)
+        (yref_raw, yref_top2), (ymesh_raw, _) = _mesh_recorded(yplain), _mesh_recorded(ysharded)
+        ywins = _yoho_windows(BATCH, SEED + 20)
+        ywant = tokens(measured("yoho-plain", lambda: yplain.transcribe_many(ywins),
+                                count=False))
+        ygot = tokens(measured("yoho-mesh", lambda: ysharded.transcribe_many(ywins)))
+        ytie = _mesh_tie_check(phase, "yoho", world, yref_raw, yref_top2, ymesh_raw)
+        if world == 1 and ygot != ywant:
+            raise AssertionError(f"{phase}: the mesh path's YOHO tokens differ")
+        yrun = report["yoho-mesh"]
+        ysteps = yrun["launches"]["decode_attention"] // (2 * ycfg.n_text_blocks)
+        ypred, y_encode, y_step = _mesh_predicted(ycfg, "yoho", world, 1, ysteps)
+        if yrun["collectives"] != ypred:
+            raise AssertionError(f"{phase}: YOHO collectives {yrun['collectives']}, "
+                                 f"predicted {ypred}")
+        yoho = dict(batch=BATCH, decode_steps=ysteps, tokens_equal_unsharded=ygot == ywant,
+                    tie_check=ytie,
+                    collectives=yrun["collectives"], predicted=ypred,
+                    all_reduces_per_encode=y_encode, all_reduces_per_decode_step=y_step,
+                    wall_s={k: report[k]["wall_s"] for k in ("yoho-plain", "yoho-mesh")})
+        del yplain, ysharded
+
+        # Sequence-parallel encoding at 4x the window and the pipelined
+        # encoder, in f32 against encode_audio of the same input.
+        _, m32 = load_yoho_session("default", str(root), dtype=torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        long_mel = torch.randn((2, 4 * ycfg.max_audio_len, ycfg.n_mel_bands),
+                               generator=gen, device="cuda")
+        with torch.inference_mode():
+            ref = m32.encode_audio(long_mel)
+        seq = pm.init_mesh({"seq": world})
+        out = measured("yoho-encode-long", lambda: yoho_encode_long(m32, long_mel, seq),
+                       want=())
+        err = float((out - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        per_block = 2 * (world - 1) * ycfg.n_audio_blocks
+        want_long = {k: v for k, v in {"send/seq": per_block, "recv/seq": per_block,
+                                       "all_gather/seq": 1}.items() if v}
+        if tuple(out.shape) != (2, 2 * ycfg.max_audio_len, ycfg.dims) or err > tol \
+                or report["yoho-encode-long"]["collectives"] != want_long:
+            raise AssertionError(f"{phase}: yoho_encode_long shape {tuple(out.shape)}, "
+                                 f"max abs err {err} (tolerance {tol}), collectives "
+                                 f"{report['yoho-encode-long']['collectives']}")
+        long = dict(frames=4 * ycfg.max_audio_len, seq=world, max_abs_err=err,
+                    tolerance=f"{tol} (1e-4 of the output's largest magnitude, f32)",
+                    collectives=report["yoho-encode-long"]["collectives"],
+                    wall_s=report["yoho-encode-long"]["wall_s"])
+        mel4 = torch.randn((4, ycfg.max_audio_len, ycfg.n_mel_bands), generator=gen,
+                           device="cuda")
+        with torch.inference_mode():
+            ref4 = m32.encode_audio(mel4)
+        pipe = pm.init_mesh({"pipe": world})
+        out4 = measured("yoho-pipeline", lambda: pipeline_encode(m32, mel4, pipe, 2),
+                        want=("flash_attention_forward",))
+        err4 = float((out4 - ref4).abs().max())
+        tol4 = 1e-4 * max(1.0, float(ref4.abs().max()))
+        flash = report["yoho-pipeline"]["launches"]["flash_attention_forward"]
+        if err4 > tol4 or flash != 2 * ycfg.n_audio_blocks // world:
+            raise AssertionError(f"{phase}: pipeline_encode max abs err {err4} "
+                                 f"(tolerance {tol4}), flash launches {flash}")
+        pipeline = dict(stages=world, microbatches=2, batch=4, max_abs_err=err4,
+                        tolerance=f"{tol4} (1e-4 of the output's largest magnitude, f32)",
+                        flash_launches=flash,
+                        collectives=report["yoho-pipeline"]["collectives"],
+                        wall_s=report["yoho-pipeline"]["wall_s"])
+        del m32
+    pm.shutdown()
+    if lead:
+        emit(phase, world=world, mesh=spec, backend="nccl", card=card, whisper=whisper,
+             yoho=yoho, long_encoder=long, pipeline=pipeline, launches=total)
+    return total
+
+
+def e2e_mesh(card: str, kernels) -> dict:
+    """Phase e2e-mesh at world = the cards present, at most 4: in this
+    process at world 1, else one process per card started here with the
+    launcher's environment (rank 0 reports). Returns rank 0's launches."""
+    import socket
+
+    import torch
+
+    world = min(torch.cuda.device_count(), MESH_MAX_WORLD)
+    if world == 1:
+        return _mesh_rank(card, kernels, world)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank"],
+        env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"e2e-mesh: ranks exited {[p.returncode for p in procs]}")
+    launches = {}
+    for line in outs[0].splitlines():
+        if line.startswith("mesh-launches "):
+            launches = json.loads(line.split(" ", 1)[1])
+        else:
+            print(line, flush=True)
+    return launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3612,6 +3964,14 @@ def main(argv) -> int:
     sys.path.insert(0, str(root))
 
     card = card_line()
+    if "--mesh-rank" in argv:  # one rank of phase e2e-mesh, started by it
+        from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8a8_dense
+
+        kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+                   w8a8_dense.KERNEL]
+        launches = _mesh_rank(card, kernels, int(os.environ["WORLD_SIZE"]))
+        print("mesh-launches " + json.dumps(launches), flush=True)
+        return 0
     print(card, flush=True)  # name and power limit, as nvidia-smi prints them
     emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -3632,7 +3992,7 @@ def main(argv) -> int:
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
     for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho,
-                  e2e_yoho_train):
+                  e2e_yoho_train, e2e_mesh):
         kw = {"trace": "--profile" in argv} if phase is e2e_yoho_train else {}
         t0 = time.perf_counter()
         for name, n in phase(card, kernels, **kw).items():

@@ -202,13 +202,14 @@ def test_load_transcriber_equals_jax(env):
     assert isinstance(auto.batch_size, int) and auto.batch_size >= 1
     # Sessions, diarization and speakers are ported (the YOHO family); a
     # missing session or a whisper model without its diarize encoder fails
-    # as in the JAX package; the mesh still names its item.
+    # as in the JAX package; a mesh larger than the one process of a run
+    # without a launcher fails as the JAX package's make_mesh does.
     with pytest.raises(FileNotFoundError, match="does not exist"):
         yoho_tpu_torch.load_transcriber(session="main", root=str(env["hf"]), device="cpu")
     with pytest.raises(ValueError, match="diarize_session"):
         yoho_tpu_torch.load_transcriber(hf=env["hf"], speakers={"a": np.ones(4)},
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="does not divide device count 1"):
         yoho_tpu_torch.load_transcriber(hf=env["hf"], mesh="1x4", device="cpu")
 
 
@@ -245,15 +246,26 @@ def test_int8_lanes_load_the_jax_quantized_weights(env):
             assert torch.equal(g, torch.from_numpy(np.asarray(w, np.float32)).to(g.dtype)), k
 
 
-@pytest.mark.parametrize("cmd,flag,item", [("transcribe", "--mesh", 11), ("serve", "--mesh", 11)])
+@pytest.mark.parametrize("cmd,flag,item", [("serve", "--mesh", 11)])
 def test_unported_flags_name_their_item(env, cmd, flag, item):
-    """The flags the port does not have yet (``--session``,
-    ``--diarize-session`` and ``--speakers`` came with the YOHO family,
-    ``--rttm`` and ``--stm`` with its scoring:
-    ``tests/test_torch_diarization.py``)."""
+    """The flags the port does not have yet: ``serve --mesh`` (item 11,
+    part B; ``--session``, ``--diarize-session`` and ``--speakers`` came
+    with the YOHO family, ``--rttm`` and ``--stm`` with its scoring:
+    ``tests/test_torch_diarization.py``; ``transcribe --mesh`` with the
+    mesh: ``test_transcribe_mesh_1x1_on_the_cpu``)."""
     first = {"transcribe": [env["wavs"][0]], "evaluate": [str(env["data"])]}.get(cmd, [])
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         _port([cmd, *first, flag, "x", "--hf", env["hf"]])
+
+
+def test_transcribe_mesh_1x1_on_the_cpu(env):
+    """``transcribe --mesh 1x1`` runs in this one process (a group of one,
+    no launcher) and prints the unsharded command's JSON."""
+    argv = [*env["wavs"], "--hf", env["hf"], "--json", "--device", "cpu"]
+    want = [json.loads(x) for x in _run(umbrella.main, ["transcribe", *argv]).splitlines()]
+    got = [json.loads(x) for x in _run(umbrella.main, ["transcribe", *argv, "--mesh", "1x1"])
+           .splitlines()]
+    assert got == want and len(got) == len(env["wavs"])
 
 
 def test_no_silent_cpu_run(env, monkeypatch):

@@ -69,7 +69,12 @@ def test_every_module_imports_without_jax():
             "yoho_tpu_torch.train.stages.stage3_voiceprint",
             "yoho_tpu_torch.train.stages.stage4_joint_finetune",
             "yoho_tpu_torch.cli.import_corpus", "yoho_tpu_torch.cli.cache_corpus",
-            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics"} <= set(mods)
+            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics",
+            # Multi-GPU serving on torch.distributed.
+            "yoho_tpu_torch.parallel", "yoho_tpu_torch.parallel.mesh",
+            "yoho_tpu_torch.parallel.sharding", "yoho_tpu_torch.parallel.ring_attention",
+            "yoho_tpu_torch.parallel.long_encoder", "yoho_tpu_torch.parallel.pipeline"} \
+        <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -230,7 +230,7 @@ def test_sampling_rungs_are_seeded(tiny):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"mesh": object()}, NotImplementedError, "ROADMAP.md, Queue 1 item 11"),
+    ({"mesh": object()}, TypeError, "must be a yoho_tpu_torch.parallel.mesh.Mesh"),
     ({"family": "yoho"}, ValueError, "needs a YOHOTokenizer"),
     ({"diarize_encoder": SimpleNamespace(embedding_dim=4),
       "enrolled_speakers": {"a": [0.0]}}, ValueError, "embedding dim 1"),
@@ -238,8 +238,9 @@ def test_sampling_rungs_are_seeded(tiny):
     ({"enrolled_speakers": {"a": [0.0]}}, ValueError, "needs diarize_encoder"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else "")
 def test_unported_options_raise(tiny, kw, exc, match):
-    """Only the mesh is not ported; the YOHO family and the speaker options
-    are, and refuse what the JAX class refuses; the JAX class's
+    """A mesh that is not a mesh is refused, naming what a mesh is; the
+    YOHO family and the speaker options refuse what the JAX class refuses;
+    the JAX class's
     ``diarize_variables`` has no counterpart (the port's encoder holds its
     weights)."""
     _, _, _, _, model, table = tiny

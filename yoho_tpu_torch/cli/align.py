@@ -20,7 +20,6 @@ from pathlib import Path
 
 def main(argv=None):
     from yoho_tpu_torch.cli.transcribe import (
-        _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
         build_yoho_transcriber,
@@ -48,7 +47,6 @@ def main(argv=None):
                         help="also write per-word SRT cues per input")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     device = cli_device(args)
 
     if args.text and len(args.files) > 1:

@@ -132,7 +132,6 @@ def _evaluate_stm(t, args, norm) -> int:
 
 def main(argv=None):
     from yoho_tpu_torch.cli.transcribe import (
-        _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
         build_yoho_transcriber,
@@ -185,7 +184,6 @@ def main(argv=None):
     if args.stm and args.hf and not args.diarize_session:
         parser.error("--stm cpWER on the whisper family needs "
                      "--diarize-session (no voiceprints otherwise)")
-    _refuse_unported(args)
     device = cli_device(args)
 
     from yoho_tpu_torch.eval.wer import cer, normalize_for_wer, wer

@@ -35,7 +35,8 @@ stop. The command line (``main``, ``yoho-torch serve --hf DIR`` or
 ``--session NAME``) builds the transcriber from a local checkpoint
 directory or a trained YOHO session (``cli/transcribe.py``) and does the
 same; ``--mesh`` is not in the port yet and raises, naming its ROADMAP.md
-item. Websocket streams track speakers across the stream.
+item (11, part B: serving over a mesh needs a leader that broadcasts the
+schedule). Websocket streams track speakers across the stream.
 """
 
 from __future__ import annotations
@@ -373,7 +374,6 @@ def main(argv=None):
     import sys
 
     from yoho_tpu_torch.cli.transcribe import (
-        _refuse_unported,
         batch_size_arg,
         build_whisper_transcriber,
         build_yoho_transcriber,
@@ -426,7 +426,7 @@ def main(argv=None):
     parser.add_argument("--beams", type=int, default=0)
     parser.add_argument("--mesh", type=str, default=None, metavar="DxM",
                         help="multi-device serving mesh (not in the PyTorch "
-                             "port yet)")
+                             "port's server yet; transcribe takes it)")
     parser.add_argument("--language", type=str, default="en")
     parser.add_argument("--task", type=str, default="transcribe",
                         choices=("transcribe", "translate"),
@@ -501,7 +501,10 @@ def main(argv=None):
                              "generated in the window (0 = off)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    if args.mesh:
+        from yoho_tpu_torch.infer.pipeline import _not_ported
+
+        _not_ported("--mesh (serving over a mesh, part B)", 11)
     device = cli_device(args)
     if args.lora and not args.hf:
         parser.error("--lora adapts an --hf whisper checkpoint")

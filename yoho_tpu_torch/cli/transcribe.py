@@ -14,8 +14,12 @@ default (``--device cpu`` for the plain PyTorch path).
 
 ``--speakers`` names speakers against an ``enroll`` file; ``--rttm``
 writes a diarization RTTM per input (score it with ``score-diarization``).
-Not in the port yet, and refused with the ROADMAP.md item that brings it:
-``--mesh`` (item 11).
+
+``--mesh DxM`` serves the model over a (data, model) mesh of processes,
+one per GPU: ``torchrun --nproc-per-node N -m yoho_tpu_torch.cli
+transcribe --mesh DxM ...`` (``parallel/mesh.py``); ``--mesh 1x1`` runs in
+one process without a launcher. Every rank decodes; only rank 0 prints
+and writes.
 
 Usage: ``python -m yoho_tpu_torch.cli transcribe file1.wav [file2.wav ...]
           (--hf DIR | --session NAME) [--beams 5] [--batch 8] [--json]``
@@ -26,6 +30,8 @@ import json as jsonlib
 import sys
 
 import torch
+
+from yoho_tpu_torch.parallel.mesh import is_coordinator
 
 
 def batch_size_arg(value: str):
@@ -42,15 +48,6 @@ def batch_size_arg(value: str):
         raise argparse.ArgumentTypeError(
             f"--batch must be >= 1, got {batch}")
     return batch
-
-
-def _refuse_unported(args) -> None:
-    """The flags of modules the port does not have yet."""
-    from yoho_tpu_torch.infer.pipeline import _not_ported
-
-    for flag, attr, item in (("--mesh", "mesh", 11),):
-        if getattr(args, attr, None):
-            _not_ported(flag, item)
 
 
 def load_whisper_model(hf_path: str, device, int8_weights: bool = False,
@@ -156,10 +153,11 @@ def build_yoho_transcriber(session: str, root: str, beams: int, batch,
                            hotword_boost: float = 4.0, logit_bias=None,
                            repetition_penalty=None, no_repeat_ngram_size: int = 0,
                            length_penalty: float = 1.0,
-                           hallucination_silence_threshold=None, device=None):
+                           hallucination_silence_threshold=None, device=None,
+                           mesh=None):
     """The JAX package's ``build_yoho_transcriber`` on the port: bf16
     weights and caches, float cross K/V, on ``device`` (default CUDA;
-    raises without it)."""
+    raises without it), sharded over ``mesh`` when one is given."""
     from yoho_tpu_torch.core.device import resolve_device
     from yoho_tpu_torch.infer.pipeline import Transcriber
 
@@ -174,7 +172,8 @@ def build_yoho_transcriber(session: str, root: str, beams: int, batch,
                        word_timestamps=word_timestamps, hotwords=hotwords,
                        hotword_boost=hotword_boost, logit_bias=logit_bias,
                        repetition_penalty=repetition_penalty,
-                       no_repeat_ngram_size=no_repeat_ngram_size, device=device)
+                       no_repeat_ngram_size=no_repeat_ngram_size, device=device,
+                       mesh=mesh)
 
 
 def load_speakers_arg(speakers_path, hf, diarize_session, error):
@@ -222,11 +221,12 @@ def build_whisper_transcriber(hf_path: str, beams: int, batch, language,
                               hallucination_silence_threshold=None,
                               diarize=None, enrolled_speakers=None,
                               speaker_threshold: float = 0.75,
-                              device=None):
+                              device=None, mesh=None):
     """The JAX package's ``build_whisper_transcriber`` on the port: bf16
     weights, bf16 caches (int8 K/V with ``quantized``), on ``device``
-    (default CUDA; raises without it). ``diarize``: a ``VoiceprintEncoder``
-    (``load_voiceprint_encoder``) for post-pass diarization."""
+    (default CUDA; raises without it), sharded over ``mesh`` when one is
+    given. ``diarize``: a ``VoiceprintEncoder`` (``load_voiceprint_encoder``)
+    for post-pass diarization."""
     from yoho_tpu_torch.core.device import resolve_device
     from yoho_tpu_torch.infer.pipeline import Transcriber
 
@@ -273,7 +273,7 @@ def build_whisper_transcriber(hf_path: str, beams: int, batch, language,
         logit_bias=logit_bias, repetition_penalty=repetition_penalty,
         no_repeat_ngram_size=no_repeat_ngram_size, diarize_encoder=diarize,
         enrolled_speakers=enrolled_speakers, speaker_threshold=speaker_threshold,
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -375,10 +375,11 @@ def _bulk_transcribe(t, args) -> int:
             # A resumed run must still produce newly requested sidecars
             # for already-transcribed files — rebuild them from the
             # saved JSON instead of re-decoding.
-            _sidecars_from_json(f, doc_path, args)
+            if is_coordinator():
+                _sidecars_from_json(f, doc_path, args)
         else:
             todo.append(f)
-    if skipped:
+    if skipped and is_coordinator():
         print(f"skipping {skipped} file(s) with existing output in "
               f"{out_dir}", file=sys.stderr)
     # Group size: big enough to keep decode batches full, small enough
@@ -388,6 +389,8 @@ def _bulk_transcribe(t, args) -> int:
     for i in range(0, len(todo), group):
         chunk = todo[i : i + group]
         results = t.transcribe_many(chunk)
+        if not is_coordinator():  # every rank decodes; rank 0 writes
+            continue
         for f, result in zip(chunk, results):
             _write_sidecars(f, result, args)
             payload = jsonlib.dumps(_result_payload(f, result),
@@ -419,8 +422,9 @@ def main(argv=None):
                         help="translate = X -> English (whisper)")
     parser.add_argument("--beams", type=int, default=0)
     parser.add_argument("--mesh", type=str, default=None, metavar="DxM",
-                        help="multi-device serving mesh (not in the PyTorch "
-                             "port yet)")
+                        help="serving mesh, DATAxMODEL (e.g. 1x4: 4-way "
+                             "tensor parallel); run one process per GPU "
+                             "under torchrun, or 1x1 in one process")
     parser.add_argument("--batch", type=batch_size_arg, default=8,
                         help="decode batch size, or 'auto' to size it "
                              "from the device-memory capacity model")
@@ -526,8 +530,13 @@ def main(argv=None):
                              "(--draft-hf)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     device = cli_device(args)
+    mesh = None
+    if args.mesh:
+        from yoho_tpu_torch.parallel.mesh import parse_mesh
+
+        mesh = parse_mesh(args.mesh, args.device)
+        device = mesh.device
     if args.draft_hf and args.beams:
         parser.error("--draft-hf is greedy-only (speculative verify); "
                      "drop --beams")
@@ -571,7 +580,7 @@ def main(argv=None):
             no_repeat_ngram_size=args.no_repeat_ngram,
             length_penalty=args.length_penalty,
             hallucination_silence_threshold=args.hallucination_silence_threshold,
-            device=device)
+            device=device, mesh=mesh)
         return _run(t, args)
     diarize = (load_voiceprint_encoder(args.diarize_session, args.root, device)
                if args.diarize_session else None)
@@ -599,12 +608,13 @@ def main(argv=None):
                                       args.hallucination_silence_threshold),
                                   diarize=diarize, enrolled_speakers=enrolled,
                                   speaker_threshold=args.speaker_threshold,
-                                  device=device)
+                                  device=device, mesh=mesh)
     return _run(t, args)
 
 
 def _run(t, args) -> int:
-    """Transcribe ``args.files`` with ``t`` and print or write the results."""
+    """Transcribe ``args.files`` with ``t`` and print or write the results
+    (rank 0's job under a mesh; every rank transcribes)."""
     from yoho_tpu_torch.utils.profiling import trace
 
     if args.output_dir:
@@ -619,6 +629,8 @@ def _run(t, args) -> int:
             results = t.transcribe_many(args.files)
         else:
             results = [t.transcribe(args.files[0])]
+        if not is_coordinator():
+            return 0
         for f, result in zip(args.files, results):
             _write_sidecars(f, result, args)
             if args.json:

@@ -201,24 +201,36 @@ def suggest_batch_size(cfg, family: str = "whisper", *, device_bytes: int,
                        vocab_size: Optional[int] = None,
                        quantum: int = 8, max_batch: int = 512,
                        extra_fixed_bytes: int = 0, extra_stream_bytes: int = 0,
+                       data_shards: int = 1, model_shards: int = 1,
                        **terms) -> int:
-    """A serving batch that fits in ``device_bytes``.
+    """A serving batch that fits in ``device_bytes`` (one device's).
 
-    ``weight_bytes``: the model as stored (default: the analytic parameter
-    count in bf16; a YOHO config needs ``vocab_size`` for it);
-    ``extra_fixed_bytes`` / ``extra_stream_bytes``: what
-    the configuration alone cannot see (a draft model and its per-stream
-    buffers); ``terms``: :func:`stream_terms`' keywords. Returns at least
-    1, at most ``max_batch``, rounded down to ``quantum`` above it."""
+    ``weight_bytes``: the model as one device stores it (default: the
+    analytic parameter count in bf16 over ``model_shards``; a YOHO config
+    needs ``vocab_size`` for it); ``extra_fixed_bytes`` /
+    ``extra_stream_bytes``: what the configuration alone cannot see (a
+    draft model and its per-stream buffers); ``data_shards`` /
+    ``model_shards``: the mesh axes. Data parallelism multiplies the batch
+    by ``data_shards``; tensor parallelism splits the K/V terms (the cross
+    K/V and the self cache hold this rank's heads) over ``model_shards``,
+    while every rank holds the stream's audio, log-mel, encoder output and
+    staging whole. (The JAX package divides every term: on four H100s that
+    predicted 232 MB for whisper-small's 16 streams a rank where 389 MB
+    were measured; PERF.md.) ``terms``: :func:`stream_terms`' keywords.
+    Returns at least 1, at most ``max_batch``, rounded down to ``quantum``
+    above it, times ``data_shards``."""
+    m = max(1, model_shards)
     if weight_bytes is None:
         weight_bytes = 2 * (whisper_param_count(cfg) if family == "whisper"
-                            else yoho_param_count(cfg, vocab_size))
+                            else yoho_param_count(cfg, vocab_size)) // m
     budget = device_bytes - weight_bytes - RESERVE_BYTES - max(0, extra_fixed_bytes)
-    per_stream = stream_bytes(cfg, family, **terms) + max(0, extra_stream_bytes)
+    split = stream_terms(cfg, family, **terms)
+    kv = split.pop("cross_kv") + split.pop("self_cache")
+    per_stream = -(-kv // m) + sum(split.values()) + max(0, extra_stream_bytes)
     batch = min(max(0, budget) // per_stream, max_batch)
     if batch >= quantum:
         batch = (batch // quantum) * quantum
-    return max(1, int(batch))
+    return max(1, int(batch)) * max(1, data_shards)
 
 
 def _lane_kwargs(t, model, horizon: int) -> dict:
@@ -236,7 +248,8 @@ def _lane_kwargs(t, model, horizon: int) -> dict:
 def resolve_auto_batch(t) -> int:
     """Resolve ``Transcriber(batch_size="auto")`` from its live settings:
     its model (and draft) as stored on its device, the cross-K/V and cache
-    lanes, the beams and the speculative horizon."""
+    lanes, the beams, the speculative horizon and its mesh (a sharded
+    model's bytes are this device's)."""
     horizon, fixed, extra = t.max_len, 0, 0
     if t.draft_model is not None:
         # Both cache sets hold the stale-write workspace past the horizon
@@ -246,7 +259,10 @@ def resolve_auto_batch(t) -> int:
         d_terms = stream_terms(t.draft_model.cfg, t.family,
                                **_lane_kwargs(t, t.draft_model, horizon))
         extra = sum(v for k, v in d_terms.items() if k not in ("audio", "mel"))
+    mesh = getattr(t, "mesh", None)
+    shards = {} if mesh is None else mesh.shape
     return suggest_batch_size(
         t.model.cfg, t.family, device_bytes=device_memory_bytes(t.device),
         weight_bytes=module_bytes(t.model), extra_fixed_bytes=fixed,
-        extra_stream_bytes=extra, **_lane_kwargs(t, t.model, horizon))
+        extra_stream_bytes=extra, data_shards=shards.get("data", 1),
+        model_shards=shards.get("model", 1), **_lane_kwargs(t, t.model, horizon))

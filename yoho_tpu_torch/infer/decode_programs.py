@@ -15,6 +15,11 @@ unquantized cross-K/V and a float cache of 128 positions). The YOHO family
 (``family="yoho"``) prompts with ``<|startoftranscript|>`` alone, has no
 no-speech token, no SOT index and no timestamp rules, and decodes over
 float cross K/V and caches.
+
+Under a mesh (``Transcriber(mesh=...)``) every program works on this
+rank's ``data`` rows (:meth:`DecodeProgramsMixin._to_device`,
+:meth:`DecodeProgramsMixin._rows`) and gathers its results over ``data``
+before the host sees them (:meth:`DecodeProgramsMixin._to_host`).
 """
 
 from __future__ import annotations
@@ -38,6 +43,29 @@ from yoho_tpu_torch.infer.speculative import speculative_greedy_decode
 
 class DecodeProgramsMixin:
     """Program construction and language ID half of the Transcriber."""
+
+    def _rows(self, batch):
+        """This rank's rows of a host batch: all of it without a mesh;
+        raises ``ValueError`` when the rows do not divide over ``data``."""
+        if self.mesh is None:
+            return batch
+        from yoho_tpu_torch.parallel.mesh import shard_batch
+
+        return shard_batch(self.mesh, batch)
+
+    def _to_device(self, batch: np.ndarray) -> torch.Tensor:
+        """A (B, ...) host batch -> this rank's rows as f32 on the device."""
+        return torch.as_tensor(self._rows(batch), dtype=torch.float32,
+                               device=self.device)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A program's result for this rank's rows -> the whole batch as a
+        numpy array (gathered over ``data`` under a mesh)."""
+        if self.mesh is not None:
+            from yoho_tpu_torch.parallel.mesh import gather_batch
+
+            t = gather_batch(self.mesh, t)
+        return t.cpu().numpy()
 
     def _prompt_ids(self, language: Optional[str] = None) -> List[int]:
         """Prompt for one stream; its length does not depend on the
@@ -233,15 +261,16 @@ class DecodeProgramsMixin:
                 raise ValueError(f"prompt {prompt.shape} != ({batch}, {prompt_len})")
             xa = model.encode_audio(mel)
             ckv = model.cross_kvs(xa, self.quantized_cross_kv)
-            prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
+            prompt = torch.as_tensor(self._rows(np.asarray(prompt)), dtype=torch.long,
                                      device=self.device)
+            rows = prompt.shape[0]  # this rank's (the batch without a mesh)
             kw = dict(suppress_ids=suppress, logits_fn=logits_fn, return_aux=True,
                       no_speech_id=self._no_speech_id(),
                       sot_index=self._sot_index(prompt_len))
             if k:
                 # The cross-K/V stay untiled: the K beams of a stream share
                 # one read of them (nn.layers._beam_fold).
-                caches = model.init_caches(batch * k, self.cache_dtype, None,
+                caches = model.init_caches(rows * k, self.cache_dtype, None,
                                            self.quantized_cache)
                 tokens, lengths, _scores, aux = beam_search(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
@@ -254,25 +283,26 @@ class DecodeProgramsMixin:
                 d_ckv = d_model.cross_kvs(d_model.encode_audio(mel),
                                           self.quantized_cross_kv)
                 horizon = self.max_len + gamma + 2
-                t_caches = model.init_caches(batch, self.cache_dtype, horizon,
+                t_caches = model.init_caches(rows, self.cache_dtype, horizon,
                                              self.quantized_cache)
-                d_caches = d_model.init_caches(batch, self.cache_dtype, horizon,
+                d_caches = d_model.init_caches(rows, self.cache_dtype, horizon,
                                                self.quantized_cache)
                 tokens, lengths, aux = speculative_greedy_decode(
                     self._make_step(ckv), self._make_step(d_ckv, d_model),
                     t_caches, d_caches, prompt, self.max_len, self.eot, gamma=gamma,
                     stats=self.speculative_stats, **kw)
             else:
-                caches = model.init_caches(batch, self.cache_dtype, None,
+                caches = model.init_caches(rows, self.cache_dtype, None,
                                            self.quantized_cache)
                 gen = torch.Generator(device=self.device).manual_seed(42 + seed)
                 tokens, lengths, aux = greedy_decode(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
                     temperature=temperature, generator=gen, **kw)
             if "no_speech_prob" not in aux:
-                aux["no_speech_prob"] = torch.zeros((batch,), dtype=torch.float32)
-            return (tokens.cpu().numpy(), lengths.cpu().numpy(),
-                    {k: v.cpu().numpy() for k, v in aux.items()})
+                aux["no_speech_prob"] = torch.zeros((rows,), dtype=torch.float32,
+                                                    device=self.device)
+            return (self._to_host(tokens), self._to_host(lengths),
+                    {k: self._to_host(v) for k, v in aux.items()})
 
         return fn
 
@@ -283,8 +313,9 @@ class DecodeProgramsMixin:
         (B, max_len)) from one forward, as numpy arrays."""
         xa = self.model.encode_audio(mel)
         amap, probs = self.model.cross_attention_map(
-            torch.as_tensor(tokens, dtype=torch.long, device=self.device), xa, True)
-        return amap.cpu().numpy(), probs.cpu().numpy()
+            torch.as_tensor(self._rows(tokens), dtype=torch.long, device=self.device),
+            xa, True)
+        return self._to_host(amap), self._to_host(probs)
 
     @torch.inference_mode()
     def _language_logits(self, windows: np.ndarray) -> np.ndarray:
@@ -292,13 +323,13 @@ class DecodeProgramsMixin:
         batch of first windows -> (b, vocab) f32 logits, over the
         unquantized cross-K/V and a float cache of 128 positions."""
         model = self.model
-        b = len(windows)
         xa = model.encode_audio(self._features(windows))
+        b = xa.shape[0]  # this rank's rows
         caches = model.init_caches(b, self.cache_dtype, 128)
         prompt = torch.full((b, 1), self.token_table.sot, dtype=torch.long,
                             device=self.device)
         logits, _ = model.decode_step(prompt, caches, model.cross_kvs(xa), 0)
-        return logits[:, -1].float().cpu().numpy()
+        return self._to_host(logits[:, -1].float())
 
     def _detection_input(self, audio) -> np.ndarray:
         """Language detection's input as the JAX package takes it: a file

@@ -23,6 +23,14 @@ schemes:
   pass, clustered into speakers and named against enrolled voiceprints
   (``infer/speaker_pass.py``).
 
+A mesh (``mesh=``, ``parallel/mesh.py``) serves the model tensor parallel
+over its ``model`` axis (``parallel/sharding.py::shard_params`` cuts the
+model and the draft in place, as the JAX class shards their params) and
+data parallel over ``data``: every rank runs the same calls on the same
+host inputs, a device program takes this rank's rows of each batch and
+gathers its results over ``data`` before the host reads them, so every
+rank takes the same host branches. The batch must divide by ``data``.
+
 Options of the JAX class that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -126,13 +134,12 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
         diarize_encoder=None,  # VoiceprintEncoder (whisper-family diarization)
         enrolled_speakers=None,  # {name: voiceprint} for speaker recognition
         speaker_threshold: float = 0.75,  # cosine: cluster merge + naming
+        mesh=None,  # parallel.mesh.Mesh, or a "DATAxMODEL" spec
         device=None,
         **unported,
     ):
         if family not in ("whisper", "yoho"):
             raise ValueError(f"unknown family {family!r}")
-        if unported.pop("mesh", None) is not None:
-            _not_ported("mesh", 11)
         if unported:
             raise TypeError(f"unknown arguments {sorted(unported)}")
         if task not in ("transcribe", "translate"):
@@ -156,7 +163,15 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
                 and hallucination_silence_threshold <= 0):
             raise ValueError("hallucination_silence_threshold must be > 0 "
                              f"seconds, got {hallucination_silence_threshold}")
+        if mesh is not None:
+            from yoho_tpu_torch.parallel.mesh import as_mesh
+
+            mesh = as_mesh(mesh, device)
+            device = mesh.device if device is None else device
+        self.mesh = mesh
         self.device = resolve_device(device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"transcriber on {self.device}, mesh rank on {mesh.device}")
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, transcriber on "
                              f"{self.device}")
@@ -215,6 +230,15 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
                         "voiceprints — re-enroll with the same embedder "
                         "(enroll, same session / --diarize-session)")
 
+        if mesh is not None:
+            # Multi-device serving: tensor-parallel layers over ``model``;
+            # the draft rides the same mesh, so verify and draft steps
+            # share one layout.
+            from yoho_tpu_torch.parallel.sharding import shard_params
+
+            shard_params(model, mesh)
+            if draft_model is not None:
+                shard_params(draft_model, mesh)
         self.model = model
         self.family = family
         self.tokenizer = tokenizer
@@ -280,7 +304,8 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
             self.batch_size = int(batch_size)
 
     def _features(self, wins: np.ndarray) -> torch.Tensor:
-        audio = torch.as_tensor(wins, dtype=torch.float32, device=self.device)
+        """Log-mel of this rank's rows of a (B, samples) host batch."""
+        audio = self._to_device(wins)
         if self.family == "whisper":
             return fused_whisper_log_mel(audio, n_mels=self.model.cfg.n_mels)
         return fused_yoho_log_mel(audio, self.model.cfg)

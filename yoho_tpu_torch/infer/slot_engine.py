@@ -256,6 +256,12 @@ class SlotEngine:
             raise ValueError("condition_on_previous_text is sequential by "
                              "construction: use the micro-batching engine "
                              "(drop --continuous)")
+        if getattr(t, "mesh", None) is not None:
+            # Every rank would need the same admissions at the same chunk:
+            # a leader that broadcasts the schedule.
+            from yoho_tpu_torch.infer.pipeline import _not_ported
+
+            _not_ported("continuous batching over a mesh", 11)
         self.t = t
         self.slots = int(slots or t.batch_size)
         self.chunk_tokens = int(chunk_tokens)

@@ -89,8 +89,8 @@ class SpeakerPassMixin:
             return
         pad = self._voiceprint_rows(tokens, per_window, lengths)
         _logits, vp = self.model.forward_with_voiceprints(
-            torch.as_tensor(pad, device=self.device), mel)
-        vp = vp.float().cpu().numpy()
+            torch.as_tensor(self._rows(pad), device=self.device), mel)
+        vp = self._to_host(vp.float())
         vp_id = self.tokenizer.voiceprint_id
         for w, segs in enumerate(per_window):
             positions = np.nonzero(pad[w] == vp_id)[0]

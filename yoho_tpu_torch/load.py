@@ -13,8 +13,9 @@ or, for a trained YOHO session (native voiceprints and diarization):
 >>> t = yoho_tpu_torch.load_transcriber(session="main", root="./sessions")
 
 ``hf`` is a local checkpoint directory (no hub download). The model runs
-on CUDA unless ``device="cpu"`` is passed. A device mesh (``mesh=``) is not
-in the port yet and raises, naming its ROADMAP.md item.
+on CUDA unless ``device="cpu"`` is passed. ``mesh=`` (``"DxM"`` or a
+``parallel.mesh.Mesh``) serves it over a (data, model) mesh of processes,
+one per GPU (``torchrun``); ``mesh="1x1"`` runs in one process.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def load_transcriber(
     initial_prompt: Optional[str] = None,
     condition_on_previous_text: bool = False,
     vad: bool = False,
-    mesh=None,
+    mesh=None,  # "DxM" or a parallel.mesh.Mesh
     diarize_session: Optional[str] = None,
     speakers=None,
     speaker_threshold: float = 0.75,
@@ -63,12 +64,13 @@ def load_transcriber(
     session (``session=`` + ``root=``). Knobs mirror the
     ``transcribe``/``serve`` flags; see those commands' ``--help``.
     Whisper-only knobs raise on the yoho family instead of being dropped."""
-    from yoho_tpu_torch.infer.pipeline import _not_ported
-
     if (hf is None) == (session is None):
         raise ValueError("pass exactly one of hf= or session=")
     if mesh is not None:
-        _not_ported("mesh=", 11)
+        from yoho_tpu_torch.parallel.mesh import as_mesh
+
+        mesh = as_mesh(mesh, device)
+        device = mesh.device
     if language == "auto":  # the CLI sentinel for per-file detection
         language = None
     enrolled = speakers
@@ -114,7 +116,7 @@ def load_transcriber(
             repetition_penalty=repetition_penalty,
             no_repeat_ngram_size=no_repeat_ngram, length_penalty=length_penalty,
             hallucination_silence_threshold=hallucination_silence_threshold,
-            device=device)
+            device=device, mesh=mesh)
 
     diarize = (load_voiceprint_encoder(diarize_session, root, device)
                if diarize_session else None)
@@ -137,4 +139,4 @@ def load_transcriber(
         length_penalty=length_penalty,
         hallucination_silence_threshold=hallucination_silence_threshold,
         diarize=diarize, enrolled_speakers=enrolled,
-        speaker_threshold=speaker_threshold, device=device)
+        speaker_threshold=speaker_threshold, device=device, mesh=mesh)

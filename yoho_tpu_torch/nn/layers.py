@@ -41,6 +41,15 @@ here, an ``nn.Linear`` of width heads x head_dim that remembers the split
 KV heads with ``repeat_interleave`` (``jnp.repeat`` on the head axis) and
 run through the flash kernel; cached modes give ``groups`` to the decode
 attention kernel, which reads each KV head once for its group.
+
+Tensor parallelism (``parallel/sharding.py::shard_params``): a layer cut
+over the ``model`` axis of a mesh holds the mesh as ``tp``. Attention then
+runs its local heads (the head dim and the scale stay global), the
+row-parallel out projection and the MLPs' fc2/down sum their partial
+outputs over the axis (:func:`model_sum`, one all-reduce), and a
+vocabulary-sharded embedding looks up its own rows (:func:`embed_tokens`)
+and gathers its logits (:func:`vocab_logits`). A layer without ``tp``
+computes as before.
 """
 
 from __future__ import annotations
@@ -63,6 +72,43 @@ from yoho_tpu_torch.ops.decode_attention import fused_decode_attention, is_row_p
 from yoho_tpu_torch.ops.flash_attention import flash_attention
 from yoho_tpu_torch.ops.w8a8_dense import quantize_rows as quantize_act_rows  # noqa: F401
 from yoho_tpu_torch.ops.w8a8_dense import w8a8_dense
+from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, all_gather, all_reduce
+
+
+def model_sum(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel layer's output: the partial sums of the model axis
+    added (one all-reduce) when ``mod`` is sharded, else ``x``."""
+    tp = getattr(mod, "tp", None)
+    return x if tp is None else all_reduce(x.contiguous(), tp, AXIS_MODEL)
+
+
+def embed_tokens(emb: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+    """Token lookup. A vocabulary-sharded table looks up the ids in its own
+    rows, zeros for the others, and the model axis sums the ranks' rows."""
+    tp = getattr(emb, "tp", None)
+    if tp is None:
+        return emb(ids)
+    local = ids - emb.vocab_start
+    hit = (local >= 0) & (local < emb.num_embeddings)
+    vec = F.embedding(torch.where(hit, local, 0), emb.weight)
+    return all_reduce(torch.where(hit[..., None], vec, torch.zeros_like(vec)),
+                      tp, AXIS_MODEL)
+
+
+def vocab_logits(emb: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """Tied logits over a vocabulary-sharded table gathered along the
+    vocabulary (the ranks' rows in order); else as they are."""
+    tp = getattr(emb, "tp", None)
+    return logits if tp is None else all_gather(logits, tp, AXIS_MODEL, dim=-1)
+
+
+def _head_mean(mod: nn.Module, w: torch.Tensor, heads: int) -> torch.Tensor:
+    """The mean of (B, H, S, T) attention weights over all heads: over the
+    local ones, or their sum over the model axis for a sharded layer."""
+    tp = getattr(mod, "tp", None)
+    if tp is None:
+        return w.mean(dim=1)
+    return all_reduce(w.sum(dim=1), tp, AXIS_MODEL) / (heads * tp.shape[AXIS_MODEL])
 
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -246,7 +292,7 @@ class SwiGLU(nn.Module):
         self.down = dense(hidden_dim, d_in, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return model_sum(self, self.down(F.silu(self.gate(x)) * self.up(x)))
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -356,7 +402,7 @@ class GroupedQueryAttention(nn.Module):
         k = self._expand(_bhdt(self._rope(self.k_proj(xa), xa.shape[1])), 1)
         with full_fp32():
             scores = torch.einsum("bhsd,bhdt->bhst", q.float(), k.float())
-        return torch.softmax(scores, dim=-1).mean(dim=1)
+        return _head_mean(self, torch.softmax(scores, dim=-1), self.q_heads)
 
     def forward(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
                 causal: bool = False, cache: Optional[KVCache] = None,
@@ -377,7 +423,7 @@ class GroupedQueryAttention(nn.Module):
             out = flash_attention(q, self._expand(k, 2),
                                   self._expand(self.v_proj(src), 2),
                                   causal=causal, scale=scale)
-            return self.out_proj(out.reshape(b, s, self.dims))
+            return model_sum(self, self.out_proj(out.reshape(b, s, -1)))
         q = _bhsd(q) * self.head_dim ** -0.5
         if cross_kv is not None:
             k, v = cross_kv
@@ -386,12 +432,12 @@ class GroupedQueryAttention(nn.Module):
                 q = _fold_queries(q, fold)
             out = fused_decode_attention(q, k.to(q.dtype), v.to(q.dtype),
                                          groups=self.groups)
-            return self.out_proj(out.reshape(b, s, self.dims))
+            return model_sum(self, self.out_proj(out.reshape(b, s, -1)))
         k = _bhdt(self._rope(self.k_proj(x), s, pos))
         cache = cache.update(pos, k, _bhdt(self.v_proj(x)))
         out = fused_decode_attention(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
                                      pos=pos, groups=self.groups)
-        return self.out_proj(out.reshape(b, s, self.dims)), cache
+        return model_sum(self, self.out_proj(out.reshape(b, s, -1))), cache
 
 
 class MultiHeadAttention(nn.Module):
@@ -402,7 +448,8 @@ class MultiHeadAttention(nn.Module):
                  device=None, weights_int8: bool = False):
         super().__init__()
         self.n_state = n_state
-        self.n_head = n_head
+        self.n_head = n_head  # this rank's heads once sharded
+        self.head_dim = n_state // n_head
         kw = dict(dtype=dtype, device=device)
         dense = QuantizedDense if weights_int8 else nn.Linear
         self.q_proj = dense(n_state, n_state, **kw)
@@ -412,11 +459,11 @@ class MultiHeadAttention(nn.Module):
 
     @property
     def scale(self) -> float:
-        return (self.n_state // self.n_head) ** -0.25
+        return self.head_dim ** -0.25
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        return x.view(b, s, self.n_head, self.n_state // self.n_head)
+        return x.view(b, s, -1, self.head_dim)
 
     def attention_map(self, x: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
         """Head-averaged cross-attention weights (B, S, T) in f32: the
@@ -426,7 +473,7 @@ class MultiHeadAttention(nn.Module):
         k = _bhdt(self._split(self.k_proj(xa)) * self.scale)
         with full_fp32():
             scores = torch.einsum("bhsd,bhdt->bhst", q.float(), k.float())
-        return torch.softmax(scores, dim=-1).mean(dim=1)
+        return _head_mean(self, torch.softmax(scores, dim=-1), self.n_head)
 
     def kv(self, xa: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K/V from the encoder output, once per window,
@@ -455,7 +502,7 @@ class MultiHeadAttention(nn.Module):
                                   self._split(self.k_proj(src)),
                                   self._split(self.v_proj(src)),
                                   causal=causal, scale=self.scale * self.scale)
-            return self.out_proj(out.reshape(b, s, self.n_state))
+            return model_sum(self, self.out_proj(out.reshape(b, s, -1)))
 
         q = _bhsd(self._split(self.q_proj(x)) * self.scale)
         if cross_kv is not None:
@@ -468,7 +515,7 @@ class MultiHeadAttention(nn.Module):
             else:
                 k, v = (t.to(q.dtype) for t in cross_kv)
                 out = fused_decode_attention(q, k, v)
-            return self.out_proj(out.reshape(b, s, self.n_state))
+            return model_sum(self, self.out_proj(out.reshape(b, s, -1)))
 
         k = _bhdt(self._split(self.k_proj(x)) * self.scale)
         v = _bhdt(self._split(self.v_proj(x)))
@@ -478,7 +525,7 @@ class MultiHeadAttention(nn.Module):
         else:
             out = fused_decode_attention(q, cache.k.to(q.dtype),
                                          cache.v.to(q.dtype), pos=pos)
-        return self.out_proj(out.reshape(b, s, self.n_state)), cache
+        return model_sum(self, self.out_proj(out.reshape(b, s, -1))), cache
 
 
 class MLP(nn.Module):
@@ -508,7 +555,7 @@ class MLP(nn.Module):
         h = self.fc1(x)
         if not isinstance(self.fc1, Int8Dense):  # else fused into fc1
             h = F.gelu(h, approximate="tanh" if self.gelu_tanh else "none")
-        return self.fc2(h)
+        return model_sum(self, self.fc2(h))
 
 
 def realized_token_probs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

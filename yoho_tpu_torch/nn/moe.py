@@ -15,6 +15,12 @@ collection; an ``nn.Module`` keeps its last values instead: every
 (``last_aux_loss``, with its graph) and the dropped fraction
 (``last_dropped_fraction``) of its last forward, and
 :func:`collect_aux_losses` averages the losses over a model.
+
+Expert parallelism (``parallel/sharding.py``): a layer sharded over the
+``model`` axis (``tp``) holds experts ``expert_offset`` to
+``expert_offset + local_experts - 1``; the router stays whole, each rank
+runs its own experts' slice of the dense dispatch, and the combined
+outputs are summed over the axis (one all-reduce).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoho_tpu_torch.core.device import full_fp32
+from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, all_reduce
 
 
 def moe_dispatch(gates: torch.Tensor, top_k: int, capacity: int,
@@ -135,6 +142,10 @@ class MoESwiGLU(nn.Module):
             gates = torch.softmax(self.router(x.float()), dim=-1)  # (B, S, E)
         dispatch, combine, aux, kept = moe_dispatch(gates, self.top_k, cap,
                                                     self.normalize_topk)
+        tp = getattr(self, "tp", None)
+        if tp is not None:  # expert parallel: this rank's experts only
+            lo, e = self.expert_offset, self.local_experts
+            dispatch, combine = dispatch[..., lo:lo + e, :], combine[..., lo:lo + e, :]
         # Autocast (training) picks the compute type; otherwise the model's.
         dt = torch.get_autocast_dtype(x.device.type) \
             if torch.is_autocast_enabled(x.device.type) \
@@ -143,6 +154,8 @@ class MoESwiGLU(nn.Module):
         expert_in = expert_in.transpose(0, 1).reshape(e, b * cap, d)
         expert_out = self.experts(expert_in).reshape(e, b, cap, d).transpose(0, 1)
         out = torch.einsum("bsec,becd->bsd", combine.to(dt), expert_out.to(dt))
+        if tp is not None:  # the ranks' experts' shares summed
+            out = all_reduce(out.contiguous(), tp, AXIS_MODEL)
         self.last_aux_loss = aux.mean()
         self.last_dropped_fraction = (
             1.0 - kept.float().mean() / max(1, self.top_k)).detach()

@@ -49,7 +49,9 @@ from yoho_tpu_torch.nn.layers import (
     LayerNorm,
     MultiHeadAttention,
     QuantizedEmbed,
+    embed_tokens,
     realized_token_probs_streamed,
+    vocab_logits,
 )
 from yoho_tpu_torch.ops.decode_attention import is_row_pos
 
@@ -181,12 +183,13 @@ class TextDecoder(nn.Module):
             if isinstance(self.token_embedding, QuantizedEmbed):
                 return self.token_embedding.logits(x)
             with full_fp32():
-                return F.linear(x.float(), self.token_embedding.weight.float())
+                return vocab_logits(self.token_embedding, F.linear(
+                    x.float(), self.token_embedding.weight.float()))
 
     def forward(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
         """Full-sequence (teacher-forcing) forward -> f32 logits."""
         t = tokens.shape[1]
-        x = self.token_embedding(tokens) + self.positional_embedding[:t]
+        x = embed_tokens(self.token_embedding, tokens) + self.positional_embedding[:t]
         return self._logits(self.ln(_run_blocks(self.blocks, self.remat, x, xa)))
 
     def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
@@ -196,9 +199,10 @@ class TextDecoder(nn.Module):
         max_len = -(-(max_len or c.n_text_ctx) // 128) * 128
         cls = QuantizedKVCache if quantized else KVCache
         device = self.positional_embedding.device
-        return [cls.zeros(batch, c.n_text_head, max_len,
-                          c.n_text_state // c.n_text_head, dtype, device=device)
-                for _ in range(c.n_text_layer)]
+        # Each layer's own heads: this rank's when the model is sharded.
+        return [cls.zeros(batch, blk.attn.n_head, max_len, blk.attn.head_dim, dtype,
+                          device=device)
+                for blk in self.blocks]
 
     def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
         """Per-layer cross-attention K/V, once per window. ``quantize``:
@@ -228,7 +232,7 @@ class TextDecoder(nn.Module):
         from the same forward. The self-attention (causal) and the residual
         cross-attention run through the flash kernel."""
         t = tokens.shape[1]
-        x = self.token_embedding(tokens) + self.positional_embedding[:t]
+        x = embed_tokens(self.token_embedding, tokens) + self.positional_embedding[:t]
         align_from = len(self.blocks) // 2
         acc = None
         for i, blk in enumerate(self.blocks):
@@ -250,7 +254,7 @@ class TextDecoder(nn.Module):
         own position: continuous batching; the host never reads it).
         Returns (f32 logits (B, S_new, vocab), caches)."""
         s = tokens.shape[1]
-        x = self.token_embedding(tokens)
+        x = embed_tokens(self.token_embedding, tokens)
         # Clipped like jnp.take(mode="clip"): rows past n_text_ctx stay
         # finite (a NaN K/V would poison every row through the mask).
         steps = torch.arange(s, device=x.device)

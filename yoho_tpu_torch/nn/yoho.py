@@ -46,7 +46,9 @@ from yoho_tpu_torch.nn.layers import (
     QuantizedEmbed,
     RMSNorm,
     SwiGLU,
+    embed_tokens,
     realized_token_probs_streamed,
+    vocab_logits,
 )
 from yoho_tpu_torch.nn.moe import MoESwiGLU
 
@@ -209,7 +211,7 @@ class YOHOTextDecoder(nn.Module):
             c.dims, voiceprint_dim, bias=False, **kw)
 
     def _hidden(self, tokens, xa):
-        x = self.token_embedding(tokens)
+        x = embed_tokens(self.token_embedding, tokens)
         for blk in self.blocks:
             x = _run(blk, self.remat, x, xa)
         return self.ln(x)
@@ -225,7 +227,7 @@ class YOHOTextDecoder(nn.Module):
             dt = torch.get_autocast_dtype(h.device.type)
             h, emb = h.to(dt), emb.to(dt)
         with torch.autocast(h.device.type, enabled=False), full_fp32():
-            return F.linear(h.float(), emb.float())
+            return vocab_logits(self.token_embedding, F.linear(h.float(), emb.float()))
 
     def _voiceprints(self, h: torch.Tensor) -> torch.Tensor:
         return l2_normalize(self.voiceprint_head(h))
@@ -240,7 +242,7 @@ class YOHOTextDecoder(nn.Module):
         also the realized-token probabilities (B, S_text) of the same
         forward. Each block RMSNorms the encoder output (``ln_kv``) before
         its cross-attention, as the main forward does."""
-        x = self.token_embedding(tokens)
+        x = embed_tokens(self.token_embedding, tokens)
         align_from = len(self.blocks) // 2
         acc = None
         for i, blk in enumerate(self.blocks):
@@ -269,13 +271,12 @@ class YOHOTextDecoder(nn.Module):
         if quantized:
             raise ValueError("the YOHO family decodes with float caches "
                              "(no quantized_cache lane)")
-        c = self.cfg
-        aligned = -(-(max_len or c.max_text_len) // 128) * 128
+        aligned = -(-(max_len or self.cfg.max_text_len) // 128) * 128
         device = self.ln.scale.device
-        return [KVCache.zeros(batch, max(1, c.n_text_heads // 2), aligned,
-                              c.dims // c.n_text_heads, dtype or self.dtype,
-                              device=device)
-                for _ in range(c.n_text_blocks)]
+        # Each block's own KV heads: this rank's when the model is sharded.
+        return [KVCache.zeros(batch, blk.attn.kv_heads, aligned, blk.attn.head_dim,
+                              dtype or self.dtype, device=device)
+                for blk in self.blocks]
 
     def cross_kvs(self, xa, quantize=False):
         """Per-block cross K/V (rotated keys), once per window, float in the
@@ -288,7 +289,7 @@ class YOHOTextDecoder(nn.Module):
     def decode_step(self, tokens, caches, cross_kvs, pos, with_voiceprints: bool = True):
         """Cached step: tokens (B, S_new) at ``pos`` (an int or a per-row
         (B,) tensor). Returns (f32 logits, voiceprints or None, caches)."""
-        x = self.token_embedding(tokens)
+        x = embed_tokens(self.token_embedding, tokens)
         new_caches = []
         for blk, cache, ckv in zip(self.blocks, caches, cross_kvs):
             x, nc = blk.step(x, cache, ckv, pos)

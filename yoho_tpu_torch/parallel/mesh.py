@@ -1,0 +1,355 @@
+"""The device mesh and its collectives: the port's one comm module.
+
+The JAX package's ``parallel/mesh.py`` is one controller over a named
+``jax.sharding.Mesh``; PyTorch's idiom is one process per rank (SPMD),
+launched by ``torchrun``. Every rank runs the same program on the same
+host inputs; the layers above this module speak mesh axis names only.
+
+Axis convention (as in the JAX package):
+
+* ``data``: batch rows. A rank computes its rows (:func:`shard_batch`) and
+  the results are gathered over ``data`` (:func:`gather_batch`) before the
+  host reads them, so every rank takes the same host branches (a branch on
+  a value one rank alone holds would leave the others waiting in a
+  collective).
+* ``model``: tensor parallel (attention heads, MLP hidden units, experts,
+  vocabulary rows); the row-parallel layers sum their partial outputs over
+  it (:func:`all_reduce`).
+
+Meshes of other axis names (``seq`` for ring attention, ``pipe`` for the
+pipelined encoder) come from :func:`init_mesh`.
+
+Backend by device: NCCL for CUDA, gloo for the CPU. A rank's device is
+``cuda:LOCAL_RANK`` unless the caller passes ``device="cpu"``; without
+CUDA that is an error, never a CPU run. Without a launcher (none of
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``
+set) :func:`init_distributed` starts a group of one process itself, so a
+mesh of size 1 runs in one process with no launcher. A group of one is no
+special case: its collectives run (NCCL's on the card) and are counted.
+
+NCCL's flight recorder is off unless ``TORCH_FR_BUFFER_SIZE`` (or the
+older ``TORCH_NCCL_TRACE_BUFFER_SIZE``) is set (:func:`init_distributed`):
+it captures the Python stack of every collective, which costs more than
+the collective on the decode loop.
+
+Every collective of this module adds one to :data:`COUNTS` under
+``"<op>/<axis>"`` (``all_reduce``, ``all_gather``, ``broadcast``,
+``send``, ``recv``, ``barrier``), as the kernel wrappers count their
+launches (``ops/_build.py``).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import socket
+from collections import Counter
+from typing import Dict, Mapping, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+AXIS_DATA = "data"
+AXIS_MODEL = "model"
+_LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+COUNTS: Counter = Counter()
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def _count(op: str, axis: str, n: int = 1) -> None:
+    if n:
+        COUNTS[f"{op}/{axis}"] += n
+
+
+def launched() -> bool:
+    """True under a launcher (``torchrun`` sets the rank environment)."""
+    return any(k in os.environ for k in _LAUNCH_ENV)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def local_device(device=None) -> torch.device:
+    """This rank's device: ``cuda:LOCAL_RANK`` by default (raises without
+    CUDA), else what the caller names."""
+    from yoho_tpu_torch.core.device import resolve_device
+
+    if device is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def world_size() -> int:
+    """Processes in the group (started or about to be): 1 without a
+    launcher."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1)) if launched() else 1
+
+
+def init_distributed(device=None) -> torch.device:
+    """Join (or start) the process group and return this rank's device.
+
+    Under a launcher the group comes from its environment (``env://``);
+    without one a group of one process is started on a free localhost
+    port. NCCL for a CUDA device, gloo for the CPU. Safe to call again."""
+    dev = local_device(device)
+    if not dist.is_initialized():
+        # NCCL's flight recorder (on by default) captures the Python stack
+        # of every collective: about 0.4 ms each on the decode loop's deep
+        # stack, which doubled a whisper-small batch's wall on an H100
+        # (PERF.md). Set either variable to keep the recorder.
+        if not {"TORCH_FR_BUFFER_SIZE", "TORCH_NCCL_TRACE_BUFFER_SIZE"} & set(os.environ):
+            os.environ["TORCH_FR_BUFFER_SIZE"] = "0"
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        kw = {"device_id": dev} if dev.type == "cuda" else {}
+        if launched():
+            dist.init_process_group(backend, **kw)
+        else:
+            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    world_size=1, rank=0, **kw)
+    return dev
+
+
+class Mesh:
+    """A named mesh of ranks over ``torch.distributed.device_mesh``:
+    ``shape`` maps each axis name to its size (the JAX mesh's
+    ``mesh.shape``), ``device`` is this rank's device, and each axis has
+    the process group of the ranks that share this rank's other
+    coordinates."""
+
+    def __init__(self, shape: Mapping[str, int], device: torch.device, device_mesh):
+        self.shape: Dict[str, int] = dict(shape)
+        self.axis_names: Tuple[str, ...] = tuple(shape)
+        self.device = device
+        self.device_mesh = device_mesh
+        self._coord = dict(zip(self.axis_names, device_mesh.get_coordinate()))
+        self._groups = {a: device_mesh.get_group(a) for a in self.axis_names}
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 for an axis the mesh
+        lacks)."""
+        return self._coord.get(axis, 0)
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` on ``axis`` with this rank's other
+        coordinates."""
+        return dist.get_global_rank(self._groups[axis], index)
+
+    def __repr__(self) -> str:
+        dims = "x".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims}, device={self.device})"
+
+
+_MESHES: Dict[tuple, Mesh] = {}
+
+
+def init_mesh(shape: Mapping[str, int], device=None) -> Mesh:
+    """A mesh of the given axes (``{"seq": 4}``, ``{"data": 2, "pipe":
+    2}``) over every rank of the group, row-major: the last axis varies
+    fastest. Its size must be the world size. Meshes are kept per shape
+    and device (building one is a collective)."""
+    shape = {str(a): int(n) for a, n in shape.items()}
+    if any(n < 1 for n in shape.values()):
+        raise ValueError(f"mesh axes must be >= 1, got {shape}")
+    size = math.prod(shape.values())
+    n = world_size()
+    if size != n:
+        raise ValueError(f"mesh {'x'.join(map(str, shape.values()))} != {n} devices")
+    dev = init_distributed(device)
+    key = (tuple(shape.items()), dev)
+    if key not in _MESHES:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        dm = init_device_mesh(dev.type, tuple(shape.values()),
+                              mesh_dim_names=tuple(shape))
+        _MESHES[key] = Mesh(shape, dev, dm)
+    return _MESHES[key]
+
+
+def shutdown() -> None:
+    """Destroy the process group (and forget its meshes): the end of a run
+    that started one."""
+    _MESHES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def make_mesh(data: int = -1, model: int = 1, device=None) -> Mesh:
+    """A (data, model) mesh over every rank. ``data=-1`` absorbs what
+    ``model`` does not use. Raises ``ValueError`` as the JAX package's
+    ``make_mesh`` does when the axes do not fit the world size."""
+    n = world_size()
+    if model < 1 or n % model != 0:
+        raise ValueError(f"model axis size {model} does not divide device count {n}")
+    if data == -1:
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} devices")
+    return init_mesh({AXIS_DATA: data, AXIS_MODEL: model}, device)
+
+
+def parse_mesh(spec: str, device=None) -> Mesh:
+    """A command line's mesh spec -> (data, model) mesh: ``"2x4"`` is
+    2-way data x 4-way tensor parallel; the data factor may be ``-1``."""
+    parts = spec.lower().split("x")
+    try:
+        if len(parts) != 2:
+            raise ValueError
+        data, model = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"mesh spec {spec!r} is not DATAxMODEL (e.g. '2x4', '-1x8')") from None
+    return make_mesh(data, model, device)
+
+
+def as_mesh(mesh, device=None) -> Mesh:
+    """A :class:`Mesh`, or a ``"DxM"`` spec parsed into one on ``device``;
+    anything else raises ``TypeError`` naming what a mesh is."""
+    if isinstance(mesh, str):
+        return parse_mesh(mesh, device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a yoho_tpu_torch.parallel.mesh.Mesh (from make_mesh, "
+            f"parse_mesh or init_mesh) or a 'DATAxMODEL' spec, got {type(mesh).__name__}")
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# Collectives (each counted)
+# ---------------------------------------------------------------------------
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = AXIS_MODEL,
+               op: str = "sum") -> torch.Tensor:
+    """``t`` summed (or maxed) over ``axis``, in place; returns it."""
+    _count("all_reduce", axis)
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    dist.all_reduce(t, op=ops[op], group=mesh.group(axis))
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in axis
+    order."""
+    _count("all_gather", axis)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, t, group=mesh.group(axis))
+    return torch.cat(parts, dim)
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src_index: int) -> torch.Tensor:
+    """``t`` of the rank at ``src_index`` on ``axis``, in place."""
+    _count("broadcast", axis)
+    dist.broadcast(t, mesh.peer(axis, src_index), group=mesh.group(axis))
+    return t
+
+
+def exchange(mesh: Mesh, axis: str, sends: Sequence[tuple] = (),
+             recvs: Sequence[tuple] = ()) -> None:
+    """Point-to-point over ``axis`` in one batch: ``sends`` and ``recvs``
+    are ``(tensor, index on the axis)`` pairs; returns when all are done."""
+    group = mesh.group(axis)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), mesh.peer(axis, i), group)
+           for t, i in sends]
+    ops += [dist.P2POp(dist.irecv, t, mesh.peer(axis, i), group) for t, i in recvs]
+    _count("send", axis, len(sends))
+    _count("recv", axis, len(recvs))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def shard_batch(mesh: Mesh, batch):
+    """This rank's rows of a batch (an array or tensor, or a dict, list or
+    tuple of them): the leading axis split over ``data`` in axis order.
+    Raises ``ValueError`` when the rows do not divide, as the JAX
+    package's placement does."""
+    d, i = mesh.shape.get(AXIS_DATA, 1), mesh.index(AXIS_DATA)
+
+    def rows(x):
+        n = x.shape[0]
+        if n % d:
+            raise ValueError(f"batch of {n} rows does not divide over the "
+                             f"{AXIS_DATA} axis of {d}: pass a batch divisible by {d}")
+        k = n // d
+        return x[i * k:(i + 1) * k]
+
+    if isinstance(batch, dict):
+        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(shard_batch(mesh, v) for v in batch)
+    return rows(batch)
+
+
+def gather_batch(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The whole batch from every ``data`` rank's rows (the inverse of
+    :func:`shard_batch`)."""
+    if AXIS_DATA not in mesh.shape:
+        return t
+    return all_gather(t, mesh, AXIS_DATA, 0)
+
+
+def process_shard() -> tuple:
+    """This process's ``(index, count)`` in the group: ``(0, 1)`` without
+    one. The dataloaders' shard and the writers' gate."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def is_coordinator() -> bool:
+    """True on the process that writes artifacts: rank 0, or any
+    single-process run."""
+    return process_shard()[0] == 0
+
+
+def local_batch_size(global_batch: int) -> int:
+    """This process's share of a global batch; raises when it does not
+    divide by the process count."""
+    count = process_shard()[1]
+    if global_batch % count:
+        raise ValueError(
+            f"batch_size {global_batch} must divide by the process "
+            f"count {count} (each process loads batch_size/process_count "
+            "local rows)")
+    return global_batch // count
+
+
+def barrier(name: str) -> None:
+    """A sync point of every rank (a no-op without a group)."""
+    if dist.is_initialized():
+        COUNTS[f"barrier/{name}"] += 1
+        dist.barrier()
+
+
+def fetch_to_host(mesh: Mesh, tree, specs=None):
+    """Host (numpy) copies of a tree of tensors. ``specs`` (a tree of
+    partition specs, ``parallel/sharding.py``) names the axes each leaf is
+    split over on this mesh: those leaves are gathered first. Every rank
+    must call it, in the same order."""
+    if isinstance(tree, dict):
+        return {k: fetch_to_host(mesh, v, None if specs is None else specs[k])
+                for k, v in tree.items()}
+    t = tree
+    for dim, axis in enumerate(specs or ()):
+        if axis is not None and axis in mesh.shape:
+            t = all_gather(t, mesh, axis, dim)
+    return t.detach().float().cpu().numpy() if t.is_floating_point() \
+        else t.detach().cpu().numpy()
