@@ -268,12 +268,38 @@ Phases, one output line each (JSON after the phase name):
    and decode attention launch on the mesh path (w8a8 under
    ``--int8-encoder`` only); the unsharded references' launches are not
    counted. The process group is destroyed at the end.
-15. ``kernels``: one JSON object with every kernel's numbers; launches are
+15. ``e2e-mesh-train``: training over a mesh of ``torch.distributed``
+   ranks (NCCL) at world = the cards present, at most 4 (in this process
+   at world 1, else one ``--mesh-train-rank`` process per card; rank 0
+   reports). A synthetic SRT corpus and 8 speakers from the seed, the
+   default YOHO session at full width (dims 384, 6 heads on 3 KV heads,
+   vocab 16,000) and 5 global batches of 16 made here. (a) ``ASRTrainer``
+   (bf16 autocast, batch 16, 2 updates at 2 accumulated, one validation
+   decoding its rows over ``data`` after them, 2 checkpoints, the export)
+   unsharded in this process, then over the mesh ``Wx1`` (and ``2x2`` on
+   four cards) on the same batches: at world 1 the update losses and
+   every leaf bit-equal to the unsharded trainer's, above it the losses
+   within 1e-4 relative and the update of the leaves (gathered whole)
+   within ``MESH_TRAIN_UPDATE_RTOL`` of the unsharded one (bf16: each
+   rank rounds its partial sums); the comm layer's collectives
+   equal to ``_train_predicted``; ms per mini-step against the unsharded
+   run's and ``max_memory_allocated``; the state saved with
+   ``save_checkpoint_sharded`` and loaded back bit-equal. Stage 3
+   (``VoiceprintTrainer``, 1 update at 2 accumulated) over ``Wx1``: the
+   NT-Xent gathers over ``data``. (b) The long-context train step (2
+   windows, ring over ``seq`` = W) and the GPipe step (``pipe`` = W, 2
+   microbatches) in f32 against the unsharded step on the card: loss
+   within 1e-5, gradients within 3e-5. (c) ``dryrun_multichip(W)``. Each
+   part counts launches from 0 (mel and flash, decode in the validations
+   and the dry run's serving; w8a8 never); the unsharded references'
+   launches are not counted.
+16. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
    ``train`` phase's runs, ``e2e-cli``'s commands, the parts of
-   ``e2e-yoho`` and ``e2e-yoho-train`` and ``e2e-mesh``'s mesh runs.
-16. The last line: ``{"ok": true, "device": {...}}``.
+   ``e2e-yoho`` and ``e2e-yoho-train``, ``e2e-mesh``'s mesh runs and
+   ``e2e-mesh-train``'s parts.
+17. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -3947,6 +3973,455 @@ def e2e_mesh(card: str, kernels) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ e2e-mesh-train
+
+MESH_TRAIN_UPDATES, MESH_TRAIN_ACC = 2, 2
+# Above world 1 (bf16 autocast, each rank rounding its partial sums): the
+# update losses' relative bound, and the bound on the relative error of
+# the whole update, |d_mesh - d_plain| / |d_plain| over every leaf (d: the
+# leaves after the updates less those before), set between a sound
+# 4-card run (0.0048 at 4x1, 0.0058 at 2x2) and one whose gradient
+# reduction kept each rank's own gradient (0.59; its losses equal the
+# sound run's: update 1 runs at a learning rate of 0); PERF.md, Findings.
+MESH_TRAIN_LOSS_RTOL, MESH_TRAIN_UPDATE_RTOL = 1e-4, 0.1
+
+
+def _train_predicted(cfg, model_axis: int, updates: int, acc: int, decode_steps: int,
+                     buckets: int, checkpoints: int) -> dict:
+    """The comm layer's collectives of one ``ASRTrainer.run`` over a (data,
+    model) mesh (``updates`` x ``acc`` mini-steps, one validation decoding
+    ``decode_steps`` steps, ``checkpoints`` checkpoints, the export). A
+    layer is cut when the rules cut it (attention by whole KV-head groups,
+    the SwiGLU's hidden units, the vocabulary), and a cut layer's
+    collectives run on an axis of 1 too. Per training mini-step: forward,
+    one all-reduce per cut attention and MLP and the embedding's lookup
+    (``sum_over``) and the logits' gather; backward, one all-reduce per
+    ``copy_to`` (a cut layer's input: the cross attention's two) and
+    nothing for a sum or a gather; one mask count over ``data``. Per
+    update: the gradient buckets and the logged loss over ``data``. The
+    validation: a forward without gradient (its loss and mask count over
+    ``data``), an encode, each decode step's decoder and vocabulary
+    collectives, the decoded rows gathered over ``data``. Each checkpoint
+    gathers every cut leaf of the parameters and of the three optimizer
+    trees, the export every cut leaf of the parameters."""
+    le, ld = cfg.n_audio_blocks, cfg.n_text_blocks
+    kvh = max(1, cfg.n_audio_heads // 2)
+    a = int(cfg.n_audio_heads % model_axis == 0 and kvh % model_axis == 0)
+    m = int(int(cfg.dims * 3) % model_axis == 0)
+    e = int(16000 % model_axis == 0)
+    fwd = le * (a + m) + ld * (2 * a + m) + e
+    bwd = le * (a + m) + ld * (3 * a + m) + e
+    cut = le * (4 * a + 3 * m) + ld * (8 * a + 3 * m) + e
+    steps = updates * acc
+    out = {"all_reduce/model": steps * (fwd + bwd) + fwd + le * (a + m)
+           + decode_steps * (ld * (2 * a + m) + e),
+           "all_gather/model": steps * e + e + decode_steps * e + (4 * checkpoints + 1) * cut,
+           "all_reduce/data": steps + updates * (buckets + 1) + 2,
+           "all_gather/data": 1}
+    return {k: v for k, v in out.items() if v}
+
+
+class _FixedBatches:
+    """A train loader of given global batches (host arrays): each call to
+    ``get_prepared_batch`` gives the next one's rows of this rank's ``data``
+    shard (all of it without a mesh)."""
+
+    def __init__(self, batches, mesh):
+        self.batches, self.mesh, self.i = batches, mesh, 0
+
+    def get_prepared_batch(self):
+        from yoho_tpu_torch.parallel.mesh import shard_batch
+
+        batch = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
+
+    def skip(self, n):
+        self.i += n
+
+    def terminate(self):
+        pass
+
+
+def _mesh_train_setup(tmp: Path) -> dict:
+    """The phase's inputs, made once (the ranks read them): a synthetic SRT
+    corpus and speakers from the seed, the default session (its 16,000-id
+    tokenizer) under the names the runs train in, and the 5 global batches
+    of 16 the ASR runs share (4 mini-steps and the validation's train
+    batch)."""
+    import wave
+
+    import numpy as np
+
+    from yoho_tpu_torch.text.tokenizer import YOHOTokenizer
+    from yoho_tpu_torch.train.dataloader import TranscriptionDataloader
+
+    corpus, root = tmp / "corpus", tmp / "sessions"
+    _train_corpus(corpus, tracks=4, seconds=60)
+    rng = np.random.default_rng(SEED + 30)
+    for s in range(8):
+        (corpus / "speakers" / f"spk{s}").mkdir(parents=True)
+        for c in range(4):
+            t = np.arange(48000) / 16000
+            clip = 0.3 * np.sin(2 * np.pi * (180 + 70 * s) * t) + 0.01 * rng.standard_normal(48000)
+            with wave.open(str(corpus / "speakers" / f"spk{s}" / f"clip{c}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(np.clip(clip * 32768, -32768, 32767).astype("<i2").tobytes())
+    edits = (("'./asr_dataset/noisy'", f"'{corpus}'"),
+             ("'./asr_dataset/speakers'", f"'{corpus / 'speakers'}'"))
+    names = ["plain", "mesh", "mesh-2x2", "stage3"]
+    for name in names:
+        config, _ = _write_yoho_session(root, name, edits)
+    tok = YOHOTokenizer.load(config.weights.tokenizer)
+    loader = TranscriptionDataloader((0.0, 0.9), config, tok, batch_size=16, seed=0,
+                                     use_multiprocessing=False, warmup_queue=False,
+                                     disable_warnings=True)
+    batches = [tuple(np.asarray(x) for x in loader.get_batch(i))
+               for i in range(MESH_TRAIN_UPDATES * MESH_TRAIN_ACC + 1)]
+    return dict(root=root, batches=batches)
+
+
+def _asr_trainer(root: Path, name: str, batches, mesh):
+    """An ``ASRTrainer`` of the default session ``name`` (bf16 autocast,
+    batch 16, 2 accumulated, one validation after the 2 updates) on the
+    given batches, over ``mesh`` (None: unsharded)."""
+    from dataclasses import replace
+
+    import torch
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.train.trainer import ASRTrainer
+
+    config = load_session_config(name, root)
+    hp = replace(config.hyperparameters.transcribe_pretrain,
+                 accumulated_batches=MESH_TRAIN_ACC, validation_frequency=MESH_TRAIN_UPDATES)
+    trainer = ASRTrainer(config, hp=hp, mesh=mesh, compute_dtype=torch.bfloat16)
+    trainer.train_dataloader.terminate()
+    trainer.train_dataloader = _FixedBatches(batches, mesh)
+    return trainer
+
+
+def _update_error(trainer, mesh, plain: dict) -> dict:
+    """The mesh trainer's leaves after its updates, gathered whole, against
+    the unsharded trainer's: each leaf's largest absolute difference, and
+    the relative error of the whole update over every leaf (AdamW's first
+    steps are nearly ``lr * sign(g)``, so a scale-free norm of the update
+    is what tells a lost reduction from rounding). The largest over the
+    ranks, so every rank reaches the same verdict."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from yoho_tpu_torch.parallel.mesh import fetch_to_host
+
+    got = fetch_to_host(mesh, trainer._leaves, trainer._specs)
+    num = den = worst = 0.0
+    worst_at = ""
+    for k, want in plain["leaves"].items():
+        want = want.numpy().astype(np.float64)
+        diff = got[k].astype(np.float64) - want
+        num += float((diff * diff).sum())
+        den += float(((want - plain["init_leaves"][k].numpy()) ** 2).sum())
+        if float(np.abs(diff).max()) > worst:
+            worst, worst_at = float(np.abs(diff).max()), k
+    out = torch.tensor([(num / den) ** 0.5 if den else float(num > 0), worst],
+                       dtype=torch.float64, device="cuda")
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)  # not a counted collective
+    return dict(update_rel_err=float(out[0]), leaf_max_abs_err=float(out[1]),
+                leaf_max_abs_err_at=worst_at, leaves=len(plain["leaves"]))
+
+
+def _timed_run(trainer, updates: int) -> dict:
+    """``trainer.run`` with each mini-step synchronized and timed; the
+    update losses, the steps' ms and the peak memory above what was held."""
+    import statistics
+
+    import torch
+
+    inner, ms = trainer._train_step, []
+
+    def step(*batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    trainer._train_step = step
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(max_updates=updates)
+    trainer._train_step = inner
+    return dict(update_losses=trainer.update_losses, step_ms=ms,
+                step_ms_median_after_first=statistics.median(ms[1:]),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                held_before=held)
+
+
+def _step_pair(phase: str, label: str, model_fn, step_fn, run, mel, tokens, mask) -> dict:
+    """A parallel train step's loss and gradients (``run`` times and counts
+    the step) against the unsharded step's on this rank's card, in f32:
+    loss within 1e-5 and every gradient within 3e-5 (the JAX tests'
+    bounds)."""
+    import torch
+
+    from yoho_tpu_torch.nn import params as nn_params
+    from yoho_tpu_torch.parallel.long_encoder import trained_parameters
+    from yoho_tpu_torch.train.trainer import masked_ce_loss
+
+    ref = model_fn()
+    named = trained_parameters(ref)
+    loss = masked_ce_loss(ref(tokens, mel), tokens, mask)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()),
+                                                allow_unused=True, materialize_grads=True)))
+    views = {k: v for k, (_t, v) in nn_params.jax_parameters(ref).items()}
+    step = step_fn(model_fn())
+    got_loss, got = run(lambda: step(mel, tokens, mask))
+    loss_err = abs(float(got_loss) - float(loss.detach()))
+    grad_err = max(float((got[k] - views[k](g)).abs().max()) for k, g in grads.items())
+    if loss_err > 1e-5 or grad_err > 3e-5:
+        raise AssertionError(f"{phase} ({label}): loss error {loss_err}, largest gradient "
+                             f"error {grad_err}")
+    return dict(loss=float(loss.detach()), loss_abs_err=loss_err, grad_max_abs_err=grad_err,
+                tolerance="loss 1e-5, gradients 3e-5 (f32)")
+
+
+def _mesh_train_rank(card: str, kernels, world: int, tmp: Path, plain: dict) -> dict:
+    """One rank of phase e2e-mesh-train (the module doc, item 15); rank 0
+    prints the phase's line. Returns this rank's launches on the mesh
+    runs."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.dryrun import dryrun_multichip
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+    from yoho_tpu_torch.parallel import mesh as pm
+    from yoho_tpu_torch.parallel.long_encoder import make_long_context_train_step
+    from yoho_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from yoho_tpu_torch.train.sharded_checkpoint import (
+        load_checkpoint_sharded,
+        save_checkpoint_sharded,
+    )
+    from yoho_tpu_torch.train.stages.stage3_voiceprint import VoiceprintTrainer
+
+    phase = "e2e-mesh-train"
+    lead = int(os.environ.get("RANK", 0)) == 0
+    measured, total, report = _part_counter(phase, kernels)
+    root = tmp / "sessions"
+    batches = plain["batches"]
+    line = dict(world=world, backend="nccl", card=card)
+
+    specs = [f"{world}x1"] + (["2x2"] if world == 4 else [])
+    asr = {}
+    for spec, name in zip(specs, ("mesh", "mesh-2x2")):
+        mesh = pm.parse_mesh(spec)
+        trainer = _asr_trainer(root, name, batches, mesh)
+        pm.reset_counts()
+        run = measured(f"asr-{spec}", lambda: _timed_run(trainer, MESH_TRAIN_UPDATES))
+        counts = dict(pm.COUNTS)
+        cfg = trainer.config.yoho
+        steps = report[f"asr-{spec}"]["launches"]["decode_attention"] // (2 * cfg.n_text_blocks)
+        buckets = len(list(pm._buckets(list(trainer._leaves.values()), pm.BUCKET_ELEMENTS)))
+        predicted = _train_predicted(cfg, mesh.shape["model"], MESH_TRAIN_UPDATES,
+                                     MESH_TRAIN_ACC, steps, buckets, checkpoints=2)
+        if counts != predicted:
+            raise AssertionError(f"{phase} ({spec}): collectives {counts}, predicted "
+                                 f"{predicted}")
+        losses, want = run["update_losses"], plain["update_losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        equal_leaves = update = None
+        if world == 1:
+            equal_leaves = all(torch.equal(a, plain["leaves"][k])
+                               for k, a in trainer._leaves.items())
+            if losses != want or not equal_leaves:
+                raise AssertionError(f"{phase} ({spec}): at world 1 the mesh trainer's update "
+                                     f"losses {losses} (unsharded {want}), every leaf equal: "
+                                     f"{equal_leaves}")
+        else:
+            update = _update_error(trainer, mesh, plain)
+            if not all(np.isfinite(losses)) or rel > MESH_TRAIN_LOSS_RTOL \
+                    or not update["update_rel_err"] <= MESH_TRAIN_UPDATE_RTOL:
+                raise AssertionError(f"{phase} ({spec}): update losses {losses}, unsharded "
+                                     f"{want}; leaves against the unsharded ones {update}")
+        asr[spec] = dict(run, unsharded_update_losses=want, loss_max_rel_err=rel,
+                         loss_bound=f"bit-equal at world 1; {MESH_TRAIN_LOSS_RTOL} relative "
+                                    "above (bf16: each rank rounds its partial sums)",
+                         leaves_bit_equal=equal_leaves, leaves_against_unsharded=update,
+                         update_bound=None if update is None else MESH_TRAIN_UPDATE_RTOL,
+                         collectives=counts, predicted=predicted,
+                         decode_steps=steps, gradient_buckets=buckets,
+                         unsharded_step_ms=plain["step_ms"],
+                         unsharded_step_ms_median_after_first=plain["step_ms_median"],
+                         unsharded_max_memory_allocated=plain["max_memory_allocated"],
+                         unsharded_held_before=plain["held_before"],
+                         launches=report[f"asr-{spec}"]["launches"])
+        if spec == specs[0]:
+            # The sharded checkpoint of this trainer's state: an exact round trip.
+            ospecs = trainer._state_specs()
+
+            def zeros(tree):
+                return {k: zeros(v) if isinstance(v, dict) else
+                        (torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0)
+                        for k, v in tree.items()}
+
+            def same(a, b):
+                if isinstance(a, dict):
+                    return all(same(a[k], b[k]) for k in a)
+                return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+            t0 = time.perf_counter()
+            path = tmp / "dcp" / "ckpt"
+            save_checkpoint_sharded(path, trainer.step, trainer._leaves, trainer.opt_state,
+                                    mesh, trainer._specs, ospecs)
+            saved = time.perf_counter() - t0
+            got = load_checkpoint_sharded(path, zeros(trainer._leaves), zeros(trainer.opt_state),
+                                          mesh, trainer._specs, ospecs)
+            exact = got is not None and got[0] == trainer.step and same(trainer._leaves, got[1]) \
+                and same(trainer.opt_state, got[2])
+            if not exact:
+                raise AssertionError(f"{phase}: the sharded checkpoint's round trip is not exact")
+            line["sharded_checkpoint"] = dict(bit_equal=exact, save_s=saved,
+                                              files=sorted(p.name for p in path.iterdir()))
+        del trainer
+        torch.cuda.empty_cache()
+    line["asr"] = asr
+
+    # Stage 3 (NT-Xent over the global batch) for one update.
+    mesh = pm.parse_mesh(specs[0])
+    config = load_session_config("stage3", root)
+    hp3 = replace(config.hyperparameters.voiceprint_finetune, accumulated_batches=MESH_TRAIN_ACC)
+    config.hyperparameters = replace(config.hyperparameters, voiceprint_finetune=hp3)
+    stage3 = VoiceprintTrainer(config, mesh=mesh, compute_dtype=torch.bfloat16)
+    pm.reset_counts()
+    run3 = measured("stage3", lambda: _timed_run(stage3, 1), want=YOHO_PATH[:2])
+    counts3 = dict(pm.COUNTS)
+    if counts3.get("all_gather/data") != 2 * MESH_TRAIN_ACC \
+            or not np.isfinite(run3["update_losses"]).all():
+        raise AssertionError(f"{phase} (stage 3): collectives {counts3}, losses "
+                             f"{run3['update_losses']}")
+    line["stage3"] = dict(run3, collectives=counts3,
+                          nt_xent="embeddings and speaker ids gathered over data each "
+                                  "mini-step, the gradient summed before each rank keeps its rows")
+    del stage3
+
+    # The long-context and GPipe steps in f32 against the unsharded step.
+    cfg = load_session_config("plain", root).yoho
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    vocab = 16000
+
+    def model_fn():
+        return init_random(YOHOModel(cfg, vocab, dtype=torch.float32), seed=SEED)
+
+    def batch(rows, frames, text):
+        mel = torch.randn((rows, frames, cfg.n_mel_bands), generator=gen, device="cuda")
+        tokens = torch.randint(0, vocab, (rows, text), generator=gen, device="cuda")
+        mask = (torch.rand((rows, text), generator=gen, device="cuda") < 0.7).to(torch.uint8)
+        return mel, tokens, mask
+
+    flash = ("flash_attention_forward",)  # the stem and decoder's, outside the ring
+    seq = pm.init_mesh({"seq": world})
+
+    def counted(label):
+        def run(fn):
+            pm.reset_counts()
+            out = measured(label, fn, want=flash)
+            report[label]["collectives"] = dict(pm.COUNTS)
+            return out
+        return run
+
+    line["long_context"] = dict(_step_pair(
+        phase, "long-context", model_fn, lambda m: make_long_context_train_step(m, seq),
+        counted("long-context"), *batch(2, 2 * cfg.max_audio_len, cfg.max_text_len)),
+        seq=world, frames=2 * cfg.max_audio_len,
+        collectives=report["long-context"]["collectives"])
+    pipe = pm.init_mesh({"pipe": world})
+    line["pipeline"] = dict(_step_pair(
+        phase, "gpipe", model_fn, lambda m: make_pipeline_train_step(m, pipe, 2),
+        counted("gpipe"), *batch(4, cfg.max_audio_len, cfg.max_text_len)),
+        stages=world, microbatches=2, collectives=report["gpipe"]["collectives"])
+
+    # The dry run of every mesh program.
+    line["dryrun"] = measured("dryrun", lambda: dryrun_multichip(world))
+    line["walls_s"] = {k: v["wall_s"] for k, v in report.items()}
+    line["launches"] = total
+    pm.shutdown()
+    if lead:
+        emit(phase, **line)
+    return total
+
+
+def _mesh_train_plain(tmp: Path, setup: dict) -> dict:
+    """The unsharded ``ASRTrainer`` on the phase's batches (this process, no
+    group): its update losses, mini-step ms and leaves before and after."""
+    import statistics
+
+    trainer = _asr_trainer(setup["root"], "plain", setup["batches"], None)
+    init = {k: v.detach().clone() for k, v in trainer._leaves.items()}
+    run = _timed_run(trainer, MESH_TRAIN_UPDATES)
+    leaves = {k: v.detach().clone() for k, v in trainer._leaves.items()}
+    return dict(update_losses=run["update_losses"], step_ms=run["step_ms"],
+                step_ms_median=statistics.median(run["step_ms"][1:]), leaves=leaves,
+                init_leaves=init,
+                max_memory_allocated=run["max_memory_allocated"],
+                held_before=run["held_before"], batches=setup["batches"])
+
+
+def e2e_mesh_train(card: str, kernels) -> dict:
+    """Phase e2e-mesh-train at world = the cards present, at most 4: the
+    inputs and the unsharded trainer's run here, then the mesh runs in this
+    process at world 1, else one process per card started with the
+    launcher's environment (rank 0 reports). Returns rank 0's launches."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+
+    world = min(torch.cuda.device_count(), MESH_MAX_WORLD)
+    with tempfile.TemporaryDirectory(prefix="yoho_mesh_train_smoke_") as tmp:
+        tmp = Path(tmp)
+        setup = _mesh_train_setup(tmp)
+        plain = _mesh_train_plain(tmp, setup)
+        if world == 1:
+            return _mesh_train_rank(card, kernels, world, tmp, plain)
+        for key in ("leaves", "init_leaves"):  # to the host, for the ranks
+            plain[key] = {k: v.cpu() for k, v in plain[key].items()}
+        (tmp / "plain.pkl").write_bytes(pickle.dumps(plain))
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-train-rank", str(tmp)],
+            env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                     LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"e2e-mesh-train: ranks exited {[p.returncode for p in procs]}")
+    launches = {}
+    for line in outs[0].splitlines():
+        if line.startswith("mesh-launches "):
+            launches = json.loads(line.split(" ", 1)[1])
+        else:
+            print(line, flush=True)
+    return launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3964,12 +4439,20 @@ def main(argv) -> int:
     sys.path.insert(0, str(root))
 
     card = card_line()
-    if "--mesh-rank" in argv:  # one rank of phase e2e-mesh, started by it
+    if "--mesh-rank" in argv or "--mesh-train-rank" in argv:  # one rank of a mesh phase
+        import pickle
+
         from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8a8_dense
 
         kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
                    w8a8_dense.KERNEL]
-        launches = _mesh_rank(card, kernels, int(os.environ["WORLD_SIZE"]))
+        world = int(os.environ["WORLD_SIZE"])
+        if "--mesh-rank" in argv:
+            launches = _mesh_rank(card, kernels, world)
+        else:
+            tmp = Path(argv[argv.index("--mesh-train-rank") + 1])
+            launches = _mesh_train_rank(card, kernels, world, tmp,
+                                        pickle.loads((tmp / "plain.pkl").read_bytes()))
         print("mesh-launches " + json.dumps(launches), flush=True)
         return 0
     print(card, flush=True)  # name and power limit, as nvidia-smi prints them
@@ -3992,7 +4475,7 @@ def main(argv) -> int:
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
     for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho,
-                  e2e_yoho_train, e2e_mesh):
+                  e2e_yoho_train, e2e_mesh, e2e_mesh_train):
         kw = {"trace": "--profile" in argv} if phase is e2e_yoho_train else {}
         t0 = time.perf_counter()
         for name, n in phase(card, kernels, **kw).items():

@@ -73,7 +73,7 @@ def parse(inp):
     mesh = _mesh()
     return dict(shapes=shapes, errors=errors, coord=(mesh.index("data"), mesh.index("model")),
                 shard=pm.process_shard(), coordinator=pm.is_coordinator(),
-                local=pm.local_batch_size(8), rows=pm.shard_batch(mesh, np.arange(8)).tolist(),
+                local=pm.local_batch_size(8, mesh), rows=pm.shard_batch(mesh, np.arange(8)).tolist(),
                 bad_rows=_errors(lambda: pm.shard_batch(mesh, np.arange(3)), ()))
 
 

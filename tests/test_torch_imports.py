@@ -73,7 +73,9 @@ def test_every_module_imports_without_jax():
             # Multi-GPU serving on torch.distributed.
             "yoho_tpu_torch.parallel", "yoho_tpu_torch.parallel.mesh",
             "yoho_tpu_torch.parallel.sharding", "yoho_tpu_torch.parallel.ring_attention",
-            "yoho_tpu_torch.parallel.long_encoder", "yoho_tpu_torch.parallel.pipeline"} \
+            "yoho_tpu_torch.parallel.long_encoder", "yoho_tpu_torch.parallel.pipeline",
+            # Multi-GPU training on torch.distributed.
+            "yoho_tpu_torch.train.sharded_checkpoint", "yoho_tpu_torch.dryrun"} \
         <= set(mods)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
@@ -100,7 +102,9 @@ def test_training_modules_import_none_of_the_jax_stack():
             "yoho_tpu_torch.train.stages.stage3_voiceprint",
             "yoho_tpu_torch.train.stages.stage4_joint_finetune",
             "yoho_tpu_torch.cli.import_corpus", "yoho_tpu_torch.cli.cache_corpus",
-            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics"]
+            "yoho_tpu_torch.cli.split_tracks", "yoho_tpu_torch.cli.plot_metrics",
+            # Training over a mesh.
+            "yoho_tpu_torch.train.sharded_checkpoint", "yoho_tpu_torch.dryrun"]
     assert set(mods) <= set(_modules())
     code = (
         "import importlib, json, sys\n"

@@ -234,7 +234,7 @@ def test_meshes_and_batch_placement_over_four_ranks(group):
     assert [g["coord"] for g in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert [g["shard"] for g in got] == [(r, 4) for r in range(RANKS)]
     assert [g["coordinator"] for g in got] == [True, False, False, False]
-    assert {g["local"] for g in got} == {2}
+    assert {g["local"] for g in got} == {4}
     assert [g["rows"] for g in got] == [[0, 1, 2, 3]] * 2 + [[4, 5, 6, 7]] * 2
     assert got[0]["bad_rows"][0][0] == "ValueError"
 

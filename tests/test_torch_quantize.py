@@ -399,7 +399,7 @@ def _step_logits(step, tokens, caches):
     return np.concatenate(out, axis=1)
 
 
-def test_weights_int8_logits_match_jax(tiny):
+def test_weights_int8_logits_match_jax(tiny, one_thread):
     """The trained whisper_tiny fixture quantized in JAX and carried across:
     teacher-forced and cached-step f32 logits at atol 2e-4."""
     cfg, params, golden, _ = tiny
@@ -443,7 +443,7 @@ class _WordBackend:
 
 
 @pytest.mark.parametrize("lane", ["encoder_int8", "fast_gelu"])
-def test_tiny_golden_transcripts_int8_encoder_and_fast_gelu(tiny, lane):
+def test_tiny_golden_transcripts_int8_encoder_and_fast_gelu(tiny, lane, one_thread):
     """tests/test_whisper_fixture.py:100-133: transcripts stay exact on the
     trained fixture's margins."""
     cfg, params, golden, words = tiny
@@ -464,6 +464,17 @@ def test_tiny_golden_transcripts_int8_encoder_and_fast_gelu(tiny, lane):
 # ---------------------------------------------------------------- quality
 
 QUALITY = FIXTURES / "whisper_quality"
+
+
+@pytest.fixture
+def one_thread():
+    """The decode-heavy tests on one intra-op thread: the tier-1 run shares
+    the CPU among its workers, and a worker's default thread count
+    oversubscribes it (the results do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -502,7 +513,7 @@ QUALITY_LANES = {
 
 
 @pytest.mark.parametrize("lane", list(QUALITY_LANES))
-def test_quality_lane_wer_matches_recorded(quality, lane):
+def test_quality_lane_wer_matches_recorded(quality, lane, one_thread):
     """tests/test_quality_fixture.py:87-133 through the port: each lane's
     held-out WER equals the recorded value within 1e-4."""
     from yoho_tpu.eval.wer import wer

@@ -346,13 +346,31 @@ def test_run_session_command_line(corpus, tmp_path, capsys):
 
 
 def test_trainer_refuses_a_mesh_and_long_context(sessions):
+    """What is not a mesh is refused with a ``TypeError`` naming what a mesh
+    is (as ``Transcriber`` refuses it); ``long_context_factor=2`` on one CPU
+    rank trains on a 1 x 1 (data, seq) mesh (a group of one), its ring loss
+    the plain loss of the same batch (tests/test_torch_parallel_train.py
+    trains over four ranks)."""
     from dataclasses import replace
 
-    from yoho_tpu_torch.train.trainer import ASRTrainer
+    from yoho_tpu_torch.parallel.mesh import shutdown
+    from yoho_tpu_torch.train.trainer import ASRTrainer, masked_ce_loss
 
     _, tcfg = sessions
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="must be a yoho_tpu_torch.parallel.mesh.Mesh"):
         ASRTrainer(tcfg, mesh=object(), device="cpu")
     hp = replace(tcfg.hyperparameters.transcribe_pretrain, long_context_factor=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ASRTrainer(tcfg, hp=hp, device="cpu")
+    try:
+        trainer = ASRTrainer(tcfg, hp=hp, device="cpu")
+        for dl in (trainer.train_dataloader, trainer.val_dataloader):
+            dl.terminate()
+        assert trainer.mesh.shape == {"data": 1, "seq": 1}
+        assert trainer.data_config.yoho.max_audio_len == 2 * tcfg.yoho.max_audio_len
+        audio, tokens, mask = trainer._place(trainer.train_dataloader.get_batch(0))
+        assert audio.shape[1] == trainer.data_config.yoho.n_samples
+        with torch.no_grad():
+            ring = trainer._batch_loss(audio, tokens, mask)
+            plain = masked_ce_loss(trainer.model(tokens, trainer._mel(audio)), tokens, mask)
+        assert float(ring) == pytest.approx(float(plain), rel=1e-5)
+    finally:
+        shutdown()

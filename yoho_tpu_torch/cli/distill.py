@@ -7,7 +7,10 @@ small weights). The exported dir plugs straight into ``yoho-torch serve
 --hf <teacher> --draft-hf <dir>``; the printed teacher-agreement is the
 projected speculative acceptance rate. See ``train/distill.py`` for the
 loss. A preset student starts from ``nn.params.init_random`` weights from
-``--seed`` (the JAX package draws flax's initializers instead).
+``--seed`` (the JAX package draws flax's initializers instead). Under a
+launcher (``torchrun --nproc-per-node N -m yoho_tpu_torch.cli distill
+...``) the command joins the process group first and the distiller runs
+data parallel over every rank; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -68,6 +71,10 @@ def main(argv=None):
         parser.error("--accum must be >= 1")
     if args.tau <= 0:
         parser.error("--tau must be > 0")
+    from yoho_tpu_torch.parallel.mesh import init_distributed, is_coordinator, launched
+
+    if launched():  # one process per rank: join the group first
+        init_distributed(args.device)
     device = cli_device(args)
 
     import torch
@@ -130,6 +137,8 @@ def main(argv=None):
     )
     del t_params, s_params  # the distiller holds its own copies on the device
     out = distiller.run(progress=importlib.util.find_spec("tqdm") is not None)
+    if not is_coordinator():
+        return 0
     if distiller.last_agreement is not None:
         print(f"final teacher-agreement: {distiller.last_agreement:.3f}")
     print(f"exported draft checkpoint to {out} — serve with "

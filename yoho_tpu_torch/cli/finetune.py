@@ -5,9 +5,11 @@ The port's counterpart of the JAX package's ``cli/finetune.py``:
 <corpus> holds ``transcripts/*.srt`` + ``audio/*`` pairs. The result is a
 standard HF checkpoint directory: serve it right back with ``yoho-torch
 serve --hf <out>`` or ``transcribe --hf <out>``. See
-``train/whisper_finetune.py`` for the trainer. One device (``--device``);
-multi-device data parallelism is not in the port yet (ROADMAP.md, Queue 1
-item 11).
+``train/whisper_finetune.py`` for the trainer. Under a launcher
+(``torchrun --nproc-per-node N -m yoho_tpu_torch.cli finetune ...``) the
+command joins the process group first and the trainer runs data parallel
+over every rank (JAX's ``make_mesh(-1, 1)``); rank 0 alone prints and
+writes.
 """
 
 from __future__ import annotations
@@ -96,6 +98,10 @@ def main(argv=None):
         parser.error("--accum must be >= 1")
     if args.lora < 0:
         parser.error("--lora must be >= 0 (0 = full fine-tune)")
+    from yoho_tpu_torch.parallel.mesh import init_distributed, is_coordinator, launched
+
+    if launched():  # one process per rank: join the group first
+        init_distributed(args.device)
     device = cli_device(args)
 
     import torch
@@ -137,7 +143,8 @@ def main(argv=None):
     )
     del params  # the trainer holds its own copy on the device
     out = tuner.run(progress=importlib.util.find_spec("tqdm") is not None)
-    print(f"exported fine-tuned checkpoint to {out}")
+    if is_coordinator():
+        print(f"exported fine-tuned checkpoint to {out}")
     return 0
 
 

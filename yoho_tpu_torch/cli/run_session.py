@@ -4,11 +4,16 @@ session (the JAX package's ``cli/run_session.py``).
 Stage 0 trains the tokenizer (on the host); stages 1-4 (transcription
 pretraining, voice reconstruction, the voiceprint encoder, joint
 fine-tuning) train on the GPU unless ``--device cpu``, at ``--compute-dtype``
-under autocast. A device mesh is ROADMAP.md Queue 1 item 11: this runs on
-one device.
+under autocast. Under a launcher the command joins the process group
+first (as the JAX command calls ``init_distributed``) and the stage trains
+over the session's ``[mesh]`` (``train/trainer.py``; ``long_context_factor
+> 1`` over (data, seq)); rank 0 alone prints and writes. NCCL on the
+cards, gloo with ``--device cpu``:
+
+    torchrun --nproc-per-node N -m yoho_tpu_torch.cli run-session <name> 1
 
 Usage: ``python -m yoho_tpu_torch.cli run-session <name> <stage 0-4>
-          [--root ./sessions] [--max-updates N] [--compute-dtype bf16]``
+          [--root ./sessions] [--max-updates N] [--compute-dtype bf16] [--no-workers]``
 """
 
 from __future__ import annotations
@@ -48,20 +53,31 @@ def main(argv=None):
     parser.add_argument("--compute-dtype", choices=sorted(_DTYPES), default="f32",
                         help="autocast type of the training forward (float32 "
                              "parameters and optimizer state either way)")
+    parser.add_argument("--no-workers", action="store_true",
+                        help="load batches in the training process (no dataloader "
+                             "worker processes)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
+    from yoho_tpu_torch.parallel.mesh import barrier, init_distributed, is_coordinator, launched
+
+    if launched():  # one process per rank: join the group first
+        init_distributed(args.device)
     config = load_session_config(args.name, args.root)
-    print("Loaded config:")
-    print(json.dumps(asdict(config), indent=4, default=str))
+    if is_coordinator():
+        print("Loaded config:")
+        print(json.dumps(asdict(config), indent=4, default=str))
     if args.stage == 0:
         from yoho_tpu_torch.train.stages.stage0_tokenizer import main as stage_main
 
-        stage_main(config)
+        if is_coordinator():  # host work with one output file
+            stage_main(config)
+        barrier("tokenizer")
     else:
         stage_main = importlib.import_module(
             f"yoho_tpu_torch.train.stages.{_STAGE_MODULES[args.stage]}").main
         stage_main(config, max_updates=args.max_updates, device=cli_device(args),
-                   compute_dtype=_DTYPES[args.compute_dtype])
+                   compute_dtype=_DTYPES[args.compute_dtype],
+                   use_multiprocessing=not args.no_workers)
     return 0
 
 

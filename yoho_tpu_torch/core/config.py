@@ -90,8 +90,9 @@ WHISPER_PRESETS: dict[str, WhisperConfig] = {
 # ``MeshConfig``, ``SessionConfig``, ``DEFAULT_SESSION_TOML`` and
 # ``load_session_config``) as plain dataclasses with the same names,
 # defaults and validation errors: the machine with the card has no
-# ``pydantic``. The mesh section is parsed and checked; the port does not
-# use it yet (ROADMAP.md Queue 1 item 11).
+# ``pydantic``. The mesh section sizes the trainers' (data, model) mesh
+# under a launcher (``train/trainer.py``), and ``seq`` the long-context
+# (data, seq) mesh.
 
 
 def _build(cls, raw, where: str):
@@ -254,8 +255,9 @@ class WeightsConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh section (parsed and checked; unused
-    by the port until multi-GPU serving, ROADMAP.md Queue 1 item 11)."""
+    """The JAX package's device mesh section: the session trainers'
+    ``make_mesh(data, model)`` under a launcher, and ``seq`` the ring axis
+    of long-context training (``long_context_factor > 1``)."""
 
     data: int = -1
     model: int = 1

@@ -49,7 +49,11 @@ row-parallel out projection and the MLPs' fc2/down sum their partial
 outputs over the axis (:func:`model_sum`, one all-reduce), and a
 vocabulary-sharded embedding looks up its own rows (:func:`embed_tokens`)
 and gathers its logits (:func:`vocab_logits`). A layer without ``tp``
-computes as before.
+computes as before. Under autograd (training) these collectives are the
+differentiable ones of ``parallel/mesh.py``, and a sharded layer's input
+passes :func:`model_copy` (identity forward, the gradient all-reduced over
+the axis: Megatron's pair with :func:`model_sum`); without a gradient they
+are the in-place serving collectives, and :func:`model_copy` is nothing.
 """
 
 from __future__ import annotations
@@ -72,14 +76,21 @@ from yoho_tpu_torch.ops.decode_attention import fused_decode_attention, is_row_p
 from yoho_tpu_torch.ops.flash_attention import flash_attention
 from yoho_tpu_torch.ops.w8a8_dense import quantize_rows as quantize_act_rows  # noqa: F401
 from yoho_tpu_torch.ops.w8a8_dense import w8a8_dense
-from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, all_gather, all_reduce
+from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, copy_to, gather_over, sum_over
+
+
+def model_copy(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The input of a sharded layer's column-parallel half: ``x``, whose
+    gradient (under autograd) sums the model ranks' parts."""
+    tp = getattr(mod, "tp", None)
+    return x if tp is None else copy_to(x, tp, AXIS_MODEL)
 
 
 def model_sum(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel layer's output: the partial sums of the model axis
     added (one all-reduce) when ``mod`` is sharded, else ``x``."""
     tp = getattr(mod, "tp", None)
-    return x if tp is None else all_reduce(x.contiguous(), tp, AXIS_MODEL)
+    return x if tp is None else sum_over(x, tp, AXIS_MODEL)
 
 
 def embed_tokens(emb: nn.Module, ids: torch.Tensor) -> torch.Tensor:
@@ -91,15 +102,16 @@ def embed_tokens(emb: nn.Module, ids: torch.Tensor) -> torch.Tensor:
     local = ids - emb.vocab_start
     hit = (local >= 0) & (local < emb.num_embeddings)
     vec = F.embedding(torch.where(hit, local, 0), emb.weight)
-    return all_reduce(torch.where(hit[..., None], vec, torch.zeros_like(vec)),
-                      tp, AXIS_MODEL)
+    return sum_over(torch.where(hit[..., None], vec, torch.zeros_like(vec)),
+                    tp, AXIS_MODEL)
 
 
 def vocab_logits(emb: nn.Module, logits: torch.Tensor) -> torch.Tensor:
     """Tied logits over a vocabulary-sharded table gathered along the
-    vocabulary (the ranks' rows in order); else as they are."""
+    vocabulary (the ranks' rows in order); else as they are. The hidden
+    state entering the product passes :func:`model_copy` first."""
     tp = getattr(emb, "tp", None)
-    return logits if tp is None else all_gather(logits, tp, AXIS_MODEL, dim=-1)
+    return logits if tp is None else gather_over(logits, tp, AXIS_MODEL, dim=-1)
 
 
 def _head_mean(mod: nn.Module, w: torch.Tensor, heads: int) -> torch.Tensor:
@@ -108,7 +120,7 @@ def _head_mean(mod: nn.Module, w: torch.Tensor, heads: int) -> torch.Tensor:
     tp = getattr(mod, "tp", None)
     if tp is None:
         return w.mean(dim=1)
-    return all_reduce(w.sum(dim=1), tp, AXIS_MODEL) / (heads * tp.shape[AXIS_MODEL])
+    return sum_over(w.sum(dim=1), tp, AXIS_MODEL) / (heads * tp.shape[AXIS_MODEL])
 
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -292,6 +304,7 @@ class SwiGLU(nn.Module):
         self.down = dense(hidden_dim, d_in, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = model_copy(self, x)
         return model_sum(self, self.down(F.silu(self.gate(x)) * self.up(x)))
 
 
@@ -409,6 +422,9 @@ class GroupedQueryAttention(nn.Module):
                 pos: Optional[Union[int, torch.Tensor]] = None,
                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         b, s = x.shape[:2]
+        x = model_copy(self, x)
+        if xa is not None:
+            xa = model_copy(self, xa)
         q = self._rope(self.q_proj(x), s, pos)  # (B, S, Hq, D)
         if cache is None and cross_kv is None:
             # Full modes, KV heads expanded. The flash kernel scales the
@@ -494,6 +510,9 @@ class MultiHeadAttention(nn.Module):
                 pos: Optional[Union[int, torch.Tensor]] = None,
                 cross_kv: Optional[CrossKV] = None):
         b, s = x.shape[:2]
+        x = model_copy(self, x)
+        if xa is not None:
+            xa = model_copy(self, xa)
         if cache is None and cross_kv is None:
             # Unscaled q and k; the flash kernel applies scale**2 to the
             # f32 scores.
@@ -552,7 +571,7 @@ class MLP(nn.Module):
             self.fc2 = dense(hidden, n_state, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
+        h = self.fc1(model_copy(self, x))
         if not isinstance(self.fc1, Int8Dense):  # else fused into fc1
             h = F.gelu(h, approximate="tanh" if self.gelu_tanh else "none")
         return model_sum(self, self.fc2(h))

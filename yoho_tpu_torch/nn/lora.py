@@ -143,17 +143,32 @@ class LoRADelta(nn.Module):
     """The parametrization ``weight + scale * (A @ B).T`` of an ``nn.Linear``
     weight (out, in); A (in, r) and B (r, out) are its trainable
     parameters. The merge runs in float32 outside autocast, as the JAX
-    package merges the float32 kernels before the model casts them."""
+    package merges the float32 kernels before the model casts them.
 
-    def __init__(self, a: torch.Tensor, b: torch.Tensor, scale: float):
+    On a layer cut over the ``model`` axis (``split``, the layer's
+    ``tp_split``: kind, first unit, units) the adapters stay whole, as
+    JAX replicates them: a column-parallel weight takes B's local output
+    columns, a row-parallel one A's local input rows (before the layer's
+    ``model_sum``). Their gradients are then this rank's part, summed over
+    the axis with the data axis (:func:`sharded_adapter`)."""
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor, scale: float, split=None):
         super().__init__()
         self.a = nn.Parameter(a)
         self.b = nn.Parameter(b)
         self.scale = float(scale)
+        self.split = split
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
+        a, b = self.a, self.b
+        if self.split is not None:
+            kind, lo, k = self.split
+            if kind == "column":
+                b = b[:, lo:lo + k]
+            else:
+                a = a[lo:lo + k]
         with torch.autocast(weight.device.type, enabled=False):
-            return weight + self.scale * (self.a @ self.b).T.to(weight.dtype)
+            return weight + self.scale * (a @ b).T.to(weight.dtype)
 
 
 def _module(model: nn.Module, path: str) -> nn.Module:
@@ -182,10 +197,18 @@ def attach_lora(model: nn.Module, lora: Mapping, scale: float) -> Dict[str, torc
         if not isinstance(mod, nn.Linear):
             raise TypeError(f"lora target {path} is {type(mod).__name__}, not nn.Linear")
         dev = mod.weight.device
-        delta = LoRADelta(_f32_copy(ab["a"], dev), _f32_copy(ab["b"], dev), scale)
+        delta = LoRADelta(_f32_copy(ab["a"], dev), _f32_copy(ab["b"], dev), scale,
+                          getattr(mod, "tp_split", None))
         parametrize.register_parametrization(mod, "weight", delta)
         leaves[f"{path}/a"], leaves[f"{path}/b"] = delta.a, delta.b
     return leaves
+
+
+def sharded_adapter(model: nn.Module, leaf: str) -> bool:
+    """True when the adapter leaf ``<path>/a`` or ``<path>/b`` sits on a
+    layer cut over the ``model`` axis (its gradient is a part)."""
+    mod = _module(model, leaf.rsplit("/", 1)[0])
+    return getattr(mod, "tp_split", None) is not None
 
 
 def adapters_of(model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -20,7 +20,11 @@ Expert parallelism (``parallel/sharding.py``): a layer sharded over the
 ``model`` axis (``tp``) holds experts ``expert_offset`` to
 ``expert_offset + local_experts - 1``; the router stays whole, each rank
 runs its own experts' slice of the dense dispatch, and the combined
-outputs are summed over the axis (one all-reduce).
+outputs are summed over the axis (one all-reduce). Under autograd the
+expert path's input and the combine weights pass ``copy_to`` before they
+are sliced (their gradients sum the ranks' experts' parts), and the sum
+passes its gradient through; the router and the auxiliary loss are
+replicated and need nothing.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoho_tpu_torch.core.device import full_fp32
-from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, all_reduce
+from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, copy_to, sum_over
 
 
 def moe_dispatch(gates: torch.Tensor, top_k: int, capacity: int,
@@ -145,6 +149,7 @@ class MoESwiGLU(nn.Module):
         tp = getattr(self, "tp", None)
         if tp is not None:  # expert parallel: this rank's experts only
             lo, e = self.expert_offset, self.local_experts
+            x, combine = copy_to(x, tp, AXIS_MODEL), copy_to(combine, tp, AXIS_MODEL)
             dispatch, combine = dispatch[..., lo:lo + e, :], combine[..., lo:lo + e, :]
         # Autocast (training) picks the compute type; otherwise the model's.
         dt = torch.get_autocast_dtype(x.device.type) \
@@ -155,7 +160,7 @@ class MoESwiGLU(nn.Module):
         expert_out = self.experts(expert_in).reshape(e, b, cap, d).transpose(0, 1)
         out = torch.einsum("bsec,becd->bsd", combine.to(dt), expert_out.to(dt))
         if tp is not None:  # the ranks' experts' shares summed
-            out = all_reduce(out.contiguous(), tp, AXIS_MODEL)
+            out = sum_over(out, tp, AXIS_MODEL)
         self.last_aux_loss = aux.mean()
         self.last_dropped_fraction = (
             1.0 - kept.float().mean() / max(1, self.top_k)).detach()

@@ -58,17 +58,31 @@ class VoiceprintEncoder(nn.Module):
 
 
 def nt_xent_loss(embeddings: torch.Tensor, speaker_ids: torch.Tensor,
-                 temperature: float = 0.07) -> torch.Tensor:
+                 temperature: float = 0.07, mesh=None) -> torch.Tensor:
     """Supervised NT-Xent: for each anchor, the positives are the other
-    clips of its speaker; every non-self pair is in the denominator."""
-    sim = embeddings @ embeddings.T / temperature
+    clips of its speaker; every non-self pair is in the denominator.
+
+    Over a mesh ``embeddings`` and ``speaker_ids`` are this rank's rows of
+    the global batch: the rows are gathered over ``data`` (the gradient of
+    this rank's share is summed over the axis before it keeps its rows),
+    the anchors are this rank's rows, and the anchor count is the global
+    batch's, so the ranks' results sum to the global loss."""
+    from yoho_tpu_torch.parallel.mesh import AXIS_DATA, data_shard, data_sum, gather_over
+
+    i, d = data_shard(mesh)
+    anchors, ids = embeddings, speaker_ids
     n = embeddings.shape[0]
-    eye = torch.eye(n, dtype=torch.bool, device=embeddings.device)
-    pos = (speaker_ids[:, None] == speaker_ids[None, :]) & ~eye
+    if mesh is not None and AXIS_DATA in mesh.shape:
+        embeddings = gather_over(embeddings.contiguous(), mesh, AXIS_DATA, 0, grad="sum")
+        speaker_ids = gather_over(speaker_ids.contiguous(), mesh, AXIS_DATA, 0)
+    sim = anchors @ embeddings.T / temperature
+    eye = torch.zeros(sim.shape, dtype=torch.bool, device=sim.device)
+    eye[:, i * n:(i + 1) * n] = torch.eye(n, dtype=torch.bool, device=sim.device)
+    pos = (ids[:, None] == speaker_ids[None, :]) & ~eye
     sim = sim.masked_fill(eye, torch.finfo(sim.dtype).min)
     log_prob = torch.log_softmax(sim, dim=1)
     pos_count = torch.clamp_min(pos.sum(dim=1), 1)
     per_anchor = -(log_prob * pos).sum(dim=1) / pos_count
     has_pos = pos.any(dim=1)
     return (torch.where(has_pos, per_anchor, torch.zeros_like(per_anchor)).sum()
-            / torch.clamp_min(has_pos.sum(), 1))
+            / torch.clamp_min(data_sum(has_pos.sum(), mesh), 1))

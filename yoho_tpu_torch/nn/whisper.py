@@ -50,6 +50,7 @@ from yoho_tpu_torch.nn.layers import (
     MultiHeadAttention,
     QuantizedEmbed,
     embed_tokens,
+    model_copy,
     realized_token_probs_streamed,
     vocab_logits,
 )
@@ -182,6 +183,7 @@ class TextDecoder(nn.Module):
         with torch.autocast(x.device.type, enabled=False):
             if isinstance(self.token_embedding, QuantizedEmbed):
                 return self.token_embedding.logits(x)
+            x = model_copy(self.token_embedding, x)
             with full_fp32():
                 return vocab_logits(self.token_embedding, F.linear(
                     x.float(), self.token_embedding.weight.float()))

@@ -47,6 +47,7 @@ from yoho_tpu_torch.nn.layers import (
     RMSNorm,
     SwiGLU,
     embed_tokens,
+    model_copy,
     realized_token_probs_streamed,
     vocab_logits,
 )
@@ -226,6 +227,7 @@ class YOHOTextDecoder(nn.Module):
         if torch.is_autocast_enabled(h.device.type):
             dt = torch.get_autocast_dtype(h.device.type)
             h, emb = h.to(dt), emb.to(dt)
+        h = model_copy(self.token_embedding, h)
         with torch.autocast(h.device.type, enabled=False), full_fp32():
             return vocab_logits(self.token_embedding, F.linear(h.float(), emb.float()))
 

@@ -36,6 +36,22 @@ Every collective of this module adds one to :data:`COUNTS` under
 ``"<op>/<axis>"`` (``all_reduce``, ``all_gather``, ``broadcast``,
 ``send``, ``recv``, ``barrier``), as the kernel wrappers count their
 launches (``ops/_build.py``).
+
+Training (the differentiable collectives, :func:`reduce_gradients`): every
+rank runs backward on its own loss. Where the loss is replicated over an
+axis (``model``, ``seq``, ``pipe``) each rank holds the whole loss, so a
+collective's backward must count it once, not once per rank: the
+``model`` pair of Megatron (:func:`copy_to` before a column-parallel
+layer, identity forward and an all-reduced gradient; :func:`sum_over` at
+the row-parallel output, all-reduce forward and the gradient as it is),
+:func:`gather_over` whose backward keeps this rank's slice of a gradient
+every rank holds whole (``grad="slice"``) or sums the ranks' gradients
+before slicing when each rank's loss is its own share (``grad="sum"``),
+:func:`broadcast_from` whose backward is the source's own gradient, and
+:func:`ring_shift` whose backward sends the gradient the reverse way
+(JAX's transpose of ``ppermute``). Over ``data`` each rank's loss is its
+share of the global batch's loss, so the trained leaves' gradients sum
+over ``data`` (:func:`reduce_gradients`, once per applied update).
 """
 
 from __future__ import annotations
@@ -44,7 +60,7 @@ import math
 import os
 import socket
 from collections import Counter
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -308,10 +324,21 @@ def gather_batch(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 def process_shard() -> tuple:
     """This process's ``(index, count)`` in the group: ``(0, 1)`` without
-    one. The dataloaders' shard and the writers' gate."""
+    one. The writers' gate (:func:`is_coordinator`); a trainer's loaders
+    shard by :func:`data_shard`."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def data_shard(mesh) -> tuple:
+    """This rank's ``(index, count)`` on the ``data`` axis: ``(0, 1)``
+    without a mesh or a ``data`` axis. The loaders' shard and the local
+    batch: ranks that differ only in ``model`` (or ``seq``, ``pipe``) load
+    the same rows, as JAX's per-host shard feeds one host's model axis."""
+    if mesh is None:
+        return 0, 1
+    return mesh.index(AXIS_DATA), mesh.shape.get(AXIS_DATA, 1)
 
 
 def is_coordinator() -> bool:
@@ -320,16 +347,24 @@ def is_coordinator() -> bool:
     return process_shard()[0] == 0
 
 
-def local_batch_size(global_batch: int) -> int:
-    """This process's share of a global batch; raises when it does not
-    divide by the process count."""
-    count = process_shard()[1]
+def local_batch_size(global_batch: int, mesh=None) -> int:
+    """This rank's share of a global batch over the ``data`` axis of
+    ``mesh`` (all of it without one); raises when it does not divide."""
+    count = data_shard(mesh)[1]
     if global_batch % count:
         raise ValueError(
-            f"batch_size {global_batch} must divide by the process "
-            f"count {count} (each process loads batch_size/process_count "
-            "local rows)")
+            f"batch_size {global_batch} must divide by the data axis {count} "
+            f"(each rank loads batch_size/{count} local rows)")
     return global_batch // count
+
+
+def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A device scalar (or tensor) summed over the ``data`` axis, out of
+    place and without a gradient: ``x`` itself without a mesh or a
+    ``data`` axis. The global batch's mask count, a loss's global value."""
+    if mesh is None or AXIS_DATA not in mesh.shape:
+        return x
+    return all_reduce(x.detach().reshape(-1).clone(), mesh, AXIS_DATA).view_as(x)
 
 
 def barrier(name: str) -> None:
@@ -339,17 +374,204 @@ def barrier(name: str) -> None:
         dist.barrier()
 
 
-def fetch_to_host(mesh: Mesh, tree, specs=None):
+def fetch_to_host(mesh: Mesh, tree, specs=None, to_host: bool = True):
     """Host (numpy) copies of a tree of tensors. ``specs`` (a tree of
     partition specs, ``parallel/sharding.py``) names the axes each leaf is
     split over on this mesh: those leaves are gathered first. Every rank
-    must call it, in the same order."""
+    must call it, in the same order; a rank that passes ``to_host=False``
+    (one that writes nothing) takes part in the gathers, copies nothing
+    and gets None."""
+    out = _fetch(mesh, tree, specs, to_host)
+    return out if to_host else None
+
+
+def _fetch(mesh: Mesh, tree, specs, to_host: bool):
     if isinstance(tree, dict):
-        return {k: fetch_to_host(mesh, v, None if specs is None else specs[k])
+        return {k: _fetch(mesh, v, None if specs is None else specs.get(k), to_host)
                 for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
     t = tree
     for dim, axis in enumerate(specs or ()):
         if axis is not None and axis in mesh.shape:
             t = all_gather(t, mesh, axis, dim)
-    return t.detach().float().cpu().numpy() if t.is_floating_point() \
-        else t.detach().cpu().numpy()
+    if not to_host:
+        return None
+    # A copy: a CPU tensor's numpy() would alias the live (trained) leaf.
+    return t.detach().to("cpu", torch.float32 if t.is_floating_point() else t.dtype,
+                         copy=True).numpy()
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (training; see the module doc)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the backward all-reduces the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce forward; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherOver(torch.autograd.Function):
+    """All-gather forward; the backward takes this rank's slice of the
+    gradient, summed over the axis first when ``total``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, total):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.total = mesh, axis, dim, total
+        ctx.size = x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.total:
+            g = all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis)
+        i = ctx.mesh.index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(), None, None, None, None
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    """Broadcast forward from ``src`` on the axis; the backward gives the
+    source its own gradient and the other ranks zeros (the loss after it
+    is replicated, so the source counts it once)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src):
+        ctx.src = mesh.index(axis) == src
+        return broadcast(x.contiguous().clone(), mesh, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.src else torch.zeros_like(g)), None, None, None
+
+
+class _RingShift(torch.autograd.Function):
+    """Every tensor sent to the next rank of the axis and the previous
+    rank's received (one batch); the backward sends the gradients the
+    reverse way."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _shift(mesh, axis, xs, +1)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + _shift(ctx.mesh, ctx.axis, gs, -1)
+
+
+def _shift(mesh, axis: str, xs, step: int) -> tuple:
+    n, i = mesh.shape[axis], mesh.index(axis)
+    outs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in xs)
+    exchange(mesh, axis, sends=[(x, (i + step) % n) for x in xs],
+             recvs=[(o, (i - step) % n) for o in outs])
+    return outs
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str = AXIS_MODEL) -> torch.Tensor:
+    """The input of a column-parallel layer: ``x`` itself; under autograd
+    its gradient is all-reduced over ``axis`` (each rank's layer slice
+    gives a part of it). No collective without a gradient."""
+    return _CopyTo.apply(x, mesh, axis) if _differentiable(x) else x
+
+
+def sum_over(x: torch.Tensor, mesh, axis: str = AXIS_MODEL) -> torch.Tensor:
+    """``x`` summed over ``axis``: in place without a gradient (serving),
+    else out of place with the gradient passed through."""
+    if _differentiable(x):
+        return _SumOver.apply(x, mesh, axis)
+    return all_reduce(x.contiguous(), mesh, axis)
+
+
+def gather_over(x: torch.Tensor, mesh, axis: str, dim: int = 0,
+                grad: str = "slice") -> torch.Tensor:
+    """:func:`all_gather` under autograd: the backward keeps this rank's
+    slice of the gradient (``"slice"``: the loss after the gather is
+    replicated, every rank holds the whole gradient) or of its sum over
+    the axis (``"sum"``: each rank's loss is its own share)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be 'slice' or 'sum', got {grad!r}")
+    if _differentiable(x):
+        return _GatherOver.apply(x, mesh, axis, dim, grad == "sum")
+    return all_gather(x, mesh, axis, dim)
+
+
+def broadcast_from(x: torch.Tensor, mesh, axis: str, src_index: int) -> torch.Tensor:
+    """:func:`broadcast` under autograd (the source takes the gradient
+    once)."""
+    if _differentiable(x):
+        return _BroadcastFrom.apply(x, mesh, axis, src_index)
+    return broadcast(x.contiguous(), mesh, axis, src_index)
+
+
+def ring_shift(mesh, axis: str, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of ``xs`` passed one rank on along the ring of ``axis`` (rank i
+    sends to i + 1, receives from i - 1), in one batch; differentiable
+    (the gradients travel back, i + 1 to i)."""
+    if any(_differentiable(x) for x in xs):
+        return _RingShift.apply(mesh, axis, *xs)
+    return _shift(mesh, axis, xs, +1)
+
+
+BUCKET_ELEMENTS = 1 << 25  # 128 MiB of float32 a collective at most
+
+
+def reduce_gradients(grads: Mapping[str, torch.Tensor], mesh, axes,
+                     bucket_elements: int = BUCKET_ELEMENTS) -> None:
+    """Sum gradients over mesh axes, in place: each leaf's tensors
+    flattened into buckets of at most ``bucket_elements`` (by type), one
+    counted all-reduce a bucket and axis. ``axes`` is a tuple of axis
+    names for every leaf, or a callable ``path -> axes``; axes the mesh
+    lacks are skipped."""
+    if mesh is None:
+        return
+    axes_of = axes if callable(axes) else (lambda _k: axes)
+    groups: Dict[tuple, list] = {}
+    for k, g in grads.items():
+        ax = tuple(a for a in axes_of(k) if a in mesh.shape)
+        if ax:
+            groups.setdefault((ax, g.dtype, g.device), []).append(g)
+    for (ax, _dt, _dev), leaves in groups.items():
+        for bucket in _buckets(leaves, bucket_elements):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            for a in ax:
+                all_reduce(flat, mesh, a)
+            off = 0
+            for g in bucket:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+
+def _buckets(leaves: Sequence[torch.Tensor], cap: int) -> Iterable[list]:
+    bucket, size = [], 0
+    for g in leaves:
+        if bucket and size + g.numel() > cap:
+            yield bucket
+            bucket, size = [], 0
+        bucket.append(g)
+        size += g.numel()
+    if bucket:
+        yield bucket

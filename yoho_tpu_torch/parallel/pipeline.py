@@ -10,8 +10,19 @@ microbatch passes through every block in order, so the result is the
 sequential stack's. A ``data`` axis in front splits each microbatch's
 rows over it (DP x PP), and the rows are gathered at the end.
 
-The train-step halves (``make_pipeline_train_step``,
-``make_pipeline_loss_fn``) are ROADMAP.md Queue 1 item 11, part B.
+Training (:func:`make_pipeline_train_step`) writes the backward as an
+explicit reverse schedule instead of differentiating through the point to
+point transfers (whose order in autograd's backward is not controlled and
+can deadlock): the forward keeps every microbatch's stage input and
+output; the last stage's outputs are broadcast, and every stage runs the
+decoder and the loss whole; then M + P - 1 reverse ticks, stage i taking
+microbatch m at tick (M - 1 - m) + (P - 1 - i): it receives dOut from the
+next stage (the last stage takes its own decoder's gradient of the
+broadcast output, once), runs ``torch.autograd.backward`` on the saved
+output (with the MoE auxiliary term of its blocks), and sends dIn to the
+previous stage; stage 0 carries its dIn into the stem. So the stem's and a
+block's gradients live on their stage only (summed over ``pipe`` and
+``data``) and the decoder's on every stage (summed over ``data``).
 """
 
 from __future__ import annotations
@@ -20,7 +31,15 @@ from typing import Dict
 
 import torch
 
-from yoho_tpu_torch.parallel.mesh import AXIS_DATA, all_gather, broadcast, exchange
+from yoho_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    all_gather,
+    all_reduce,
+    broadcast,
+    data_shard,
+    exchange,
+)
 
 AXIS_PIPE = "pipe"
 
@@ -121,16 +140,134 @@ def pipeline_encode(model, mel: torch.Tensor, mesh, n_microbatches: int = 2,
     return out.reshape(b, *out.shape[2:])
 
 
+def _stage(blocks, h: torch.Tensor, remat: bool):
+    """This stage's blocks on ``h`` -> (output, the mean MoE auxiliary loss
+    of its blocks or None for dense blocks)."""
+    from yoho_tpu_torch.nn.moe import MoESwiGLU
+    from yoho_tpu_torch.nn.yoho import _run
+
+    for blk in blocks:
+        h = _run(blk, remat, h)
+    aux = [blk.mlp.last_aux_loss.float() for blk in blocks if isinstance(blk.mlp, MoESwiGLU)]
+    return h, (torch.stack(aux).mean() if aux else None)
+
+
+def _pipelined_loss(model, mesh, mel, tokens, loss_mask, n_micro: int, axis_name: str,
+                    backward: bool):
+    """The GPipe forward of this rank's rows, the decoder and the loss; with
+    ``backward`` the reverse schedule too (see the module doc), leaving the
+    gradients in the parameters' ``.grad``. Returns this rank's loss
+    share."""
+    from yoho_tpu_torch.train.trainer import masked_ce_loss
+
+    cfg = model.cfg
+    if axis_name not in mesh.shape or mesh.shape.get(AXIS_MODEL, 1) > 1:
+        raise ValueError(f"the pipelined step takes a (data, {axis_name}) mesh, not a model "
+                         f"axis: got {mesh}")
+    n_stages, i = mesh.shape[axis_name], mesh.index(axis_name)
+    _check_stages(cfg, n_stages)
+    enc = model.encoder
+    mel = mel.to(model.device)
+    b = mel.shape[0]
+    if b % n_micro:
+        raise ValueError(f"batch {b} does not divide into {n_micro} microbatches")
+    per = cfg.n_audio_blocks // n_stages
+    blocks = list(enc.blocks)[i * per:(i + 1) * per]
+    with torch.set_grad_enabled(backward and i == 0):
+        stem = enc.stem(mel)  # only stage 0 feeds it on; the rest need its shape
+    x_in = stem.detach().requires_grad_(backward and i == 0)
+    micro = x_in.reshape(n_micro, b // n_micro, *x_in.shape[1:])
+    saved, outs = {}, {}
+    for t in range(n_micro + n_stages - 1):
+        m = t - i  # this stage's microbatch at tick t
+        if not 0 <= m < n_micro:
+            continue
+        if i == 0:
+            h = micro[m]
+        else:
+            h = torch.empty(micro.shape[1:], dtype=micro.dtype, device=micro.device)
+            exchange(mesh, axis_name, recvs=[(h, i - 1)])
+            h.requires_grad_(backward)
+        out, aux = _stage(blocks, h, enc.remat)
+        if i < n_stages - 1:
+            exchange(mesh, axis_name, sends=[(out.detach(), i + 1)])
+        else:
+            outs[m] = out
+        saved[m] = (h, out, aux)
+    last = n_stages - 1
+    enc_out = (torch.stack([outs[m] for m in range(n_micro)]).reshape(stem.shape)
+               if i == last else torch.empty_like(stem))
+    xa = broadcast(enc_out.detach().contiguous(), mesh, axis_name, last).requires_grad_(backward)
+    loss = masked_ce_loss(model.decode_text(tokens, xa), tokens, loss_mask, mesh)
+    coef = 0.0
+    if cfg.n_experts > 0:
+        # JAX's mean over (stage, microbatch, data shard) of each stage's
+        # mean block auxiliary loss; this stage's terms keep their graph.
+        coef = cfg.moe_aux_weight / (n_stages * n_micro * data_shard(mesh)[1])
+        local = torch.stack([a for _h, _o, a in saved.values()]).sum()
+        total = all_reduce(local.detach().reshape(1).clone(), mesh, axis_name)[0]
+        loss = loss + coef * total
+    if not backward:
+        return loss
+    loss.backward()  # the decoder's gradients, and the broadcast output's
+    dxa = xa.grad.reshape(micro.shape) if i == last else None
+    for t in range(n_micro + n_stages - 1):
+        m = n_micro - 1 - (t - (last - i))
+        if not 0 <= m < n_micro:
+            continue
+        h, out, aux = saved.pop(m)
+        if i == last:
+            d_out = dxa[m]
+        else:
+            d_out = torch.empty(out.shape, dtype=out.dtype, device=out.device)
+            exchange(mesh, axis_name, recvs=[(d_out, i + 1)])
+        tensors, grads = [out], [d_out]
+        if aux is not None:
+            tensors.append(aux)
+            grads.append(torch.full_like(aux, coef))
+        torch.autograd.backward(tensors, grads)
+        if i > 0:
+            exchange(mesh, axis_name, sends=[(h.grad, i - 1)])
+    if i == 0:
+        torch.autograd.backward(stem, x_in.grad)
+    return loss.detach()
+
+
 def make_pipeline_loss_fn(model, mesh, n_microbatches: int = 2,
                           axis_name: str = AXIS_PIPE):
-    from yoho_tpu_torch.infer.pipeline import _not_ported
+    """``loss_fn(mel, tokens, loss_mask) -> scalar``: this rank's rows in,
+    its share of the loss out (masked CE plus the MoE auxiliary term), the
+    encoder block stack pipelined over ``axis_name``. An evaluation: its
+    gradient comes from :func:`make_pipeline_train_step`'s reverse
+    schedule, not from autograd through the transfers."""
+    def loss_fn(mel, tokens, loss_mask):
+        with torch.no_grad():
+            return _pipelined_loss(model, mesh, mel, tokens, loss_mask, n_microbatches,
+                                   axis_name, backward=False)
 
-    _not_ported("the pipelined (GPipe) loss", 11)
+    return loss_fn
 
 
 def make_pipeline_train_step(model, mesh, n_microbatches: int = 2,
-                             axis_name: str = AXIS_PIPE):
-    from yoho_tpu_torch.infer.pipeline import _not_ported
+                             axis_name: str = AXIS_PIPE, optimizer=None):
+    """The training step with the encoder pipelined (GPipe; the JAX
+    package's ``make_pipeline_train_step``): ``step(mel, tokens, loss_mask)
+    -> (loss, grads)`` on the global batch (``long_encoder.train_step``),
+    the single-device step's loss and gradients. Each ``data`` rank's rows
+    split into ``n_microbatches``; the blocks into the stages."""
+    from yoho_tpu_torch.parallel.long_encoder import encoder_axes, train_step, trained_parameters
 
-    _not_ported("the pipelined (GPipe) train step", 11)
+    def value_and_grad(mel, tokens, loss_mask):
+        named = trained_parameters(model)
+        for t in named.values():
+            t.grad = None
+        loss = _pipelined_loss(model, mesh, mel, tokens, loss_mask, n_microbatches,
+                               axis_name, backward=True)
+        grads = {k: (t.grad if t.grad is not None else torch.zeros_like(t))
+                 for k, t in named.items()}
+        for t in named.values():
+            t.grad = None
+        return loss, grads
+
+    return train_step(model, mesh, value_and_grad, encoder_axes(axis_name), optimizer)
 

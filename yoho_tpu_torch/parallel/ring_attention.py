@@ -11,6 +11,11 @@ with no send (the transfer would be dead traffic). GQA: the unexpanded
 K/V blocks ride the ring and the query groups broadcast against their KV
 head inside the contraction. The fold is plain float32 ``torch.einsum``,
 as the JAX package's is an ``einsum`` outside any Pallas kernel.
+
+Training: the pass along the ring is ``mesh.ring_shift``, whose backward
+sends the gradients back the reverse way (JAX's transpose of
+``ppermute``), and autograd differentiates the float32 fold as JAX's
+autodiff differentiates its einsum fold.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional
 import torch
 
 from yoho_tpu_torch.core.device import full_fp32
-from yoho_tpu_torch.parallel.mesh import exchange
+from yoho_tpu_torch.parallel.mesh import ring_shift
 
 NEG_INF = -1e30
 
@@ -34,7 +39,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     result in q's type. Every rank of the axis must call it."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    n, i = mesh.shape[axis_name], mesh.index(axis_name)
+    n = mesh.shape[axis_name]
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if hq % hkv:
@@ -58,9 +63,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
     kb, vb = k.contiguous(), v.contiguous()
     for _ in range(n - 1):
         acc, m, l = fold(acc, m, l, kb, vb)
-        nk, nv = torch.empty_like(kb), torch.empty_like(vb)
-        exchange(mesh, axis_name, sends=[(kb, (i + 1) % n), (vb, (i + 1) % n)],
-                 recvs=[(nk, (i - 1) % n), (nv, (i - 1) % n)])
-        kb, vb = nk, nv
+        kb, vb = ring_shift(mesh, axis_name, kb, vb)
     acc, m, l = fold(acc, m, l, kb, vb)
     return (acc / l).reshape(b, hq, s, d).to(q.dtype)

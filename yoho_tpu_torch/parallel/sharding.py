@@ -54,6 +54,9 @@ class P(tuple):
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
 
+    def __reduce__(self):
+        return (P, tuple(self))
+
 
 PartitionRules = Sequence[Tuple[str, P]]
 
@@ -142,6 +145,7 @@ def _column(lin: nn.Linear, m: int, r: int) -> None:
     if lin.bias is not None:
         _set(lin, "bias", lin.bias.data[r * k:(r + 1) * k])
     lin.out_features = k
+    lin.tp_split = ("column", r * k, k)
     if hasattr(lin, "features"):  # DenseGeneral: (heads, head_dim)
         lin.features = (lin.features[0] // m, lin.features[1])
 
@@ -152,6 +156,7 @@ def _row(lin: nn.Linear, m: int, r: int) -> None:
     k = lin.in_features // m
     _set(lin, "weight", lin.weight.data[:, r * k:(r + 1) * k])
     lin.in_features = k
+    lin.tp_split = ("row", r * k, k)
     if lin.bias is not None and r != 0:
         lin.bias = None
 
@@ -166,7 +171,9 @@ def shard_params(model: nn.Module, mesh, rules: PartitionRules = _COMMON_RULES) 
     model. Layers the rules leave whole keep every weight. A mesh without
     a ``model`` axis shards nothing. The model remembers its mesh
     (``tp_mesh``): sharding it again over the same mesh does nothing, over
-    another raises."""
+    another raises. ``model.tp_specs`` keeps the layout it got: each
+    leaf's spec (of the global shape) where its layer was cut; a leaf not
+    listed stayed whole."""
     from yoho_tpu_torch.nn.layers import GroupedQueryAttention, MLP, MultiHeadAttention, SwiGLU
     from yoho_tpu_torch.nn.moe import MoESwiGLU
     from yoho_tpu_torch.nn import params as nn_params
@@ -177,10 +184,12 @@ def shard_params(model: nn.Module, mesh, rules: PartitionRules = _COMMON_RULES) 
             return model
         raise ValueError(f"the model is already sharded over {done}")
     model.tp_mesh = mesh
+    model.tp_specs = {}
     if AXIS_MODEL not in mesh.shape:
         return model
     m, r = mesh.shape[AXIS_MODEL], mesh.index(AXIS_MODEL)
     specs = model_specs(model, mesh, rules)
+    cut = []
     with torch.no_grad():
         for name, mod in list(model.named_modules()):
             pre = "/".join(nn_params._jax_module_path(name))
@@ -222,5 +231,33 @@ def shard_params(model: nn.Module, mesh, rules: PartitionRules = _COMMON_RULES) 
                 _set(mod, "weight", mod.weight.data[r * k:(r + 1) * k])
                 mod.num_embeddings, mod.vocab_start = k, r * k
                 mod.tp = mesh
+            else:
+                continue
+            cut.append(pre + "/")
+    model.tp_specs = {path: spec for path, spec in specs.items()
+                      if AXIS_MODEL in spec and any(path.startswith(c) for c in cut)}
     return model
+
+
+def layout_of(model: nn.Module) -> dict:
+    """'/'-joined JAX path -> the spec of each leaf a mesh cuts in
+    ``model`` (:func:`shard_params`); leaves not listed are whole."""
+    return dict(getattr(model, "tp_specs", None) or {})
+
+
+def global_shape(shape, spec, mesh) -> tuple:
+    """A local slice's shape -> the whole leaf's."""
+    spec = tuple(spec or ())
+    return tuple(n * (mesh.shape[spec[i]] if i < len(spec) and spec[i] in mesh.shape else 1)
+                 for i, n in enumerate(shape))
+
+
+def local_slice(x, spec, mesh):
+    """This rank's slice of a whole leaf (array or tensor) under ``spec``."""
+    for dim, axis in enumerate(tuple(spec or ())):
+        if axis is not None and axis in mesh.shape:
+            k = x.shape[dim] // mesh.shape[axis]
+            i = mesh.index(axis)
+            x = x[(slice(None),) * dim + (slice(i * k, (i + 1) * k),)]
+    return x
 

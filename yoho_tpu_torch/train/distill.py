@@ -7,6 +7,9 @@ masked argmax agreement (a direct proxy for speculative acceptance), and
 exports an HF checkpoint dir. It reuses the fine-tuner's machinery
 (dataloader, step, optimizer, provenance-guarded resume); the teacher runs
 its own mel frontend and is teacher-forced on the same target tokens.
+Over a mesh the teacher stays whole on every rank (frozen, no optimizer
+state), and the CE, the KL and the agreement count the global batch's
+mask.
 """
 
 from __future__ import annotations
@@ -19,28 +22,33 @@ from yoho_tpu_torch.core.config import WhisperConfig
 from yoho_tpu_torch.nn import params as nn_params
 from yoho_tpu_torch.nn.whisper import Whisper
 from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+from yoho_tpu_torch.parallel.mesh import data_sum, is_coordinator
 from yoho_tpu_torch.train.trainer import masked_ce_loss
 from yoho_tpu_torch.train.whisper_finetune import WhisperFinetuner, _f32_tree
 
 
 def distill_kl_loss(t_logits: torch.Tensor, s_logits: torch.Tensor,
-                    loss_mask: torch.Tensor, tau: float) -> torch.Tensor:
+                    loss_mask: torch.Tensor, tau: float, mesh=None) -> torch.Tensor:
     """Masked KL(teacher || student) at temperature ``tau``, aligned with
     :func:`masked_ce_loss`'s next-token shift, scaled by tau^2 (Hinton et
-    al.) so gradients keep magnitude as tau grows; float32."""
+    al.) so gradients keep magnitude as tau grows; float32. Under a mesh
+    the global batch's mask count divides (this rank's share)."""
     t = torch.log_softmax(t_logits[:, :-1].float() / tau, dim=-1)
     s = torch.log_softmax(s_logits[:, :-1].float() / tau, dim=-1)
     per_pos = torch.sum(torch.exp(t) * (t - s), dim=-1)
     mask = loss_mask[:, 1:].float()
-    return tau * tau * torch.sum(per_pos * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return tau * tau * torch.sum(per_pos * mask) / torch.clamp_min(
+        data_sum(torch.sum(mask), mesh), 1.0)
 
 
 def masked_agreement(t_logits: torch.Tensor, s_logits: torch.Tensor,
-                     loss_mask: torch.Tensor) -> torch.Tensor:
-    """Masked next-token argmax agreement of two teacher-forced logits."""
+                     loss_mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Masked next-token argmax agreement of two teacher-forced logits (over
+    the global batch under a mesh)."""
     same = (torch.argmax(t_logits[:, :-1], -1) == torch.argmax(s_logits[:, :-1], -1)).float()
     mask = loss_mask[:, 1:].float()
-    return torch.sum(same * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return data_sum(torch.sum(same * mask), mesh) / torch.clamp_min(
+        data_sum(torch.sum(mask), mesh), 1.0)
 
 
 class WhisperDistiller(WhisperFinetuner):
@@ -100,21 +108,24 @@ class WhisperDistiller(WhisperFinetuner):
             mel = self._mel(audio)
         with self._autocast():
             s_logits = self.model(mel, tokens)
-        ce = masked_ce_loss(s_logits, tokens, mask)
-        kl = distill_kl_loss(t_logits, s_logits, mask, self.tau)
+        ce = masked_ce_loss(s_logits, tokens, mask, self.mesh)
+        kl = distill_kl_loss(t_logits, s_logits, mask, self.tau, self.mesh)
         return self.alpha * ce + (1.0 - self.alpha) * kl
 
     @torch.no_grad()
     def agreement(self, audio, tokens, mask) -> float:
         with self._autocast():
             s_logits = self.model(self._mel(audio), tokens)
-        return float(masked_agreement(self._teacher_logits(audio, tokens), s_logits, mask))
+        return float(masked_agreement(self._teacher_logits(audio, tokens), s_logits, mask,
+                                      self.mesh))
 
     def _validate(self, update: int) -> float:
         val_loss = super()._validate(update)
         self.last_agreement = self.agreement(*self._place(self._last_val_batch))
-        print(f"[distill] update {update}: teacher-agreement "
-              f"{self.last_agreement:.3f} (projected speculative acceptance)", flush=True)
+        if is_coordinator():
+            print(f"[distill] update {update}: teacher-agreement "
+                  f"{self.last_agreement:.3f} (projected speculative acceptance)",
+                  flush=True)
         return val_loss
 
     def export(self):
@@ -123,5 +134,8 @@ class WhisperDistiller(WhisperFinetuner):
         (always synthesized)."""
         from yoho_tpu_torch.nn.export import export_hf_whisper
 
-        return export_hf_whisper(nn_params.to_jax_params(self.model), self.cfg, self.out_dir,
+        params = self._full_params(self.model)
+        if not is_coordinator():
+            return self.out_dir
+        return export_hf_whisper(params, self.cfg, self.out_dir,
                                  src_dir=self.src_dir, copy_config=False)

@@ -20,6 +20,13 @@ arithmetic step by step in float32. :meth:`MultiSteps.update` returns the
 updates to add to the parameters, or None between updates. Its state is a
 tree of tensors and ints, marked with :data:`STATE_FORMAT`, that the
 checkpoint writes as the port's own ``opt_state``.
+
+Under a mesh (``train/trainer.py``) each rank holds its leaves' local
+slices: AdamW is elementwise, so the slices give JAX's numbers as they
+are; Adafactor (:meth:`Adafactor.shard`) factors by the global shape and
+all-reduces its row and column means and its block RMS over the axis that
+cuts a leaf; :class:`MultiSteps` sums the accumulated gradients over the
+mesh (``reduce``) once per applied update.
 """
 
 from __future__ import annotations
@@ -119,6 +126,12 @@ class AdamW:
         state["count"] = count
         return out
 
+    def state_specs(self, state: dict, specs: dict) -> dict:
+        """The partition spec of every tensor of ``state`` (a moment is cut
+        as its parameter)."""
+        return {"mu": {k: specs.get(k) for k in state["mu"]},
+                "nu": {k: specs.get(k) for k in state["nu"]}}
+
 
 def _factored_dims(shape, min_dim: int):
     """optax's ``_factored_dims``: the two largest axes (second largest,
@@ -137,7 +150,16 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
 
 class Adafactor:
     """``optax.adafactor`` with its defaults: factored RMS scaling, block-RMS
-    clipping, the learning rate, the parameter's block RMS, then -1."""
+    clipping, the learning rate, the parameter's block RMS, then -1.
+
+    On sharded leaves (:meth:`shard`: each leaf's partition spec and the
+    mesh) the factored dimensions come from the leaf's global shape, and
+    every mean over a dimension the mesh cuts, and the block RMS of a cut
+    leaf, is summed over that axis (one counted all-reduce each), so each
+    rank computes its slice of JAX's update."""
+
+    _specs: Dict[str, tuple] = {}
+    _mesh = None
 
     def __init__(self, learning_rate: Callable[[int], float], min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, clipping_threshold: float = 1.0,
@@ -149,10 +171,65 @@ class Adafactor:
         self.min_param_scale = min_param_scale
         self.eps = eps
 
+    def shard(self, specs: Dict[str, tuple], mesh) -> None:
+        """Leaves cut over ``mesh`` by ``specs`` (path -> one axis name or
+        None per dimension; a missing path is whole)."""
+        self._specs, self._mesh = dict(specs), mesh
+
+    def _cut(self, k: str, p: torch.Tensor) -> list:
+        """The mesh axis cutting each dimension of leaf ``k`` (None: whole)."""
+        spec = tuple(self._specs.get(k, ())) if self._mesh is not None else ()
+        return [spec[i] if i < len(spec) and spec[i] in getattr(self._mesh, "shape", {})
+                else None for i in range(p.ndim)]
+
+    def _dims(self, k: str, p: torch.Tensor):
+        shape = tuple(n * (self._mesh.shape[a] if a else 1)
+                      for n, a in zip(p.shape, self._cut(k, p)))
+        return _factored_dims(shape, self.min_dim)
+
+    def _mean(self, x: torch.Tensor, dim: int, axis, keepdim: bool = False) -> torch.Tensor:
+        """The mean over ``dim`` of the global leaf: its local mean averaged
+        over ``axis`` when the axis cuts the dimension."""
+        m = torch.mean(x, dim=dim, keepdim=keepdim)
+        if axis is None:
+            return m
+        from yoho_tpu_torch.parallel.mesh import all_reduce
+
+        return all_reduce(m.contiguous(), self._mesh, axis) / _f32(self._mesh.shape[axis])
+
+    def _block_rms(self, x: torch.Tensor, cut: list) -> torch.Tensor:
+        """The RMS of the whole (global) leaf."""
+        axes = [a for a in cut if a]
+        if not axes:
+            return _rms(x)
+        from yoho_tpu_torch.parallel.mesh import all_reduce
+
+        ss = torch.sum(x * x).reshape(1)
+        for a in axes:
+            ss = all_reduce(ss, self._mesh, a)
+        n = x.numel() * math.prod(self._mesh.shape[a] for a in axes)
+        return torch.sqrt(ss[0] / _f32(n))
+
+    def state_specs(self, state: dict, specs: dict) -> dict:
+        """The partition spec of every tensor of ``state``: ``v`` as its
+        parameter, the row and column statistics with the factored
+        dimension taken out."""
+        def drop(k, which):
+            spec = tuple(specs.get(k) or ())
+            d = self._factored[k][which]
+            return tuple(a for i, a in enumerate(spec) if i != d) or None
+
+        return {"v": {k: specs.get(k) for k in state["v"]},
+                "v_row": {k: drop(k, 1) for k in state["v_row"]},
+                "v_col": {k: drop(k, 0) for k in state["v_col"]}}
+
     def init(self, params: Tensors) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        self._factored = {}
         for k, p in params.items():
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            dims = self._dims(k, p)
+            if dims is not None:
+                self._factored[k] = dims
             shape = list(p.shape)
             if dims is None:
                 state["v"][k] = torch.zeros(shape, dtype=p.dtype, device=p.device)
@@ -173,8 +250,9 @@ class Adafactor:
         out = {}
         for k, g in grads.items():
             p = params[k]
+            cut = self._cut(k, p)
             sq = g * g + _f32(self.eps)
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            dims = self._dims(k, p)
             if dims is None:
                 v = state["v"][k]
                 v.copy_(v * keep + sq * new)
@@ -182,14 +260,15 @@ class Adafactor:
             else:
                 d1, d0 = dims
                 vr, vc = state["v_row"][k], state["v_col"][k]
-                vr.copy_(vr * keep + torch.mean(sq, dim=d0) * new)
-                vc.copy_(vc * keep + torch.mean(sq, dim=d1) * new)
+                vr.copy_(vr * keep + self._mean(sq, d0, cut[d0]) * new)
+                vc.copy_(vc * keep + self._mean(sq, d1, cut[d1]) * new)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row = (vr / torch.mean(vr, dim=reduced_d1, keepdim=True)) ** -0.5
+                row = (vr / self._mean(vr, reduced_d1, cut[d1], keepdim=True)) ** -0.5
                 u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp_min(_rms(u) / _f32(self.clipping_threshold), 1.0)
+            u = u / torch.clamp_min(self._block_rms(u, cut) / _f32(self.clipping_threshold),
+                                    1.0)
             u = u * lr
-            prms = _rms(p)
+            prms = self._block_rms(p, cut)
             u = u * torch.where(prms <= self.min_param_scale,
                                 _scalar(self.min_param_scale, prms), prms)
             out[k] = -u
@@ -199,13 +278,18 @@ class Adafactor:
 
 class MultiSteps:
     """``optax.MultiSteps(inner, every_k)``: the running mean of the
-    mini-batch gradients, one inner update every ``every_k``-th call."""
+    mini-batch gradients, one inner update every ``every_k``-th call.
+    ``reduce`` (set by a trainer over a mesh) sums the accumulated mean
+    over the mesh in place just before the inner update: by linearity the
+    mean of the summed mini-step gradients, with one reduction an update
+    instead of one a mini-step."""
 
-    def __init__(self, inner, every_k: int):
+    def __init__(self, inner, every_k: int, reduce=None):
         if every_k < 1:
             raise ValueError(f"accumulated_batches must be >= 1, got {every_k}")
         self.inner = inner
         self.every_k = int(every_k)
+        self.reduce = reduce
 
     def init(self, params: Tensors) -> dict:
         return {"format": STATE_FORMAT, "mini_step": 0, "gradient_step": 0,
@@ -222,12 +306,21 @@ class MultiSteps:
         if n < self.every_k - 1:
             state["mini_step"] = n + 1
             return None
+        if self.reduce is not None:
+            self.reduce(state["acc_grads"])
         updates = self.inner.update(state["acc_grads"], state["inner"], params)
         for acc in state["acc_grads"].values():
             acc.zero_()
         state["mini_step"] = 0
         state["gradient_step"] += 1
         return updates
+
+
+    def state_specs(self, state: dict, specs: dict) -> dict:
+        """The partition spec of every tensor of ``state``, from the
+        parameters' (``specs``: path -> spec; a missing path is whole)."""
+        return {"acc_grads": {k: specs.get(k) for k in state["acc_grads"]},
+                "inner": self.inner.state_specs(state["inner"], specs)}
 
 
 def trainable(params: Tensors, frozen: Callable[[str], bool]) -> Tensors:
@@ -243,15 +336,21 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
         params[k].add_(u)
 
 
-def load_state(state: dict, saved: dict) -> dict:
+def load_state(state: dict, saved: dict, specs=None, mesh=None) -> dict:
     """The state tree ``saved`` (numpy arrays from a checkpoint) copied into
-    ``state`` (same keys, tensors on their devices); ints taken as saved."""
+    ``state`` (same keys, tensors on their devices); ints taken as saved.
+    Under a mesh the saved tensors are whole and ``specs`` (the tree of
+    :meth:`MultiSteps.state_specs`) cuts this rank's slices out of them."""
+    from yoho_tpu_torch.parallel.sharding import local_slice
+
     for k, v in state.items():
+        spec = specs.get(k) if isinstance(specs, dict) else None
         if isinstance(v, dict):
-            load_state(v, saved[k])
+            load_state(v, saved[k], spec, mesh)
         elif isinstance(v, torch.Tensor):
             src = saved[k]
-            v.copy_(src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src)))
+            src = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.array(src))
+            v.copy_(local_slice(src, spec, mesh) if mesh is not None else src)
         else:
             state[k] = type(v)(saved[k])
     return state

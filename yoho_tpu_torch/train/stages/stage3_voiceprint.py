@@ -7,7 +7,11 @@ speaker in a batch are its positives). The encoder starts from the stage-2
 artifact's ``encoder`` when ``weights.voice_reconstruction`` exists (its
 other keys are ignored, as flax's ``from_state_dict`` ignores them). The
 export goes to ``weights.voiceprint``, stage 4's teacher. No validation: a
-checkpoint every ``validation_frequency`` updates.
+checkpoint every ``validation_frequency`` updates. Over a mesh the loss
+takes its negatives and positives from the whole global batch: the
+embeddings are gathered over ``data`` (the gradient of each rank's share
+summed before it keeps its rows), each rank scores the anchors of its own
+rows, and the normaliser counts the global batch's anchors.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ class VoiceprintTrainer(SessionTrainer):
         if vae is not None:
             nn_params.load_jax_params(self.model.encoder, vae["encoder"])
         self.train_dataloader = SpeakerDataloader(
-            config, hp.batch_size, use_multiprocessing=use_multiprocessing,
-            disable_warnings=True, warmup_queue=False)
+            config, use_multiprocessing=use_multiprocessing,
+            disable_warnings=True, warmup_queue=False, **self._loader_shard())
         self._init_state()
 
     def _batch_loss(self, audio, speaker_ids) -> torch.Tensor:
@@ -52,7 +56,7 @@ class VoiceprintTrainer(SessionTrainer):
             mel = self._mel(audio)
         with self._autocast():
             emb = self.model(mel)
-        return nt_xent_loss(emb.float(), speaker_ids, self.hp.temperature)
+        return nt_xent_loss(emb.float(), speaker_ids, self.hp.temperature, self.mesh)
 
 
 def main(config: SessionConfig, max_updates=None, use_multiprocessing: bool = True,

@@ -16,7 +16,8 @@ The teacher's encoder runs once per batch and each of the
 ``max_utterances`` span masks pools its output
 (``VoiceprintEncoder.embed_spans``); JAX's ``vmap`` runs the encoder once
 per span. The mask enters only the pooling, so the two compute the same
-function.
+function. Over a mesh both terms are this rank's share: the CE by the
+global mask count, the voiceprint sum by the global batch's valid spans.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from yoho_tpu_torch.core.config import SessionConfig
+from yoho_tpu_torch.parallel.mesh import data_sum
 from yoho_tpu_torch.train.trainer import ASRTrainer, masked_ce_loss
 
 
@@ -35,7 +37,7 @@ class JointTrainer(ASRTrainer):
                  voiceprint_loss_weight: float = 1.0, mesh=None,
                  use_multiprocessing: bool = False, compute_dtype=torch.float32,
                  device=None):
-        from yoho_tpu_torch.core.device import resolve_device
+        from yoho_tpu_torch.parallel.mesh import Mesh, local_device
         from yoho_tpu_torch.nn import params as nn_params
         from yoho_tpu_torch.nn.voiceprint import VoiceprintEncoder
         from yoho_tpu_torch.nn.yoho import YOHOModel
@@ -46,7 +48,9 @@ class JointTrainer(ASRTrainer):
         tokenizer = tokenizer or YOHOTokenizer.load(config.weights.tokenizer)
         vp_dim = config.hyperparameters.voiceprint_finetune.embedding_dim
         hp = config.hyperparameters.transcribe_finetune
-        device = resolve_device(device)
+        # The rank's device (a mesh's, or cuda:LOCAL_RANK under a launcher)
+        # before the teacher and the model are placed.
+        device = mesh.device if isinstance(mesh, Mesh) else local_device(device)
 
         # The frozen teacher: the stage-3 voiceprint encoder.
         teacher = VoiceprintEncoder(config.yoho, embedding_dim=vp_dim, device=device)
@@ -94,7 +98,7 @@ class JointTrainer(ASRTrainer):
             mel = self._mel(audio)
         with self._autocast():
             logits, vp_pred = self.model.forward_with_voiceprints(tokens, mel)
-        ce = masked_ce_loss(logits, tokens, mask)
+        ce = masked_ce_loss(logits, tokens, mask, self.mesh)
         teach = self._teacher_embeddings(mel, spans)
         U = spans.shape[1]
 
@@ -107,7 +111,8 @@ class JointTrainer(ASRTrainer):
         pred = torch.einsum("but,bte->bue", match_prev, vp_pred.float())
         has = torch.clamp(match_prev.sum(dim=-1), 0, 1)
         cos = (pred * teach).sum(dim=-1)
-        vp_loss = ((1.0 - cos) * span_valid * has).sum() / torch.clamp_min(span_valid.sum(), 1.0)
+        vp_loss = ((1.0 - cos) * span_valid * has).sum() / torch.clamp_min(
+            data_sum(span_valid.sum(), self.mesh), 1.0)
         return ce, vp_loss
 
 

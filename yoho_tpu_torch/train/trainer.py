@@ -27,8 +27,32 @@ train state and its checkpoint, the weights slot); stages 2 and 3
 (``train/stages/``) train without validation and checkpoint every
 ``validation_frequency`` updates, as JAX's do.
 
-A device mesh and ``long_context_factor > 1`` (ring attention, a
-multi-device program) are ROADMAP Queue 1 item 11.
+Over a mesh (``parallel/mesh.py``; one process per rank, NCCL on the
+card, gloo on the CPU) every trainer computes what the JAX package's
+GSPMD program computes on the global batch. The mesh is the caller's
+(a ``Mesh`` or a ``"DxM"`` spec), else under a launcher ``make_mesh`` of
+the session's ``[mesh]`` (:func:`resolve_mesh`); without either the
+trainers run in one process with no group. Under a mesh:
+
+* the model is cut over ``model`` (``shard_params``) before the optimizer
+  state is made, and its layers run the differentiable collectives;
+* the loaders read this rank's ``data`` shard (``data_shard``), the
+  global batch divided over ``data``: ranks that differ only in
+  ``model`` or ``seq`` train on the same rows;
+* a rank's loss is its share of the global loss (the CE's mask count is
+  summed over ``data``, :func:`masked_ce_loss`; mean losses divide by the
+  ``data`` size), so the gradients sum over ``data``: ``MultiSteps`` sums
+  the accumulated mean once per applied update (``reduce_gradients``;
+  frozen leaves are not in it), and each update's logged loss is summed
+  once;
+* ``metrics.csv``, the checkpoint and the export are written by the
+  coordinator only; the checkpoint gathers every cut leaf (the optimizer
+  state by its parameter's spec) and a resume loads the whole tree and
+  cuts this rank's slices; validation is collective (the loss summed
+  over ``data``, each rank decoding its rows, the results gathered
+  before the coordinator's host reads them);
+* ``long_context_factor > 1`` trains on a (data, seq) mesh through the
+  ring encoder (``parallel/long_encoder.py``), as JAX's does.
 """
 
 from __future__ import annotations
@@ -42,20 +66,63 @@ from torch import nn
 
 from yoho_tpu_torch.core.config import SessionConfig, TrainingHP
 from yoho_tpu_torch.core.device import resolve_device
+from yoho_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    data_shard,
+    data_sum,
+    fetch_to_host,
+    is_coordinator,
+    local_batch_size,
+)
 from yoho_tpu_torch.train.checkpoint import load_checkpoint
 from yoho_tpu_torch.train.optim import load_state
 
 
 def masked_ce_loss(logits: torch.Tensor, tokens: torch.Tensor,
-                   loss_mask: torch.Tensor) -> torch.Tensor:
+                   loss_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Next-token CE, masked: position i's logits predict token i + 1, the
     mask of token i + 1 weighs it, and the sum is divided by
-    ``max(sum(mask), 1)``; float32."""
+    ``max(sum(mask), 1)``; float32. Under a mesh the sum is this rank's
+    rows' and the mask count the global batch's (summed over ``data``):
+    this rank's share of the global loss."""
     logits = logits[:, :-1].float()
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tokens[:, 1:].reshape(-1).long(), reduction="none")
     mask = loss_mask[:, 1:].reshape(-1).float()
-    return torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(ce * mask) / torch.clamp_min(data_sum(torch.sum(mask), mesh), 1.0)
+
+
+def data_size(mesh) -> int:
+    """The ``data`` axis's size (1 without a mesh): a mean loss's divisor."""
+    return data_shard(mesh)[1]
+
+
+def asr_objective(logits: torch.Tensor, tokens: torch.Tensor, loss_mask: torch.Tensor,
+                  model: nn.Module, cfg, mesh=None) -> torch.Tensor:
+    """The transcription loss of ``model``'s forward that gave ``logits``:
+    masked CE, plus ``cfg.moe_aux_weight`` x the mean MoE auxiliary loss of
+    that forward with experts (a per-row mean, so each ``data`` rank's
+    share is divided by the axis size); this rank's share under a mesh."""
+    from yoho_tpu_torch.nn.moe import collect_aux_losses
+
+    loss = masked_ce_loss(logits, tokens, loss_mask, mesh)
+    if cfg.n_experts > 0:
+        aux = collect_aux_losses(model).to(loss.device)
+        loss = loss + cfg.moe_aux_weight * aux / data_size(mesh)
+    return loss
+
+
+def resolve_mesh(mesh, device, data: int = -1, model: int = 1):
+    """A trainer's mesh: the caller's (a ``Mesh``, or a ``"DxM"`` spec on
+    ``device``; anything else raises ``TypeError``), else under a launcher
+    ``make_mesh(data, model)``, else None (one process, no group)."""
+    from yoho_tpu_torch.parallel.mesh import as_mesh, launched, make_mesh
+
+    if mesh is not None:
+        return as_mesh(mesh, device)
+    if launched():
+        return make_mesh(data, model, device)
+    return None
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -83,22 +150,32 @@ def unflatten_tree(flat: Mapping[str, object]) -> Dict:
 
 @torch.no_grad()
 def restore_train_state(leaves: Dict[str, torch.Tensor], opt_state: dict,
-                        checkpoint_path, nest=unflatten_tree) -> Optional[int]:
+                        checkpoint_path, nest=unflatten_tree, mesh=None,
+                        specs: Optional[dict] = None,
+                        state_specs: Optional[dict] = None) -> Optional[int]:
     """Restore a checkpoint into the live train state: ``leaves`` (the
     checkpointed tensors by '/'-joined JAX path, in the JAX layout, updated
     in place; ``nest`` builds the saved tree from such a dict) and
     ``opt_state`` (the optimizer's state, updated in place, each tensor on
     its own device). Returns the checkpoint's step (mini-steps), or None
-    when there is no checkpoint (nothing changes)."""
-    template = nest({k: np.empty(tuple(t.shape), np.float32) for k, t in leaves.items()})
+    when there is no checkpoint (nothing changes). Under a mesh the file
+    holds whole leaves (JAX's ``restore_train_state(..., mesh, rules)``):
+    every rank loads them and keeps its slice of each, ``specs`` (path ->
+    spec) cutting the leaves and ``state_specs`` the optimizer state."""
+    from yoho_tpu_torch.parallel.sharding import global_shape, local_slice
+
+    specs = specs or {}
+    shape = ((lambda k, t: global_shape(tuple(t.shape), specs.get(k), mesh))
+             if mesh is not None else (lambda k, t: tuple(t.shape)))
+    template = nest({k: np.empty(shape(k, t), np.float32) for k, t in leaves.items()})
     restored = load_checkpoint(checkpoint_path, template)
     if restored is None:
         return None
     step, params, saved_opt = restored
     for k, v in flatten_tree(params).items():
         src = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
-        leaves[k].copy_(src)
-    load_state(opt_state, saved_opt)
+        leaves[k].copy_(local_slice(src, specs.get(k), mesh) if mesh is not None else src)
+    load_state(opt_state, saved_opt, state_specs, mesh)
     return step
 
 
@@ -111,10 +188,79 @@ class TrainLoop:
     ``val_dataloader`` (None: no validation), ``metrics``, ``lr_schedule``
     and ``checkpoint_path``, the types of its batch's arrays on the device
     (``_batch_types``), and implements ``_batch_loss`` (one argument per
-    array), ``_validate`` and ``_save_checkpoint``."""
+    array), ``_validate`` and ``_save_checkpoint``. Over a mesh it also sets
+    ``mesh`` and calls :meth:`_prepare_optimizer` with the layout of the
+    cut leaves before the optimizer state is made; ``metrics`` is None
+    except on the coordinator."""
 
     _batch_types = (torch.float32, torch.long, torch.uint8)  # audio, tokens, mask
     val_dataloader = None
+    mesh = None
+    _specs: dict = {}
+
+    def _grad_axes(self, key: str) -> tuple:
+        """The mesh axes over which trained leaf ``key``'s gradient sums:
+        ``data`` (a rank's loss is its share of the global batch's)."""
+        return (AXIS_DATA,)
+
+    def _prepare_optimizer(self, specs: dict) -> None:
+        """Over a mesh: the gradient reduction once per update, and the
+        layout of the cut leaves (path -> spec) for the optimizer's
+        statistics and the checkpoint."""
+        self._specs = dict(specs)
+        if self.mesh is None:
+            return
+        from functools import partial
+
+        from yoho_tpu_torch.parallel.mesh import reduce_gradients
+
+        self.optimizer.reduce = partial(reduce_gradients, mesh=self.mesh, axes=self._grad_axes)
+        if hasattr(self.optimizer.inner, "shard"):
+            self.optimizer.inner.shard(self._specs, self.mesh)
+
+    def _state_specs(self):
+        return (self.optimizer.state_specs(self.opt_state, self._specs)
+                if self.mesh is not None else None)
+
+    def _restore(self, leaves: Dict[str, torch.Tensor], nest=unflatten_tree) -> int:
+        """Resume from ``checkpoint_path`` (0 without one)."""
+        return restore_train_state(leaves, self.opt_state, self.checkpoint_path, nest,
+                                   self.mesh, self._specs, self._state_specs()) or 0
+
+    def _host_state(self, leaves: Dict[str, torch.Tensor]):
+        """(checkpoint leaves, optimizer state) for the checkpoint: as they
+        are without a mesh; over it gathered whole (every rank calls) and
+        copied to the host on the coordinator only ((None, None) elsewhere)."""
+        if self.mesh is None:
+            return leaves, self.opt_state
+        here = is_coordinator()
+        return (fetch_to_host(self.mesh, leaves, self._specs, to_host=here),
+                fetch_to_host(self.mesh, self.opt_state, self._state_specs(), to_host=here))
+
+    def _full_params(self, model: nn.Module) -> Optional[Dict]:
+        """``model`` as a flax params tree, its cut leaves gathered whole
+        over the mesh (every rank calls; None but on the coordinator)."""
+        from yoho_tpu_torch.nn import params as nn_params
+
+        if self.mesh is None:
+            return nn_params.to_jax_params(model)
+        from yoho_tpu_torch.parallel.sharding import layout_of
+
+        leaves = fetch_to_host(self.mesh, nn_params.jax_leaves(model), layout_of(model),
+                               to_host=is_coordinator())
+        return None if leaves is None else unflatten_tree(leaves)
+
+    def _decode_rows(self, fn, *arrays):
+        """``fn`` of this rank's rows on the device, as a numpy array; over a
+        mesh each ``data`` rank runs its own rows and the results are
+        gathered over ``data`` before the host reads them (the
+        coordinator's rows first)."""
+        out = fn(*arrays)
+        if self.mesh is not None:
+            from yoho_tpu_torch.parallel.mesh import gather_batch
+
+            out = gather_batch(self.mesh, out.contiguous())
+        return out.cpu().numpy()
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.compute_dtype,
@@ -154,14 +300,16 @@ class TrainLoop:
         ``validation_frequency``-th (<= 0: never) after a validation where
         there is a ``val_dataloader``, a ``metrics.csv`` row with the
         schedule's value at the applied update.
-        A checkpoint at exit; ``export()`` only when the loop completed, so
-        a crashed re-run never overwrites a good artifact."""
+        A checkpoint at exit (over a mesh only when the loop completed);
+        ``export()`` only when the loop completed, so a crashed re-run never
+        overwrites a good artifact."""
         from yoho_tpu_torch.train.checkpoint import AsyncCheckpointer
 
         target_steps = updates * accumulated
-        ckpt = AsyncCheckpointer(self.checkpoint_path, install_sigterm=True)
+        ckpt = (AsyncCheckpointer(self.checkpoint_path, install_sigterm=True)
+                if is_coordinator() else None)
         pbar = None
-        if progress:
+        if progress and is_coordinator():
             from tqdm import tqdm
 
             pbar = tqdm(initial=self.step // accumulated, total=updates)
@@ -177,7 +325,8 @@ class TrainLoop:
                 seen += 1
                 if step % accumulated == accumulated - 1:
                     update = (step + 1) // accumulated
-                    batch_loss = float(acc_loss) / max(seen, 1)  # one sync per update
+                    # One sync per update (the sum of the ranks' shares).
+                    batch_loss = float(data_sum(acc_loss, self.mesh)) / max(seen, 1)
                     self.update_losses.append(batch_loss)
                     acc_loss, seen = None, 0
                     if pbar is not None:
@@ -188,11 +337,18 @@ class TrainLoop:
                         if self.val_dataloader is not None:
                             val_loss = self._validate(update)
                         self._save_checkpoint(ckpt)
-                    self.metrics.log(update, self.lr_schedule(update), batch_loss, val_loss)
+                    if self.metrics is not None:
+                        self.metrics.log(update, self.lr_schedule(update), batch_loss,
+                                         val_loss)
             completed = True
         finally:
-            self._save_checkpoint(ckpt)
-            ckpt.close()
+            # Over a mesh the save is collective: a rank that raised would
+            # leave the others waiting in its gathers, so it saves only a
+            # completed loop.
+            if completed or self.mesh is None:
+                self._save_checkpoint(ckpt)
+            if ckpt is not None:
+                ckpt.close()
             self.train_dataloader.terminate()
             if self.val_dataloader is not None:
                 self.val_dataloader.terminate()
@@ -204,35 +360,40 @@ class TrainLoop:
 
 class SessionTrainer(TrainLoop):
     """What the YOHO session stages share: ``_setup`` (the stage directory,
-    ``metrics.csv``, AdamW on the stage's warmup-cosine schedule under
-    ``MultiSteps``), ``_init_state`` (the trained leaves of ``self.model``,
-    the optimizer state, a resume from the checkpoint), the mel kernel,
-    the checkpoint, ``run`` and the export of ``self.model`` to the stage's
+    the mesh, ``metrics.csv`` on the coordinator, AdamW on the stage's
+    warmup-cosine schedule under ``MultiSteps``), ``_init_state`` (the
+    model cut over the mesh, the trained leaves of ``self.model``, the
+    optimizer state, a resume from the checkpoint), the mel kernel, the
+    checkpoint, ``run`` and the export of ``self.model`` to the stage's
     weights slot (``weights_path``) when the run completes.
-    ``device``: CUDA unless ``"cpu"``; ``compute_dtype``: the autocast type
-    (float32 turns autocast off)."""
+    ``device``: CUDA unless ``"cpu"`` (a mesh's device when there is one);
+    ``compute_dtype``: the autocast type (float32 turns autocast off)."""
+
+    long_context_factor = 1
 
     def _setup(self, config: SessionConfig, stage: int, hp: TrainingHP, mesh, device,
                compute_dtype, validations: bool = False,
                checkpoint_name: str = "checkpoint.msgpack") -> None:
-        from yoho_tpu_torch.infer.pipeline import _not_ported
         from yoho_tpu_torch.train.metrics import MetricsWriter
         from yoho_tpu_torch.train.optim import AdamW, MultiSteps, warmup_cosine_decay_schedule
         from yoho_tpu_torch.train.session import stage_dir
 
-        if mesh is not None:
-            _not_ported("multi-device data parallelism (mesh)", 11)
-        if int(getattr(hp, "long_context_factor", 1) or 1) > 1:
-            _not_ported("long-context training (long_context_factor > 1: "
-                        "ring attention over a device mesh)", 11)
         self.config, self.stage, self.hp = config, stage, hp
-        self.device = resolve_device(device)
+        self.long_context_factor = int(getattr(hp, "long_context_factor", 1) or 1)
+        self.data_config = config
+        if self.long_context_factor > 1:
+            self.mesh = self._long_context_mesh(config, mesh, device)
+        else:
+            self.mesh = resolve_mesh(mesh, device, config.mesh.data, config.mesh.model)
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.compute_dtype = compute_dtype
         self.stage_path = stage_dir(config, stage)
         self.checkpoint_path = self.stage_path / checkpoint_name
-        self.metrics = MetricsWriter(self.stage_path / "metrics.csv",
-                                     self.stage_path / "validations.jsonl" if validations
-                                     else None)
+        # Writers on the coordinator only (every rank sees the same paths).
+        self.metrics = (MetricsWriter(self.stage_path / "metrics.csv",
+                                      self.stage_path / "validations.jsonl" if validations
+                                      else None)
+                        if is_coordinator() else None)
         # Horizons in applied updates: the inner optimizer and its schedule
         # step once per update, not per accumulated mini-step.
         warmup = hp.warmup_updates
@@ -241,18 +402,65 @@ class SessionTrainer(TrainLoop):
             hp.final_learning_rate)
         self.optimizer = MultiSteps(AdamW(self.lr_schedule), hp.accumulated_batches)
 
+    def _long_context_mesh(self, config: SessionConfig, mesh, device):
+        """Long-context training (``long_context_factor`` N > 1): clips of N
+        windows (``data_config``) on a (data, seq) mesh, the caller's or
+        JAX's ``_make_long_context_mesh``: ``[mesh] seq`` sizes the ring
+        axis (-1: what ``data`` leaves; both -1: every rank), ``data`` the
+        rest. The post-stem length must divide by ``seq``."""
+        from dataclasses import replace
+
+        from yoho_tpu_torch.parallel.mesh import Mesh, init_mesh, world_size
+
+        f = self.long_context_factor
+        self.data_config = replace(config, yoho=replace(
+            config.yoho, max_audio_len=config.yoho.max_audio_len * f,
+            max_text_len=config.yoho.max_text_len * f))
+        if mesh is not None:
+            if not isinstance(mesh, Mesh) or "seq" not in mesh.shape:
+                raise TypeError("long_context_factor > 1 trains on a (data, seq) mesh "
+                                "(parallel.mesh.init_mesh({'data': d, 'seq': s})), got "
+                                f"{mesh!r}")
+        else:
+            n = world_size()
+            seq = config.mesh.seq
+            if seq == -1:
+                seq = n // config.mesh.data if config.mesh.data != -1 else n
+            if seq < 1 or n % seq:
+                raise ValueError(f"seq axis size {seq} does not divide device count {n}")
+            data = n // seq
+            if config.mesh.data not in (-1, data):
+                raise ValueError(f"mesh {config.mesh.data}x{seq} != {n} devices")
+            mesh = init_mesh({AXIS_DATA: data, "seq": seq}, device)
+        frames = self.data_config.yoho.max_audio_len // 2  # post-stem
+        if frames % mesh.shape["seq"]:
+            raise ValueError(
+                f"long-context post-stem length {frames} must divide by the seq axis "
+                f"({mesh.shape['seq']}); adjust max_audio_len, long_context_factor, "
+                "or [mesh] seq")
+        return mesh
+
+    def _loader_shard(self) -> dict:
+        """The loaders' share of the global batch: this rank's ``data``
+        shard and local batch."""
+        return dict(batch_size=local_batch_size(self.hp.batch_size, self.mesh),
+                    shard=data_shard(self.mesh))
+
     def _init_state(self) -> None:
         from yoho_tpu_torch.nn import params as nn_params
+        from yoho_tpu_torch.parallel.sharding import YOHO_RULES, layout_of, shard_params
 
+        if self.mesh is not None:
+            shard_params(self.model, self.mesh, YOHO_RULES)
         self._train = {k: (t, view) for k, (t, view)
                        in nn_params.jax_parameters(self.model).items()
                        if isinstance(t, nn.Parameter)}
         for t, _view in self._train.values():
             t.requires_grad_(True)
         self._leaves = {k: view(t) for k, (t, view) in self._train.items()}
+        self._prepare_optimizer(layout_of(self.model))
         self.opt_state = self.optimizer.init(self._leaves)
-        self.step = restore_train_state(dict(self._leaves), self.opt_state,
-                                        self.checkpoint_path) or 0
+        self.step = self._restore(dict(self._leaves))
         self.train_dataloader.skip(self.step)
 
     def _mel(self, audio: torch.Tensor) -> torch.Tensor:
@@ -267,14 +475,17 @@ class SessionTrainer(TrainLoop):
                           self.hp.validation_frequency, progress, self._export_weights)
 
     def _save_checkpoint(self, ckpt) -> None:
-        ckpt.save(self.step, unflatten_tree(dict(self._leaves)), self.opt_state)
+        params, opt_state = self._host_state(dict(self._leaves))
+        if ckpt is not None:
+            ckpt.save(self.step, unflatten_tree(params), opt_state)
 
     def _export_weights(self) -> None:
         """``self.model`` as a flax params tree in ``weights_path``."""
-        from yoho_tpu_torch.nn import params as nn_params
         from yoho_tpu_torch.train.checkpoint import save_params
 
-        save_params(self.weights_path, nn_params.to_jax_params(self.model))
+        tree = self._full_params(self.model)
+        if is_coordinator():
+            save_params(self.weights_path, tree)
 
 
 class ASRTrainer(SessionTrainer):
@@ -283,7 +494,7 @@ class ASRTrainer(SessionTrainer):
     loop for ``weights.yoho``. ``model``: the ``YOHOModel`` to train
     (default: one at the session's widths, float32 on ``device``);
     ``init_params``: a flax params tree to start from (default:
-    ``init_random`` with seed 0)."""
+    ``init_random`` with seed 0). ``mesh``: see the module doc."""
 
     def __init__(self, config: SessionConfig, tokenizer=None, stage: int = 1,
                  hp: Optional[TrainingHP] = None, mesh=None,
@@ -310,14 +521,23 @@ class ASRTrainer(SessionTrainer):
             nn_params.init_random(self.model, seed=0)
         else:
             nn_params.load_jax_params(self.model, init_params)
+        self._long_loss = None
+        if self.long_context_factor > 1:
+            from yoho_tpu_torch.parallel.long_encoder import make_long_context_loss_fn
+
+            if config.yoho.n_experts > 0:
+                raise ValueError(
+                    "long_context_factor > 1 with n_experts > 0 is not supported: the "
+                    "ring encoder does not collect MoE aux losses (train MoE models with "
+                    "the standard step)")
+            self._long_loss = make_long_context_loss_fn(self.model, self.mesh)
 
         dl_kwargs = dict(
-            config=config, tokenizer=self.tokenizer,
+            config=self.data_config, tokenizer=self.tokenizer,
             # Each stage's own ratio (stage 4 has its own field).
             speechless_ratio=getattr(self.hp, "speechless_sample_ratio", 0.0),
-            batch_size=self.hp.batch_size, shuffle=True,
-            use_multiprocessing=use_multiprocessing, disable_warnings=True,
-            warmup_queue=False, **(dataloader_kwargs or {}))
+            shuffle=True, use_multiprocessing=use_multiprocessing, disable_warnings=True,
+            warmup_queue=False, **self._loader_shard(), **(dataloader_kwargs or {}))
         self.train_dataloader = TranscriptionDataloader((0.0, 0.9), seed=0, **dl_kwargs)
         try:
             self.val_dataloader = TranscriptionDataloader((0.9, 1.0), seed=1, **dl_kwargs)
@@ -326,21 +546,25 @@ class ASRTrainer(SessionTrainer):
             self.val_dataloader = TranscriptionDataloader((0.0, 1.0), seed=1, **dl_kwargs)
         self._init_state()
 
+    def _grad_axes(self, key: str) -> tuple:
+        # Long context: the stem and blocks compute a disjoint part of the
+        # encoder on each seq rank; the decoder runs whole on every one.
+        if self.long_context_factor > 1 and key.startswith("encoder/"):
+            return (AXIS_DATA, "seq")
+        return (AXIS_DATA,)
+
     def _asr_loss(self, audio, tokens, mask) -> torch.Tensor:
         """Masked CE, plus ``moe_aux_weight`` x the mean MoE auxiliary loss
         with experts: stage 1's training loss and every stage's validation
-        loss (JAX's ``_val_loss``)."""
-        from yoho_tpu_torch.nn.moe import collect_aux_losses
-
-        cfg = self.config.yoho
+        loss (JAX's ``_val_loss``); this rank's share under a mesh."""
         with torch.no_grad():
             mel = self._mel(audio)
+        if self._long_loss is not None:
+            with self._autocast():
+                return self._long_loss(mel, tokens, mask)
         with self._autocast():
             logits = self.model(tokens, mel)
-        loss = masked_ce_loss(logits, tokens, mask)
-        if cfg.n_experts > 0:
-            loss = loss + cfg.moe_aux_weight * collect_aux_losses(self.model).to(loss.device)
-        return loss
+        return asr_objective(logits, tokens, mask, self.model, self.config.yoho, self.mesh)
 
     def _batch_loss(self, audio, tokens, mask) -> torch.Tensor:
         """The loss whose gradient a train step takes."""
@@ -368,12 +592,14 @@ class ASRTrainer(SessionTrainer):
         tokens = np.concatenate([val_batch[1][:n], train_batch[1][:n]])
         masks = np.concatenate([val_batch[2][:n], train_batch[2][:n]])
         with torch.no_grad():
-            val_loss = float(self._asr_loss(*self._place(val_batch)[:3]))
+            val_loss = float(data_sum(self._asr_loss(*self._place(val_batch)[:3]), self.mesh))
         prompt = torch.full((2 * n, 1), self.tokenizer.sot_id, dtype=torch.long,
                             device=self.device)
-        decoded, _lengths = self._decode_samples(
-            torch.from_numpy(audio).to(self.device), prompt)
-        decoded = decoded.cpu().numpy()
+        decoded = self._decode_rows(lambda a, p: self._decode_samples(a, p)[0],
+                                    torch.from_numpy(audio).to(self.device), prompt)
+        if self.metrics is None:
+            return val_loss
+        decoded = decoded[:2 * n]  # the coordinator's rows
 
         def _true_len(mask):
             nz = np.nonzero(mask)[0]

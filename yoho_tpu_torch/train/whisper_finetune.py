@@ -30,8 +30,15 @@ a torch dtype) and the same recipe:
   them (the JAX package starts them again), so it ends where an
   uninterrupted run ends.
 
-Multi-process data parallelism (the JAX package's ``mesh`` across hosts)
-is ROADMAP Queue 1 item 11.
+Over a mesh (``mesh=``: a ``Mesh`` or a ``"DxM"`` spec; under a launcher
+JAX's default ``make_mesh(-1, 1)``) the fine-tuner follows
+``train/trainer.py``'s rules: the model cut over ``model``
+(``WHISPER_RULES``), this rank's ``data`` shard of every batch, the loss
+its share of the global batch's, the gradients summed over ``data`` once
+an update, Adafactor's statistics over the whole leaves, collective
+validation, and the checkpoint, metrics and export on the coordinator.
+LoRA adapters stay whole (JAX replicates them); on a cut layer they act
+on its slice (``nn/lora.py``) and their gradients sum over ``model`` too.
 """
 
 from __future__ import annotations
@@ -71,10 +78,20 @@ from yoho_tpu_torch.train.optim import (
     trainable,
     warmup_cosine_decay_schedule,
 )
+from yoho_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    barrier,
+    data_shard,
+    data_sum,
+    is_coordinator,
+    local_batch_size,
+)
+from yoho_tpu_torch.parallel.sharding import WHISPER_RULES, layout_of, shard_params
 from yoho_tpu_torch.train.trainer import (
     TrainLoop,
     masked_ce_loss,
-    restore_train_state,
+    resolve_mesh,
     unflatten_tree,
 )
 
@@ -241,10 +258,7 @@ class WhisperFinetuner(TrainLoop):
                  remat: bool = False, optimizer: str = "adamw",
                  lora_rank: int = 0, lora_alpha: Optional[float] = None,
                  lora_targets: Optional[str] = None, mesh=None):
-        if mesh is not None:
-            from yoho_tpu_torch.infer.pipeline import _not_ported
-
-            _not_ported("multi-device data parallelism (mesh)", 11)
+        self.mesh = resolve_mesh(mesh, device)
         self.cfg = cfg
         self.table = table
         self.out_dir = Path(out_dir)
@@ -262,9 +276,10 @@ class WhisperFinetuner(TrainLoop):
                            if self.lora_rank else 0.0)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.checkpoint_path = self.out_dir / "finetune_checkpoint.msgpack"
-        self.metrics = MetricsWriter(self.out_dir / "metrics.csv",
-                                     self.out_dir / "validations.jsonl")
-        self.device = resolve_device(device)
+        self.metrics = (MetricsWriter(self.out_dir / "metrics.csv",
+                                      self.out_dir / "validations.jsonl")
+                        if is_coordinator() else None)
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.compute_dtype = compute_dtype
         if optimizer not in ("adamw", "adafactor"):
             raise ValueError(f"unknown optimizer {optimizer!r} (adamw | adafactor)")
@@ -280,7 +295,8 @@ class WhisperFinetuner(TrainLoop):
                 _f32_tree(params))
 
         dl_kwargs = dict(
-            data_dir=data_dir, cfg=cfg, table=table, batch_size=batch_size,
+            data_dir=data_dir, cfg=cfg, table=table,
+            batch_size=local_batch_size(batch_size, self.mesh), shard=data_shard(self.mesh),
             task=task, timestamps=timestamps, max_target_len=max_target_len,
             language_whitelist=language_whitelist,
             speechless_ratio=speechless_ratio, ambient_dir=ambient_dir,
@@ -335,7 +351,10 @@ class WhisperFinetuner(TrainLoop):
                     f"{meta['src']!r}) — resuming would silently ignore "
                     "the weights given now. Delete the checkpoint (or pick "
                     "a fresh out_dir) to start over.")
-        self._provenance_path.write_text(json.dumps(meta))
+        if self.mesh is not None:
+            barrier("provenance")  # every rank has read it before it is rewritten
+        if is_coordinator():
+            self._provenance_path.write_text(json.dumps(meta))
 
     def _init_state(self) -> None:
         """The trained leaves (JAX path -> (tensor, layout view)), the
@@ -347,6 +366,7 @@ class WhisperFinetuner(TrainLoop):
             gen = torch.Generator(device=self.device).manual_seed(0x10_4A)
             adapters = lora_mod.init_lora(gen, self.model, self.lora_rank,
                                           self.lora_targets)
+            self._shard()  # the adapters take the whole layers' shapes first
             if self.freeze_encoder:
                 adapters = {k: v for k, v in adapters.items()
                             if not k.startswith("encoder/")}
@@ -358,6 +378,7 @@ class WhisperFinetuner(TrainLoop):
             leaves = lora_mod.attach_lora(self.model, adapters, self.lora_scale)
             self._train = {k: (p, lambda t: t) for k, p in leaves.items()}
         else:
+            self._shard()
             frozen = (lambda k: k.startswith("encoder/")) if self.freeze_encoder \
                 else (lambda k: False)
             named = {k: (t, view) for k, (t, view) in nn_params.jax_parameters(self.model).items()
@@ -368,13 +389,23 @@ class WhisperFinetuner(TrainLoop):
         for t, _view in self._train.values():
             t.requires_grad_(True)
         self._leaves = {k: view(t) for k, (t, view) in self._train.items()}
+        self._prepare_optimizer(layout_of(self.model))
         self.opt_state = self.optimizer.init(self._leaves)
-        self.step = restore_train_state(self._checkpoint_leaves(), self.opt_state,
-                                        self.checkpoint_path, self._nest) or 0
+        self.step = self._restore(self._checkpoint_leaves(), self._nest)
         # A resumed run continues the batch stream where the checkpoint
         # left it (the JAX package restarts it), so it ends where an
         # uninterrupted run would.
         self.train_dataloader.skip(self.step)
+
+    def _shard(self) -> None:
+        if self.mesh is not None:
+            shard_params(self.model, self.mesh, WHISPER_RULES)
+
+    def _grad_axes(self, key: str) -> tuple:
+        # An adapter on a cut layer holds this rank's part of its gradient.
+        if self.lora_rank and lora_mod.sharded_adapter(self.model, key):
+            return (AXIS_DATA, AXIS_MODEL)
+        return (AXIS_DATA,)
 
     def _checkpoint_leaves(self):
         """What a checkpoint's ``params`` holds, by '/'-joined path in the JAX
@@ -403,7 +434,7 @@ class WhisperFinetuner(TrainLoop):
     def _loss(self, model, mel, tokens, mask) -> torch.Tensor:
         with self._autocast():
             logits = model(mel, tokens)
-        return masked_ce_loss(logits, tokens, mask)
+        return masked_ce_loss(logits, tokens, mask, self.mesh)
 
     def _batch_loss(self, audio, tokens, mask) -> torch.Tensor:
         """The loss whose gradient a train step takes (the distiller
@@ -451,15 +482,18 @@ class WhisperFinetuner(TrainLoop):
         # batch as the validation loss.
         self._last_val_batch = val_batch
         placed = self._place(val_batch)
-        val_loss = float(self._val_loss(*placed))
+        val_loss = float(data_sum(self._val_loss(*placed), self.mesh))
         n = min(self.validation_samples, len(val_batch[0]))
         # Each sample decodes under its OWN prompt (sot/language/task as
         # the dataloader built it); the prompt length is constant.
         plen = len(self.table.sot_sequence(
             self.table.languages[0], self.train_dataloader.task,
             timestamps=self.train_dataloader.timestamps))
-        decoded, _lengths = self._decode_samples(placed[0][:n], placed[1][:n, :plen])
-        decoded = decoded.cpu().numpy()
+        decoded = self._decode_rows(lambda a, p: self._decode_samples(a, p)[0],
+                                    placed[0][:n], placed[1][:n, :plen])
+        if self.metrics is None:
+            return val_loss
+        decoded = decoded[:n]  # the coordinator's rows
         correct = [self._render(t[plen:], m[plen:])
                    for t, m in zip(val_batch[1][:n], val_batch[2][:n])]
         predicted = [self._render(row[plen:]) for row in decoded]
@@ -474,10 +508,12 @@ class WhisperFinetuner(TrainLoop):
                           progress, self.export)
         return self.out_dir
 
-    def _save_checkpoint(self, ckpt: AsyncCheckpointer) -> None:
+    def _save_checkpoint(self, ckpt: Optional[AsyncCheckpointer]) -> None:
         """A host snapshot of (step, params, optimizer state), written by
-        the checkpointer's thread."""
-        ckpt.save(self.step, self._nest(self._checkpoint_leaves()), self.opt_state)
+        the checkpointer's thread (the coordinator's; every rank gathers)."""
+        params, opt_state = self._host_state(self._checkpoint_leaves())
+        if ckpt is not None:
+            ckpt.save(self.step, self._nest(params), opt_state)
 
     def export(self) -> Path:
         """The tuned weights as an HF checkpoint dir (``nn/export.py``).
@@ -486,7 +522,9 @@ class WhisperFinetuner(TrainLoop):
         from yoho_tpu_torch.nn.export import export_hf_whisper
 
         with self._eval_context():
-            params = nn_params.to_jax_params(self.model)
+            params = self._full_params(self.model)
+        if not is_coordinator():
+            return self.out_dir
         if self.lora_rank:
             lora_mod.save_adapter(
                 self.out_dir, lora_mod.adapters_of(self.model), rank=self.lora_rank,
