@@ -246,16 +246,50 @@ def test_int8_lanes_load_the_jax_quantized_weights(env):
             assert torch.equal(g, torch.from_numpy(np.asarray(w, np.float32)).to(g.dtype)), k
 
 
-@pytest.mark.parametrize("cmd,flag,item", [("serve", "--mesh", 11)])
-def test_unported_flags_name_their_item(env, cmd, flag, item):
-    """The flags the port does not have yet: ``serve --mesh`` (item 11,
-    part B; ``--session``, ``--diarize-session`` and ``--speakers`` came
-    with the YOHO family, ``--rttm`` and ``--stm`` with its scoring:
-    ``tests/test_torch_diarization.py``; ``transcribe --mesh`` with the
-    mesh: ``test_transcribe_mesh_1x1_on_the_cpu``)."""
-    first = {"transcribe": [env["wavs"][0]], "evaluate": [str(env["data"])]}.get(cmd, [])
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        _port([cmd, *first, flag, "x", "--hf", env["hf"]])
+def _serve_once(argv, wav: str) -> dict:
+    """``serve.main(argv)`` in a thread on port 0: one POST /transcribe of
+    ``wav``, then shutdown; the response's JSON."""
+    from yoho_tpu_torch.cli import serve as serve_mod
+
+    made, rc, out = [], [], io.StringIO()
+    real = serve_mod.serve
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            rc.append(serve_mod.main(argv))
+
+    serve_mod.serve = lambda *a, **k: made.append(real(*a, **k)) or made[-1]
+    try:
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        for _ in range(600):
+            if "serving on" in out.getvalue():
+                break
+            th.join(0.1)
+    finally:
+        serve_mod.serve = real
+    assert made, "the server never started"
+    port = made[0].server_address[1]
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/transcribe",
+                                 data=Path(wav).read_bytes(),
+                                 headers={"Content-Type": "audio/wav"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        doc = json.load(r)
+    made[0].shutdown()
+    th.join(60)
+    assert not th.is_alive() and rc == [0]
+    return doc
+
+
+def test_serve_mesh_1x1_on_the_cpu(env):
+    """``serve --mesh 1x1`` runs in this one process (a group of one, no
+    launcher; its batcher leads a schedule of one rank) and answers
+    /transcribe with the response of the run without ``--mesh``: every
+    flag of the port's command lines is ported."""
+    argv = ["--hf", env["hf"], "--port", "0", "--batch", "2", "--device", "cpu"]
+    want = _serve_once(argv, env["wavs"][0])
+    got = _serve_once([*argv, "--mesh", "1x1"], env["wavs"][0])
+    assert got == want and got["text"] == GOLDEN["texts"]["bf16"][0]
 
 
 def test_transcribe_mesh_1x1_on_the_cpu(env):

@@ -34,15 +34,25 @@ Serving from Python: ``server = serve(transcriber, port, continuous=True)``,
 stop. The command line (``main``, ``yoho-torch serve --hf DIR`` or
 ``--session NAME``) builds the transcriber from a local checkpoint
 directory or a trained YOHO session (``cli/transcribe.py``) and does the
-same; ``--mesh`` is not in the port yet and raises, naming its ROADMAP.md
-item (11, part B: serving over a mesh needs a leader that broadcasts the
-schedule). Websocket streams track speakers across the stream.
+same. Websocket streams track speakers across the stream.
+
+``--mesh DxM`` serves over a (data, model) mesh of processes, one per
+GPU: ``torchrun --nproc-per-node N -m yoho_tpu_torch.cli serve --mesh DxM
+...`` (``parallel/mesh.py``; ``--mesh 1x1`` runs in one process without a
+launcher). Rank 0 binds the socket, warms up, prints and serves; its
+batcher broadcasts the schedule (``infer/batching.py``,
+``infer/continuous.py``). The other ranks bind and print nothing: they
+build the same batcher and follow it (:func:`follow`) until rank 0 closes
+it, through SIGTERM and Ctrl-C (rank 0 drains, then every rank exits 0).
+From Python: ``serve`` on rank 0, ``follow(transcriber, ...).join()`` on
+the others, with the same engine settings.
 """
 
 from __future__ import annotations
 
 import json
 import socket
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -278,27 +288,49 @@ def serve(transcriber, port: int = 8000, host: str = "127.0.0.1",
         # then error every /stream client at handshake.
         raise ValueError("--partial-interval must be >= 0.1 seconds, "
                          f"got {partial_interval}")
-    if continuous:
-        from yoho_tpu_torch.infer.continuous import ContinuousBatcher
+    from yoho_tpu_torch.parallel.mesh import is_coordinator
 
-        batcher = ContinuousBatcher(transcriber,
-                                    max_batch=transcriber.batch_size,
-                                    chunk_tokens=chunk_tokens,
-                                    max_pending=max_pending)
-    else:
-        from yoho_tpu_torch.infer.batching import MicroBatcher
-
-        batcher = MicroBatcher(transcriber, max_batch=transcriber.batch_size,
-                               max_wait_ms=max_wait_ms,
-                               max_pending=max_pending)
+    if getattr(transcriber, "mesh", None) is not None and not is_coordinator():
+        raise RuntimeError("over a mesh rank 0 serves; the other ranks call follow()")
+    batcher = _batcher(transcriber, continuous, chunk_tokens, max_wait_ms, max_pending)
     server = ThreadingHTTPServer((host, port),
                                  make_handler(transcriber, batcher,
                                               continuous=continuous,
                                               partial_interval=partial_interval))
     server.batcher = batcher  # so callers/tests can read counters / close
+    # The schedule failing over a mesh ends the batcher on every rank: stop
+    # serving too (serve_forever returns; main exits non-zero).
+    batcher.on_fatal = lambda _e: threading.Thread(target=server.shutdown,
+                                                   daemon=True).start()
     server.transcriber = transcriber  # for warmup()/introspection
     server.stream_conns = set()  # live websocket sockets, for drain()
     return server
+
+
+def _batcher(transcriber, continuous: bool, chunk_tokens: int, max_wait_ms: float,
+             max_pending=None):
+    if continuous:
+        from yoho_tpu_torch.infer.continuous import ContinuousBatcher
+
+        return ContinuousBatcher(transcriber, max_batch=transcriber.batch_size,
+                                 chunk_tokens=chunk_tokens, max_pending=max_pending)
+    from yoho_tpu_torch.infer.batching import MicroBatcher
+
+    return MicroBatcher(transcriber, max_batch=transcriber.batch_size,
+                        max_wait_ms=max_wait_ms, max_pending=max_pending)
+
+
+def follow(transcriber, continuous: bool = False, chunk_tokens: int = 16,
+           max_wait_ms: float = 25.0):
+    """A rank other than 0 of a server over a mesh: the batcher rank 0's
+    ``serve`` builds (the same engine settings), following rank 0's
+    schedule on its worker thread. Call ``join()`` on it: it returns when
+    rank 0 has closed its batcher (``drain``)."""
+    from yoho_tpu_torch.parallel.mesh import is_coordinator
+
+    if getattr(transcriber, "mesh", None) is None or is_coordinator():
+        raise RuntimeError("follow() is for the ranks other than 0 of a mesh")
+    return _batcher(transcriber, continuous, chunk_tokens, max_wait_ms)
 
 
 def warmup(server) -> None:
@@ -425,8 +457,10 @@ def main(argv=None):
                              "SIGTERM/Ctrl-C before exiting anyway")
     parser.add_argument("--beams", type=int, default=0)
     parser.add_argument("--mesh", type=str, default=None, metavar="DxM",
-                        help="multi-device serving mesh (not in the PyTorch "
-                             "port's server yet; transcribe takes it)")
+                        help="serving mesh, DATAxMODEL (e.g. 1x4: 4-way "
+                             "tensor parallel); run one process per GPU "
+                             "under torchrun (rank 0 serves), or 1x1 in "
+                             "one process")
     parser.add_argument("--language", type=str, default="en")
     parser.add_argument("--task", type=str, default="transcribe",
                         choices=("transcribe", "translate"),
@@ -501,11 +535,13 @@ def main(argv=None):
                              "generated in the window (0 = off)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    if args.mesh:
-        from yoho_tpu_torch.infer.pipeline import _not_ported
-
-        _not_ported("--mesh (serving over a mesh, part B)", 11)
     device = cli_device(args)
+    mesh = None
+    if args.mesh:
+        from yoho_tpu_torch.parallel.mesh import parse_mesh
+
+        mesh = parse_mesh(args.mesh, args.device)
+        device = mesh.device
     if args.lora and not args.hf:
         parser.error("--lora adapts an --hf whisper checkpoint")
     if args.best_of < 1:
@@ -549,7 +585,7 @@ def main(argv=None):
             no_repeat_ngram_size=args.no_repeat_ngram,
             length_penalty=args.length_penalty,
             hallucination_silence_threshold=args.hallucination_silence_threshold,
-            device=device)
+            device=device, mesh=mesh)
         return _serve_main(t, args)
     diarize = (load_voiceprint_encoder(args.diarize_session, args.root, device)
                if args.diarize_session else None)
@@ -576,15 +612,43 @@ def main(argv=None):
                                       args.hallucination_silence_threshold),
                                   diarize=diarize, enrolled_speakers=enrolled,
                                   speaker_threshold=args.speaker_threshold,
-                                  device=device)
+                                  device=device, mesh=mesh)
     return _serve_main(t, args)
+
+
+def _follow_main(t, args) -> int:
+    """A rank other than 0 under ``--mesh``: follow rank 0's schedule until
+    it closes. SIGTERM and Ctrl-C (which a launcher sends every rank) do
+    not end the follower: rank 0 drains on them, and its last tick ends
+    this one."""
+    import signal
+
+    batcher = follow(t, continuous=args.continuous, chunk_tokens=args.chunk_tokens,
+                     max_wait_ms=args.max_wait_ms)
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[sig] = signal.signal(sig, lambda _signum, _frame: None)
+        except ValueError:
+            pass  # not the main thread (embedded use)
+    try:
+        batcher.join()
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    return 0
 
 
 def _serve_main(t, args) -> int:
     """Serve ``t`` as ``main`` was asked: warm up, print the bound address,
-    serve until SIGTERM or Ctrl-C, drain."""
+    serve until SIGTERM or Ctrl-C, drain. Over a mesh rank 0 does that and
+    the other ranks follow (:func:`_follow_main`)."""
     import sys
 
+    from yoho_tpu_torch.parallel.mesh import is_coordinator
+
+    if getattr(t, "mesh", None) is not None and not is_coordinator():
+        return _follow_main(t, args)
     server = serve(t, args.port, args.host, args.max_wait_ms,
                    continuous=args.continuous,
                    chunk_tokens=args.chunk_tokens,
@@ -629,6 +693,9 @@ def _serve_main(t, args) -> int:
                 pass
         drain(server, timeout_s=args.drain_timeout)
         print("drained; bye", file=sys.stderr)
+    if getattr(server.batcher, "fatal", None) is not None:
+        print(f"the serving schedule failed: {server.batcher.fatal!r}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -17,12 +17,15 @@ launcher), every rank calling it:
 * an expert-parallel MoE step on the (data, model) mesh, held to the
   unsharded step in the same way;
 * serving: a whisper ``Transcriber`` over the (data, model) mesh, greedy
-  and beam 2, token-equal to the unsharded one.
+  and beam 2, token-equal to the unsharded one; then a ``ContinuousBatcher``
+  over the sharded transcriber (``chunk_tokens=4``) and the speculative
+  slot engine (the JAX dry run's 16-wide draft at 1 head, head dim 16 as
+  the kernels' smallest, gamma 2), both over the mesh:
+  rank 0 submits, the other ranks follow its schedule, and each gives
+  the unsharded greedy tokens.
 
 The long-context and pipelined steps assert a finite loss; the serving
 part asserts equal tokens.
-Continuous batching and the speculative slot engine over a mesh are not
-in the port yet (ROADMAP.md Queue 1 item 11, part B).
 
     torchrun --nproc-per-node 4 -m yoho_tpu_torch.dryrun [--device cpu]
 """
@@ -169,9 +172,28 @@ def dryrun_multichip(world: int, device=None) -> dict:
     return losses
 
 
+def _slots_over_mesh(transcriber, wav, chunk_tokens: int = 4):
+    """One request through a ``ContinuousBatcher`` over the transcriber's
+    mesh: rank 0 submits and gets the result, the other ranks follow
+    (None)."""
+    from yoho_tpu_torch.infer.continuous import ContinuousBatcher
+    from yoho_tpu_torch.parallel.mesh import is_coordinator
+
+    batcher = ContinuousBatcher(transcriber, max_batch=transcriber.batch_size,
+                                chunk_tokens=chunk_tokens)
+    if not is_coordinator():
+        batcher.join()
+        return None
+    try:
+        return batcher.submit(wav)
+    finally:
+        batcher.close()
+
+
 def _serving(mesh, dev, world: int, model_axis: int) -> None:
     """Greedy and beam-2 whisper decodes over the mesh, token-equal to the
-    unsharded Transcriber's."""
+    unsharded Transcriber's; the slot engine, greedy and speculative, over
+    the mesh to the same greedy tokens."""
     from yoho_tpu_torch.core.config import WhisperConfig
     from yoho_tpu_torch.infer.pipeline import Transcriber
     from yoho_tpu_torch.nn.params import init_random
@@ -194,13 +216,37 @@ def _serving(mesh, dev, world: int, model_axis: int) -> None:
     wb = max(2, world // model_axis)
     kw = dict(family="whisper", token_table=table, batch_size=wb, quantized_cross_kv="int8",
               quantized_cache=True, device=dev)
+    def tokens(result):
+        return [s.tokens for s in result.segments]
+
+    greedy = None
     for beams in (0, 2):
         models = [init_random(Whisper(wcfg, device=dev), seed=3) for _ in range(2)]
         want = Transcriber(models[0], beams=beams, **kw).transcribe(wav)
-        got = Transcriber(models[1], beams=beams, mesh=mesh, **kw).transcribe(wav)
+        sharded = Transcriber(models[1], beams=beams, mesh=mesh, **kw)
+        got = sharded.transcribe(wav)
         assert want.segments, "serving dryrun produced no segments"
-        assert [s.tokens for s in want.segments] == [s.tokens for s in got.segments], (
+        assert tokens(want) == tokens(got), (
             f"sharded beams={beams} decode diverged from the unsharded tokens")
+        if not beams:
+            greedy = tokens(want)
+            got_cb = _slots_over_mesh(sharded, wav)
+            assert got_cb is None or tokens(got_cb) == greedy, (
+                "continuous-batching admit+chunk over the mesh diverged from the "
+                "unsharded tokens")
+
+    # The speculative slot engine on the mesh: a smaller draft proposes,
+    # the sharded target verifies, each slot commits its own accepted
+    # length, and the committed stream is still the greedy tokens.
+    dcfg = WhisperConfig(n_mels=8, n_audio_ctx=16, n_audio_state=16, n_audio_head=1,
+                         n_audio_layer=1, n_vocab=51865, n_text_ctx=24, n_text_state=16,
+                         n_text_head=1, n_text_layer=1, chunk_seconds=0.32)
+    spec = Transcriber(init_random(Whisper(wcfg, device=dev), seed=3), mesh=mesh,
+                       draft_model=init_random(Whisper(dcfg, device=dev), seed=4),
+                       speculative_gamma=2, **kw)
+    got_spec = _slots_over_mesh(spec, wav)
+    assert got_spec is None or tokens(got_spec) == greedy, (
+        "the speculative slot engine over the mesh diverged from the greedy tokens")
 
 
 def main(argv=None) -> int:

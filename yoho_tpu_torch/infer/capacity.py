@@ -249,7 +249,9 @@ def resolve_auto_batch(t) -> int:
     """Resolve ``Transcriber(batch_size="auto")`` from its live settings:
     its model (and draft) as stored on its device, the cross-K/V and cache
     lanes, the beams, the speculative horizon and its mesh (a sharded
-    model's bytes are this device's)."""
+    model's bytes are this device's). Over a mesh the batch is a rank's
+    batch times the data axis, so a slot engine over it (``serve --mesh
+    --batch auto``) holds a rank's batch of slots on each rank."""
     horizon, fixed, extra = t.max_len, 0, 0
     if t.draft_model is not None:
         # Both cache sets hold the stale-write workspace past the horizon

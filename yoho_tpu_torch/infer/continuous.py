@@ -14,6 +14,30 @@ word-timestamp pass run on the device), where the JAX package assembles
 on the submitting thread. The submitting threads only block and read the
 result, and touch no device tensor.
 
+Over a (data, model) mesh (``Transcriber(mesh=...)``) the same class is
+built on every rank. Requests reach rank 0 alone (the leader: ``submit``
+elsewhere raises), while every device call is a collective, so the
+leader's worker starts each tick by broadcasting what only it sees
+(``parallel/mesh.py::broadcast_obj``): the new requests with their audio
+(once a request), the requests cancelled since the last tick, and whether
+it was closed. The other ranks' workers (followers) receive the tick,
+build shadow requests and run the same tick: everything after it is a
+function of the tick and of device results every rank holds whole (the
+VAD, language detection, slot assignment, reaps, post-passes, fallback
+re-decodes), so they reach the same admissions, chunks and reaps in the
+same order. An idle leader sends an empty tick every
+``SCHEDULE_IDLE_S``. After a tick's admission and at the end of every
+tick but the last (the stop) the ranks agree (``parallel/mesh.py::agree``)
+on whether its engine call failed anywhere: an error that surfaces on one
+rank (at the reap's host sync, after the call's collectives) resets every
+rank's slots together, and ranks whose requests' preparation failed
+differently end the worker on every rank (:attr:`ContinuousBatcher.fatal`).
+An error in the middle of a call's collectives leaves the other ranks
+waiting in one, until its timeout ends them. ``close()``
+on the leader ends every follower's loop; a follower waits in
+:meth:`ContinuousBatcher.join`. One batcher over a mesh at a time: two
+would share the schedule's group.
+
 Greedy parity: a window decoded through slots gives the same tokens and
 quality signals as ``greedy_decode`` (``tests/test_torch_continuous.py``).
 Both families; slot decodes are greedy (no beams); speculative
@@ -32,7 +56,9 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 
+from yoho_tpu_torch.infer.batching import host_audio
 from yoho_tpu_torch.infer.slot_engine import ContinuousWhisperDecoder, _Window
+from yoho_tpu_torch.parallel.mesh import SCHEDULE_IDLE_S
 
 
 @dataclass(eq=False)
@@ -51,7 +77,11 @@ class _Request:
     lang: Optional[str] = None
     lang_prob: Optional[float] = None  # softmax prob when auto-detected
     remaining: int = 0
-    cancelled: bool = False
+    cancelled: bool = False  # set by the submitter
+    # The schedule's view of ``cancelled``, taken at a tick's start (and
+    # broadcast over a mesh): every rank drops the request at one tick.
+    cancel_seen: bool = False
+    rid: int = -1  # the leader's request id (names a follower's shadow)
 
 
 class ContinuousBatcher:
@@ -59,7 +89,8 @@ class ContinuousBatcher:
     backed by the slot engine: requests' windows are admitted into freed
     decode slots between K-token chunks instead of waiting for whole-batch
     completion. Callers block in :meth:`submit`; one worker thread owns the
-    engine and every CUDA call."""
+    engine and every CUDA call. Over a mesh rank 0 leads and the other
+    ranks follow its schedule (the module doc)."""
 
     def __init__(self, transcriber, max_batch: Optional[int] = None,
                  max_wait_ms: float = 0.0, chunk_tokens: int = 16,
@@ -80,6 +111,16 @@ class ContinuousBatcher:
         self.inflight = 0
         self.batches_dispatched = 0  # chunk count (statz compatibility)
         self._latencies = deque(maxlen=512)
+        from yoho_tpu_torch.parallel.mesh import ScheduleChannel, is_coordinator
+
+        # Over a mesh: the serving schedule (rank 0 leads).
+        self.schedule = (ScheduleChannel() if getattr(transcriber, "mesh", None) is not None
+                         else None)
+        self.leader = self.schedule is None or is_coordinator()
+        self._next_rid = 0
+        self._shadows: dict = {}  # a follower's requests by the leader's id
+        self.fatal: Optional[BaseException] = None
+        self.on_fatal: Optional[Callable[[BaseException], None]] = None
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -107,6 +148,9 @@ class ContinuousBatcher:
                 "engine (drop --continuous): the slot engine's programs "
                 "fix the prompt shape and temperature ladder")
 
+        if not self.leader:
+            raise RuntimeError("a ContinuousBatcher over a mesh takes requests on rank 0 "
+                               "(the leader); this rank follows its schedule")
         req = _Request(audio, sample_rate, language, vad)
         t0 = time.monotonic()
         with self._cv:
@@ -119,6 +163,7 @@ class ContinuousBatcher:
                     f"{self.inflight} requests in flight >= max_pending "
                     f"{self.max_pending}")
             self.inflight += 1
+            req.rid, self._next_rid = self._next_rid, self._next_rid + 1
             self._queue.append(req)
             self._cv.notify()
         if cancelled is None:
@@ -149,14 +194,28 @@ class ContinuousBatcher:
                 "queue_depth": len(self._queue) + len(self._window_queue),
                 "active_slots": self.engine.slots - self.engine.free_slots,
             }
+            if self.schedule is not None:
+                d["schedule_ticks"] = self.schedule.ticks
             d.update(_percentiles(list(self._latencies)))
         return d
 
     def close(self) -> None:
+        """Stop taking requests and let the worker finish what is queued and
+        in flight. Over a mesh the leader waits until its last tick (the
+        followers' stop) has gone out; a follower waits for it (:meth:`join`)."""
+        if not self.leader:
+            return self.join()
         with self._cv:
             self._closed = True
             self._cv.notify()
-        self._worker.join(timeout=10)
+        self._worker.join(timeout=None if self.schedule is not None else 10)
+
+    def join(self) -> None:
+        """Wait until the worker ends: on a follower, until the leader has
+        closed. Raises what ended it, if it was not the close."""
+        self._worker.join()
+        if self.fatal is not None:
+            raise self.fatal
 
     # ------------------------------------------------------------------
     def _prepare(self, req: _Request) -> None:
@@ -324,6 +383,7 @@ class ContinuousBatcher:
         if req.done.is_set():
             return  # e.g. cancelled while its last window also completed
         req.error = error
+        self._shadows.pop(req.rid, None)
         with self._cv:
             self.inflight -= 1
             # req.cancelled covers the race where the client vanished
@@ -346,14 +406,14 @@ class ContinuousBatcher:
         slots (they stop costing chunk work at the next boundary). Runs
         on the worker thread between device calls."""
         gone = [w.req for w in self._window_queue
-                if w.req is not None and w.req.cancelled]
+                if w.req is not None and w.req.cancel_seen]
         gone += [w.req for w in self.engine._occupied
-                 if w is not None and w.req is not None and w.req.cancelled]
+                 if w is not None and w.req is not None and w.req.cancel_seen]
         if not gone:
             return
         self._window_queue = [w for w in self._window_queue
-                              if not (w.req is not None and w.req.cancelled)]
-        self.engine.release(lambda w: w.req is not None and w.req.cancelled)
+                              if not (w.req is not None and w.req.cancel_seen)]
+        self.engine.release(lambda w: w.req is not None and w.req.cancel_seen)
         from yoho_tpu_torch.infer.batching import RequestCancelled
 
         for req in {id(r): r for r in gone}.values():
@@ -373,55 +433,166 @@ class ContinuousBatcher:
         for req in reqs.values():
             self._finish(req, error)
 
-    def _run(self) -> None:
-        engine = self.engine
-        while True:
-            with self._cv:
-                while (not self._queue and not self._window_queue
-                       and not engine.busy and not self._closed):
-                    self._cv.wait()
-                if (self._closed and not self._queue
-                        and not self._window_queue and not engine.busy):
-                    return
-                incoming, self._queue = self._queue, []
+    def _live(self, incoming) -> List[_Request]:
+        """The requests with work queued or in a slot, and ``incoming``."""
+        reqs = {id(r): r for r in incoming}
+        for w in list(self._window_queue) + [w for w in self.engine._occupied if w]:
+            if w.req is not None:
+                reqs[id(w.req)] = w.req
+        return list(reqs.values())
 
-            for req in incoming:
-                if req.cancelled:
-                    self._finish(req, None, cancelled=True)
-                    continue
+    def _next_tick(self):
+        """The tick's (new requests, closed): the leader takes them off its
+        queue (and marks what its submitters cancelled since the last
+        tick), then broadcasts them over a mesh; a follower receives them
+        and builds the shadows."""
+        if not self.leader:
+            return self._receive_tick()
+        engine = self.engine
+        with self._cv:
+            while (not self._queue and not self._window_queue
+                   and not engine.busy and not self._closed):
+                if self.schedule is None:
+                    self._cv.wait()
+                elif not self._cv.wait(timeout=SCHEDULE_IDLE_S):
+                    break  # an empty tick: the followers' wait stays short
+            incoming, self._queue = self._queue, []
+            closed = self._closed
+            cancelled = []
+            for req in self._live(incoming):
+                if req.cancelled and not req.cancel_seen:
+                    req.cancel_seen = True
+                    cancelled.append(req.rid)
+        if self.schedule is None:
+            return incoming, closed
+        sent = []
+        for req in incoming:
+            if not req.cancel_seen:
                 try:
-                    self._prepare(req)
-                except BaseException as e:  # noqa: BLE001
+                    req.audio, req.sample_rate = host_audio(self.t, req.audio,
+                                                            req.sample_rate)
+                except BaseException as e:  # noqa: BLE001 - only this request fails
                     self._finish(req, e)
                     continue
-                if req.remaining == 0:
-                    self._complete(req)
-                else:
-                    self._window_queue.extend(req.windows)
+            sent.append(req)
+        self.schedule.broadcast({"new": [(r.rid, r.audio, r.sample_rate, r.language, r.vad)
+                                         for r in sent],
+                                 "cancelled": cancelled, "closed": closed})
+        return sent, closed
 
-            self._sweep_cancelled()
+    def _receive_tick(self):
+        tick = self.schedule.broadcast(None)
+        incoming = []
+        for rid, audio, sample_rate, language, vad in tick["new"]:
+            req = _Request(audio, sample_rate, language, vad, rid=rid)
+            self._shadows[rid] = req
+            with self._cv:
+                self.inflight += 1
+            incoming.append(req)
+        for rid in tick["cancelled"]:
+            if rid in self._shadows:
+                self._shadows[rid].cancel_seen = True
+        return incoming, tick["closed"]
 
-            # Device work is guarded: an engine exception (device OOM, a
-            # kernel error, ...) must fail the in-flight requests loudly,
-            # never kill the worker and hang every submitter.
-            try:
-                done: List[_Window] = []
-                # Admit queued windows into free slots — ONE batched
-                # device call regardless of how many slots freed.
-                if self._window_queue and engine.free_slots:
-                    n_took = engine.admit_many(self._window_queue)
-                    del self._window_queue[:n_took]
-                    # Windows silent at admission (first token == EOT)
-                    # finish without waiting a whole chunk.
-                    done += engine.reap()
-                if engine.busy:
-                    self.batches_dispatched += 1
-                    done += engine.step()
-            except BaseException as e:  # noqa: BLE001 — fail in-flight reqs
-                self._fail_inflight(e)
+    def _run(self) -> None:
+        try:
+            while self._tick():
+                pass
+        except Exception as e:  # noqa: BLE001 - ends the worker on every rank
+            self._die(e)
+
+    def _die(self, error: BaseException) -> None:
+        """The schedule cannot go on (the channel failed, or the ranks
+        diverged): fail every request and end the worker."""
+        self.fatal = error
+        with self._cv:
+            self._closed = True
+            queued, self._queue = self._queue, []
+        for req in self._live(queued) + list(self._shadows.values()):
+            self._finish(req, error)
+        self._window_queue.clear()
+        if self.on_fatal is not None:
+            self.on_fatal(error)
+
+    def _tick(self) -> bool:
+        """One tick: take (or receive) its requests, prepare them, drop the
+        cancelled, admit into free slots, run one chunk, complete what
+        finished. False once closed with nothing left."""
+        engine = self.engine
+        incoming, closed = self._next_tick()
+        if closed and not incoming and not self._window_queue and not engine.busy:
+            return False
+        failures = 0
+        for req in incoming:
+            if req.cancel_seen:
+                self._finish(req, None, cancelled=True)
                 continue
-            for win in done:
-                req = win.req
-                req.remaining -= 1
-                if req.remaining == 0:
-                    self._complete(req)
+            try:
+                self._prepare(req)
+            except BaseException as e:  # noqa: BLE001
+                failures += 1
+                self._finish(req, e)
+                continue
+            if req.remaining == 0:
+                self._complete(req)
+            else:
+                self._window_queue.extend(req.windows)
+
+        self._sweep_cancelled()
+
+        # Device work is guarded: an engine exception (device OOM, a
+        # kernel error, ...) must fail the in-flight requests loudly,
+        # never kill the worker and hang every submitter. Over a mesh the
+        # ranks agree after each engine call, before the next one's
+        # collectives, so that one rank's error resets every rank.
+        done: List[_Window] = []
+        if self._window_queue and engine.free_slots:
+            # Admit queued windows into free slots — ONE batched device
+            # call regardless of how many slots freed. Windows silent at
+            # admission (first token == EOT) finish without waiting a
+            # whole chunk.
+            def admit():
+                n_took = engine.admit_many(self._window_queue)
+                del self._window_queue[:n_took]
+                return engine.reap()
+
+            got = self._engine_call(admit, failures)
+            if got is None:
+                return True
+            done, failures = got, 0
+        if engine.busy:
+            self.batches_dispatched += 1
+            got = self._engine_call(engine.step, failures)
+        else:
+            got = self._engine_call(list, failures)  # the tick's agreement alone
+        if got is None:
+            return True
+        for win in done + got:
+            req = win.req
+            req.remaining -= 1
+            if req.remaining == 0:
+                self._complete(req)
+        return True
+
+    def _engine_call(self, fn, prepare_failures: int):
+        """``fn()``'s windows, or None when it failed: on this rank or, over
+        a mesh, on any (the ranks agree on it, and on whether their
+        requests failed alike in preparation; if they did not, their
+        schedules diverged and the worker ends). A failure fails the
+        in-flight requests and resets the slots."""
+        error = None
+        try:
+            got = fn()
+        except Exception as e:  # noqa: BLE001 — fail in-flight reqs
+            error = e
+        if self.schedule is not None:
+            high, low = self.schedule.agree([error is not None, prepare_failures])
+            if high[1] != low[1]:
+                raise RuntimeError("the ranks' requests failed differently in preparation: "
+                                   "their schedules diverged")
+            if high[0] and error is None:
+                error = RuntimeError("a device call of this tick failed on another rank")
+        if error is not None:
+            self._fail_inflight(error)
+            return None
+        return got

@@ -30,9 +30,6 @@ data parallel over ``data``: every rank runs the same calls on the same
 host inputs, a device program takes this rank's rows of each batch and
 gathers its results over ``data`` before the host reads them, so every
 rank takes the same host branches. The batch must divide by ``data``.
-
-Options of the JAX class that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -63,12 +60,6 @@ class TranscriptionResult:
     # Probability of the detected language when it was auto-detected;
     # None when the configuration or the request named it.
     language_probability: Optional[float] = None
-
-
-def _not_ported(feature: str, item: int):
-    raise NotImplementedError(
-        f"{feature} is not in the PyTorch port yet "
-        f"(ROADMAP.md, Queue 1 item {item})")
 
 
 _NO_OVERRIDES = ("per-request prompt/temperature overrides don't compose with "

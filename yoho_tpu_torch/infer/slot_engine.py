@@ -27,6 +27,18 @@ speculative program builders live in ``infer/continuous_spec.py`` and use
 :class:`EngineSpec` only; the request-level threading lives in
 ``infer/continuous.py``.
 
+Over a (data, model) mesh (``Transcriber(mesh=...)``) the S slots divide
+over ``data`` as a decode program's rows do: the rank at data index i
+holds slots ``[i S/D, (i + 1) S/D)`` (their caches at its own KV heads,
+their token rows, positions and flags), encodes only the admission rows
+bound for them (S/D rows a rank, padded) and steps them with the
+``model``-axis collectives of the step alone: a chunk makes none over
+``data``. :meth:`SlotEngine.reap` gathers the slots' fields over ``data``
+in one packed gather, so the host bookkeeping (which slot holds which
+window, which finished) is the same on every rank, as long as every rank
+admits, steps, releases and resets in the same order
+(``infer/continuous.py``'s schedule).
+
 Greedy parity: a window decoded through slots gives the same tokens,
 length, ``sum_logprob`` and ``no_speech_prob`` as ``greedy_decode`` (same
 suppression, logit rules and quality signals), held by
@@ -78,7 +90,7 @@ class EngineSpec:
     scatter collisions and untouched slots keep their state.
     """
 
-    slots: int
+    slots: int            # this rank's slots (all of them without a mesh)
     prompt_len: int
     max_len: int          # decode horizon (committed stream width)
     ext: int              # token-row width: max_len + speculative workspace
@@ -256,12 +268,6 @@ class SlotEngine:
             raise ValueError("condition_on_previous_text is sequential by "
                              "construction: use the micro-batching engine "
                              "(drop --continuous)")
-        if getattr(t, "mesh", None) is not None:
-            # Every rank would need the same admissions at the same chunk:
-            # a leader that broadcasts the schedule.
-            from yoho_tpu_torch.infer.pipeline import _not_ported
-
-            _not_ported("continuous batching over a mesh", 11)
         self.t = t
         self.slots = int(slots or t.batch_size)
         self.chunk_tokens = int(chunk_tokens)
@@ -270,6 +276,12 @@ class SlotEngine:
                              "nothing per tick and livelock the worker)")
         if self.slots < 1:
             raise ValueError("need at least one slot")
+        # This rank's slots over the mesh's data axis (all of them without
+        # one): shard_batch's rows and its error when they do not divide.
+        self.mesh = getattr(t, "mesh", None)
+        self.local_slots = len(t._rows(np.arange(self.slots)))
+        self.first_slot = (0 if self.mesh is None
+                           else self.mesh.index("data") * self.local_slots)
         self.prompt_len = len(t._prompt_ids())
         self.max_len = t.max_len
         self.eot = t.eot
@@ -322,9 +334,9 @@ class SlotEngine:
         if self.draft:
             init_d, step_d, encode_d = make_surfaces(t.draft_model)
             draft_surfaces = dict(init_caches_d=init_d, step_d=step_d, encode_one_d=encode_d)
-            d_caches = init_d(self.slots)
+            d_caches = init_d(self.local_slots)
         dev = self.device
-        S = self.slots
+        S = self.local_slots  # the device state holds this rank's slots
         self.state = SlotState(
             caches=init_caches(S),
             tokens=torch.full((S, self.ext), self.eot, dtype=torch.long, device=dev),
@@ -333,7 +345,7 @@ class SlotEngine:
             sum_lp=torch.zeros((S,), dtype=torch.float32, device=dev),
             no_speech=torch.zeros((S,), dtype=torch.float32, device=dev),
             d_caches=d_caches)
-        self._occupied: List[Optional[_Window]] = [None] * S
+        self._occupied: List[Optional[_Window]] = [None] * self.slots
         self.stats = {"chunks": 0, "occupied_slot_chunks": 0, "reaps": 0, "syncs": 0}
 
         self.spec = EngineSpec(
@@ -375,26 +387,33 @@ class SlotEngine:
     @torch.no_grad()
     def admit_many(self, wins: List[_Window]) -> int:
         """Admit up to ``free_slots`` windows in ONE call; returns how many
-        were taken (the rest stay with the caller)."""
+        were taken (the rest stay with the caller). The i-th window taken
+        goes to the i-th free slot; its admission row is the next one of
+        the block of the data rank that holds that slot, so each rank
+        encodes only its own slots' windows."""
         free = [s for s, w in enumerate(self._occupied) if w is None]
         take = wins[: len(free)]
         if not take:
             return 0
-        S = self.slots
+        S, k = self.slots, self.local_slots
         windows = np.zeros((S, self.t.chunk_samples), np.float32)
         prompts = np.zeros((S, self.prompt_len), np.int64)
         prompts[:] = take[0].prompt[None, :]  # valid ids in the filler rows
-        fill_row = np.zeros(S, np.int64)
+        fill_row = np.zeros(S, np.int64)  # an index into the rank's own block
         fill_valid = np.zeros(S, bool)
+        used = np.zeros(S // k, np.int64)  # admission rows taken, per data rank
         for i, win in enumerate(take):
-            windows[i] = win.window
-            prompts[i] = win.prompt
-            fill_row[free[i]] = i
-            fill_valid[free[i]] = True
-        dev = self.device
-        self._admit(self.state, windows, torch.as_tensor(prompts, device=dev),
-                    torch.as_tensor(fill_row, device=dev),
-                    torch.as_tensor(fill_valid, device=dev))
+            slot = free[i]
+            rank, row = slot // k, used[slot // k]
+            used[rank] += 1
+            windows[rank * k + row] = win.window
+            prompts[rank * k + row] = win.prompt
+            fill_row[slot] = row
+            fill_valid[slot] = True
+        dev, rows = self.device, self.t._rows
+        self._admit(self.state, windows, torch.as_tensor(rows(prompts), device=dev),
+                    torch.as_tensor(rows(fill_row), device=dev),
+                    torch.as_tensor(rows(fill_valid), device=dev))
         for i, win in enumerate(take):
             self._occupied[free[i]] = win
         return len(take)
@@ -409,15 +428,21 @@ class SlotEngine:
 
     def reap(self) -> List[_Window]:
         """Collect finished slots (occupied but no longer active). One host
-        sync: the slots' state comes back in one transfer."""
+        sync: the slots' state comes back in one transfer, packed in
+        float64 (token ids and float32 values are exact in it); over a
+        mesh, after one gather over ``data``."""
         st = self.state
-        host = [x.to("cpu", non_blocking=True)
-                for x in (st.active, st.tokens, st.sum_lp, st.no_speech)]
-        if st.active.is_cuda:
-            torch.cuda.current_stream(st.active.device).synchronize()
+        packed = torch.cat([st.active[:, None].double(), st.sum_lp[:, None].double(),
+                            st.no_speech[:, None].double(), st.tokens.double()], dim=1)
+        if self.mesh is not None:
+            from yoho_tpu_torch.parallel.mesh import gather_batch
+
+            packed = gather_batch(self.mesh, packed)
+        host = packed.cpu().numpy()
+        active, tokens = host[:, 0] != 0, host[:, 3:].astype(np.int64)
+        sum_lp, no_speech = host[:, 1].astype(np.float32), host[:, 2].astype(np.float32)
         self.stats["reaps"] += 1
         self.stats["syncs"] += 1
-        active, tokens, sum_lp, no_speech = (x.numpy() for x in host)
         done: List[_Window] = []
         P = self.prompt_len
         for s, win in enumerate(self._occupied):
@@ -440,11 +465,15 @@ class SlotEngine:
         """Free every occupied slot whose window matches ``pred`` without
         reaping its tokens (request cancellation): the slot goes inactive
         on the device, stops advancing in :meth:`step` and is refilled by
-        the next :meth:`admit_many`; the window is discarded."""
+        the next :meth:`admit_many`; the window is discarded. Over a mesh
+        every rank frees the same slots (its own on the device)."""
         idx = [s for s, w in enumerate(self._occupied) if w is not None and pred(w)]
         if not idx:
             return 0
-        self.state.active[torch.as_tensor(idx, device=self.device)] = False
+        lo, k = self.first_slot, self.local_slots
+        mine = [s - lo for s in idx if lo <= s < lo + k]
+        if mine:
+            self.state.active[torch.as_tensor(mine, device=self.device)] = False
         for s in idx:
             self._occupied[s] = None
         return len(idx)

@@ -316,14 +316,16 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     ``standard``: theta_i = base^(-2i/d). ``decade``: theta_i = 10^-i with
     positions starting at 1 (the reference's spectrum)."""
     half = head_dim // 2
-    i = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    dev = positions.device
+    i = torch.arange(0, half, dtype=torch.float32, device=dev)
+    # The base is filled on the device: a tensor made from a host scalar
+    # would copy it there, a host sync inside every decode step.
     if variant == "standard":
-        freqs = torch.pow(torch.tensor(base, dtype=torch.float32,
-                                       device=positions.device), -i * 2.0 / head_dim)
+        freqs = torch.pow(torch.full((), base, dtype=torch.float32, device=dev),
+                          -i * 2.0 / head_dim)
         pos = positions.float()
     elif variant == "decade":
-        freqs = torch.pow(torch.tensor(10.0, dtype=torch.float32,
-                                       device=positions.device), -i)
+        freqs = torch.pow(torch.full((), 10.0, dtype=torch.float32, device=dev), -i)
         pos = positions.float() + 1.0
     else:
         raise ValueError(f"unknown rope variant {variant!r}")

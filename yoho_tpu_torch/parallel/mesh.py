@@ -37,6 +37,19 @@ Every collective of this module adds one to :data:`COUNTS` under
 ``send``, ``recv``, ``barrier``), as the kernel wrappers count their
 launches (``ops/_build.py``).
 
+The serving schedule (:func:`broadcast_obj`, :func:`agree`): a server
+over a mesh takes requests on rank 0 alone, while every device call is a
+collective, so every rank must run the same admissions and chunks in the
+same order. Rank 0 (the leader) broadcasts, once a tick, the host inputs
+only it sees (new requests with their audio, cancellations, the close),
+and the ranks agree at the end of a tick on whether it succeeded. Both go
+over a gloo group of their own on the host (``"broadcast_obj/world"``,
+``"all_reduce/world"``), never the NCCL one: a follower waits there while
+the server idles. Every rank makes that group at the same point, in the
+same order as its other groups: :func:`open_schedule`, which a batcher
+over a mesh calls when it is built (its :class:`ScheduleChannel`; on
+every rank, never on a worker thread that rank 0 alone runs).
+
 Training (the differentiable collectives, :func:`reduce_gradients`): every
 rank runs backward on its own loss. Where the loss is replicated over an
 axis (``model``, ``seq``, ``pipe``) each rank holds the whole loss, so a
@@ -56,9 +69,11 @@ over ``data`` (:func:`reduce_gradients`, once per applied update).
 
 from __future__ import annotations
 
+import datetime
 import math
 import os
 import socket
+import time
 from collections import Counter
 from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
@@ -174,6 +189,14 @@ class Mesh:
 
 
 _MESHES: Dict[tuple, Mesh] = {}
+# The serving schedule's gloo group (module doc, :func:`open_schedule`).
+# A leader that idles sends an empty tick every ``SCHEDULE_IDLE_S``
+# (``infer/continuous.py``, ``infer/batching.py``), so a follower waits at
+# most that long between ticks; the timeout only ends the followers of a
+# leader that hangs (one that dies closes its sockets: they raise at once).
+SCHEDULE_IDLE_S = 1.0
+SCHEDULE_TIMEOUT = datetime.timedelta(minutes=30)
+_SCHEDULE = None
 
 
 def init_mesh(shape: Mapping[str, int], device=None) -> Mesh:
@@ -202,7 +225,9 @@ def init_mesh(shape: Mapping[str, int], device=None) -> Mesh:
 def shutdown() -> None:
     """Destroy the process group (and forget its meshes): the end of a run
     that started one."""
+    global _SCHEDULE
     _MESHES.clear()
+    _SCHEDULE = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -342,8 +367,8 @@ def data_shard(mesh) -> tuple:
 
 
 def is_coordinator() -> bool:
-    """True on the process that writes artifacts: rank 0, or any
-    single-process run."""
+    """True on the process that writes artifacts and leads a server's
+    schedule: rank 0, or any single-process run."""
     return process_shard()[0] == 0
 
 
@@ -365,6 +390,74 @@ def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None or AXIS_DATA not in mesh.shape:
         return x
     return all_reduce(x.detach().reshape(-1).clone(), mesh, AXIS_DATA).view_as(x)
+
+
+def open_schedule() -> None:
+    """Make the serving schedule's gloo group (once a process group): a
+    collective, so every rank calls it at the same point of its program
+    (a batcher over a mesh, when it is built)."""
+    global _SCHEDULE
+    if not dist.is_initialized():
+        raise RuntimeError("the serving schedule needs the process group of a mesh "
+                           "(make_mesh, parse_mesh or init_mesh) on every rank")
+    if _SCHEDULE is None:
+        _SCHEDULE = dist.new_group(backend="gloo", timeout=SCHEDULE_TIMEOUT)
+
+
+def _schedule_group():
+    if _SCHEDULE is None:
+        raise RuntimeError("the serving schedule is not open: open_schedule() on every "
+                           "rank first")
+    return _SCHEDULE
+
+
+def broadcast_obj(obj=None):
+    """Rank 0's ``obj`` (any picklable host object) on every rank, over the
+    schedule group; the other ranks pass nothing. One counted broadcast."""
+    group = _schedule_group()
+    _count("broadcast_obj", "world")
+    box = [obj if is_coordinator() else None]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def agree(values: Sequence[int]) -> Tuple[list, list]:
+    """The ranks' largest and smallest of each integer in ``values``, over
+    the schedule group: one counted all-reduce. A tick's end, where the
+    ranks agree on whether its device work succeeded everywhere."""
+    group = _schedule_group()
+    _count("all_reduce", "world")
+    t = torch.tensor([int(v) for v in values] + [-int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    n = len(values)
+    return t[:n].tolist(), (-t[n:]).tolist()
+
+
+class ScheduleChannel:
+    """A batcher's end of the serving schedule (the module doc): opens the
+    schedule's group (every rank, where the batcher is built) and counts
+    the ticks it broadcast or received and the host seconds spent in them
+    and in the agreements."""
+
+    def __init__(self):
+        open_schedule()
+        self.ticks = 0
+        self.host_s = 0.0
+
+    def broadcast(self, tick=None):
+        """Rank 0's ``tick`` on every rank (:func:`broadcast_obj`)."""
+        t0 = time.perf_counter()
+        tick = broadcast_obj(tick)
+        self.host_s += time.perf_counter() - t0
+        self.ticks += 1
+        return tick
+
+    def agree(self, values: Sequence[int]) -> Tuple[list, list]:
+        """The ranks' largest and smallest of each value (:func:`agree`)."""
+        t0 = time.perf_counter()
+        out = agree(values)
+        self.host_s += time.perf_counter() - t0
+        return out
 
 
 def barrier(name: str) -> None:

@@ -13,11 +13,13 @@ the port decides per layer, from the specs of its kernels:
 
 * attention (``MultiHeadAttention``, ``GroupedQueryAttention``): q/k/v
   column-parallel by whole heads, out row-parallel, when every one of the
-  four kernels is sharded; else the layer stays whole. So a GQA layer
-  whose KV heads do not divide the axis (YOHO's 3 on a model axis of 2)
-  is whole: with q sharded and K/V whole, rank r's local query head h
-  would no longer read KV head ``h // groups``, which the decode kernel's
-  ``groups`` assumes;
+  four kernels is sharded and the heads divide the axis; else the layer
+  stays whole. So a GQA layer whose KV heads do not divide the axis
+  (YOHO's 3 on a model axis of 2) is whole: with q sharded and K/V whole,
+  rank r's local query head h would no longer read KV head
+  ``h // groups``, which the decode kernel's ``groups`` assumes; and a
+  layer of fewer heads than the axis (whisper-tiny's 6 on 4, whose width
+  384 divides) is whole rather than cut inside a head;
 * MLP / SwiGLU: fc1 (gate, up) column-parallel, fc2 (down) row-parallel;
 * MoE: the stacked experts split on the expert axis, the router whole;
 * token embedding: vocabulary rows (a masked lookup summed over the axis,
@@ -194,8 +196,11 @@ def shard_params(model: nn.Module, mesh, rules: PartitionRules = _COMMON_RULES) 
         for name, mod in list(model.named_modules()):
             pre = "/".join(nn_params._jax_module_path(name))
             if isinstance(mod, (MultiHeadAttention, GroupedQueryAttention)):
-                if not _sharded(specs, *(f"{pre}/{p}/kernel" for p in
-                                         ("q_proj", "k_proj", "v_proj", "out_proj"))):
+                heads = ((mod.n_head,) if isinstance(mod, MultiHeadAttention)
+                         else (mod.q_heads, mod.kv_heads))
+                if any(h % m for h in heads) or not _sharded(
+                        specs, *(f"{pre}/{p}/kernel" for p in
+                                 ("q_proj", "k_proj", "v_proj", "out_proj"))):
                     continue
                 for p in ("q_proj", "k_proj", "v_proj"):
                     _column(getattr(mod, p), m, r)
