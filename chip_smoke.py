@@ -48,7 +48,12 @@ Phases, one output line each (JSON after the phase name):
    causal (16, 256, 6, 64) and cross 256 x 512 flash passes, and head dims
    32 (12 heads on 6) and 128 (4 on 2) at the encoder, causal, cross and
    decode-read shapes, timed in bf16, then checked (untimed) in f32 and
-   bf16 at S = 1, 4 and 32 with groups 1 and 2.
+   bf16 at S = 1, 4 and 32 with groups 1 and 2. Padded head dims (run at
+   the smallest instantiated width that holds them): flash at the YOHO
+   encoder shapes (16, 512, 8 on 4, 48) (the wgmma route at 64) and (16,
+   512, 4 on 2, 96) (FMAs at 128), the bf16 cross and self reads at 48 and
+   the cross read at 96; the int8 cross read at D = 8 (the JAX dry run's
+   whisper, 4 heads; batch 16, T 1536, kv_len 1500).
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -221,8 +226,11 @@ Phases, one output line each (JSON after the phase name):
    experts in every other block of both stacks (2 mini-steps with the
    auxiliary loss, one batch of 16 served, one MoE layer on the card
    against the CPU port in f32), and one batch of 16 each from seed-0
-   random sessions at head dims 32 (dims 384, 12 heads) and 128 (dims 512,
-   4 heads), each with one window against the CPU in f32 as in e2e-yoho.
+   random sessions at head dims 32 (dims 384, 12 heads), 48 (dims 384, 8
+   heads), 96 (dims 384, 4 heads) and 128 (dims 512, 4 heads), each with
+   one window against the CPU in f32 as in e2e-yoho; at 48 the flash
+   ``autograd.Function`` (the kernel forward, the plain backward) against
+   the CPU's f32 gradients.
    Between stage 1's serving and MoE, the rest of the session's path: the
    corpus tools (``import-corpus --speakers`` of a generic CSV of 8
    speakers x 4 clips of 3-6 s, each speaker at its own pitch, into the
@@ -650,7 +658,7 @@ def kernel_checks(card: str) -> dict:
         per_pos = k_.shape[1] * k_.shape[2] * k_.element_size() * 2  # K and V of a row
         nbytes = (per_pos + (ks is not None) * 2 * h_ * 2) * sum(t_rows) \
             + 2 * qq.numel() * 2 + (0 if isinstance(pos, (int, type(None))) else 4 * b_)
-        flops = 4 * h_ * keys * 64
+        flops = 4 * h_ * keys * qq.shape[3]
         record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
                nbytes, {"bf16": flops}, library() if library else None,
@@ -716,7 +724,16 @@ def kernel_checks(card: str) -> dict:
     case("draft cross int8 S=2, 6 heads (T 1536, kv_len 1500)", q_of(2, heads=6),
          draft_cross.k_q, draft_cross.v_q, draft_cross.k_scale, draft_cross.v_scale, None, 1,
          kv_len=draft_cross.kv_len)
-    del kb, vb, qb, cross, self_kv, c4, draft_self, draft_cross
+    # Head dim 8 (the JAX dry run's whisper: 32 wide on 4 heads, with int8
+    # cross K/V), padded to width 16: its cross read at batch 16 over T 1536.
+    k8, v8 = (torch.randn((16, 4, 8, 1500), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    cross8 = quantize_kv(k8, v8, pad_to=128)
+    case("D=8 cross int8 S=1, 4 heads (T 1536, kv_len 1500; width 16)",
+         (torch.randn((16, 4, 1, 8), generator=gen, device=dev) * 8 ** -0.5).to(torch.bfloat16),
+         cross8.k_q, cross8.v_q, cross8.k_scale, cross8.v_scale, None, 1,
+         kv_len=cross8.kv_len)
+    del kb, vb, qb, cross, self_kv, c4, draft_self, draft_cross, k8, v8, cross8
     _yoho_kernel_checks(card, gen, flush, record)
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
@@ -782,8 +799,9 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
     on 3 KV heads expanded; the bf16 cross read over 512 positions and the
     causal bf16 self read over 256 at pos 200, 6 query heads on 3 KV heads),
     then head dim 16 at the trained fixture's shapes (batch 3: encoder 32
-    positions, 4 heads on 2; cross 32, cache 128). SDPA is the library
-    yardstick (``enable_gqa`` on the unexpanded K/V)."""
+    positions, 4 heads on 2; cross 32, cache 128), head dims 32 and 128,
+    and the padded head dims 48 and 96 (dims 384 on 8 and 4 heads). SDPA is
+    the library yardstick (``enable_gqa`` on the unexpanded K/V)."""
     import torch
 
     from yoho_tpu_torch.audio.frontend import log_mel_spectrogram
@@ -920,6 +938,18 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                 for g in (1, 2):
                     decode_case(f"D={d} {str(dtype)[6:]} S={s_} pos={pos} groups {g} (T 256)",
                                 4, 2 * g, 2, d, 256, s_, pos, dtype, timed=False)
+    # Padded head dims, dims 384 on 8 heads (48: the wgmma route, TMA
+    # zero-filling columns 48-63) and on 4 heads (96: FMAs at width 128).
+    flash_case("D=48 encoder 16x512x8x48 on 4 KV heads, bf16 (width 64)", 16, 512, 512, 8, 4,
+               48, False)
+    flash_case("D=96 encoder 16x512x4x96 on 2 KV heads, bf16 (width 128)", 16, 512, 512, 4, 2,
+               96, False)
+    decode_case("D=48 cross bf16 S=1, 8 on 4 heads (T 512; width 64)", 16, 8, 4, 48, 512, 1,
+                None)
+    decode_case("D=48 self bf16 S=1 causal pos=200, 8 on 4 heads (T 256; width 64)", 16, 8, 4,
+                48, 256, 1, 200)
+    decode_case("D=96 cross bf16 S=1, 4 on 2 heads (T 512; width 128)", 16, 4, 2, 96, 512, 1,
+                None)
 
 
 class _IdText:
@@ -2238,6 +2268,46 @@ def _flash_grad_checks(card: str) -> list:
     return out
 
 
+def _flash_grad_vs_cpu(card: str, shape) -> dict:
+    """The flash ``autograd.Function`` on the card in bf16 at a padded head
+    dim (the kernel forward, the plain recompute backward) against
+    ``torch.autograd.grad`` through the plain version on the CPU in f32 on
+    the same inputs, causal and not; the tolerances of
+    :func:`_flash_grad_checks`."""
+    import torch
+
+    from yoho_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for causal in (False, True):
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.KERNEL.launches
+        got = fa.flash_attention(*leaves, causal=causal)
+        if fa.KERNEL.launches != before + 1:
+            raise AssertionError(f"flash gradient D={shape[3]}: the forward did not launch")
+        grads = torch.autograd.grad(got, leaves, g)
+        cpu = [x.float().cpu().requires_grad_(True) for x in (q, k, v)]
+        want = fa.attention_reference(*cpu, causal, shape[3] ** -0.5)
+        ref = torch.autograd.grad(want, cpu, g.float().cpu())
+        label = f"{'causal ' if causal else ''}{'x'.join(map(str, shape))} bf16 vs CPU f32"
+        errs = dict(forward_max_abs_err=check_close(f"flash forward {label}", got.detach().cpu(),
+                                                    want.detach(), 1e-2, 1e-2))
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+            a = a.float().cpu()
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            if not torch.isfinite(a).all() or err > 0.02 * top:
+                raise AssertionError(f"flash gradient {label} {name}: max abs err {err} "
+                                     f"against 0.02 x max |grad| = {0.02 * top}")
+            errs[name] = dict(max_abs_err=err, max_abs_grad=top)
+        emit("flash-grad", case=label, **errs, card=card,
+             tolerance="forward rtol 1e-2, atol 1e-2; grads max abs err <= 0.02 x max |f32 grad|")
+        out[label] = errs
+    return out
+
+
 def train_phase(card: str, kernels) -> dict:
     """Phase 10: whisper-small fine-tuning on the card through
     ``WhisperFinetuner.run()`` (see the module doc). Returns the launches
@@ -3205,8 +3275,9 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
     made from the corpus's SRTs. Then the same default session with 8
     experts in encoder and decoder (two mini-steps, one batch of 16 served,
     one MoE layer on the card against the CPU port in f32), and one batch
-    each of seed-0 random sessions at head dims 32 and 128 against the CPU
-    in f32. Between the export's serving and MoE, the corpus tools and
+    each of seed-0 random sessions at head dims 32, 48, 96 and 128 against
+    the CPU in f32 (at 48 also the flash gradient against the CPU's).
+    Between the export's serving and MoE, the corpus tools and
     stages 2-4 of the same session (``_corpus_tools``,
     ``_train_stages_2_4``). With ``trace`` the third mini-step of stage 1 is traced
     (device time by kernel against the untraced steps' median). Returns the
@@ -3391,9 +3462,10 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
                              served=len(res))
         del moe_t
 
-        # Head dims 32 and 128 at the default depth: one batch each, and one
+        # Head dims 32, 48, 96 and 128 at the default depth (48 and 96 run
+        # padded to the kernels' widths 64 and 128): one batch each, and one
         # window against the CPU in f32.
-        for d, dims, heads in ((32, 384, 12), (128, 512, 4)):
+        for d, dims, heads in ((32, 384, 12), (48, 384, 8), (96, 384, 4), (128, 512, 4)):
             name = f"d{d}"
             _write_yoho_session(root, name, (
                 ("dims = 384", f"dims = {dims}"),
@@ -3407,7 +3479,11 @@ def e2e_yoho_train(card: str, kernels, trace: bool = False) -> dict:
             res = measured(f"serve-D{d}", lambda: t.transcribe_many(reqs))
             report[f"serve-D{d}"].update(dims=dims, heads=heads, kv_heads=heads // 2,
                                          windows=len(res), reference=ref_d)
+            if len(res) != BATCH:
+                raise AssertionError(f"{phase}: D={d} served {len(res)} windows")
             del t
+            if d == 48:
+                report["flash-grad-D48"] = _flash_grad_vs_cpu(card, (4, 512, 8, 48))
     emit(phase, model="yoho default (dims 384, 6 heads on 3 KV heads, 4+4 blocks, 128 mels, "
                       "vocab 16000)", card=card, launches=total, **report)
     return total

@@ -703,23 +703,149 @@ def test_decode_kernel_head_dims_32_128_per_row_pos(gen, d, q_dtype, s):
 
 
 def test_other_head_dims_raise(gen):
-    """Head dims outside 16, 32, 64 and 128, and int8/int4 K/V at 32 or
-    128, raise on the card, never fall back."""
-    q = torch.zeros((1, 2, 1, 48), device="cuda", dtype=torch.bfloat16)
-    k = torch.zeros((1, 2, 48, 128), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        decode_attention.fused_decode_attention(q, k, k)
-    x = torch.zeros((1, 8, 2, 48), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention.flash_attention(x, x, x)
-    for d in (32, 128):
-        kf = torch.randn((1, 2, d, 128), device="cuda").to(torch.bfloat16)
-        qd = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
-        for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
-            qkv = quant(kf, kf)
-            with pytest.raises(ValueError, match="head dim"):
-                decode_attention.fused_decode_attention(
-                    qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
+    """Head dims outside the kernels' set raise on the card, never fall
+    back: 136 (past 128), bf16 12 (not a multiple of 8), and int8 / int4
+    K/V at 96 (past 64); and a model whose head dim is outside it is
+    refused at construction."""
+    from yoho_tpu_torch.core.config import WhisperConfig, YOHOConfig
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+
+    for d in (136, 12):
+        q = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
+        k = torch.zeros((1, 2, d, 128), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            decode_attention.fused_decode_attention(q, k, k)
+        x = torch.zeros((1, 8, 2, d), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            flash_attention.flash_attention(x, x, x)
+    kf = torch.randn((1, 2, 96, 128), device="cuda").to(torch.bfloat16)
+    qd = torch.zeros((1, 2, 1, 96), device="cuda", dtype=torch.bfloat16)
+    for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
+        qkv = quant(kf, kf)
+        with pytest.raises(ValueError, match="head dim 96"):
+            decode_attention.fused_decode_attention(
+                qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
+    with pytest.raises(ValueError, match="encoder: flash kernel head dim 12"):
+        YOHOModel(YOHOConfig(dims=48, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
+    with pytest.raises(ValueError, match="decoder: flash kernel head dim 136"):
+        Whisper(WhisperConfig(n_audio_state=32, n_audio_head=4, n_text_state=272,
+                              n_text_head=2), device="cuda")
+
+
+# ------------------------------------------------------ padded head dims
+# Every other multiple of 8 up to 128 (64 for int8 and int4 K/V) runs at
+# the smallest instantiated width that holds it: global rows of D, shared
+# memory zero-padded to the width. bf16 D = 40-56 is the wgmma route with
+# TMA zero-filling the columns past D.
+
+PADDED_DIMS = (8, 24, 40, 48, 56, 80, 96, 120)
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,t,kv_len,heads", [
+    (False, 300, 300, None, 3), (True, 300, 300, None, 3), (False, 300, 300, 129, 3),
+    (True, 256, 256, 200, 2), (False, 6, 1500, None, 3), (False, 512, 512, None, 8)])
+def test_flash_kernel_padded_head_dims(gen, d, dtype, causal, tq, t, kv_len, heads):
+    """Padded head dims on both routes: causal and not, kv_len inside a
+    tile and below T, Tq != Tk, the YOHO encoder's 512 positions."""
+    q, k, v = (torch.randn((2, n, heads, d), generator=gen, device="cuda").to(dtype)
+               for n in (tq, t, t))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    assert got.shape == q.shape
+    want = flash_attention.attention_reference(q, k, v, causal, d ** -0.5, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+def test_flash_kernel_padded_unaligned_view(gen, d):
+    """bf16 at a padded head dim: a view that starts 2 bytes into its
+    allocation (copied for TMA's 16-byte bases), and the first d dims of a
+    wider tensor (not contiguous), each written with rows of d."""
+    base = torch.randn((2 * 300 * 3 * d + 1,), generator=gen, device="cuda").to(torch.bfloat16)
+    q = base[1:].view(2, 300, 3, d)
+    wide = torch.randn((2, 300, 3, d + 8), generator=gen, device="cuda").to(torch.bfloat16)
+    k = wide[..., :d]
+    got = flash_attention.flash_attention(q, k, q)
+    want = flash_attention.attention_reference(q, k, q, False, d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("s,pos", [(1, None), (4, None), (32, None), (1, 200), (4, 0),
+                                   (32, 100)])
+@pytest.mark.parametrize("t,kv_len", [(256, 256), (333, 300), (1500, 1500)])
+def test_decode_kernel_padded_head_dims(gen, d, q_dtype, groups, s, pos, t, kv_len):
+    """Float K/V at padded head dims: S = 1, 4 and 32, groups 1 and 2, every
+    load branch (TMA tiles at 256 in bf16, 4- or 8-byte words at 1500 and f32,
+    element copies at 333), scalar causal positions."""
+    if pos is not None and pos + s > kv_len:
+        pos = kv_len - s
+    k, v = (torch.randn((2, 2, d, t), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
+         ).to(q_dtype)
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
+                                                  groups=groups)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
+                                                       groups=groups)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4, 32])
+def test_decode_kernel_padded_head_dims_per_row_pos(gen, d, q_dtype, s):
+    """Per-row positions at padded head dims on a float cache of 256."""
+    k, v = (torch.randn((4, 2, d, 256), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((4, 4, s, d), generator=gen, device="cuda") * d ** -0.5).to(q_dtype)
+    pos = torch.tensor([0, 5, 60, 256 - s], dtype=torch.int32, device="cuda")
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, groups=2)
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, groups=2)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("d", [8, 24, 32, 48])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("s,pos", [(1, None), (3, None), (1, 200), (5, 0), (32, 100),
+                                   (1, "rows")])
+@pytest.mark.parametrize("t,kv_len", [(333, 300), (512, 512), (1536, 1500)])
+def test_decode_kernel_padded_integer_kv(gen, d, kind, q_dtype, groups, s, pos, t, kv_len):
+    """int8 and int4 K/V at padded head dims (widths 16 and 64; int4 keeps
+    its stored split at D / 2): element copies (333), the cache (512) and
+    the padded cross K/V (1536, kv_len 1500) through TMA, scalar and
+    per-row positions."""
+    if pos == "rows":
+        pos = torch.tensor([0, kv_len - s], dtype=torch.int32, device="cuda")
+    elif pos is not None and pos + s > kv_len:
+        pos = kv_len - s
+    k, v = (torch.randn((2, 2, d, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
+         ).to(q_dtype)
+    qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+    args = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
+                                                  groups=groups, packing=qkv.packing)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
+                                                       groups=groups, packing=qkv.packing)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
 
 
 # ------------------------------------------------- the YOHO serving shapes

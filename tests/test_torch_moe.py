@@ -1,5 +1,5 @@
-"""The port's Mixture-of-Experts and its YOHO models at head dims 32 and
-128, against the JAX package's.
+"""The port's Mixture-of-Experts and its YOHO models at head dims 8, 32,
+48, 96 and 128, against the JAX package's.
 
 The same numpy inputs and the same flax params tree (carried across with
 ``load_jax_params``) go through both packages. Tolerances: ``moe_dispatch``
@@ -211,13 +211,19 @@ def test_moe_capacity_counts_the_experts(moe_yoho):
     assert yoho_param_count(tm.cfg, VOCAB, 32) == sum(p.numel() for p in tm.parameters())
 
 
-# -------------------------------------------------------- head dims 32, 128
+# ------------------------------------------------ head dims 8, 32, 48, 96, 128
+# Every model has KV heads on half its query heads. 8 is the JAX package's
+# tests' dims 32 on 4 heads; 48 and 96 run padded to the kernels' widths 64
+# and 128 on the card.
 
-HEAD_DIMS = {32: dict(SMALL, n_audio_heads=2, n_text_heads=2),
+HEAD_DIMS = {8: dict(SMALL, dims=32),
+             32: dict(SMALL, n_audio_heads=2, n_text_heads=2),
+             48: dict(SMALL, dims=96, n_audio_heads=2, n_text_heads=2),
+             96: dict(SMALL, dims=192, n_audio_heads=2, n_text_heads=2),
              128: dict(SMALL, dims=256, n_audio_heads=2, n_text_heads=2)}
 
 
-@pytest.fixture(scope="module", params=[32, 128])
+@pytest.fixture(scope="module", params=sorted(HEAD_DIMS))
 def head_dim(request):
     """One flax params tree per head dim, shared by the f32 and bf16 models."""
     d = request.param
@@ -225,9 +231,9 @@ def head_dim(request):
 
 
 def test_yoho_head_dims_32_and_128_match_jax_in_f32(head_dim):
-    """Head dims whose scale is not a power of two (0.1768, 0.0884) on 2
-    query heads over 1 KV head: the teacher-forced logits and the cached
-    decode steps (a prefill and a step) at 2e-4."""
+    """Head dims whose scale is not a power of two (8 and 32 to 128) on 4
+    query heads over 2 KV heads (D = 8) or 2 over 1: the teacher-forced
+    logits and the cached decode steps (a prefill and a step) at 2e-4."""
     d, params, mel, tok = head_dim
     jm, v, tm = _models(HEAD_DIMS[d], params)
     assert tm.decoder.blocks[0].attn.head_dim == d
@@ -240,7 +246,7 @@ def test_yoho_head_dims_32_and_128_match_jax_in_f32(head_dim):
 
 def test_yoho_head_dims_32_and_128_match_jax_in_bf16(head_dim):
     """bf16 models of the same weights: JAX scales q in bf16 before it
-    attends, and so does the port at these head dims."""
+    attends, and so does the port at these head dims (all but 16 and 64)."""
     d, params, mel, tok = head_dim
     jm, v, tm = _models(HEAD_DIMS[d], params, torch.bfloat16, jnp.bfloat16)
     with torch.no_grad():

@@ -8,10 +8,17 @@ once per variant below, each with some of its constants replaced (one
 ``nvcc`` per variant, all started together, into
 ``yoho_tpu_torch/_build/variants/``); with ``--parent DIR`` also the two
 sources of another checkout (an earlier tree unpacked there, built against
-its own headers), so that two trees are compared on one card in one run.
-Each variant is held to the plain version (``chip_smoke.py``'s tolerances)
-and timed with ``chip_smoke.py``'s ``time_ms`` (device time, L2 flushed
-between calls) at the main paths' shapes, in turns: every variant once per
+its own headers, with the C entry points of this one), so that two trees
+are compared on one card in one run. The parent's kernels are first held to
+the shipped ones bit for bit at the instantiated head dims (16, 32, 64,
+128; flash in f32 and bf16, causal or not, ``kv_len`` inside a tile, Tq !=
+Tk; decode over float, int8 and int4 K/V at every width each kind has, S =
+1, 4 and 32, no / scalar / per-row ``pos``, groups 1 and 2, every load
+branch): one line per kernel counts the cases, and the exit code is 1 if
+any differs. Each variant is held to the plain version (``chip_smoke.py``'s
+tolerances) and timed with ``chip_smoke.py``'s ``time_ms`` (device time,
+L2 flushed between calls) at the main paths' shapes and the YOHO head dims
+16, 32 and 128, in turns: every variant once forward and once backward a
 round, three rounds, and the median is printed. One JSON line per case;
 the first line is the card's name and power limit. Needs CUDA; imports no
 JAX.
@@ -88,11 +95,12 @@ def main(argv) -> int:
         print("attention_variants: CUDA is not available", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", type=Path, help="checkout whose two kernels to time as well")
+    ap.add_argument("--parent", type=Path, help="checkout whose two kernels to hold the "
+                                                 "shipped ones to and time as well")
     args = ap.parse_args(argv)
 
     import chip_smoke
-    from yoho_tpu_torch.nn.kv_cache import QuantizedKV, quantize_kv
+    from yoho_tpu_torch.nn.kv_cache import QuantizedKV, quantize_kv, quantize_kv4
     from yoho_tpu_torch.ops import _build
     from yoho_tpu_torch.ops import decode_attention as da
     from yoho_tpu_torch.ops import flash_attention as fa
@@ -106,100 +114,175 @@ def main(argv) -> int:
             kind = src.split("_")[0]
             jobs[f"{kind} parent"] = ((csrc / src).read_text(), csrc)
     libs = build(jobs)
-
-    def entry(name):
-        lib = libs[name]
-        if name.startswith("flash"):
-            fn, argtypes = lib.flash_attention_forward, fa.KERNEL.argtypes
-        else:
-            fn = lib.decode_attention
-            argtypes = list(da.KERNEL.argtypes)
-            # An earlier tree's decode entry takes an f32 workspace after `out`.
-            if "float* part" in jobs[name][0]:
-                argtypes.insert(8, ctypes.c_void_p)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        return fn, len(argtypes)
+    fns = {}
+    for name, lib in libs.items():
+        fn = lib.flash_attention_forward if name.startswith("flash") else lib.decode_attention
+        fn.argtypes = (fa if name.startswith("flash") else da).KERNEL.argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     ptr, stream = _build.ptr, _build.stream_of
 
+    def flash_call(name, q, k, v, out, causal=False, kv_len=None):
+        b, s, h, d = q.shape
+        t = k.shape[1]
+
+        def call():
+            err = fns[name](1 if q.dtype == torch.bfloat16 else 0, ptr(q), ptr(k), ptr(v),
+                            ptr(out), b, h, s, t, kv_len or t, d, d ** -0.5, int(causal),
+                            stream(q))
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        return call
+
+    def decode_call(name, q, k, v, ks, vs, out, pos=None, kv_len=None):
+        b, hq, s, d = q.shape
+        rows = isinstance(pos, torch.Tensor)
+        kind = "float" if ks is None else "int4" if k.dtype == torch.uint8 else "int8"
+
+        def call():
+            err = fns[name](1 if q.dtype == torch.bfloat16 else 0, da.KINDS.index(kind),
+                            ptr(q), ptr(k), ptr(v), ptr(ks) if ks is not None else None,
+                            ptr(vs) if vs is not None else None, ptr(out), b, hq, k.shape[1],
+                            s, d, k.shape[3], kv_len or k.shape[3], int(pos is not None),
+                            0 if pos is None or rows else pos, ptr(pos) if rows else None,
+                            stream(q))
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        return call
+
+    def same(calls, out):
+        """Runs each call into ``out`` (NaN-filled first) and compares the
+        bits; an output left non-finite counts as a difference."""
+        got = []
+        for call in calls:
+            out.fill_(float("nan"))
+            call()
+            got.append(out.clone())
+        torch.cuda.synchronize()
+        bits = [g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32) for g in got]
+        return bool(torch.isfinite(got[1]).all()) and torch.equal(*bits)
+
+    def parity(kernel, cases):
+        """cases: (label, out, {name: call}); prints the count, True if all equal."""
+        n, bad = 0, []
+        for label, out, calls in cases:
+            n += 1
+            if not same([calls[f"{kernel} parent"], calls[f"{kernel} shipped"]], out):
+                bad.append(label)
+        print(json.dumps({"parity": kernel, "against": str(args.parent), "cases": n,
+                          "bit_identical": n - len(bad), "differ": bad[:40]}), flush=True)
+        return not bad
+
+    def flash_parity_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in fa.WIDTHS:
+                for causal, tq, t, kv_len, heads in (
+                        (False, 300, 300, None, 3), (True, 300, 300, None, 3),
+                        (False, 300, 300, 129, 3), (True, 256, 256, 200, 2),
+                        (False, 6, 1500, None, 3), (False, 512, 512, None, 6)):
+                    q, k, v = (torch.randn((2, m, heads, d), generator=gen, device=dev)
+                               .to(dtype) for m in (tq, t, t))
+                    out = torch.empty_like(q)
+                    yield (f"{str(dtype)[6:]} D={d} causal={causal} {tq}x{t} kv_len={kv_len}",
+                           out, {n: flash_call(n, q, k, v, out, causal, kv_len)
+                                 for n in ("flash parent", "flash shipped")})
+
+    def decode_parity_cases():
+        for kind in da.KINDS:
+            for d in da.WIDTHS[kind]:
+                for q_dtype in (torch.float32, torch.bfloat16):
+                    for t, kv_len in ((333, 300), (1500, 1500), (512, 512), (1536, 1500)):
+                        kf, vf = (torch.randn((2, 2, d, t), generator=gen, device=dev)
+                                  .to(torch.bfloat16) for _ in range(2))
+                        kv = ((kf.to(q_dtype), vf.to(q_dtype), None, None) if kind == "float"
+                              else (quantize_kv if kind == "int8" else quantize_kv4)(kf, vf))
+                        kv = (kv.k_q, kv.v_q, kv.k_scale, kv.v_scale) \
+                            if isinstance(kv, QuantizedKV) else kv
+                        for s in (1, 4, 32):
+                            for pos in (None, 100, torch.tensor([0, kv_len - s],
+                                                                dtype=torch.int32, device=dev)):
+                                for groups in (1, 2):
+                                    q = (torch.randn((2, 2 * groups, s, d), generator=gen,
+                                                     device=dev) * d ** -0.5).to(q_dtype)
+                                    out = torch.empty((2, s, 2 * groups, d), dtype=q_dtype,
+                                                      device=dev)
+                                    p = "rows" if isinstance(pos, torch.Tensor) else pos
+                                    yield (f"{kind} {str(q_dtype)[6:]} D={d} T={t} S={s} "
+                                           f"pos={p} groups={groups}", out,
+                                           {n: decode_call(n, q, *kv, out, pos, kv_len)
+                                            for n in ("decode parent", "decode shipped")})
+
+    ok = True
+    if args.parent is not None:
+        ok &= parity("flash", flash_parity_cases())
+        ok &= parity("decode", decode_parity_cases())
+
     def run(calls, check):
-        """calls: name -> call(); times them in turns, ROUNDS rounds."""
+        """calls: name -> call(); times them in turns, ROUNDS rounds, each
+        round every variant forward then backward."""
         for name, call in calls.items():
             call()
             torch.cuda.synchronize()
             check(name)
         times = {name: [] for name in calls}
         for _ in range(ROUNDS):
-            for name, call in calls.items():
-                times[name].append(chip_smoke.time_ms(call, 20, flush))
+            for name in list(calls) + list(calls)[::-1]:
+                times[name].append(chip_smoke.time_ms(calls[name], 20, flush))
         return {name: statistics.median(t) for name, t in times.items()}
 
     flash_names = [n for n in libs if n.startswith("flash")]
     decode_names = [n for n in libs if n.startswith("decode")]
-    for heads in (12, 20):
-        q, k, v = (torch.randn((16, 1500, heads, 64), generator=gen, device=dev)
+    for b, t, heads, d in ((16, 1500, 12, 64), (16, 1500, 20, 64), (16, 512, 24, 16),
+                           (16, 512, 12, 32), (16, 512, 4, 128)):
+        q, k, v = (torch.randn((b, t, heads, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         out = torch.empty_like(q)
-        want = fa.attention_reference(q, k, v, False, 0.125)
-        calls = {}
-        for name in flash_names:
-            fn, _ = entry(name)
-
-            def call(fn=fn):
-                err = fn(1, ptr(q), ptr(k), ptr(v), ptr(out), 16, heads, 1500, 1500, 1500,
-                         64, 0.125, 0, stream(q))
-                if err:
-                    raise RuntimeError(f"CUDA error {err}")
-            calls[name] = call
+        want = fa.attention_reference(q, k, v, False, d ** -0.5)
 
         def check(name):
             chip_smoke.check_close(name, out, want, 1e-2, 1e-2)
-        print(json.dumps({"case": f"flash 16x1500x{heads}x64 bf16",
-                          "ms": run(calls, check)}), flush=True)
+        print(json.dumps({"case": f"flash {b}x{t}x{heads}x{d} bf16",
+                          "ms": run({n: flash_call(n, q, k, v, out) for n in flash_names},
+                                    check), "card": chip_smoke.card_line()}), flush=True)
         del q, k, v, out, want
 
-    def kv(t):
-        return (torch.randn((16, 12, 64, t), generator=gen, device=dev)
+    def kv(t, heads=12, d=64):
+        return (torch.randn((16, heads, d, t), generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(2))
 
     cross = quantize_kv(*kv(1500), pad_to=128)
     cache = quantize_kv(*kv(512))
-    k_bf16, v_bf16 = kv(1500)
-    for label, kvs, s, pos, kv_len in (
-            ("cross int8 S=1 (T 1536, kv_len 1500)", cross, 1, None, 1500),
-            ("cross int8 S=3 (prefill)", cross, 3, None, 1500),
-            ("self int8 S=1 pos=0", cache, 1, 0, 512),
-            ("self int8 S=1 pos=200", cache, 1, 200, 512),
-            ("self int8 S=1 pos=447", cache, 1, 447, 512),
-            ("cross bf16 S=1 (T 1500, the unquantized lane)", (k_bf16, v_bf16), 1, None, 1500)):
-        q = (torch.randn((16, 12, s, 64), generator=gen, device=dev) * 0.35).to(torch.bfloat16)
+    cases = [("cross int8 S=1 (T 1536, kv_len 1500)", cross, 1, None, 1500, 12),
+             ("cross int8 S=3 (prefill)", cross, 3, None, 1500, 12),
+             ("self int8 S=1 pos=0", cache, 1, 0, 512, 12),
+             ("self int8 S=1 pos=200", cache, 1, 200, 512, 12),
+             ("self int8 S=1 pos=447", cache, 1, 447, 512, 12),
+             ("cross bf16 S=1 (T 1500, the unquantized lane)", tuple(kv(1500)), 1, None, 1500,
+              12)]
+    for d, heads in ((16, 24), (32, 12), (128, 4)):
+        cases.append((f"D={d} cross bf16 S=1, {heads} on {heads // 2} heads (T 512)",
+                      tuple(kv(512, heads // 2, d)), 1, None, 512, heads))
+    for label, kvs, s, pos, kv_len, heads in cases:
         k_, v_, ks, vs = ((kvs.k_q, kvs.v_q, kvs.k_scale, kvs.v_scale)
                           if isinstance(kvs, QuantizedKV) else (*kvs, None, None))
-        t = k_.shape[3]
-        out = torch.empty((16, s, 12, 64), dtype=torch.bfloat16, device=dev)
-        part = torch.empty((16 * 12 * -(-t // 256) * s * 66,), dtype=torch.float32, device=dev)
-        want = da.decode_attention_reference(q, k_, v_, ks, vs, pos, kv_len)
-        calls = {}
-        for name in decode_names:
-            fn, n_args = entry(name)
-            head = [1, 0 if ks is not None else 2, ptr(q), ptr(k_), ptr(v_),
-                    ptr(ks) if ks is not None else None, ptr(vs) if vs is not None else None,
-                    ptr(out)] + ([ptr(part)] if n_args == 19 else [])
-            tail = [16, 12, 12, s, 64, t, kv_len, int(pos is not None), pos or 0, stream(q)]
-
-            def call(fn=fn, a=head + tail):
-                err = fn(*a)
-                if err:
-                    raise RuntimeError(f"CUDA error {err}")
-            calls[name] = call
+        d = k_.shape[2] * (2 if k_.dtype == torch.uint8 else 1)
+        q = (torch.randn((16, heads, s, d), generator=gen, device=dev) * d ** -0.5
+             ).to(torch.bfloat16)
+        out = torch.empty((16, s, heads, d), dtype=torch.bfloat16, device=dev)
+        want = da.decode_attention_reference(q, k_, v_, ks, vs, pos, kv_len,
+                                             groups=heads // k_.shape[1])
 
         def check(name):
             chip_smoke.check_close(name, out, want, 0.05, 0.02)
-        print(json.dumps({"case": f"decode {label}", "ms": run(calls, check)}), flush=True)
-    return 0
+        print(json.dumps({"case": f"decode {label}",
+                          "ms": run({n: decode_call(n, q, k_, v_, ks, vs, out, pos, kv_len)
+                                     for n in decode_names}, check),
+                          "card": chip_smoke.card_line()}), flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

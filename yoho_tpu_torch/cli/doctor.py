@@ -219,6 +219,38 @@ def _check_session(name: str, root: str) -> list:
     return rows
 
 
+def _check_head_dims(name: str, root: str, cuda: bool) -> list:
+    """One row per stack of the session's model: its head dim and the route
+    and width the attention kernels run it at (sessions serve in bf16).
+    ``FAIL`` for a head dim outside the kernels' set when CUDA is present
+    (the model would refuse to build there); without CUDA a ``warn``, since
+    the plain versions on the CPU take any head dim."""
+    import torch
+
+    from yoho_tpu_torch.core.config import load_session_config
+    from yoho_tpu_torch.ops import decode_attention, flash_attention
+
+    try:
+        cfg = load_session_config(name, root).yoho
+    except Exception:  # _check_session reports the config
+        return []
+    rows = []
+    for stack, heads in (("encoder", cfg.n_audio_heads), ("decoder", cfg.n_text_heads)):
+        d = cfg.dims // heads
+        try:
+            widths = (flash_attention.kernel_width(d), decode_attention.kernel_width(d))
+        except ValueError as e:
+            rows.append((f"session:head_dim.{stack}", FAIL if cuda else WARN,
+                         f"D {d} (dims {cfg.dims} / {heads} heads): {e}"
+                         + ("" if cuda else "; only the CPU's plain versions run it")))
+            continue
+        at = [f"padded to {w}" if w != d else f"at {w}" for w in widths]
+        rows.append((f"session:head_dim.{stack}", OK,
+                     f"D {d}: flash {flash_attention.kernel_route(d, torch.bfloat16)}, "
+                     f"{at[0]}; decode {at[1]}"))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="yoho-torch doctor",
@@ -242,14 +274,17 @@ def main(argv=None) -> int:
                         help="machine-readable output, one JSON per check")
     args = parser.parse_args(argv)
     rows = _check_package() + _check_deps() + _check_native() + _check_codecs()
+    cuda = False
     if not args.no_devices:
         dev = _check_devices(args.device_timeout)
         rows += dev
-        rows += _check_kernels(cuda=dev[0][1] == OK)
+        cuda = dev[0][1] == OK
+        rows += _check_kernels(cuda=cuda)
     if args.hf:
         rows += _check_hf(args.hf)
     if args.session:
         rows += _check_session(args.session, args.root)
+        rows += _check_head_dims(args.session, args.root, cuda)
 
     failed = False
     for name, status, detail in rows:

@@ -30,6 +30,20 @@
 // with 32 queries (three 66.5 KB stages, 83 KB of states) inside the 227 KB
 // a block may have.
 //
+// Any other head dim Dh that is a multiple of 8 (up to 128 for K/V in the
+// type of q, 64 for int8 and int4; the JAX model attends at any dims //
+// heads) runs on the smallest instantiated width W >= Dh, a runtime argument
+// of the same instantiations. Global rows follow Dh (q and out rows of Dh,
+// DKh = Dh / pack K/V rows a (b, h)); shared memory, the lane map and the
+// softmax states keep W. The TMA maps describe DKh rows under a box of
+// W / pack rows, so the rows past DKh arrive zero-filled; the word and
+// element copies write zeros there. q is laid out in W's dims with zeros in
+// the padded ones, so a padded dim adds nothing to a score, and padded
+// output dims are never stored. int4 keeps its stored split at Dh / 2: byte
+// row r holds dims r and r + Dh / 2, so q's dim r + Dh / 2 sits at W's
+// r + W / 2 (a zero byte decodes to -8, which a zero q lane cancels). At
+// Dh == W every map is the identity and the outputs are the width's own.
+//
 // Bound on the H100: the cache bytes. Whisper-small's cross read at B=16
 // moves 2 x 16 x 12 x 64 x 1500 B = 36.9 MB of int8 codes (+ 1.2 MB of
 // scales) per launch, ~11 us at 3.35 TB/s; its operations (4*S*T*D per
@@ -212,10 +226,11 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
             const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
             const QT* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
             const __nv_bfloat16* __restrict__ k_scale, const __nv_bfloat16* __restrict__ v_scale,
-            QT* __restrict__ out, int Hq, int Hkv, int S, int T, int t_end_all, int causal,
-            int pos_all, const int* __restrict__ pos_rows, int mode) {
+            QT* __restrict__ out, int Hq, int Hkv, int S, int Dh, int T, int t_end_all,
+            int causal, int pos_all, const int* __restrict__ pos_rows, int mode) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
+  const int DKh = KIND == KV_INT4 ? Dh / 2 : Dh;  // K/V rows of a (b, h) in global memory
   constexpr int NPL = D > 64 ? D / 32 : 2;  // dims per lane
   constexpr int STR = D / NPL;    // lane l < STR holds dims l + STR j, j < NPL
   static_assert(KIND != KV_INT4 || NPL == 2, "int4 holds dims l and l + D/2 in one byte");
@@ -246,6 +261,15 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const bool scaled = k_scale != nullptr;
   const int n_chunks = (t_end + TC - 1) / TC;
   const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;  // chunks rank + i CL
+  // Dim dw of W's layout -> the true dim it holds, or -1 for a padded one.
+  auto true_dim = [&](int dw) {
+    if constexpr (KIND == KV_INT4) {
+      const int half = Dh / 2, l = dw < D / 2 ? dw : dw - D / 2;
+      return l < half ? (dw < D / 2 ? l : l + half) : -1;
+    } else {
+      return dw < Dh ? dw : -1;
+    }
+  };
 
   // Thread 0 starts the TMA loads of local chunk i into its stage; rows
   // past T arrive as zeros.
@@ -272,10 +296,12 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     unsigned char* buf = smem + (i % STAGES) * L::BYTES;
     const int t0 = (rank + i * CL) * TC;
     for (int e = tid; e < 2 * DK * WPR; e += THREADS) {
-      const int r = e / WPR, w = e - r * WPR;
+      const int r = e / WPR, w = e - r * WPR, rr = r % DK;
+      const bool row_in = rr < DKh;  // rows past DKh are padding: zeros
       const unsigned char* src = reinterpret_cast<const unsigned char*>(
-          static_cast<const E*>(r < DK ? k : v) + ((size_t)bhk * DK + r % DK) * T + t0);
-      const bool in = t0 + WB * w / (int)sizeof(E) < t_end;
+          static_cast<const E*>(r < DK ? k : v) + ((size_t)bhk * DKh + (row_in ? rr : 0)) * T +
+          t0);
+      const bool in = row_in && t0 + WB * w / (int)sizeof(E) < t_end;
       cp_async<WB>(smem_addr(buf + (r < DK ? 0 : L::KV) + swz<L::ROWB>(r % DK, WB * w)),
                    in ? src + WB * w : src, in ? WB : 0);
     }
@@ -305,9 +331,10 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
       E x[BATCH];
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
-        const int e = e0 + u * THREADS + tid, r = e / TC, t = t0 + e - r * TC;
-        const E* src = static_cast<const E*>(r < DK ? k : v) + ((size_t)bhk * DK + r % DK) * T;
-        x[u] = t < t_end ? src[t] : E{};
+        const int e = e0 + u * THREADS + tid, r = e / TC, t = t0 + e - r * TC, rr = r % DK;
+        const E* src = static_cast<const E*>(r < DK ? k : v) +
+                       ((size_t)bhk * DKh + (rr < DKh ? rr : 0)) * T;
+        x[u] = t < t_end && rr < DKh ? src[t] : E{};
       }
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
@@ -336,7 +363,10 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const bool words = mode == 1 || mode == 3;
   if (words)  // STAGES - 1 commit groups, empty where there is no chunk
     for (int i = 0; i < STAGES - 1; ++i) i < my_n ? issue_words(i) : cp_async_commit();
-  for (int i = tid; i < S * D; i += THREADS) q_s[i] = to_f32<QT>(q[(size_t)bh * S * D + i]);
+  for (int i = tid; i < S * D; i += THREADS) {
+    const int s = i / D, d = true_dim(i - s * D);
+    q_s[i] = d >= 0 ? to_f32<QT>(q[((size_t)bh * S + s) * Dh + d]) : 0.f;
+  }
   __syncthreads();
 
   float m_w[SMAX], l_w[SMAX], acc[SMAX][NPL];
@@ -464,7 +494,8 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 
   // The cluster's states -> the output; block `rank` writes its share.
   for (int e = rank * THREADS + tid; e < S * D; e += CL * THREADS) {
-    const int s = e / D, d = e - s * D;
+    const int s = e / D, d = e - s * D, dt = true_dim(d);
+    if (dt < 0) continue;  // a padded dim: not stored
     float mx = YOHO_NEG_INF;
     for (int r = 0; r < CL; ++r)
       mx = fmaxf(mx, cluster.map_shared_rank(bpart, r)[s * PART + D]);
@@ -475,25 +506,27 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
       a = fmaf(c, rp[d], a);
       l = fmaf(c, rp[D + 1], l);
     }
-    out[(((size_t)b * S + s) * Hq + h) * D + d] = from_f32<QT>(a / fmaxf(l, 1e-30f));
+    out[(((size_t)b * S + s) * Hq + h) * Dh + dt] = from_f32<QT>(a / fmaxf(l, 1e-30f));
   }
   cluster.sync();  // no block leaves while a peer still reads its state
 }
 
 template <typename QT, int KIND, int SMAX, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                   void* out, int B, int Hq, int Hkv, int S, int T, int t_end, int causal,
-                   int pos, const int* pos_rows, cudaStream_t stream) {
+                   void* out, int B, int Hq, int Hkv, int S, int Dh, int T, int t_end,
+                   int causal, int pos, const int* pos_rows, cudaStream_t stream) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
+  const int DKh = KIND == KV_INT4 ? Dh / 2 : Dh;
   using L = Stage<E, DK>;
   const int n_chunks = (t_end + TC - 1) / TC;
   int cl = 1;
   const int target = BLOCKS_PER_SM * sm_count();
   while (cl < MAX_CLUSTER && 2 * cl <= n_chunks && B * Hq * cl < target) cl *= 2;
 
-  // TMA maps: K and V as (T, DK, B * Hkv) tiles of (TC, DK, 1) in the
-  // row width's swizzle, the scales as (T, B * Hkv) rows of TC.
+  // TMA maps: K and V as (T, DKh, B * Hkv) tiles of (TC, DK, 1) in the
+  // row width's swizzle (rows past DKh zero-filled), the scales as
+  // (T, B * Hkv) rows of TC.
   CUtensorMap mk, mv, mks, mvs;
   memset(&mks, 0, sizeof(mks));
   memset(&mvs, 0, sizeof(mvs));
@@ -503,8 +536,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
         sizeof(E) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const CUtensorMapSwizzle swizzle =
         L::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-    const uint64_t dims[3] = {(uint64_t)T, (uint64_t)DK, (uint64_t)B * Hkv};
-    const uint64_t strides[2] = {(uint64_t)T * sizeof(E), (uint64_t)DK * T * sizeof(E)};
+    const uint64_t dims[3] = {(uint64_t)T, (uint64_t)DKh, (uint64_t)B * Hkv};
+    const uint64_t strides[2] = {(uint64_t)T * sizeof(E), (uint64_t)DKh * T * sizeof(E)};
     const uint32_t box[3] = {TC, DK, 1};
     tma = tensor_map(&mk, type, 3, k, dims, strides, box, swizzle) &&
           tensor_map(&mv, type, 3, v, dims, strides, box, swizzle);
@@ -551,48 +584,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
   err = cudaLaunchKernelEx(&cfg, kern, mk, mv, mks, mvs, static_cast<const QT*>(q), k, v,
                            static_cast<const __nv_bfloat16*>(ks),
                            static_cast<const __nv_bfloat16*>(vs), static_cast<QT*>(out), Hq, Hkv,
-                           S, T, t_end, causal, pos, pos_rows, mode);
+                           S, Dh, T, t_end, causal, pos, pos_rows, mode);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename QT, int KIND, int D>
 cudaError_t dispatch_s(const void* q, const void* k, const void* v, const void* ks,
-                       const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
+                       const void* vs, void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
                        int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (S <= 1) return launch<QT, KIND, 1, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (S <= 4) return launch<QT, KIND, 4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (S <= 32) return launch<QT, KIND, 32, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+  if (S <= 1) return launch<QT, KIND, 1, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+  if (S <= 4) return launch<QT, KIND, 4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+  if (S <= 32) return launch<QT, KIND, 32, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT, int D>
 cudaError_t dispatch_kind(int kind, const void* q, const void* k, const void* v, const void* ks,
-                          const void* vs, void* out, int B, int Hq, int Hkv, int S, int T,
+                          const void* vs, void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
                           int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
   switch (kind) {
-    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
+    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Head dim Dh (a multiple of 8) -> the smallest width W >= Dh built for the
+// kind: 16 and 64 for every kind, 32 and 128 for K/V in the type of q only.
 template <typename QT>
 cudaError_t dispatch_d(int Dh, int kind, const void* q, const void* k, const void* v,
                        const void* ks, const void* vs, void* out, int B, int Hq, int Hkv, int S,
                        int T, int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (Dh == 64)
-    return dispatch_kind<QT, 64>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (Dh == 16)
-    return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  // 32 and 128: K/V in the type of q only (YOHO sessions).
-  if (kind != KV_FLOAT) return cudaErrorInvalidValue;
-  if (Dh == 32)
-    return dispatch_s<QT, KV_FLOAT, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  if (Dh == 128)
-    return dispatch_s<QT, KV_FLOAT, 128>(q, k, v, ks, vs, out, B, Hq, Hkv, S, T, t_end, causal, pos, pr, st);
-  return cudaErrorInvalidValue;
+  if (Dh < 8 || Dh % 8 || Dh > (kind == KV_FLOAT ? 128 : 64)) return cudaErrorInvalidValue;
+  if (Dh <= 16)
+    return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+  if (Dh <= 32 && kind == KV_FLOAT)
+    return dispatch_s<QT, KV_FLOAT, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+  if (Dh <= 64)
+    return dispatch_kind<QT, 64>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+  return dispatch_s<QT, KV_FLOAT, 128>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
 }
 
 }  // namespace
@@ -602,8 +634,8 @@ YOHO_ERROR_STRING_FN
 // q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
 // 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
 // of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
-// (B ints on the device, each >= 0) is not null. Dh is 64 or 16 (every
-// kind), or 32 or 128 (kind 2 only). One launch; no workspace.
+// (B ints on the device, each >= 0) is not null. Dh is a multiple of 8 up
+// to 128 (kind 2) or 64 (kinds 0 and 1). One launch; no workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,

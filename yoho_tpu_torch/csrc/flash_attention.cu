@@ -54,6 +54,17 @@
 // fast. Their shared memory, BQ (D+1) + BK (D+1) + BK D + BQ (BK+1) floats,
 // is 41.7 KB at D = 32 and 115.5 KB at D = 128 (over the 48 KB default,
 // granted by allow_smem as for every launch).
+//
+// Any other head dim Dh that is a multiple of 8 up to 128 (the JAX model
+// attends at any dims // heads: 8 in its dry run, 48 or 96 for dims 384 on
+// 8 or 4 heads) runs on the smallest instantiated width W >= Dh, a runtime
+// argument of the same instantiations. Global memory is addressed with Dh
+// (rows of H Dh elements); shared memory keeps W. Loads of dims >= Dh give
+// 0, so a padded dim adds q.k = 0 and the scores are exact, and padded
+// output dims are never stored. On the wgmma route (bf16, Dh 40-56) the
+// tensor maps' innermost global dim is Dh under a box of 64: TMA zero-fills
+// columns Dh..63 (Dh a multiple of 8 keeps the 16-byte stride rule). At
+// Dh == W the arithmetic and the outputs are those of the width alone.
 #include <type_traits>
 
 #include "tma.cuh"
@@ -70,9 +81,11 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int H, int Tq, int Tk,
-                 int kv_len, float scale, int causal) {
+                 int kv_len, int Dh, float scale, int causal) {
   static_assert(D % TPR == 0, "head dim must be a multiple of 4");
+  static_assert(THREADS % D == 0 && BK % (THREADS / D) == 0, "a pass loads whole tile rows");
   constexpr int DP = D + 1;       // padded rows: no bank conflicts
+  constexpr int RPP = THREADS / D;  // K/V tile rows one pass of the block loads
   constexpr int KPT = BK / TPR;   // keys per thread
   constexpr int DPT = D / TPR;    // output dims per thread
   extern __shared__ float smem[];
@@ -88,12 +101,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / TPR;        // query row of this thread
   const int c = tid - r * TPR;    // its part of the row
-  const size_t row_stride = (size_t)H * D;
+  const size_t row_stride = (size_t)H * Dh;  // global rows: the true head dim
+  // This thread's column of the K/V tiles, the same in every pass, and its
+  // first row; each pass moves RPP rows on. The column's offset is formed
+  // once, so a pass costs one multiply by the runtime row stride.
+  const int dc = tid % D, j0 = tid / D;
+  const bool col_in = dc < Dh;
+  const size_t col0 = (size_t)b * Tk * row_stride + h * Dh + dc;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int j = i / D, d = i - j * D;
     const int qp = q0 + j;
-    q_s[j * DP + d] = qp < Tq ? to_f32<T>(q[((size_t)b * Tq + qp) * row_stride + h * D + d]) : 0.f;
+    q_s[j * DP + d] =
+        qp < Tq && d < Dh ? to_f32<T>(q[((size_t)b * Tq + qp) * row_stride + h * Dh + d]) : 0.f;
   }
 
   float m = YOHO_NEG_INF, l = 0.f;
@@ -108,12 +128,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // previous tile fully consumed (and q_s written)
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, d = i - j * D;
+    for (int j = j0; j < BK; j += RPP) {
       const int kp = k0 + j;
-      const size_t off = ((size_t)b * Tk + kp) * row_stride + h * D + d;
-      k_s[j * DP + d] = kp < kv_len ? to_f32<T>(k[off]) : 0.f;
-      v_s[j * D + d] = kp < kv_len ? to_f32<T>(v[off]) : 0.f;
+      const bool in = col_in && kp < kv_len;
+      const size_t off = col0 + (size_t)kp * row_stride;
+      k_s[j * DP + dc] = in ? to_f32<T>(k[off]) : 0.f;
+      v_s[j * D + dc] = in ? to_f32<T>(v[off]) : 0.f;
     }
     __syncthreads();
 
@@ -164,9 +184,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < Tq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* o = out + ((size_t)b * Tq + qpos) * row_stride + h * D;
+    T* o = out + ((size_t)b * Tq + qpos) * row_stride + h * Dh;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) o[c + TPR * i] = from_f32<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i)
+      if (c + TPR * i < Dh) o[c + TPR * i] = from_f32<T>(acc[i] * inv);
   }
 }
 
@@ -317,7 +338,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[BK /
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                int B, int H, int Tq, int kv_len, float scale, int causal) {
+                int B, int H, int Tq, int kv_len, int Dh, float scale, int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -462,40 +483,43 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const int row = row0 + 8 * r;
         if (row >= Tq) continue;
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = out + ((size_t)b * Tq + row) * H * D + h * D;
+        __nv_bfloat16* orow = out + ((size_t)b * Tq + row) * H * Dh + h * Dh;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
-              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          if (8 * j < Dh)  // padded dims (Dh a multiple of 8) are not stored
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
+                __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
         }
       }
     }
   }
 }
 
-// A (B, T, H, 64) bf16 tensor as the 4-D map (64, H, T, B), boxes of one
-// head's `rows` consecutive positions, 128-byte swizzle, zero fill past T.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int rows) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2, (uint64_t)T * H * D * 2};
+// A (B, T, H, Dh) bf16 tensor (Dh <= 64, a multiple of 8) as the 4-D map
+// (Dh, H, T, B), boxes of 64 dims of one head's `rows` consecutive
+// positions, 128-byte swizzle, zero fill past T and past Dh.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int Dh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)Dh, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)Dh * 2, (uint64_t)H * Dh * 2,
+                               (uint64_t)T * H * Dh * 2};
   const uint32_t box[4] = {(uint32_t)D, 1, (uint32_t)rows, 1};
   return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H,
-                         int Tq, int Tk, int kv_len, float scale, int causal,
+                         int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
                          cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, Tq, H, BQ) || !make_map(&mk, k, B, Tk, H, BK) ||
-      !make_map(&mv, v, B, Tk, H, BK))
+  if (!make_map(&mq, q, B, Tq, H, Dh, BQ) || !make_map(&mk, k, B, Tk, H, Dh, BK) ||
+      !make_map(&mv, v, B, Tk, H, Dh, BK))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(flash_fwd_wgmma, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   // Persistent: one block per SM walks the work items.
   const int n_items = (Tq + BQ - 1) / BQ * B * H;
   flash_fwd_wgmma<<<min(n_items, sm_count()), THREADS, SMEM_BYTES, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, H, Tq, kv_len, scale, causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, H, Tq, kv_len, Dh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -503,7 +527,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-                   int Tq, int Tk, int kv_len, float scale, int causal, cudaStream_t stream) {
+                   int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
                                        (size_t)BK * D + (size_t)BQ * (BK + 1));
   auto kern = flash_fwd_kernel<T, D>;
@@ -512,7 +537,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                         static_cast<const T*>(v), static_cast<T*>(out), H,
-                                        Tq, Tk, kv_len, scale, causal);
+                                        Tq, Tk, kv_len, Dh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -520,29 +545,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 YOHO_ERROR_STRING_FN
 
-// dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16 (wgmma + TMA; q, k and v
-// 16-byte aligned). q (B, Tq, H, D); k, v (B, Tk, H, D); keys >= kv_len
-// (1 <= kv_len <= Tk) are masked. D is 64 (every whisper size, the full-width
-// YOHO model) or 16, 32, 128 (FMAs for both types).
+// dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16 (wgmma + TMA at widths
+// 40-64; q, k and v 16-byte aligned). q (B, Tq, H, D); k, v (B, Tk, H, D);
+// keys >= kv_len (1 <= kv_len <= Tk) are masked. D is a multiple of 8 from 8
+// to 128, run at the width W = 16, 32, 64 or 128 that holds it: 64 is every
+// whisper size and the full-width YOHO model (wgmma for bf16), 16, 32 and 128
+// run FMAs for both types.
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
                                        const void* v, void* out, int B, int H, int Tq,
                                        int Tk, int kv_len, int D, float scale, int causal,
                                        cudaStream_t stream) {
-  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  if (D == 64) {
+  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1) || D < 8 || D > 128 || D % 8)
+    return cudaErrorInvalidValue;
+  if (D > 32 && D <= 64) {
     if (dtype == 0)
-      return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
-    return wg::launch_wgmma(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
+      return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
+    return wg::launch_wgmma(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
   }
-  auto fma_route = [&](auto d) -> cudaError_t {
-    constexpr int DD = decltype(d)::value;
+  auto fma_route = [&](auto w) -> cudaError_t {
+    constexpr int W = decltype(w)::value;
     if (dtype == 0)
-      return launch<float, DD>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal, stream);
-    return launch<__nv_bfloat16, DD>(q, k, v, out, B, H, Tq, Tk, kv_len, scale, causal,
-                                     stream);
+      return launch<float, W>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
+    return launch<__nv_bfloat16, W>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal,
+                                    stream);
   };
-  if (D == 16) return fma_route(std::integral_constant<int, 16>{});
-  if (D == 32) return fma_route(std::integral_constant<int, 32>{});
-  if (D == 128) return fma_route(std::integral_constant<int, 128>{});
-  return cudaErrorInvalidValue;
+  if (D <= 16) return fma_route(std::integral_constant<int, 16>{});
+  if (D <= 32) return fma_route(std::integral_constant<int, 32>{});
+  return fma_route(std::integral_constant<int, 128>{});
 }

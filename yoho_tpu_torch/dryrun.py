@@ -19,8 +19,8 @@ launcher), every rank calling it:
 * serving: a whisper ``Transcriber`` over the (data, model) mesh, greedy
   and beam 2, token-equal to the unsharded one; then a ``ContinuousBatcher``
   over the sharded transcriber (``chunk_tokens=4``) and the speculative
-  slot engine (the JAX dry run's 16-wide draft at 1 head, head dim 16 as
-  the kernels' smallest, gamma 2), both over the mesh:
+  slot engine (the JAX dry run's 16-wide draft on 2 heads, gamma 2), both
+  over the mesh:
   rank 0 submits, the other ranks follow its schedule, and each gives
   the unsharded greedy tokens.
 
@@ -207,10 +207,11 @@ def _serving(mesh, dev, world: int, model_axis: int) -> None:
         def encode(self, text, add_special_tokens=False):
             return []
 
-    # JAX's dryrun model at 2 heads (head dim 16: the kernels' smallest).
-    wcfg = WhisperConfig(n_mels=8, n_audio_ctx=16, n_audio_state=32, n_audio_head=2,
+    # JAX's dryrun model: 32 wide on 4 heads (head dim 8, padded to the
+    # kernels' width 16; int8 cross K/V and cache).
+    wcfg = WhisperConfig(n_mels=8, n_audio_ctx=16, n_audio_state=32, n_audio_head=4,
                          n_audio_layer=1, n_vocab=51865, n_text_ctx=24, n_text_state=32,
-                         n_text_head=2, n_text_layer=1, chunk_seconds=0.32)
+                         n_text_head=4, n_text_layer=1, chunk_seconds=0.32)
     table = WhisperTokenTable(multilingual=True, text_backend=_IdBackend())
     wav = (0.1 * np.random.default_rng(1).standard_normal(wcfg.n_samples * 2)).astype(np.float32)
     wb = max(2, world // model_axis)
@@ -238,9 +239,9 @@ def _serving(mesh, dev, world: int, model_axis: int) -> None:
     # The speculative slot engine on the mesh: a smaller draft proposes,
     # the sharded target verifies, each slot commits its own accepted
     # length, and the committed stream is still the greedy tokens.
-    dcfg = WhisperConfig(n_mels=8, n_audio_ctx=16, n_audio_state=16, n_audio_head=1,
+    dcfg = WhisperConfig(n_mels=8, n_audio_ctx=16, n_audio_state=16, n_audio_head=2,
                          n_audio_layer=1, n_vocab=51865, n_text_ctx=24, n_text_state=16,
-                         n_text_head=1, n_text_layer=1, chunk_seconds=0.32)
+                         n_text_head=2, n_text_layer=1, chunk_seconds=0.32)
     spec = Transcriber(init_random(Whisper(wcfg, device=dev), seed=3), mesh=mesh,
                        draft_model=init_random(Whisper(dcfg, device=dev), seed=4),
                        speculative_gamma=2, **kw)

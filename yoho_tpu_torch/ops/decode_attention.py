@@ -16,11 +16,13 @@ fused_decode_attention``, with the same contract:
   kv_len   int             only keys < kv_len are valid
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
-Returns (B, S, Hq, D) in q's type. Unlike the TPU kernel, T need not be a
-multiple of 128: int8/int4/bf16 rows of a multiple of 16 bytes (the
-padded cross K/V, the cache) stream in by TMA tile loads, rows of a
-multiple of 4 bytes by asynchronous word copies, any other T element by
-element. One launch per call of at most 32 queries: a thread-block
+Returns (B, S, Hq, D) in q's type. D is a multiple of 8 up to 128 (float
+K/V) or 64 (int8, int4), each run at the smallest instantiated width W
+that holds it (:func:`kernel_width`; zero-padded in shared memory).
+Unlike the TPU kernel, T need not be a multiple of 128: int8/int4/bf16
+rows of a multiple of 16 bytes (the padded cross K/V, the cache) stream in
+by TMA tile loads, rows of a multiple of 4 bytes by asynchronous word
+copies, any other T element by element. One launch per call of at most 32 queries: a thread-block
 cluster per (b, h) merges its blocks' softmax states (sm_90a). Longer
 query runs (a prompt's prefill, beams folded into the query axis) go
 through the same kernel in chunks of 32, one launch each; a causal chunk
@@ -46,13 +48,26 @@ KERNEL = CudaKernel(
     replaces="yoho_tpu/ops/decode_attention.py:140 _decode_attention_call")
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_INT8, _INT4, _FLOAT = 0, 1, 2
-# 64: whisper and the full-width YOHO model; 16, 32, 128: YOHO sessions,
-# whose K/V are floats (32 and 128 are built for float K/V only)
-_HEAD_DIMS = (16, 32, 64, 128)
-_INT_HEAD_DIMS = (16, 64)
+KINDS = ("int8", "int4", "float")  # the kernel's K/V kind codes 0, 1, 2
+# The instantiated head dims by K/V kind: 64 whisper and the full-width
+# YOHO model; 16, 32, 128 YOHO sessions, whose K/V are floats (32 and 128
+# are built for float K/V only). Every other multiple of 8 runs padded.
+WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
 MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def kernel_width(d: int, kind: str = "float") -> int:
+    """The instantiated width W the kernel runs head dim ``d`` at for K/V
+    of ``kind`` ("float", "int8" or "int4"): the smallest of
+    :data:`WIDTHS` that holds it. Raises ``ValueError`` for a head dim it
+    does not take (not a multiple of 8 from 8 to 128, or to 64 for integer
+    K/V)."""
+    widths = WIDTHS[kind]
+    if d % 8 or not 8 <= d <= widths[-1]:
+        raise ValueError(f"decode kernel head dim {d} not in 8, 16, ..., {widths[-1]} "
+                         f"(multiples of 8) for {kind} K/V")
+    return next(w for w in widths if w >= d)
 
 
 def is_row_pos(pos) -> bool:
@@ -150,24 +165,20 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     if q.dtype not in _QTYPES:
         raise TypeError(f"decode kernel takes f32 or bf16 q, got {q.dtype}")
     if packing == 2:
-        kind = _INT4
+        kind = "int4"
         if k.dtype != torch.uint8:
             raise TypeError(f"packed int4 K/V must be uint8, got {k.dtype}")
     elif k.dtype == torch.int8:
-        kind = _INT8
+        kind = "int8"
     elif k.dtype == q.dtype:
-        kind = _FLOAT
+        kind = "float"
     else:
         raise TypeError(f"decode kernel takes int8, packed int4 or {q.dtype} "
                         f"K/V, got {k.dtype}")
-    if (kind == _FLOAT) != (k_scale is None):
+    if (kind == "float") != (k_scale is None):
         raise ValueError("integer K/V need scales; float K/V take none")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"decode kernel head dim {d} not in {_HEAD_DIMS}")
-    if kind != _FLOAT and d not in _INT_HEAD_DIMS:
-        raise ValueError(f"decode kernel takes int8/int4 K/V at head dims "
-                         f"{_INT_HEAD_DIMS} only, got {d}")
-    if kind != _FLOAT and (k_scale.shape != (b, hkv, 1, t)
+    kernel_width(d, kind)
+    if kind != "float" and (k_scale.shape != (b, hkv, 1, t)
                            or k_scale.dtype != torch.bfloat16
                            or v_scale.shape != k_scale.shape
                            or v_scale.dtype != torch.bfloat16):
@@ -180,7 +191,7 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     # A per-row pos goes to the kernel as an int32 device pointer; the
     # scalar stays an int argument.
     pos_rows = pos.to(torch.int32).contiguous() if row_pos else None
-    KERNEL.launch(_QTYPES[q.dtype], kind, ptr(q), ptr(k), ptr(v),
+    KERNEL.launch(_QTYPES[q.dtype], KINDS.index(kind), ptr(q), ptr(k), ptr(v),
                   ptr(ks) if ks is not None else None,
                   ptr(vs) if vs is not None else None, ptr(out), b, hq,
                   hkv, s, d, t, kv_len, int(causal),

@@ -4,11 +4,14 @@ its plain PyTorch version.
 Counterpart of the JAX package's ``ops/flash_attention.py::
 flash_attention``. Same (B, S, H, D) layout and unscaled inputs: pass
 ``scale``. ``kv_len`` masks the keys at and past it (padded keys), as the
-TPU kernel's ``kv_len`` does. At head dim 64 bf16 runs on Hopper's wgmma
-fed by TMA (sm_90a), f32 on FMAs; head dims 16, 32 and 128 (YOHO
-sessions) run on FMAs in both types, and any other head dim raises. The wrapper
-takes the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+TPU kernel's ``kv_len`` does. The kernel takes every head dim D that is a
+multiple of 8 from 8 to 128, each at the smallest instantiated width W of
+16, 32, 64 and 128 that holds it (:func:`kernel_width`; zero-padded in
+shared memory). At W = 64 bf16 runs on Hopper's wgmma fed by TMA (sm_90a),
+f32 on FMAs; widths 16, 32 and 128 run on FMAs in both types
+(:func:`kernel_route`); any other head dim raises. The wrapper takes the
+plain version only for a tensor on the CPU; for a CUDA tensor it launches
+the kernel or raises.
 
 The gradient is the JAX package's: its ``custom_vjp`` backward is
 ``jax.vjp`` of the plain attention, a recompute, not a kernel. Here
@@ -33,9 +36,26 @@ KERNEL = CudaKernel(
     replaces="yoho_tpu/ops/flash_attention.py:116 _flash_forward_impl")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# 64: whisper and the full-width YOHO model; 16, 32, 128: YOHO sessions
-_HEAD_DIMS = (16, 32, 64, 128)
+# The instantiated head dims: 64 whisper and the full-width YOHO model;
+# 16, 32, 128 YOHO sessions. Every other multiple of 8 runs padded.
+WIDTHS = (16, 32, 64, 128)
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def kernel_width(d: int) -> int:
+    """The instantiated width W the kernel runs head dim ``d`` at: the
+    smallest of :data:`WIDTHS` that holds it, the same for both types.
+    Raises ``ValueError`` for a head dim it does not take (not a multiple
+    of 8 from 8 to 128)."""
+    if d % 8 or not 8 <= d <= WIDTHS[-1]:
+        raise ValueError(f"flash kernel head dim {d} not in 8, 16, ..., {WIDTHS[-1]} "
+                         f"(multiples of 8)")
+    return next(w for w in WIDTHS if w >= d)
+
+
+def kernel_route(d: int, dtype: torch.dtype) -> str:
+    """``"wgmma"`` (bf16 at width 64: wgmma fed by TMA) or ``"fma"``."""
+    return "wgmma" if kernel_width(d) == 64 and dtype == torch.bfloat16 else "fma"
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,8 +84,7 @@ def _forward(q, k, v, causal: bool, scale: float, kv_len: int) -> torch.Tensor:
         raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim {d} not in {_HEAD_DIMS}")
+    kernel_width(d)
     # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
     # starts mid-allocation is copied.
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
