@@ -40,7 +40,7 @@ Phases, one output line each (JSON after the phase name):
    read at spread positions), whose bound counts each row's valid prefix.
    The YOHO family's shapes (phase e2e-yoho): the log-mel of 16 windows of
    164,080 samples (scipy framing, HTK, 128 mels, 1,024 frames), encoder
-   attention (16, 512, 6, 64) on 3 KV heads expanded, the bf16 cross read
+   attention (16, 512, 6, 64) on 3 KV heads unexpanded, the bf16 cross read
    (T 512) and the causal bf16 self read (T 256, pos 200) at 6 query heads
    on 3 KV heads; then head dim 16 (the trained fixture's) at the fixture's
    shapes and at the full-width batch; SDPA with ``enable_gqa`` beside each
@@ -51,9 +51,13 @@ Phases, one output line each (JSON after the phase name):
    bf16 at S = 1, 4 and 32 with groups 1 and 2. Padded head dims (run at
    the smallest instantiated width that holds them): flash at the YOHO
    encoder shapes (16, 512, 8 on 4, 48) (the wgmma route at 64) and (16,
-   512, 4 on 2, 96) (FMAs at 128), the bf16 cross and self reads at 48 and
+   512, 4 on 2, 96) (wgmma at 128), the bf16 cross and self reads at 48 and
    the cross read at 96; the int8 cross read at D = 8 (the JAX dry run's
-   whisper, 4 heads; batch 16, T 1536, kv_len 1500).
+   whisper, 4 heads; batch 16, T 1536, kv_len 1500); flash checked
+   (untimed) at D = 8, 24, 72, 120 and 136 (FMAs at width 256), causal and
+   not. Every flash line names its route (``flash_route``) and ``width``;
+   bf16 k and v go to the kernel unexpanded, and the bound counts q, out
+   and those K/V bytes.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -551,6 +555,7 @@ def kernel_checks(card: str) -> dict:
     del audio, got
 
     # Kernel 2: encoder self-attention, (16, 1500, 12, 64) bf16, scale 1/8.
+    w64 = dict(flash_route=fa.kernel_route(64), width=fa.kernel_width(64))
     shape = (16, 1500, 12, 64)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -561,7 +566,7 @@ def kernel_checks(card: str) -> dict:
     err_c = check_close("flash causal", fa.flash_attention(q[:2], k[:2], v[:2], True, scale),
                         fa.attention_reference(q[:2], k[:2], v[:2], True, scale), 1e-2, 1e-2)
     emit("kernel", name=fa.KERNEL.name, case="causal 2x1500", max_abs_err=err_c,
-         tolerance="rtol 1e-2, atol 1e-2")
+         tolerance="rtol 1e-2, atol 1e-2", **w64)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -572,7 +577,7 @@ def kernel_checks(card: str) -> dict:
            time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
            time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
            4 * q.numel() * 2, {"bf16": flops}, time_ms(sdpa, 5, flush),
-           "rtol 1e-2, atol 1e-2")
+           "rtol 1e-2, atol 1e-2", **w64)
     del q, k, v
     # large-v3-turbo's encoder: 20 heads.
     q, k, v = (torch.randn((16, 1500, 20, 64), generator=gen, device=dev).to(torch.bfloat16)
@@ -583,7 +588,7 @@ def kernel_checks(card: str) -> dict:
            time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
            time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
            4 * q.numel() * 2, {"bf16": 4 * 16 * 20 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
-           "rtol 1e-2, atol 1e-2", main=False)
+           "rtol 1e-2, atol 1e-2", main=False, **w64)
     del q, k, v
     # whisper-tiny's encoder, the draft of phase e2e-spec: 6 heads.
     q, k, v = (torch.randn((16, 1500, 6, 64), generator=gen, device=dev).to(torch.bfloat16)
@@ -594,7 +599,7 @@ def kernel_checks(card: str) -> dict:
            time_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 5, flush),
            time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
            4 * q.numel() * 2, {"bf16": 4 * 16 * 6 * 1500 * 1500 * 64}, time_ms(sdpa, 5, flush),
-           "rtol 1e-2, atol 1e-2", main=False)
+           "rtol 1e-2, atol 1e-2", main=False, **w64)
     del q, k, v
     # The alignment pass of word timestamps (phase e2e-options): the
     # teacher-forced decoder's causal self-attention over 448 tokens and
@@ -618,7 +623,7 @@ def kernel_checks(card: str) -> dict:
                time_ms(lambda: fa.flash_attention(q, k, v, causal, scale), 20, flush),
                time_ms(lambda: fa.attention_reference(q, k, v, causal, scale), 5, flush),
                (q.numel() * 2 + k.numel() + v.numel()) * 2, {"bf16": 4 * 16 * 12 * pairs * 64},
-               time_ms(sdpa_tf, 20, flush), "rtol 1e-2, atol 1e-2", main=False)
+               time_ms(sdpa_tf, 20, flush), "rtol 1e-2, atol 1e-2", main=False, **w64)
         del q, k, v
 
     # Kernel 3: decode reads. Cross: int8 (16, 12, 64, 1536) padded from
@@ -796,7 +801,7 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
     """The YOHO serving path's kernel shapes (phase e2e-yoho): the full-width
     model at batch 16 (the log-mel of 16 windows of 164,080 samples, scipy
     framing, HTK, 128 mels, 1,024 frames; encoder attention (16, 512, 6, 64)
-    on 3 KV heads expanded; the bf16 cross read over 512 positions and the
+    on 3 KV heads, unexpanded; the bf16 cross read over 512 positions and the
     causal bf16 self read over 256 at pos 200, 6 query heads on 3 KV heads),
     then head dim 16 at the trained fixture's shapes (batch 3: encoder 32
     positions, 4 heads on 2; cross 32, cache 128), head dims 32 and 128,
@@ -834,17 +839,23 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
 
     def flash_case(label, bq, tq, tk, heads, kvh, d, causal, dtype=torch.bfloat16,
                    timed=True):
+        """k and v go to the kernel unexpanded (kvh heads); the bound counts
+        q, out and those K/V bytes, what SDPA's ``enable_gqa`` reads."""
         q = torch.randn((bq, tq, heads, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((bq, tk, kvh, d), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
-        ke, ve = (x.repeat_interleave(heads // kvh, dim=2) for x in (k, v))
         scale = d ** -0.5
         tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
-        err = check_close(f"flash {label}", fa.flash_attention(q, ke, ve, causal, scale),
-                          fa.attention_reference(q, ke, ve, causal, scale), tol, tol)
+        before = fa.KERNEL.launches
+        got = fa.flash_attention(q, k, v, causal, scale)
+        if fa.KERNEL.launches != before + 1:
+            raise AssertionError(f"flash {label}: the kernel did not launch")
+        err = check_close(f"flash {label}", got, fa.attention_reference(q, k, v, causal, scale),
+                          tol, tol)
+        route = dict(flash_route=fa.kernel_route(d, dtype), width=fa.kernel_width(d, dtype))
         if not timed:
             emit("kernel", name=fa.KERNEL.name, case=label, max_abs_err=err,
-                 tolerance=f"rtol {tol}, atol {tol}")
+                 tolerance=f"rtol {tol}, atol {tol}", **route)
             return
         pairs = tq * (tq + 1) // 2 if causal else tq * tk
 
@@ -853,10 +864,10 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                           is_causal=causal, scale=scale, enable_gqa=True)
 
         record(fa.KERNEL, label, err,
-               time_ms(lambda: fa.flash_attention(q, ke, ve, causal, scale), 20, flush),
-               time_ms(lambda: fa.attention_reference(q, ke, ve, causal, scale), 5, flush),
-               (q.numel() * 2 + ke.numel() * 2) * 2, {"bf16": 4 * bq * heads * pairs * d},
-               yardstick_ms(sdpa, flush), "rtol 1e-2, atol 1e-2", main=False)
+               time_ms(lambda: fa.flash_attention(q, k, v, causal, scale), 20, flush),
+               time_ms(lambda: fa.attention_reference(q, k, v, causal, scale), 5, flush),
+               (q.numel() + k.numel()) * 2 * 2, {"bf16": 4 * bq * heads * pairs * d},
+               yardstick_ms(sdpa, flush), "rtol 1e-2, atol 1e-2", main=False, **route)
 
     def decode_case(label, bq, heads, kvh, d, t, s, pos, dtype=torch.bfloat16, timed=True):
         qq = (torch.randn((bq, heads, s, d), generator=gen, device=dev) * d ** -0.5
@@ -896,7 +907,7 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
     decode_case("yoho cross bf16 S=1, 6 on 3 heads (T 512)", 16, 6, 3, 64, 512, 1, None)
     decode_case("yoho self bf16 S=1 causal pos=200, 6 on 3 heads (T 256)", 16, 6, 3, 64, 256,
                 1, 200)
-    # Head dim 16 (FMA routes), the trained fixture at batch 3.
+    # Head dim 16 (the wgmma route at width 16), the trained fixture at batch 3.
     flash_case("D=16 fixture encoder 3x32x4x16 on 2 KV heads, bf16", 3, 32, 32, 4, 2, 16,
                False)
     flash_case("D=16 fixture decoder causal 3x16x4x16, bf16", 3, 16, 16, 4, 2, 16, True)
@@ -915,7 +926,8 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
     flash_case("yoho train decoder cross 16x256x512x6x64 on 3 KV heads, bf16", 16, 256, 512,
                6, 3, 64, False)
     # Head dims 32 (dims 384 on 12 heads, 6 KV heads) and 128 (dims 512 on 4
-    # heads, 2 KV heads): the FMA flash route, float K/V in decode attention.
+    # heads, 2 KV heads): the wgmma flash route at widths 32 and 128 (f32 on
+    # FMAs), float K/V in decode attention.
     for d, heads in ((32, 12), (128, 4)):
         kvh = heads // 2
         flash_case(f"D={d} encoder 16x512x{heads}x{d} on {kvh} KV heads, bf16", 16, 512, 512,
@@ -938,12 +950,19 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                 for g in (1, 2):
                     decode_case(f"D={d} {str(dtype)[6:]} S={s_} pos={pos} groups {g} (T 256)",
                                 4, 2 * g, 2, d, 256, s_, pos, dtype, timed=False)
-    # Padded head dims, dims 384 on 8 heads (48: the wgmma route, TMA
-    # zero-filling columns 48-63) and on 4 heads (96: FMAs at width 128).
+    # Padded head dims, dims 384 on 8 heads (48: the wgmma route at width 64,
+    # TMA zero-filling columns 48-63) and on 4 heads (96: wgmma at width 128).
     flash_case("D=48 encoder 16x512x8x48 on 4 KV heads, bf16 (width 64)", 16, 512, 512, 8, 4,
                48, False)
     flash_case("D=96 encoder 16x512x4x96 on 2 KV heads, bf16 (width 128)", 16, 512, 512, 4, 2,
                96, False)
+    # Checks (untimed) at every width's padded head dims (8 at 16, 24 at 32,
+    # 72 and 120 at 128) and at 136, which TMA cannot take (FMAs at width
+    # 256), causal and not, grouped.
+    for d in (8, 24, 72, 120, 136):
+        for causal in (False, True):
+            flash_case(f"D={d} {'causal ' if causal else ''}4x300x6x{d} on 2 KV heads, bf16",
+                       4, 300, 300, 6, 2, d, causal, timed=False)
     decode_case("D=48 cross bf16 S=1, 8 on 4 heads (T 512; width 64)", 16, 8, 4, 48, 512, 1,
                 None)
     decode_case("D=48 self bf16 S=1 causal pos=200, 8 on 4 heads (T 256; width 64)", 16, 8, 4,
@@ -5073,7 +5092,8 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     per_source = _build.build()
-    emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
+    emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
+         flash_attention_cu_s=per_source.get("flash_attention.cu"))
 
     kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
                w8a8_dense.KERNEL]

@@ -1,12 +1,16 @@
 """The head dims the port's attention kernels take, on the CPU.
 
-Both kernels take every head dim D that is a multiple of 8 from 8 to 128
-(64 for int8 and int4 K/V), each at the smallest instantiated width W >= D.
-``kernel_width`` of each ops module is the one statement of that set: the
-wrappers call it before a launch, the models at construction on a CUDA
-device, ``doctor --session`` for its rows. The kernels themselves run only
-on the card (``tests/test_torch_kernels_cuda.py``); on the CPU every
-wrapper runs its plain version, which takes any head dim.
+Flash takes every head dim D from 1 to 256: bf16 at a multiple of 8 up to
+128 on the wgmma route at the smallest of widths 16, 32, 64 and 128 that
+holds D; f32, and every other bf16 head dim, on the FMA route at the
+smallest of 16, 32, 64, 128 and 256. Decode takes any D up to 128 for
+float K/V and a multiple of 8 up to 64 for int8 and int4, at the smallest
+instantiated width W >= D. ``kernel_width`` (and flash's ``kernel_route``)
+of each ops module is the one statement of that set: the wrappers call it
+before a launch, the models at construction on a CUDA device, ``doctor
+--session`` for its rows. The kernels themselves run only on the card
+(``tests/test_torch_kernels_cuda.py``); on the CPU every wrapper runs its
+plain version, which takes any head dim.
 """
 
 import json
@@ -23,45 +27,52 @@ from yoho_tpu_torch.nn.yoho import YOHOModel
 from yoho_tpu_torch.ops import decode_attention, flash_attention
 
 SESSIONS = Path(__file__).parent / "fixtures" / "sessions"
-# The instantiated widths of each kernel and K/V kind (csrc/*.cu), and the
-# route each existing width runs today.
-FLASH_WIDTHS = (16, 32, 64, 128)
+# The instantiated widths of each kernel, route and K/V kind (csrc/*.cu),
+# and the route each width runs today.
+WGMMA_WIDTHS = (16, 32, 64, 128)
+FMA_WIDTHS = (16, 32, 64, 128, 256)
 DECODE_WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
 TODAY = {(16, torch.float32): "fma", (32, torch.float32): "fma", (64, torch.float32): "fma",
-         (128, torch.float32): "fma", (16, torch.bfloat16): "fma",
-         (32, torch.bfloat16): "fma", (64, torch.bfloat16): "wgmma",
-         (128, torch.bfloat16): "fma"}
+         (128, torch.float32): "fma", (256, torch.float32): "fma",
+         (16, torch.bfloat16): "wgmma", (32, torch.bfloat16): "wgmma",
+         (64, torch.bfloat16): "wgmma", (128, torch.bfloat16): "wgmma",
+         (256, torch.bfloat16): "fma"}
 
 
-def _expected(d, widths):
+def _expected(d, widths, multiple=1, low=1):
     """The smallest width holding d, or None where the set refuses d."""
-    if d % 8 or d < 8 or d > widths[-1]:
+    if d % multiple or d < low or d > widths[-1]:
         return None
     return min(w for w in widths if w >= d)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_width_table(dtype):
-    for d in range(1, 161):
-        want = _expected(d, FLASH_WIDTHS)
-        if want is None:
-            with pytest.raises(ValueError, match=f"head dim {d} "):
-                flash_attention.kernel_width(d)
+    for d in range(1, 301):
+        if d > 256:
+            for fn in (flash_attention.kernel_width, flash_attention.kernel_route):
+                with pytest.raises(ValueError, match=f"head dim {d} "):
+                    fn(d, dtype)
             continue
-        assert flash_attention.kernel_width(d) == want, d
-        route = flash_attention.kernel_route(d, dtype)
-        assert route == ("wgmma" if want == 64 and dtype == torch.bfloat16 else "fma"), d
-    for w in FLASH_WIDTHS:  # the existing widths map to themselves, on today's routes
-        assert flash_attention.kernel_width(w) == w
+        wgmma = dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+        want = _expected(d, WGMMA_WIDTHS if wgmma else FMA_WIDTHS)
+        assert flash_attention.kernel_route(d, dtype) == ("wgmma" if wgmma else "fma"), d
+        assert flash_attention.kernel_width(d, dtype) == want, d
+    for w in FMA_WIDTHS:  # the widths map to themselves, on today's routes
+        assert flash_attention.kernel_width(w, dtype) == w
         assert flash_attention.kernel_route(w, dtype) == TODAY[(w, dtype)]
+    # Sessions serve in bf16: the default type.
+    assert flash_attention.kernel_route(16) == "wgmma"
+    assert flash_attention.kernel_width(12) == 16
 
 
 @pytest.mark.parametrize("kind", ["float", "int8", "int4"])
 def test_decode_kernel_width_table(kind):
     widths = DECODE_WIDTHS[kind]
+    rule = dict(multiple=1, low=1) if kind == "float" else dict(multiple=8, low=8)
     assert decode_attention.WIDTHS[kind] == widths
-    for d in range(1, 161):
-        want = _expected(d, widths)
+    for d in range(1, 301):
+        want = _expected(d, widths, **rule)
         if want is None:
             with pytest.raises(ValueError, match=f"head dim {d} .*{kind} K/V"):
                 decode_attention.kernel_width(d, kind)
@@ -69,22 +80,24 @@ def test_decode_kernel_width_table(kind):
             assert decode_attention.kernel_width(d, kind) == want, d
     for w in widths:
         assert decode_attention.kernel_width(w, kind) == w
-    accepted = [d for d in range(1, 161) if _expected(d, widths) is not None]
-    assert accepted == list(range(8, widths[-1] + 1, 8))
+    accepted = [d for d in range(1, 301) if _expected(d, widths, **rule) is not None]
+    assert accepted == (list(range(1, 129)) if kind == "float"
+                        else list(range(8, widths[-1] + 1, 8)))
 
 
 def test_models_check_head_dims_on_cuda_only():
     """The construction check: a CUDA device refuses a stack outside the
-    set, naming it and its head dim; the CPU takes any head dim (a model at
-    D = 12 builds there)."""
+    set, naming it and its head dim (past 128 decode refuses it, past 256
+    flash too); the CPU takes any head dim (a model at D = 12 builds there,
+    and so it does on CUDA now)."""
     cuda = torch.device("cuda")  # a device object only: nothing is allocated
-    with pytest.raises(ValueError, match="encoder: flash kernel head dim 12 "):
-        check_head_dims({"encoder": 12, "decoder": 48}, cuda)
-    with pytest.raises(ValueError, match="decoder: flash kernel head dim 136 "):
+    with pytest.raises(ValueError, match="encoder: flash kernel head dim 264 "):
+        check_head_dims({"encoder": 264, "decoder": 48}, cuda)
+    with pytest.raises(ValueError, match="decoder: decode kernel head dim 136 "):
         check_head_dims({"encoder": 8, "decoder": 136}, cuda)
-    for d in (8, 24, 48, 96, 128):
+    for d in (8, 12, 24, 48, 96, 100, 128):
         check_head_dims({"encoder": d, "decoder": d}, cuda)
-    check_head_dims({"encoder": 12, "decoder": 136}, torch.device("cpu"))
+    check_head_dims({"encoder": 264, "decoder": 136}, torch.device("cpu"))
     yoho = YOHOModel(YOHOConfig(n_mel_bands=16, max_audio_len=32, max_text_len=12, dims=48,
                                 n_audio_heads=4, n_audio_blocks=1, n_text_heads=4,
                                 n_text_blocks=1), 64, voiceprint_dim=32, device="cpu")
@@ -112,24 +125,31 @@ def test_doctor_session_head_dim_rows(tmp_path, capsys):
     width; FAIL outside the set when CUDA is present, warn without it."""
     _session(tmp_path, "d48", 384, 8, 4)    # D 48 and D 96
     _session(tmp_path, "d12", 48, 4, 2)     # D 12 and D 24
+    _session(tmp_path, "d136", 272, 2, 4)   # D 136 and D 68
     rows = {n: (st, det) for n, st, det in doctor._check_head_dims("d48", str(tmp_path), True)}
     assert rows == {
-        "session:head_dim.encoder": ("ok", "D 48: flash wgmma, padded to 64; decode padded "
-                                           "to 64"),
-        "session:head_dim.decoder": ("ok", "D 96: flash fma, padded to 128; decode padded "
-                                           "to 128")}
+        "session:head_dim.encoder": ("ok", "D 48: flash wgmma padded to width 64; decode "
+                                           "padded to width 64"),
+        "session:head_dim.decoder": ("ok", "D 96: flash wgmma padded to width 128; decode "
+                                           "padded to width 128")}
     tiny = doctor._check_head_dims("tiny", str(SESSIONS), True)
-    assert [r[2] for r in tiny] == ["D 16: flash fma, at 16; decode at 16"] * 2
+    assert [r[2] for r in tiny] == ["D 16: flash wgmma at width 16; decode at width 16"] * 2
     rows = {n: (st, det) for n, st, det in doctor._check_head_dims("d12", str(tmp_path), True)}
+    assert rows == {
+        "session:head_dim.encoder": ("ok", "D 12: flash fma padded to width 16; decode "
+                                           "padded to width 16"),
+        "session:head_dim.decoder": ("ok", "D 24: flash wgmma padded to width 32; decode "
+                                           "padded to width 32")}
+    rows = {n: (st, det) for n, st, det in doctor._check_head_dims("d136", str(tmp_path), True)}
     assert rows["session:head_dim.encoder"][0] == "FAIL"
-    assert "D 12 (dims 48 / 4 heads): flash kernel head dim 12 " in \
+    assert "D 136 (dims 272 / 2 heads): decode kernel head dim 136 " in \
         rows["session:head_dim.encoder"][1]
-    assert rows["session:head_dim.decoder"] == ("ok", "D 24: flash fma, padded to 32; decode "
-                                                      "padded to 32")
-    cpu = dict((n, st) for n, st, _ in doctor._check_head_dims("d12", str(tmp_path), False))
+    assert rows["session:head_dim.decoder"] == ("ok", "D 68: flash fma padded to width 128; "
+                                                      "decode padded to width 128")
+    cpu = dict((n, st) for n, st, _ in doctor._check_head_dims("d136", str(tmp_path), False))
     assert cpu["session:head_dim.encoder"] == "warn"
     assert doctor._check_head_dims("nope", str(tmp_path), True) == []
-    assert doctor.main(["--json", "--no-devices", "--session", "d12", "--root",
+    assert doctor.main(["--json", "--no-devices", "--session", "d136", "--root",
                         str(tmp_path)]) == 0
     out = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert {r["check"]: r["status"] for r in out}["session:head_dim.encoder"] == "warn"

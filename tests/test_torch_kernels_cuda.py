@@ -464,8 +464,8 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     k = torch.zeros((1, 2, 64, 16), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         decode_attention.fused_decode_attention(q, k, k)
-    with pytest.raises(ValueError):
-        flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 12), device="cuda")
+    with pytest.raises(ValueError):  # head dim past 256
+        flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 264), device="cuda")
                                           for _ in range(3)))
     w_q = torch.zeros((8, 48), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):  # K % 32 != 0
@@ -585,7 +585,7 @@ def _flat(tree, prefix=""):
     (False, 32, 32, None, 4), (True, 16, 16, None, 4), (False, 16, 32, None, 4),
     (False, 300, 300, 129, 3), (True, 256, 256, 200, 2), (False, 1500, 1500, None, 6)])
 def test_flash_kernel_head_dim_16(gen, dtype, causal, tq, t, kv_len, heads):
-    """Head dim 16 on FMAs in both types: the fixture's encoder (32
+    """Head dim 16 (bf16 on wgmma at width 16, f32 on FMAs): the fixture's encoder (32
     positions), its teacher-forced causal and cross passes, kv_len inside a
     tile, and a long ragged sequence."""
     q, k, v = (torch.randn((3, n, heads, 16), generator=gen, device="cuda").to(dtype)
@@ -640,7 +640,7 @@ def test_decode_kernel_head_dim_16_per_row_pos(gen):
 
 # -------------------------------------------------------- head dims 32, 128
 # YOHO sessions of dims 384 on 12 heads (32) or 512 on 4 heads (128): the
-# FMA flash route in both types, float K/V in the decode kernel.
+# flash kernel (bf16 on wgmma, f32 on FMAs), float K/V in the decode kernel.
 
 @pytest.mark.parametrize("d", [32, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -648,7 +648,7 @@ def test_decode_kernel_head_dim_16_per_row_pos(gen):
     (False, 512, 512, None, 4), (True, 256, 256, None, 4), (False, 256, 512, None, 2),
     (False, 300, 300, 129, 3), (True, 256, 256, 200, 2), (False, 77, 77, None, 3)])
 def test_flash_kernel_head_dims_32_128(gen, d, dtype, causal, tq, t, kv_len, heads):
-    """Head dims 32 and 128 on FMAs: the YOHO encoder (512), teacher-forced
+    """Head dims 32 and 128 (bf16 on wgmma): the YOHO encoder (512), teacher-forced
     causal (256) and cross (256 x 512) passes, kv_len inside a tile, ragged
     lengths."""
     q, k, v = (torch.randn((3, n, heads, d), generator=gen, device="cuda").to(dtype)
@@ -704,40 +704,133 @@ def test_decode_kernel_head_dims_32_128_per_row_pos(gen, d, q_dtype, s):
 
 def test_other_head_dims_raise(gen):
     """Head dims outside the kernels' set raise on the card, never fall
-    back: 136 (past 128), bf16 12 (not a multiple of 8), and int8 / int4
-    K/V at 96 (past 64); and a model whose head dim is outside it is
-    refused at construction."""
+    back: flash past 256 (264), decode past 128 (136), and int8 / int4 K/V
+    at 96 (past 64) and at 12 (not a multiple of 8); and a model whose head
+    dim is outside it is refused at construction."""
     from yoho_tpu_torch.core.config import WhisperConfig, YOHOConfig
     from yoho_tpu_torch.nn.whisper import Whisper
     from yoho_tpu_torch.nn.yoho import YOHOModel
 
-    for d in (136, 12):
-        q = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
-        k = torch.zeros((1, 2, d, 128), device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            decode_attention.fused_decode_attention(q, k, k)
-        x = torch.zeros((1, 8, 2, d), device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match=f"head dim {d}"):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 8, 2, 264), device="cuda", dtype=dtype)
+        with pytest.raises(ValueError, match="head dim 264"):
             flash_attention.flash_attention(x, x, x)
-    kf = torch.randn((1, 2, 96, 128), device="cuda").to(torch.bfloat16)
-    qd = torch.zeros((1, 2, 1, 96), device="cuda", dtype=torch.bfloat16)
-    for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
-        qkv = quant(kf, kf)
-        with pytest.raises(ValueError, match="head dim 96"):
-            decode_attention.fused_decode_attention(
-                qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
-    with pytest.raises(ValueError, match="encoder: flash kernel head dim 12"):
-        YOHOModel(YOHOConfig(dims=48, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
-    with pytest.raises(ValueError, match="decoder: flash kernel head dim 136"):
-        Whisper(WhisperConfig(n_audio_state=32, n_audio_head=4, n_text_state=272,
+        q = torch.zeros((1, 2, 1, 136), device="cuda", dtype=dtype)
+        k = torch.zeros((1, 2, 136, 128), device="cuda", dtype=dtype)
+        with pytest.raises(ValueError, match="head dim 136"):
+            decode_attention.fused_decode_attention(q, k, k)
+    for d in (96, 12):
+        kf = torch.randn((1, 2, d, 128), device="cuda").to(torch.bfloat16)
+        qd = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
+        for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
+            qkv = quant(kf, kf)
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                decode_attention.fused_decode_attention(
+                    qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
+    with pytest.raises(ValueError, match="encoder: decode kernel head dim 136"):
+        YOHOModel(YOHOConfig(dims=544, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
+    with pytest.raises(ValueError, match="decoder: flash kernel head dim 264"):
+        Whisper(WhisperConfig(n_audio_state=32, n_audio_head=4, n_text_state=528,
                               n_text_head=2), device="cuda")
 
 
+# ------------------------------------------- wgmma at widths 16, 32 and 128
+# bf16 at every multiple of 8 up to 128 runs wgmma + TMA at the width 16,
+# 32, 64 or 128 that holds it, grouped K/V read once per KV head: each
+# width at its own head dim and a padded one, groups 1, 2 and 3.
+
+WGMMA_DIMS = (8, 16, 24, 32, 72, 96, 120, 128)
+
+
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("causal,tq,t,kv_len", [
+    (False, 300, 300, None), (True, 300, 300, None), (False, 300, 300, 129),
+    (True, 256, 256, 200), (False, 6, 1500, None), (False, 1500, 1500, None)])
+def test_flash_kernel_wgmma_widths(gen, d, groups, causal, tq, t, kv_len):
+    """The wgmma route at every width: causal and not, kv_len inside a
+    tile, Tq != Tk, the ragged T = 1500, 2 KV heads for 2, 4 or 6 query
+    heads."""
+    assert flash_attention.kernel_route(d, torch.bfloat16) == "wgmma"
+    q = torch.randn((2, tq, 2 * groups, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((2, t, 2, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    assert got.shape == q.shape
+    want = flash_attention.attention_reference(q, k, v, causal, d ** -0.5, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+@pytest.mark.parametrize("groups", [1, 3])
+def test_flash_kernel_wgmma_unaligned_view(gen, d, groups):
+    """A q view that starts 2 bytes into its allocation (copied for TMA's
+    16-byte bases), and K as the first d dims of a wider tensor (not
+    contiguous), grouped."""
+    h = 2 * groups
+    base = torch.randn((2 * 300 * h * d + 1,), generator=gen, device="cuda").to(torch.bfloat16)
+    q = base[1:].view(2, 300, h, d)
+    wide = torch.randn((2, 300, 2, d + 8), generator=gen, device="cuda").to(torch.bfloat16)
+    k = wide[..., :d]
+    v = torch.randn((2, 300, 2, d), generator=gen, device="cuda").to(torch.bfloat16)
+    got = flash_attention.flash_attention(q, k, v)
+    want = flash_attention.attention_reference(q, k, v, False, d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("d", [12, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("causal,tq,t,kv_len", [
+    (False, 300, 300, None), (True, 256, 256, 200), (False, 77, 512, None)])
+def test_flash_kernel_fma_head_dims(gen, d, dtype, groups, causal, tq, t, kv_len):
+    """The head dims TMA cannot take run FMAs in both types: 12 (not a
+    multiple of 8) at width 16, 136 and 256 at width 256."""
+    assert flash_attention.kernel_route(d, dtype) == "fma"
+    q = torch.randn((2, tq, 2 * groups, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, t, 2, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = flash_attention.attention_reference(q, k, v, causal, d ** -0.5, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [12, 100])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("s,pos", [(1, None), (4, None), (32, 100), (1, "rows")])
+@pytest.mark.parametrize("t,kv_len", [(256, 256), (333, 300), (1500, 1500)])
+def test_decode_kernel_float_kv_any_head_dim(gen, d, q_dtype, groups, s, pos, t, kv_len):
+    """Float K/V at head dims that are not a multiple of 8 (12 at width 16,
+    100 at width 128): every query instantiation, every load branch, scalar
+    and per-row positions."""
+    if pos == "rows":
+        pos = torch.tensor([0, kv_len - s], dtype=torch.int32, device="cuda")
+    elif pos is not None and pos + s > kv_len:
+        pos = kv_len - s
+    k, v = (torch.randn((2, 2, d, t), generator=gen, device="cuda").to(q_dtype)
+            for _ in range(2))
+    q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
+         ).to(q_dtype)
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
+                                                  groups=groups)
+    assert decode_attention.KERNEL.launches == before + 1
+    want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
+                                                       groups=groups)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
 # ------------------------------------------------------ padded head dims
-# Every other multiple of 8 up to 128 (64 for int8 and int4 K/V) runs at
-# the smallest instantiated width that holds it: global rows of D, shared
-# memory zero-padded to the width. bf16 D = 40-56 is the wgmma route with
-# TMA zero-filling the columns past D.
+# Every other head dim runs at the smallest instantiated width that holds
+# it: global rows of D, shared memory zero-padded to the width. On the
+# wgmma route TMA zero-fills the columns past D.
 
 PADDED_DIMS = (8, 24, 40, 48, 56, 80, 96, 120)
 
@@ -865,14 +958,18 @@ def test_mel_kernel_yoho_window(gen):
 
 def test_flash_kernel_yoho_encoder_gqa(gen):
     """The full-width YOHO encoder's attention: (16, 512, 6, 64) queries on
-    3 KV heads expanded as the model expands them (head h reads KV head
-    h // 2), bf16 on wgmma."""
+    3 KV heads, unexpanded as the model hands them over (head h reads KV
+    head h // 2), bf16 on wgmma; bit for bit the kernel on the expanded
+    copies."""
     q = torch.randn((16, 512, 6, 64), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((16, 512, 3, 64), generator=gen, device="cuda")
-            .to(torch.bfloat16).repeat_interleave(2, dim=2) for _ in range(2))
+    k, v = (torch.randn((16, 512, 3, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
     got = flash_attention.flash_attention(q, k, v, scale=0.125)
     want = flash_attention.attention_reference(q, k, v, False, 0.125)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    expanded = flash_attention.flash_attention(q, k.repeat_interleave(2, dim=2),
+                                               v.repeat_interleave(2, dim=2), scale=0.125)
+    assert torch.equal(got, expanded)
 
 
 @pytest.mark.parametrize("t,pos", [(512, None), (256, 200)])

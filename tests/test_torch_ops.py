@@ -158,15 +158,27 @@ def test_decode_attention_rejects_bad_shapes():
         tda.fused_decode_attention(q, k, k, s, None)
 
 
-@pytest.mark.parametrize("causal,tq,tk", [
-    (False, 256, 256), (False, 300, 300), (False, 128, 384),
-    (True, 256, 256), (True, 300, 300)])
-def test_flash_forward_matches_jax(causal, tq, tk):
+@pytest.mark.parametrize("causal,tq,tk,h,hkv,d", [
+    pytest.param(False, 256, 256, 2, 2, 64, id="False-256-256"),
+    pytest.param(False, 300, 300, 2, 2, 64, id="False-300-300"),
+    pytest.param(False, 128, 384, 2, 2, 64, id="False-128-384"),
+    pytest.param(True, 256, 256, 2, 2, 64, id="True-256-256"),
+    pytest.param(True, 300, 300, 2, 2, 64, id="True-300-300"),
+    # Grouped K/V: the port gets Hkv heads, JAX their repeated copies.
+    pytest.param(False, 300, 300, 4, 2, 64, id="gqa2-False-300-300"),
+    pytest.param(True, 256, 256, 6, 2, 32, id="gqa3-True-256-256-d32"),
+    pytest.param(False, 128, 384, 6, 3, 16, id="gqa2-False-128-384-d16"),
+    # Head dims the kernel runs on FMAs only: not a multiple of 8, past 128.
+    pytest.param(False, 300, 300, 4, 2, 12, id="gqa2-False-300-300-d12"),
+    pytest.param(True, 256, 256, 3, 1, 136, id="gqa3-True-256-256-d136")])
+def test_flash_forward_matches_jax(causal, tq, tk, h, hkv, d):
     g = np.random.default_rng(0)
-    b, h, d = 2, 2, 64
-    q, k, v = (g.standard_normal((b, n, h, d)).astype(np.float32) for n in (tq, tk, tk))
-    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                causal=causal, block_q=128, block_k=128))
+    b = 2
+    q = g.standard_normal((b, tq, h, d)).astype(np.float32)
+    k, v = (g.standard_normal((b, tk, hkv, d)).astype(np.float32) for _ in range(2))
+    kj, vj = (jnp.asarray(np.repeat(x, h // hkv, axis=2)) for x in (k, v))
+    want = np.asarray(jax_flash(jnp.asarray(q), kj, vj, causal=causal, block_q=128,
+                                block_k=128))
     got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5)
 

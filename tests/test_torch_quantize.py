@@ -531,8 +531,9 @@ def test_quality_lane_wer_matches_recorded(quality, lane, one_thread):
 
 
 def test_w8a8_plain_product_is_integer_arithmetic_on_the_cpu():
-    """The plain version's product of the int8 codes runs in int32 on the
-    CPU, never through a floating-point GEMM: the tier-1 failure of the
+    """The plain version's product of the int8 codes runs in integer
+    arithmetic on the CPU (int8 operands, int32 sums), never through a
+    floating-point GEMM: the tier-1 failure of the
     test above came from a multithreaded float64 GEMM that returned
     non-integer sums for a block of rows (ROADMAP Queue 3). The products
     are recorded by the dispatcher, and the output stays bit-identical
@@ -550,7 +551,8 @@ def test_w8a8_plain_product_is_integer_arithmetic_on_the_cpu():
             self.seen = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.__name__.split(".")[0] in ("mm", "addmm", "bmm", "matmul", "dot"):
+            if func.__name__.split(".")[0] in ("mm", "addmm", "bmm", "matmul", "dot",
+                                               "_int_mm"):
                 self.seen.append((func.__name__, [a.dtype for a in args
                                                   if isinstance(a, torch.Tensor)]))
             return func(*args, **(kwargs or {}))
@@ -561,7 +563,8 @@ def test_w8a8_plain_product_is_integer_arithmetic_on_the_cpu():
 
     with Products() as rec:
         want = call()
-    assert rec.seen and all(d == [torch.int32, torch.int32] for _, d in rec.seen), rec.seen
+    assert rec.seen and all(d in ([torch.int32, torch.int32], [torch.int8, torch.int8])
+                            for _, d in rec.seen), rec.seen
 
     stop = threading.Event()
 

@@ -64,22 +64,29 @@ def _f32(x):
 
 
 # ------------------------------------------------------------ flash gradient
-@pytest.mark.parametrize("case", ["self", "causal", "cross_padded"])
+@pytest.mark.parametrize("case", ["self", "causal", "cross_padded", "gqa_causal"])
 def test_flash_gradient_matches_jax_vjp(case):
     """dq, dk, dv of a weighted sum of the output; the padded cross case
     masks keys from ``kv_len`` on in the port and hands JAX the first
-    ``kv_len`` keys (the masked keys get zero gradient)."""
+    ``kv_len`` keys (the masked keys get zero gradient). The grouped case
+    gives the port 2 KV heads for 6 query heads and JAX their repeated
+    copies (``jnp.repeat`` inside the differentiated function): dk and dv
+    come back in the unrepeated shape, summed over each group."""
     g = np.random.default_rng(3)
     b, h, d = 2, 2, 64
     tq, tk, kv_len = {"self": (160, 160, None), "causal": (160, 160, None),
-                      "cross_padded": (96, 200, 150)}[case]
-    causal = case == "causal"
+                      "cross_padded": (96, 200, 150), "gqa_causal": (160, 160, None)}[case]
+    causal = case in ("causal", "gqa_causal")
+    hkv = h
+    if case == "gqa_causal":
+        h, hkv, d = 6, 2, 32
     q = g.standard_normal((b, tq, h, d)).astype(np.float32)
-    k, v = (g.standard_normal((b, tk, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (g.standard_normal((b, tk, hkv, d)).astype(np.float32) for _ in range(2))
     w = g.standard_normal((b, tq, h, d)).astype(np.float32)
     n = tk if kv_len is None else kv_len
 
     def jax_loss(q, k, v):
+        k, v = (jnp.repeat(x, h // hkv, axis=2) for x in (k, v))
         out = jax_flash(q, k, v, causal=causal, block_q=128, block_k=128)
         return jnp.sum(out * w)
 
@@ -92,7 +99,8 @@ def test_flash_gradient_matches_jax_vjp(case):
     for name, a, b_ in zip("qkv", got, want):
         a = a.numpy()
         np.testing.assert_allclose(a[:, :n] if name != "q" else a, np.asarray(b_),
-                                   atol=1e-4, err_msg=f"d{name}")
+                                   atol=2e-5 if case == "gqa_causal" else 1e-4,
+                                   err_msg=f"d{name}")
         if name != "q":
             assert not a[:, n:].any(), f"masked keys got a d{name}"
 

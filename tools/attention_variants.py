@@ -4,24 +4,33 @@
     python3 tools/attention_variants.py [--parent DIR]
 
 Builds ``yoho_tpu_torch/csrc/flash_attention.cu`` and ``decode_attention.cu``
-once per variant below, each with some of its constants replaced (one
+once per variant below, each with some of its constants or expressions
+replaced (one
 ``nvcc`` per variant, all started together, into
 ``yoho_tpu_torch/_build/variants/``); with ``--parent DIR`` also the two
 sources of another checkout (an earlier tree unpacked there, built against
-its own headers, with the C entry points of this one), so that two trees
-are compared on one card in one run. The parent's kernels are first held to
-the shipped ones bit for bit at the instantiated head dims (16, 32, 64,
-128; flash in f32 and bf16, causal or not, ``kv_len`` inside a tile, Tq !=
-Tk; decode over float, int8 and int4 K/V at every width each kind has, S =
-1, 4 and 32, no / scalar / per-row ``pos``, groups 1 and 2, every load
-branch): one line per kernel counts the cases, and the exit code is 1 if
+its own headers and called through its own C entry points: a flash entry
+point without the KV-head count gets K/V repeated to the query heads), so
+that two trees are compared on one card in one run. The parent's kernels
+are first held to the shipped ones bit for bit where the route did not
+change: flash in f32 at widths 16, 32, 64 and 128 and in bf16 at width 64,
+equal heads, causal or not, ``kv_len`` inside a tile, Tq != Tk; decode over
+float, int8 and int4 K/V at every width each kind has (D = W), S = 1, 4
+and 32, no / scalar / per-row ``pos``, groups 1 and 2, every load branch.
+Where the route did change (bf16 flash at widths 16, 32 and 128, now on
+wgmma), the shipped kernel is held to the plain version instead, at the
+same cases. One line per kernel counts the cases, and the exit code is 1 if
 any differs. Each variant is held to the plain version (``chip_smoke.py``'s
 tolerances) and timed with ``chip_smoke.py``'s ``time_ms`` (device time,
-L2 flushed between calls) at the main paths' shapes and the YOHO head dims
-16, 32 and 128, in turns: every variant once forward and once backward a
-round, three rounds, and the median is printed. One JSON line per case;
-the first line is the card's name and power limit. Needs CUDA; imports no
-JAX.
+L2 flushed between calls) at the main paths' shapes and the YOHO shapes
+(head dims 16, 32, 48, 64, 96 and 128 on grouped K/V, which this tree's
+kernels read unexpanded), in turns: every variant once forward and once
+backward a round, three rounds, and the median is printed. "flash padded
+to width 64" runs bf16 head dims 8-32 on the width-64 route, TMA
+zero-filling the columns past D; "2 (3) consumer warpgroups" runs every
+launch at widths 16-64 on two (three) instead of the count ``pick_nwg``
+chooses. One JSON line per case; the first line
+is the card's name and power limit. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,11 +47,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# name -> (source, constants to replace); "shipped" replaces none.
+# The shipped width selection of the flash wgmma route, and the Geo lines
+# that give width 128 its stages and Q buffers.
+_FLASH_WIDTHS = "D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128"
+_FLASH_ST = "ST = STAGES;"
+_FLASH_QB = "QB = W == 128 ? 1 : QBUF;"
+
+# name -> (source, replacements); "shipped" replaces nothing. A key that is a
+# name replaces that constant's value; any other key is text, replaced once.
 VARIANTS = {
     "flash shipped": ("flash_attention.cu", {}),
     "flash 2 consumer warpgroups": ("flash_attention.cu", {"NWG": 2}),
-    "flash 4 stages": ("flash_attention.cu", {"STAGES": 4}),
+    "flash 3 consumer warpgroups": ("flash_attention.cu", {"NWG_ALT": 3}),
+    "flash 4 stages": ("flash_attention.cu", {_FLASH_ST: "ST = W == 128 ? STAGES : 4;"}),
+    "flash padded to width 64": ("flash_attention.cu",
+                                 {_FLASH_WIDTHS: "D <= 64 ? 64 : 128"}),
+    "flash width 128: 2 Q buffers, 2 stages": (
+        "flash_attention.cu", {_FLASH_ST: "ST = W == 128 ? 2 : STAGES;",
+                               _FLASH_QB: "QB = W == 128 ? 2 : QBUF;"}),
     "decode shipped": ("decode_attention.cu", {}),
     "decode 2 stages": ("decode_attention.cu", {"STAGES": 2}),
     "decode 8 warps (128-position chunks)": ("decode_attention.cu", {"WARPS": 8}),
@@ -50,14 +72,22 @@ VARIANTS = {
     "decode clusters for 4 blocks per SM": ("decode_attention.cu", {"BLOCKS_PER_SM": 4}),
 }
 ROUNDS = 3
+# The flash C entry point of trees before it took the KV-head count:
+# dtype, q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream.
+_FLASH_ARGS_NO_HKV = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def variant_source(src: str, sub: dict) -> str:
     for key, val in sub.items():
-        src, n = re.subn(rf"constexpr int {key} = \d+", f"constexpr int {key} = {val}", src,
-                         count=1)
+        if key.isidentifier():
+            src, n = re.subn(rf"constexpr int {key} = \d+", f"constexpr int {key} = {val}",
+                             src, count=1)
+        else:
+            n = src.count(key)
+            src = src.replace(key, val, 1)
         if n != 1:
-            raise ValueError(f"constant {key} not found")
+            raise ValueError(f"{key!r} not found once")
     return src
 
 
@@ -114,10 +144,14 @@ def main(argv) -> int:
             kind = src.split("_")[0]
             jobs[f"{kind} parent"] = ((csrc / src).read_text(), csrc)
     libs = build(jobs)
-    fns = {}
+    fns, no_hkv = {}, set()
     for name, lib in libs.items():
         fn = lib.flash_attention_forward if name.startswith("flash") else lib.decode_attention
         fn.argtypes = (fa if name.startswith("flash") else da).KERNEL.argtypes
+        if name == "flash parent" and not re.search(
+                r"flash_attention_forward\([^)]*int Hkv", jobs[name][0]):
+            fn.argtypes = _FLASH_ARGS_NO_HKV
+            no_hkv.add(name)
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -128,11 +162,16 @@ def main(argv) -> int:
 
     def flash_call(name, q, k, v, out, causal=False, kv_len=None):
         b, s, h, d = q.shape
-        t = k.shape[1]
+        t, hkv = k.shape[1], k.shape[2]
+        if name in no_hkv:  # K/V repeated to the query heads, as that tree's callers did
+            k, v = (x.repeat_interleave(h // hkv, 2) for x in (k, v))
+            heads = (h,)
+        else:
+            heads = (h, hkv)
 
         def call():
             err = fns[name](1 if q.dtype == torch.bfloat16 else 0, ptr(q), ptr(k), ptr(v),
-                            ptr(out), b, h, s, t, kv_len or t, d, d ** -0.5, int(causal),
+                            ptr(out), b, *heads, s, t, kv_len or t, d, d ** -0.5, int(causal),
                             stream(q))
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
@@ -177,9 +216,33 @@ def main(argv) -> int:
                           "bit_identical": n - len(bad), "differ": bad[:40]}), flush=True)
         return not bad
 
-    def flash_parity_cases():
+    def held_to_plain(cases):
+        """cases as ``parity``'s, for a route this tree changed: the shipped
+        kernel against the plain version; True if every case is within
+        chip_smoke.py's bf16 tolerance."""
+        n, bad = 0, []
+        for label, out, calls, want in cases:
+            n += 1
+            out.fill_(float("nan"))
+            calls["flash shipped"]()
+            torch.cuda.synchronize()
+            try:
+                chip_smoke.check_close(label, out, want, 1e-2, 1e-2)
+            except AssertionError:
+                bad.append(label)
+        print(json.dumps({"held_to_plain": "flash bf16 at widths 16, 32, 128 (now wgmma)",
+                          "cases": n, "within_tolerance": n - len(bad), "differ": bad[:40]}),
+              flush=True)
+        return not bad
+
+    def flash_cases(changed):
+        """The parity cases: those whose route is the parent's (changed
+        False), or those whose route this tree changed, with the plain
+        version's output (changed True)."""
         for dtype in (torch.float32, torch.bfloat16):
-            for d in fa.WIDTHS:
+            for d in (16, 32, 64, 128):
+                if changed != (dtype == torch.bfloat16 and d != 64):
+                    continue
                 for causal, tq, t, kv_len, heads in (
                         (False, 300, 300, None, 3), (True, 300, 300, None, 3),
                         (False, 300, 300, 129, 3), (True, 256, 256, 200, 2),
@@ -187,9 +250,11 @@ def main(argv) -> int:
                     q, k, v = (torch.randn((2, m, heads, d), generator=gen, device=dev)
                                .to(dtype) for m in (tq, t, t))
                     out = torch.empty_like(q)
-                    yield (f"{str(dtype)[6:]} D={d} causal={causal} {tq}x{t} kv_len={kv_len}",
-                           out, {n: flash_call(n, q, k, v, out, causal, kv_len)
-                                 for n in ("flash parent", "flash shipped")})
+                    case = (f"{str(dtype)[6:]} D={d} causal={causal} {tq}x{t} kv_len={kv_len}",
+                            out, {n: flash_call(n, q, k, v, out, causal, kv_len)
+                                  for n in ("flash parent", "flash shipped")})
+                    yield case + ((fa.attention_reference(q, k, v, causal, d ** -0.5, kv_len),)
+                                  if changed else ())
 
     def decode_parity_cases():
         for kind in da.KINDS:
@@ -218,7 +283,8 @@ def main(argv) -> int:
 
     ok = True
     if args.parent is not None:
-        ok &= parity("flash", flash_parity_cases())
+        ok &= parity("flash", flash_cases(False))
+        ok &= held_to_plain(flash_cases(True))
         ok &= parity("decode", decode_parity_cases())
 
     def run(calls, check):
@@ -236,18 +302,26 @@ def main(argv) -> int:
 
     flash_names = [n for n in libs if n.startswith("flash")]
     decode_names = [n for n in libs if n.startswith("decode")]
-    for b, t, heads, d in ((16, 1500, 12, 64), (16, 1500, 20, 64), (16, 512, 24, 16),
-                           (16, 512, 12, 32), (16, 512, 4, 128)):
-        q, k, v = (torch.randn((b, t, heads, d), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
+    for b, t, heads, kvh, d, causal in (
+            (16, 1500, 12, 12, 64, False), (16, 1500, 20, 20, 64, False),
+            (16, 448, 12, 12, 64, True), (16, 512, 24, 12, 16, False),
+            (16, 512, 12, 6, 32, False), (16, 512, 4, 2, 128, False),
+            (16, 512, 4, 2, 96, False), (16, 512, 6, 3, 64, False),
+            (16, 256, 6, 3, 64, True), (16, 512, 8, 4, 48, False)):
+        q = torch.randn((b, t, heads, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, t, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
         out = torch.empty_like(q)
-        want = fa.attention_reference(q, k, v, False, d ** -0.5)
+        want = fa.attention_reference(q, k, v, causal, d ** -0.5)
 
         def check(name):
             chip_smoke.check_close(name, out, want, 1e-2, 1e-2)
-        print(json.dumps({"case": f"flash {b}x{t}x{heads}x{d} bf16",
-                          "ms": run({n: flash_call(n, q, k, v, out) for n in flash_names},
-                                    check), "card": chip_smoke.card_line()}), flush=True)
+        print(json.dumps({"case": f"flash {b}x{t}x{heads} on {kvh}x{d} bf16"
+                                  + (" causal" if causal else ""),
+                          "route": fa.kernel_route(d), "width": fa.kernel_width(d),
+                          "ms": run({n: flash_call(n, q, k, v, out, causal)
+                                     for n in flash_names}, check),
+                          "card": chip_smoke.card_line()}), flush=True)
         del q, k, v, out, want
 
     def kv(t, heads=12, d=64):

@@ -238,15 +238,16 @@ def _check_head_dims(name: str, root: str, cuda: bool) -> list:
     for stack, heads in (("encoder", cfg.n_audio_heads), ("decoder", cfg.n_text_heads)):
         d = cfg.dims // heads
         try:
-            widths = (flash_attention.kernel_width(d), decode_attention.kernel_width(d))
+            widths = (flash_attention.kernel_width(d, torch.bfloat16),
+                      decode_attention.kernel_width(d))
         except ValueError as e:
             rows.append((f"session:head_dim.{stack}", FAIL if cuda else WARN,
                          f"D {d} (dims {cfg.dims} / {heads} heads): {e}"
                          + ("" if cuda else "; only the CPU's plain versions run it")))
             continue
-        at = [f"padded to {w}" if w != d else f"at {w}" for w in widths]
+        at = [f"padded to width {w}" if w != d else f"at width {w}" for w in widths]
         rows.append((f"session:head_dim.{stack}", OK,
-                     f"D {d}: flash {flash_attention.kernel_route(d, torch.bfloat16)}, "
+                     f"D {d}: flash {flash_attention.kernel_route(d, torch.bfloat16)} "
                      f"{at[0]}; decode {at[1]}"))
     return rows
 

@@ -30,10 +30,13 @@
 // with 32 queries (three 66.5 KB stages, 83 KB of states) inside the 227 KB
 // a block may have.
 //
-// Any other head dim Dh that is a multiple of 8 (up to 128 for K/V in the
-// type of q, 64 for int8 and int4; the JAX model attends at any dims //
+// Any other head dim Dh (K/V in the type of q: any Dh up to 128; int8 and
+// int4: a multiple of 8 up to 64; the JAX model attends at any dims //
 // heads) runs on the smallest instantiated width W >= Dh, a runtime argument
-// of the same instantiations. Global rows follow Dh (q and out rows of Dh,
+// of the same instantiations. Nothing here needs Dh to be a multiple of 8:
+// q and out move element by element, and K/V rows are T positions long
+// whatever Dh is, so the TMA boxes, the word copies and their strides (T
+// elements a row, DKh T a head) are those of any Dh. Global rows follow Dh (q and out rows of Dh,
 // DKh = Dh / pack K/V rows a (b, h)); shared memory, the lane map and the
 // softmax states keep W. The TMA maps describe DKh rows under a box of
 // W / pack rows, so the rows past DKh arrive zero-filled; the word and
@@ -611,13 +614,15 @@ cudaError_t dispatch_kind(int kind, const void* q, const void* k, const void* v,
   }
 }
 
-// Head dim Dh (a multiple of 8) -> the smallest width W >= Dh built for the
-// kind: 16 and 64 for every kind, 32 and 128 for K/V in the type of q only.
+// Head dim Dh -> the smallest width W >= Dh built for the kind: 16 and 64
+// for every kind, 32 and 128 for K/V in the type of q only. Float K/V take
+// any Dh from 1 to 128, int8 and int4 a multiple of 8 up to 64.
 template <typename QT>
 cudaError_t dispatch_d(int Dh, int kind, const void* q, const void* k, const void* v,
                        const void* ks, const void* vs, void* out, int B, int Hq, int Hkv, int S,
                        int T, int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (Dh < 8 || Dh % 8 || Dh > (kind == KV_FLOAT ? 128 : 64)) return cudaErrorInvalidValue;
+  if (kind == KV_FLOAT ? Dh < 1 || Dh > 128 : Dh < 8 || Dh % 8 || Dh > 64)
+    return cudaErrorInvalidValue;
   if (Dh <= 16)
     return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
   if (Dh <= 32 && kind == KV_FLOAT)
@@ -634,8 +639,9 @@ YOHO_ERROR_STRING_FN
 // q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
 // 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
 // of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
-// (B ints on the device, each >= 0) is not null. Dh is a multiple of 8 up
-// to 128 (kind 2) or 64 (kinds 0 and 1). One launch; no workspace.
+// (B ints on the device, each >= 0) is not null. Dh is any head dim from 1
+// to 128 (kind 2) or a multiple of 8 up to 64 (kinds 0 and 1). One launch;
+// no workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,

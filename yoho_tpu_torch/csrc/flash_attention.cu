@@ -9,62 +9,79 @@
 // the diagonal are skipped. P is rounded to the input type before the PV
 // product, as the reference does (p.astype(v.dtype)).
 //
-// Layout: q (B, Tq, H, D), k and v (B, Tk, H, D), out (B, Tq, H, D) — the
-// projections' own layout, so no transpose is made.
+// Layout: q (B, Tq, H, D), k and v (B, Tk, Hkv, D), out (B, Tq, H, D) — the
+// projections' own layout, so no transpose is made. Grouped-query
+// attention reads each KV head once: query head h reads KV head
+// h / (H / Hkv), which is what repeating every KV head H / Hkv times on the
+// head axis (the JAX model's jnp.repeat) gives, without the copy.
 //
 // Bound on the H100: 4 * Tq * Tk * D operations per (batch, head); at
 // whisper-small (B=16, H=12, T=1500, D=64) 110.6 GFLOP per call, 0.11 ms
 // at the 989 TFLOP/s bf16 tensor-core rate, while q, k, v and out are
 // 4 x 36.9 MB, 0.044 ms at 3.35 TB/s: bound by operations. At D = 64 the
 // softmax's exponentials are a second limit of the same size (16 x 12 x
-// 1500^2 = 432 M ex2 at 16 per clock per SM, about 0.1 ms).
+// 1500^2 = 432 M ex2 at 16 per clock per SM, about 0.1 ms); at D = 16 and
+// 32 they are the first (the products shrink with D, the exponentials do
+// not).
 //
-// bf16 (the main path): warp-specialized for Hopper, persistent (one
-// block per SM walks the (query block, batch x head) items). A block has
-// three consumer warpgroups of 64 query rows each and a producer
-// warpgroup, which gives up its registers (setmaxnreg) while one of its
-// threads issues TMA loads: each item's Q into one of two buffers (the
-// next item's Q lands while this one computes), then 128-key tiles of K
-// and V into a ring of three stages guarded by mbarriers (full: the bytes
-// landed; empty: every consumer is done with the stage). The tensor maps
-// describe the (B, T, H, D) layout as a 4-D tensor (D, H, T, B) with the
-// 128-byte swizzle (one 64-wide bf16 row is 128 B), so the ragged
-// T = 1500 comes in zero-filled; keys >= kv_len are still masked, since a
-// zero key scores 0, not -inf. A consumer computes S = Q K^T with wgmma
-// (m64n128k16, both operands in shared memory), the online softmax in
-// registers, and O += P V with wgmma (m64n64k16) whose A operand, P in
-// bf16, stays in registers (the accumulator layout of S is the
-// register-operand layout of A) and whose B operand, V, is read MN-major
-// from the same swizzled tile: no transpose pass. The S product of tile
-// kb + 1 is issued with the PV product of tile kb, so each warpgroup's
-// softmax runs while its own products are on the tensor cores, and three
-// warpgroups keep the exponential unit and the tensor cores busy in turn.
-// (Two warpgroups in a ping-pong on named barriers measured no faster; see
-// PERF.md.)
+// bf16 at every head dim that is a multiple of 8 up to 128 (the main
+// path): warp-specialized for Hopper, persistent (one block per SM walks
+// the (query block, batch x head) items), at the width W = 16, 32, 64 or
+// 128 that holds the head dim. A block has consumer warpgroups of 64 query
+// rows each and a producer warpgroup, which gives up its registers
+// (setmaxnreg) while one of its threads issues TMA loads: each item's Q
+// into one of two buffers (the next item's Q lands while this one
+// computes; one at width 128), then 128-key tiles of K and V into a ring of stages guarded
+// by mbarriers (full: the bytes landed; empty: every consumer is done with
+// the stage). The tensor maps describe the (B, T, H, D) layout as a 4-D
+// tensor (D, H, T, B) whose rows are swizzled at their own width: a
+// 16-wide bf16 row is 32 bytes (32-byte swizzle), 32-wide 64 bytes
+// (64-byte swizzle), 64-wide 128 bytes (128-byte swizzle), and a 128-wide
+// row is two 128-byte atoms, so each Q, K and V tile loads as two boxes of
+// 64 dims into two regions. The ragged T = 1500 comes in zero-filled; keys
+// >= kv_len are still masked, since a zero key scores 0, not -inf. A
+// consumer computes S = Q K^T with wgmma (m64n128k16, W / 16 steps, both
+// operands in shared memory; at W = 128 steps 0-3 read the first region and
+// 4-7 the second), the online softmax in registers, and O += P V with
+// wgmma (m64nWk16, two m64n64k16 at W = 128, one per region) whose A
+// operand, P in bf16, stays in registers (the accumulator layout of S is
+// the register-operand layout of A) and whose B operand, V, is read
+// MN-major from the same swizzled tile: no transpose pass. The S product
+// of tile kb + 1 is issued with the PV product of tile kb, so each
+// warpgroup's softmax runs while its own products are on the tensor cores.
+// Widths 16-64 run three stages and three consumer warpgroups, so the
+// exponential unit and the tensor cores stay busy in turn, or two where a
+// short sequence fills the card's last round of items better in blocks of
+// 128 rows than of 192 (wg::pick_nwg; the outputs are the same). Width 128 holds
+// 64 output and 64 score registers a thread, which three warpgroups' 160
+// registers cannot, and its Q and K/V tiles are twice as large: it runs
+// two consumer warpgroups at 240 registers, one Q buffer and three K/V
+// stages (Q 32 KB, K/V 3 x 64 KB: 224 KB; two Q buffers and two stages
+// measured 15% slower at (16, 512, 4, 128), PERF.md). (Two warpgroups in a
+// ping-pong on named barriers measured no faster at width 64; see PERF.md.)
 //
 // float32 keeps full FP32 arithmetic on FMAs from shared memory (TF32
-// would lose digits); it is not on the main path.
+// would lose digits); it is not on the main path. The same FMA kernel
+// takes the bf16 head dims that TMA cannot: those that are not a multiple
+// of 8 (a row of D bf16 is then not a multiple of 16 bytes) and those from
+// 129 to 256 (past the wgmma widths): bf16 inputs are widened on load, P
+// is rounded to bf16 before the PV product as the reference rounds it, and
+// the output is rounded once. It runs one 64-query block of 256 threads per
+// (batch, head); these instantiations are simple and right, not fast. Its
+// shared memory, BQ (D+1) + BK (D+1) + BK D + BQ (BK+1) floats, is 41.7 KB
+// at D = 32, 115.5 KB at D = 128 and 213.8 KB at D = 256 (over the 48 KB
+// default, granted by allow_smem as for every launch).
 //
-// Head dims 16, 32 and 128 (YOHO sessions: the trained fixture is dims 64
-// on 4 heads; dims 384 on 12 heads or 512 on 4 give 32 and 128) run the FMA
-// kernel for both types: bf16 inputs are widened on load, P is rounded to
-// bf16 before the PV product as the reference rounds it, and the output
-// is rounded once. The wgmma path's tiles are built on one 64-wide bf16 row
-// per 128-byte swizzle; these instantiations are simple and right, not
-// fast. Their shared memory, BQ (D+1) + BK (D+1) + BK D + BQ (BK+1) floats,
-// is 41.7 KB at D = 32 and 115.5 KB at D = 128 (over the 48 KB default,
-// granted by allow_smem as for every launch).
-//
-// Any other head dim Dh that is a multiple of 8 up to 128 (the JAX model
-// attends at any dims // heads: 8 in its dry run, 48 or 96 for dims 384 on
-// 8 or 4 heads) runs on the smallest instantiated width W >= Dh, a runtime
-// argument of the same instantiations. Global memory is addressed with Dh
-// (rows of H Dh elements); shared memory keeps W. Loads of dims >= Dh give
-// 0, so a padded dim adds q.k = 0 and the scores are exact, and padded
-// output dims are never stored. On the wgmma route (bf16, Dh 40-56) the
-// tensor maps' innermost global dim is Dh under a box of 64: TMA zero-fills
-// columns Dh..63 (Dh a multiple of 8 keeps the 16-byte stride rule). At
-// Dh == W the arithmetic and the outputs are those of the width alone.
+// A head dim Dh below its width W (the JAX model attends at any dims //
+// heads: 8 in its dry run, 12 for dims 48 on 4 heads, 48 or 96 for dims 384
+// on 8 or 4 heads) is a runtime argument of the same instantiations. Global
+// memory is addressed with Dh (rows of H Dh elements); shared memory keeps
+// W. Loads of dims >= Dh give 0, so a padded dim adds q.k = 0 and the
+// scores are exact, and padded output dims are never stored. On the wgmma
+// route the tensor maps' innermost global dim is Dh under a box of W (or
+// 64): TMA zero-fills the columns past Dh (Dh a multiple of 8 keeps the
+// 16-byte stride rule). At Dh == W the arithmetic and the outputs are
+// those of the width alone.
 #include <type_traits>
 
 #include "tma.cuh"
@@ -80,8 +97,8 @@ constexpr int TPR = THREADS / BQ;
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int H, int Tq, int Tk,
-                 int kv_len, int Dh, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ out, int H, int groups, int Tq,
+                 int Tk, int kv_len, int Dh, float scale, int causal) {
   static_assert(D % TPR == 0, "head dim must be a multiple of 4");
   static_assert(THREADS % D == 0 && BK % (THREADS / D) == 0, "a pass loads whole tile rows");
   constexpr int DP = D + 1;       // padded rows: no bank conflicts
@@ -102,12 +119,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid / TPR;        // query row of this thread
   const int c = tid - r * TPR;    // its part of the row
   const size_t row_stride = (size_t)H * Dh;  // global rows: the true head dim
+  const size_t kv_stride = (size_t)(H / groups) * Dh;  // K/V rows: Hkv heads
   // This thread's column of the K/V tiles, the same in every pass, and its
   // first row; each pass moves RPP rows on. The column's offset is formed
   // once, so a pass costs one multiply by the runtime row stride.
   const int dc = tid % D, j0 = tid / D;
   const bool col_in = dc < Dh;
-  const size_t col0 = (size_t)b * Tk * row_stride + h * Dh + dc;
+  const size_t col0 = (size_t)b * Tk * kv_stride + (h / groups) * Dh + dc;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int j = i / D, d = i - j * D;
@@ -131,7 +149,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = j0; j < BK; j += RPP) {
       const int kp = k0 + j;
       const bool in = col_in && kp < kv_len;
-      const size_t off = col0 + (size_t)kp * row_stride;
+      const size_t off = col0 + (size_t)kp * kv_stride;
       k_s[j * DP + dc] = in ? to_f32<T>(k[off]) : 0.f;
       v_s[j * D + dc] = in ? to_f32<T>(v[off]) : 0.f;
     }
@@ -194,26 +212,45 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------------------- bf16: wgmma + TMA
 namespace wg {
 
-constexpr int D = 64;                  // head dim: one 128-byte swizzled row
-constexpr int NWG = 3;                 // consumer warpgroups, 64 query rows each
-constexpr int BQ = 64 * NWG;
-constexpr int BK = 128;                // keys per tile
-constexpr int STAGES = 3;
-constexpr int THREADS = 128 * (NWG + 1);  // consumers: warpgroups 0 .. NWG-1; producer: NWG
+// Consumer warpgroups, 64 query rows each: at widths 16-64 a launch takes
+// NWG or NWG_ALT, whichever pick_nwg expects to be faster for its shape;
+// width 128 takes NWG_128 (64 output + 64 score registers a thread).
+constexpr int NWG = 3;
+constexpr int NWG_ALT = 2;
+constexpr int NWG_128 = 2;
+constexpr int BK = 128;    // keys per tile
+constexpr int STAGES = 3;  // the K/V ring
+constexpr int QBUF = 2;    // Q buffers: the next item's Q loads while this one computes
 // Registers per thread after setmaxnreg: the producer keeps 24, the
 // consumers share the rest of the SM's 64 K (a multiple of 8, at most 240).
 constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = (65536 / 128 - PRODUCER_REGS) / NWG / 8 * 8 > 240
-                                  ? 240
-                                  : (65536 / 128 - PRODUCER_REGS) / NWG / 8 * 8;
-constexpr int Q_BYTES = BQ * D * 2;
-constexpr int TILE_BYTES = BK * D * 2; // 16 KB for each of K and V
-// Q, then K stages, then V stages; every tile 1024-byte aligned (the
-// 128-byte swizzle repeats every 8 rows of 128 B).
-constexpr int K_OFF = 2 * Q_BYTES;       // two Q buffers: the next item's Q loads early
-constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
-constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
-constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 2 * STAGES) + 1024;  // + alignment slack
+
+// The geometry of width W (16, 32, 64 or 128) with NW consumer warpgroups.
+template <int W, int NW>
+struct Geo {
+  static constexpr int ST = STAGES;
+  // Width 128 has one Q buffer: its shared memory holds a third K/V stage instead.
+  static constexpr int QB = W == 128 ? 1 : QBUF;
+  static constexpr int BQ = 64 * NW;
+  static constexpr int THREADS = 128 * (NW + 1);  // consumers: warpgroups 0 .. NW-1; producer: NW
+  static constexpr int CONSUMER_REGS = (65536 / 128 - PRODUCER_REGS) / NW / 8 * 8 > 240
+                                           ? 240
+                                           : (65536 / 128 - PRODUCER_REGS) / NW / 8 * 8;
+  static constexpr int ATOMS = W == 128 ? 2 : 1;  // swizzle atoms (TMA boxes) a row
+  static constexpr int BW = W / ATOMS;            // dims a box: 16, 32 or 64
+  static constexpr int RB = 2 * BW;               // bytes of a box row = the swizzle: 32, 64, 128
+  static constexpr int Q_BYTES = BQ * W * 2;
+  static constexpr int TILE_BYTES = BK * W * 2;   // each of K and V
+  // Q buffers, then K stages, then V stages; every region 1024-byte
+  // aligned (a swizzle pattern repeats every 8 rows, at most 1024 B).
+  static constexpr int K_OFF = QB * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * TILE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + ST * TILE_BYTES;
+  static constexpr int SMEM_BYTES = BAR_OFF + 8 * (4 + 2 * ST) + 1024;  // + alignment slack
+  static_assert(W == 16 || W == 32 || W == 64 || W == 128, "wgmma widths");
+  static_assert(QB == 1 || QB == 2, "one or two Q buffers");
+  static_assert(SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+};
 
 // 2^x on the special-function unit (flush-to-zero: a masked score's
 // weight comes out exactly 0).
@@ -255,10 +292,15 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 64, f32) += A (64 x 16 bf16, registers) * B (16 x 64) from shared
-// memory, MN-major (transposed B).
-__device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                      uint64_t db) {
+// D (64 x N, f32) += A (64 x 16 bf16, registers) * B (16 x N) from shared
+// memory, MN-major (transposed B); N = 64, 32 or 16.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -271,6 +313,33 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -334,21 +403,26 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[BK /
 
 // Accumulator layout of a wgmma m64nN f32 tile, per thread (warp w of the
 // warpgroup, lane = 4 g + t4): element i sits in row 16 w + g + 8 ((i / 2) % 2)
-// and column 8 (i / 4) + 2 t4 + i % 2.
-__global__ void __launch_bounds__(THREADS, 1)
+// and column 8 (i / 4) + 2 t4 + i % 2. The output of width W is ATOMS such
+// tiles of BW columns, the second (W = 128) from column 64.
+template <int W, int NW>
+__global__ void __launch_bounds__(Geo<W, NW>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                int B, int H, int Tq, int kv_len, int Dh, float scale, int causal) {
+                int B, int H, int groups, int Tq, int kv_len, int Dh, float scale, int causal) {
+  using G = Geo<W, NW>;
+  constexpr int BQ = G::BQ, ST = G::ST, QB = G::QB, ATOMS = G::ATOMS, BW = G::BW, RB = G::RB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t q_full0 = base + BAR_OFF;          // 2 barriers: a Q buffer landed
+  const uint32_t q_full0 = base + G::BAR_OFF;       // 2 barriers: a Q buffer landed
   const uint32_t q_empty0 = q_full0 + 16;           // 2 barriers: consumers done with it
-  const uint32_t full0 = q_empty0 + 16;             // STAGES barriers
-  const uint32_t empty0 = full0 + 8 * STAGES;       // STAGES barriers
+  const uint32_t full0 = q_empty0 + 16;             // ST barriers
+  const uint32_t empty0 = full0 + 8 * ST;           // ST barriers
 
   // Work items (query block, batch x head), consecutive items of one head
-  // on neighbouring blocks; block i takes items i, i + gridDim.x, ...
+  // (and the heads of one KV head) on neighbouring blocks; block i takes
+  // items i, i + gridDim.x, ...
   const int n_qb = (Tq + BQ - 1) / BQ;
   const int n_items = n_qb * B * H;
   auto item_tiles = [&](int q0) {
@@ -359,46 +433,58 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(q_full0 + 8 * i, 1);
-      mbar_init(q_empty0 + 8 * i, NWG * 128);  // every consumer thread arrives
+      mbar_init(q_empty0 + 8 * i, NW * 128);  // every consumer thread arrives
     }
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, NWG * 128);
+      mbar_init(empty0 + 8 * s, NW * 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wgi = threadIdx.x / 128;
-  if (wgi == NWG) {
+  if (wgi == NW) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 128 * NWG) {
+    if (threadIdx.x == 128 * NW) {
       int tile = 0;  // K/V tiles loaded so far: the ring position
       for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
         const int bh = item / n_qb, q0 = (item - bh * n_qb) * BQ;
-        const int b = bh / H, h = bh - b * H;
-        const int qb = n & 1;  // Q double buffer: the load of item n waits for item n - 2
-        mbar_wait(q_empty0 + 8 * qb, ((n >> 1) & 1) ^ 1);
-        mbar_expect_tx(q_full0 + 8 * qb, Q_BYTES);
-        tma_load(base + qb * Q_BYTES, &tm_q, q_full0 + 8 * qb, 0, h, q0, b);
+        const int b = bh / H, h = bh - b * H, hk = h / groups;
+        const int qb = n % QB;  // the load of item n waits for item n - QB
+        mbar_wait(q_empty0 + 8 * qb, ((n / QB) & 1) ^ 1);
+        mbar_expect_tx(q_full0 + 8 * qb, G::Q_BYTES);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load(base + qb * G::Q_BYTES + a * BQ * RB, &tm_q, q_full0 + 8 * qb, a * BW, h, q0,
+                   b);
         for (int kb = 0, n_kb = item_tiles(q0); kb < n_kb; ++kb, ++tile) {
-          const int st = tile % STAGES;
-          mbar_wait(empty0 + 8 * st, ((tile / STAGES) & 1) ^ 1);
+          const int st = tile % ST;
+          mbar_wait(empty0 + 8 * st, ((tile / ST) & 1) ^ 1);
           const uint32_t full = full0 + 8 * st;
-          mbar_expect_tx(full, 2 * TILE_BYTES);
-          tma_load(base + K_OFF + st * TILE_BYTES, &tm_k, full, 0, h, kb * BK, b);
-          tma_load(base + V_OFF + st * TILE_BYTES, &tm_v, full, 0, h, kb * BK, b);
+          mbar_expect_tx(full, 2 * G::TILE_BYTES);
+#pragma unroll
+          for (int a = 0; a < ATOMS; ++a)
+            tma_load(base + G::K_OFF + st * G::TILE_BYTES + a * BK * RB, &tm_k, full, a * BW, hk,
+                     kb * BK, b);
+#pragma unroll
+          for (int a = 0; a < ATOMS; ++a)
+            tma_load(base + G::V_OFF + st * G::TILE_BYTES + a * BK * RB, &tm_v, full, a * BW, hk,
+                     kb * BK, b);
         }
       }
     }
   } else {
     // ------------------------------------------------------------ consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(G::CONSUMER_REGS));
     constexpr float LOG2E = 1.4426950408889634f;
     const float scale2 = scale * LOG2E;  // softmax in the log2 domain
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
+    // K-major tiles (Q, K): rows of RB bytes, 8-row groups 8 RB apart; 16
+    // dims are 32 B further along a row, the next box's dims a region on.
+    constexpr uint32_t SBO = 8 * RB / 16;
 
     int tile = 0;
     for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
@@ -406,76 +492,91 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const int b = bh / H, h = bh - b * H;
       const int n_kb = item_tiles(q0);
       const int row0 = q0 + wgi * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-      const int qb = n & 1;
-      // Q rows of this warpgroup; K-major, 8-row groups 1024 B apart.
-      const uint64_t dq = desc_sw128(base + qb * Q_BYTES + wgi * 64 * D * 2, 1, 64);
-      // S = Q K^T: K is K-major like Q; 16 dims are 32 B further along a row.
+      const int qb = n % QB;
+      // Q rows of this warpgroup.
+      const uint32_t q_rows = base + qb * G::Q_BYTES + wgi * 64 * RB;
+      // S = Q K^T: K is K-major like Q.
       auto issue_qk = [&](float (&s)[64], int st) {
-        const uint64_t dk = desc_sw128(base + K_OFF + st * TILE_BYTES, 1, 64);
+        const uint32_t k_tile = base + G::K_OFF + st * G::TILE_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_m64n128k16(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+        for (int kk = 0; kk < W / 16; ++kk) {
+          const int a = kk / (BW / 16), j = kk % (BW / 16);
+          wgmma_ss_m64n128k16(s, desc_sw<RB>(q_rows + a * BQ * RB, 1, SBO) + 2 * j,
+                              desc_sw<RB>(k_tile + a * BK * RB, 1, SBO) + 2 * j, kk > 0);
+        }
         wgmma_commit();
       };
-      // O += P V: V is MN-major, 64 dims (one 128-byte swizzle atom) by 128
-      // keys in 8-key groups 1024 B apart; both of its offsets are 1024 B, so
-      // the field the hardware reads for the key direction holds it either
-      // way; 16 keys are 2048 B further.
-      auto issue_pv = [&](float (&o)[32], const uint32_t (&pa)[BK / 16][4], int st) {
-        const uint64_t dv = desc_sw128(base + V_OFF + st * TILE_BYTES, 64, 64);
+      // O += P V: V is MN-major, BW dims (one swizzle atom) by 128 keys in
+      // 8-key groups 8 RB apart; both of its offsets are 8 RB, so the field
+      // the hardware reads for the key direction holds it either way; 16
+      // keys are 16 RB further. At W = 128 each region is its own product.
+      auto issue_pv = [&](float (&o)[ATOMS][BW / 2], const uint32_t (&pa)[BK / 16][4], int st) {
+        const uint32_t v_tile = base + G::V_OFF + st * G::TILE_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_m64n64k16_tb(o, pa[kk], dv + 128 * kk);
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int a = 0; a < ATOMS; ++a)
+            wgmma_rs_tb<BW>(o[a], pa[kk],
+                            desc_sw<RB>(v_tile + a * BK * RB, SBO, SBO) + RB * kk);
         wgmma_commit();
+      };
+      auto fence_o = [&](float (&o)[ATOMS][BW / 2]) {
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) fence_regs(o[a]);
       };
 
-      float o[32], s[64];
+      float o[ATOMS][BW / 2], s[64];
       uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+        for (int i = 0; i < BW / 2; ++i) o[a][i] = 0.f;
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] = 0.f;
       float m[2] = {YOHO_NEG_INF, YOHO_NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
-      mbar_wait(q_full0 + 8 * qb, (n >> 1) & 1);
+      mbar_wait(q_full0 + 8 * qb, (n / QB) & 1);
 
       // Tile 0's S, then per tile kb: the S product of tile kb + 1 and the
       // PV product of tile kb go out together, the softmax of tile kb + 1
       // runs while PV(kb) is on the tensor cores, and O is rescaled once
       // PV(kb) is done. The last PV is peeled off, so every pass of the loop
       // commits the same two groups.
-      mbar_wait(full0 + 8 * (tile % STAGES), (tile / STAGES) & 1);
+      mbar_wait(full0 + 8 * (tile % ST), (tile / ST) & 1);
       fence_regs(s);
       wgmma_fence();
-      issue_qk(s, tile % STAGES);
+      issue_qk(s, tile % ST);
       wgmma_wait<0>();
       fence_regs(s);
       if (n_kb == 1) mbar_arrive(q_empty0 + 8 * qb);  // Q is no longer read
       softmax_tile(s, m, l, alpha, scale2, 0, kv_len, causal, row0, q0 + wgi * 64, t4);
       pack_p(s, pa);
       for (int kb = 0; kb + 1 < n_kb; ++kb, ++tile) {
-        mbar_wait(full0 + 8 * ((tile + 1) % STAGES), ((tile + 1) / STAGES) & 1);
+        mbar_wait(full0 + 8 * ((tile + 1) % ST), ((tile + 1) / ST) & 1);
         fence_regs(s);
-        fence_regs(o);
+        fence_o(o);
         wgmma_fence();
-        issue_qk(s, (tile + 1) % STAGES);
-        issue_pv(o, pa, tile % STAGES);
+        issue_qk(s, (tile + 1) % ST);
+        issue_pv(o, pa, tile % ST);
         wgmma_wait<1>();  // S of tile kb + 1 is in; PV(kb) may still run
         fence_regs(s);
         if (kb + 2 == n_kb) mbar_arrive(q_empty0 + 8 * qb);
         softmax_tile(s, m, l, alpha, scale2, (kb + 1) * BK, kv_len, causal, row0,
                      q0 + wgi * 64, t4);
         wgmma_wait<0>();
-        fence_regs(o);
-        mbar_arrive(empty0 + 8 * (tile % STAGES));  // this thread is done with the stage
+        fence_o(o);
+        mbar_arrive(empty0 + 8 * (tile % ST));  // this thread is done with the stage
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+          for (int i = 0; i < BW / 2; ++i) o[a][i] *= alpha[(i >> 1) & 1];
         pack_p(s, pa);
       }
-      fence_regs(o);
+      fence_o(o);
       wgmma_fence();
-      issue_pv(o, pa, tile % STAGES);
+      issue_pv(o, pa, tile % ST);
       wgmma_wait<0>();
-      fence_regs(o);
-      mbar_arrive(empty0 + 8 * (tile % STAGES));
+      fence_o(o);
+      mbar_arrive(empty0 + 8 * (tile % ST));
       ++tile;
 
 #pragma unroll
@@ -485,49 +586,100 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
         __nv_bfloat16* orow = out + ((size_t)b * Tq + row) * H * Dh + h * Dh;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          if (8 * j < Dh)  // padded dims (Dh a multiple of 8) are not stored
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
-                __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-        }
+        for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+          for (int j = 0; j < BW / 8; ++j) {
+            const int col = a * BW + 8 * j;
+            if (col < Dh)  // padded dims (Dh a multiple of 8) are not stored
+              *reinterpret_cast<__nv_bfloat162*>(orow + col + 2 * t4) = __floats2bfloat162_rn(
+                  o[a][4 * j + 2 * r] * inv, o[a][4 * j + 2 * r + 1] * inv);
+          }
       }
     }
   }
 }
 
-// A (B, T, H, Dh) bf16 tensor (Dh <= 64, a multiple of 8) as the 4-D map
-// (Dh, H, T, B), boxes of 64 dims of one head's `rows` consecutive
-// positions, 128-byte swizzle, zero fill past T and past Dh.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int Dh, int rows) {
-  const uint64_t dims[4] = {(uint64_t)Dh, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)Dh * 2, (uint64_t)H * Dh * 2,
-                               (uint64_t)T * H * Dh * 2};
-  const uint32_t box[4] = {(uint32_t)D, 1, (uint32_t)rows, 1};
-  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_128B);
+// A (B, T, heads, Dh) bf16 tensor (Dh <= W, a multiple of 8) as the 4-D map
+// (Dh, heads, T, B), boxes of BW dims of one head's `rows` consecutive
+// positions in the swizzle of BW's rows, zero fill past T and past Dh.
+template <int W, int NW>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads, int Dh, int rows) {
+  using G = Geo<W, NW>;
+  const uint64_t dims[4] = {(uint64_t)Dh, (uint64_t)heads, (uint64_t)T, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)Dh * 2, (uint64_t)heads * Dh * 2,
+                               (uint64_t)T * heads * Dh * 2};
+  const uint32_t box[4] = {(uint32_t)G::BW, 1, (uint32_t)rows, 1};
+  const CUtensorMapSwizzle swizzle = G::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims, strides, box, swizzle);
 }
 
+template <int W, int NW>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int H,
-                         int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
+                         int Hkv, int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
                          cudaStream_t stream) {
+  using G = Geo<W, NW>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, Tq, H, Dh, BQ) || !make_map(&mk, k, B, Tk, H, Dh, BK) ||
-      !make_map(&mv, v, B, Tk, H, Dh, BK))
+  if (!make_map<W, NW>(&mq, q, B, Tq, H, Dh, G::BQ) ||
+      !make_map<W, NW>(&mk, k, B, Tk, Hkv, Dh, BK) ||
+      !make_map<W, NW>(&mv, v, B, Tk, Hkv, Dh, BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_fwd_wgmma, SMEM_BYTES);
+  cudaError_t err = allow_smem(flash_fwd_wgmma<W, NW>, G::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   // Persistent: one block per SM walks the work items.
-  const int n_items = (Tq + BQ - 1) / BQ * B * H;
-  flash_fwd_wgmma<<<min(n_items, sm_count()), THREADS, SMEM_BYTES, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, H, Tq, kv_len, Dh, scale, causal);
+  const int n_items = (Tq + G::BQ - 1) / G::BQ * B * H;
+  flash_fwd_wgmma<W, NW><<<min(n_items, sm_count()), G::THREADS, G::SMEM_BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), B, H, H / Hkv, Tq, kv_len, Dh, scale,
+      causal);
   return cudaGetLastError();
+}
+
+// The consumer warpgroups of a launch at widths 16-64: NWG or NWG_ALT,
+// whichever gives the smaller rounds x rows a round / throughput, where a
+// round is one item on every SM and three warpgroups do r times the work
+// of two in the same time. Every row's arithmetic is the same at either
+// count, so the output is too. A short sequence often fills its last round
+// better in blocks of 128 rows: the YOHO encoder (16, 512, 6 heads) is 288
+// items of 192 rows (3 rounds, the last a fifth full) or 384 of 128 (3
+// full). r is fitted a width to the readings at the sequences of 512
+// where the choice flips (PERF.md): 7/6 at width 16 ((16, 512, 24, 16):
+// 9 rounds of three 3.7% faster than 12 of two), 11/10 at 32 and 64
+// ((16, 512, 8, 48): 4 rounds of two 4.6% faster than 3 of three).
+// Whisper's encoders take three at any r above 1 (as many rows a round x
+// rounds at either count); there r reads 1.2.
+template <int W>
+int pick_nwg(int B, int H, int Tq) {
+  constexpr int num = W == 16 ? 7 : 11, den = W == 16 ? 6 : 10;
+  auto cost = [&](int nw) {
+    const long items = (long)((Tq + 64 * nw - 1) / (64 * nw)) * B * H;
+    const long rounds = (items + sm_count() - 1) / sm_count();
+    return rounds * nw * (nw >= 3 ? den : num);
+  };
+  return cost(NWG_ALT) < cost(NWG) ? NWG_ALT : NWG;
+}
+
+template <int W>
+cudaError_t launch_width(const void* q, const void* k, const void* v, void* out, int B, int H,
+                         int Hkv, int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
+                         cudaStream_t stream) {
+  if constexpr (W == 128) {
+    return launch_wgmma<W, NWG_128>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, Dh, scale, causal,
+                                    stream);
+  } else {
+    if (pick_nwg<W>(B, H, Tq) == NWG_ALT)
+      return launch_wgmma<W, NWG_ALT>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, Dh, scale,
+                                      causal, stream);
+    return launch_wgmma<W, NWG>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, Dh, scale, causal,
+                                stream);
+  }
 }
 
 }  // namespace wg
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-                   int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
+                   int Hkv, int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
                                        (size_t)BK * D + (size_t)BQ * (BK + 1));
@@ -537,7 +689,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                         static_cast<const T*>(v), static_cast<T*>(out), H,
-                                        Tq, Tk, kv_len, Dh, scale, causal);
+                                        H / Hkv, Tq, Tk, kv_len, Dh, scale, causal);
   return cudaGetLastError();
 }
 
@@ -545,31 +697,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 YOHO_ERROR_STRING_FN
 
-// dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16 (wgmma + TMA at widths
-// 40-64; q, k and v 16-byte aligned). q (B, Tq, H, D); k, v (B, Tk, H, D);
-// keys >= kv_len (1 <= kv_len <= Tk) are masked. D is a multiple of 8 from 8
-// to 128, run at the width W = 16, 32, 64 or 128 that holds it: 64 is every
-// whisper size and the full-width YOHO model (wgmma for bf16), 16, 32 and 128
-// run FMAs for both types.
+// dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16. q (B, Tq, H, D); k, v (B,
+// Tk, Hkv, D) with Hkv dividing H (query head h reads KV head h / (H / Hkv));
+// keys >= kv_len (1 <= kv_len <= Tk) are masked; D from 1 to 256. bf16 at a
+// multiple of 8 up to 128 runs wgmma + TMA (q, k and v 16-byte aligned) at
+// the width W = 16, 32, 64 or 128 that holds D; f32,
+// and bf16 at any other D, run FMAs at the width 16, 32, 64, 128 or 256
+// that holds it.
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
-                                       const void* v, void* out, int B, int H, int Tq,
-                                       int Tk, int kv_len, int D, float scale, int causal,
-                                       cudaStream_t stream) {
-  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1) || D < 8 || D > 128 || D % 8)
+                                       const void* v, void* out, int B, int H, int Hkv,
+                                       int Tq, int Tk, int kv_len, int D, float scale,
+                                       int causal, cudaStream_t stream) {
+  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1) || D < 1 || D > 256 ||
+      Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
-  if (D > 32 && D <= 64) {
-    if (dtype == 0)
-      return launch<float, 64>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
-    return wg::launch_wgmma(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
+  if (dtype == 1 && D % 8 == 0 && D <= 128) {
+    const int w = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+    auto wgmma_route = [&](auto width) -> cudaError_t {
+      return wg::launch_width<decltype(width)::value>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len,
+                                                      D, scale, causal, stream);
+    };
+    if (w == 16) return wgmma_route(std::integral_constant<int, 16>{});
+    if (w == 32) return wgmma_route(std::integral_constant<int, 32>{});
+    if (w == 64) return wgmma_route(std::integral_constant<int, 64>{});
+    return wgmma_route(std::integral_constant<int, 128>{});
   }
-  auto fma_route = [&](auto w) -> cudaError_t {
-    constexpr int W = decltype(w)::value;
+  auto fma_route = [&](auto width) -> cudaError_t {
+    constexpr int W = decltype(width)::value;
     if (dtype == 0)
-      return launch<float, W>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream);
-    return launch<__nv_bfloat16, W>(q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal,
+      return launch<float, W>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D, scale, causal,
+                              stream);
+    return launch<__nv_bfloat16, W>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D, scale, causal,
                                     stream);
   };
   if (D <= 16) return fma_route(std::integral_constant<int, 16>{});
   if (D <= 32) return fma_route(std::integral_constant<int, 32>{});
-  return fma_route(std::integral_constant<int, 128>{});
+  if (D <= 64) return fma_route(std::integral_constant<int, 64>{});
+  if (D <= 128) return fma_route(std::integral_constant<int, 128>{});
+  return fma_route(std::integral_constant<int, 256>{});
 }

@@ -342,7 +342,7 @@ w8a8_gemm(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
       auto issue = [&](int s, int kb) {
         const int st = s % STAGES;
         const uint32_t stage = base + st * STAGE_BYTES;
-        const uint64_t db = desc_sw128(stage + A_BYTES, 1, 64);
+        const uint64_t db = desc_sw<128>(stage + A_BYTES, 1, 64);
         mbar_wait(full0 + 8 * st, (s / STAGES) & 1);
         fence_acc();
         wgmma_fence();
@@ -350,7 +350,7 @@ w8a8_gemm(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
         for (int kk = 0; kk < BK / 32; ++kk)
 #pragma unroll
           for (int h = 0; h < MH; ++h)
-            wgmma_s8_m64n128k32(acc[h], desc_sw128(stage + a_off + h * 64 * BK, 1, 64) + 2 * kk,
+            wgmma_s8_m64n128k32(acc[h], desc_sw<128>(stage + a_off + h * 64 * BK, 1, 64) + 2 * kk,
                                 db + 2 * kk, kb > 0 || kk > 0);
         wgmma_commit();
       };

@@ -4,12 +4,16 @@
 
 #include <stdint.h>
 
-// A wgmma shared-memory matrix descriptor for a tile in the 128-byte
-// swizzle: start address, leading and stride byte offsets in 16-byte
-// units, layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// A wgmma shared-memory matrix descriptor for a tile in the swizzle of SW
+// bytes a row (128, 64 or 32: layout types 1, 2 and 3; TMA's SWIZZLE_128B,
+// _64B and _32B): start address, leading and stride byte offsets in
+// 16-byte units.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "a wgmma swizzle is 128, 64 or 32 bytes");
+  constexpr uint64_t type = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | ((uint64_t)sbo << 32) |
-         (1ull << 62);
+         (type << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

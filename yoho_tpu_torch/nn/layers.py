@@ -37,10 +37,10 @@ by ``head_dim**-0.5`` after the rotation, every query head attending its
 own group's KV head (head h reads KV head ``h // groups``). The flax
 ``DenseGeneral`` projections to (heads, head_dim) are :class:`DenseGeneral`
 here, an ``nn.Linear`` of width heads x head_dim that remembers the split
-(``nn/params.py`` reshapes the (in, H, D) kernels). Full modes expand the
-KV heads with ``repeat_interleave`` (``jnp.repeat`` on the head axis) and
-run through the flash kernel; cached modes give ``groups`` to the decode
-attention kernel, which reads each KV head once for its group.
+(``nn/params.py`` reshapes the (in, H, D) kernels). Full modes hand the
+unexpanded KV heads to the flash kernel and cached modes give ``groups`` to
+the decode attention kernel; each reads a KV head once for its group, as
+``jnp.repeat`` on the head axis would give it to every query head.
 
 Tensor parallelism (``parallel/sharding.py::shard_params``): a layer cut
 over the ``model`` axis of a mesh holds the mesh as ``tp``. Attention then
@@ -447,7 +447,8 @@ class GroupedQueryAttention(nn.Module):
             xa = model_copy(self, xa)
         q = self._rope(self.q_proj(x), s, pos)  # (B, S, Hq, D)
         if cache is None and cross_kv is None:
-            # Full modes, KV heads expanded. The flash kernel scales the
+            # Full modes, KV heads unexpanded (the kernel reads KV head
+            # h // groups for query head h). The flash kernel scales the
             # f32 scores, which equals scaling q first (as JAX does) when
             # head_dim**-0.5 is a power of two (D = 16, 64); otherwise
             # (D = 32, 128) q is scaled in its own type, as JAX scales it.
@@ -456,9 +457,7 @@ class GroupedQueryAttention(nn.Module):
                 q, scale = q * scale, 1.0
             src = x if xa is None else xa
             k = self._rope(self.k_proj(src), src.shape[1], pos)
-            out = flash_attention(q, self._expand(k, 2),
-                                  self._expand(self.v_proj(src), 2),
-                                  causal=causal, scale=scale)
+            out = flash_attention(q, k, self.v_proj(src), causal=causal, scale=scale)
             return model_sum(self, self.out_proj(out.reshape(b, s, -1)))
         q = _bhsd(q) * self.head_dim ** -0.5
         if cross_kv is not None:

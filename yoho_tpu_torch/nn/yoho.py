@@ -11,8 +11,8 @@ encoder output inside every decoder block before its cross-attention
 voiceprint head whose output is L2-normalized with ``max(norm, 1e-6)``.
 
 Full-sequence attention (the encoder's, and the teacher-forcing decoder's
-causal self and cross) runs through the flash kernel with the KV heads
-expanded; every decode read of the self cache and of the cross K/V runs
+causal self and cross) runs through the flash kernel on the unexpanded KV
+heads; every decode read of the self cache and of the cross K/V runs
 through the decode attention kernel with ``groups``. The cross K/V and the
 self cache are float (the model's type): the YOHO family has no int8 K/V
 lane. ``weights_int8`` is the weight-only int8 decoder

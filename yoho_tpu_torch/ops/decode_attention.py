@@ -16,9 +16,10 @@ fused_decode_attention``, with the same contract:
   kv_len   int             only keys < kv_len are valid
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
-Returns (B, S, Hq, D) in q's type. D is a multiple of 8 up to 128 (float
-K/V) or 64 (int8, int4), each run at the smallest instantiated width W
-that holds it (:func:`kernel_width`; zero-padded in shared memory).
+Returns (B, S, Hq, D) in q's type. D is any head dim up to 128 (float K/V)
+or a multiple of 8 up to 64 (int8, int4), each run at the smallest
+instantiated width W that holds it (:func:`kernel_width`; zero-padded in
+shared memory).
 Unlike the TPU kernel, T need not be a multiple of 128: int8/int4/bf16
 rows of a multiple of 16 bytes (the padded cross K/V, the cache) stream in
 by TMA tile loads, rows of a multiple of 4 bytes by asynchronous word
@@ -51,7 +52,8 @@ _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KINDS = ("int8", "int4", "float")  # the kernel's K/V kind codes 0, 1, 2
 # The instantiated head dims by K/V kind: 64 whisper and the full-width
 # YOHO model; 16, 32, 128 YOHO sessions, whose K/V are floats (32 and 128
-# are built for float K/V only). Every other multiple of 8 runs padded.
+# are built for float K/V only). Every other head dim runs padded: any D up
+# to 128 for float K/V, a multiple of 8 for int8 and int4.
 WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
 MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
 NEG_INF = torch.finfo(torch.float32).min
@@ -61,10 +63,14 @@ def kernel_width(d: int, kind: str = "float") -> int:
     """The instantiated width W the kernel runs head dim ``d`` at for K/V
     of ``kind`` ("float", "int8" or "int4"): the smallest of
     :data:`WIDTHS` that holds it. Raises ``ValueError`` for a head dim it
-    does not take (not a multiple of 8 from 8 to 128, or to 64 for integer
-    K/V)."""
+    does not take (float K/V: outside 1 to 128; integer K/V: not a multiple
+    of 8 from 8 to 64)."""
     widths = WIDTHS[kind]
-    if d % 8 or not 8 <= d <= widths[-1]:
+    if kind == "float":
+        if not 1 <= d <= widths[-1]:
+            raise ValueError(f"decode kernel head dim {d} not in 1, 2, ..., {widths[-1]} "
+                             f"for {kind} K/V")
+    elif d % 8 or not 8 <= d <= widths[-1]:
         raise ValueError(f"decode kernel head dim {d} not in 8, 16, ..., {widths[-1]} "
                          f"(multiples of 8) for {kind} K/V")
     return next(w for w in widths if w >= d)

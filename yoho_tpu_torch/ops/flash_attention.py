@@ -4,21 +4,25 @@ its plain PyTorch version.
 Counterpart of the JAX package's ``ops/flash_attention.py::
 flash_attention``. Same (B, S, H, D) layout and unscaled inputs: pass
 ``scale``. ``kv_len`` masks the keys at and past it (padded keys), as the
-TPU kernel's ``kv_len`` does. The kernel takes every head dim D that is a
-multiple of 8 from 8 to 128, each at the smallest instantiated width W of
-16, 32, 64 and 128 that holds it (:func:`kernel_width`; zero-padded in
-shared memory). At W = 64 bf16 runs on Hopper's wgmma fed by TMA (sm_90a),
-f32 on FMAs; widths 16, 32 and 128 run on FMAs in both types
-(:func:`kernel_route`); any other head dim raises. The wrapper takes the
-plain version only for a tensor on the CPU; for a CUDA tensor it launches
-the kernel or raises.
+TPU kernel's ``kv_len`` does. k and v may carry fewer heads than q
+(grouped-query attention): with Hkv dividing H, query head h reads KV head
+``h // (H // Hkv)``, which is what the JAX model's ``jnp.repeat`` of the KV
+heads gives; the kernel reads each KV head once, and the plain version
+repeats them itself. The kernel takes every head dim D from 1 to 256, each
+at an instantiated width W >= D (:func:`kernel_width`; zero-padded in
+shared memory): bf16 at a multiple of 8 up to 128 runs on Hopper's wgmma
+fed by TMA (sm_90a) at W = 16, 32, 64 or 128; f32, and bf16 at any other
+D, on FMAs at W = 16, 32, 64, 128 or 256 (:func:`kernel_route`); any other
+head dim raises. The wrapper takes the plain version only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises.
 
 The gradient is the JAX package's: its ``custom_vjp`` backward is
 ``jax.vjp`` of the plain attention, a recompute, not a kernel. Here
 :class:`FlashAttentionFunction` saves q, k and v and recomputes through
 :func:`attention_reference` under ``torch.autograd.grad``, on either
-device. It runs only when an input requires a gradient; otherwise the
-forward is the plain call above.
+device; the gradients of grouped k and v come back in their own
+(unrepeated) shape. It runs only when an input requires a gradient;
+otherwise the forward is the plain call above.
 """
 
 from __future__ import annotations
@@ -32,30 +36,39 @@ from yoho_tpu_torch.ops._build import F, I, P, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel(
     "flash_attention_forward", "flash_attention.cu", "flash_attention_forward",
-    [I, P, P, P, P, I, I, I, I, I, I, F, I, P],
+    [I, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
     replaces="yoho_tpu/ops/flash_attention.py:116 _flash_forward_impl")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The instantiated head dims: 64 whisper and the full-width YOHO model;
-# 16, 32, 128 YOHO sessions. Every other multiple of 8 runs padded.
+# The wgmma route's widths (bf16 at a multiple of 8): 64 whisper and the
+# full-width YOHO model, 16, 32 and 128 YOHO sessions.
 WIDTHS = (16, 32, 64, 128)
+# The FMA route's widths: f32, and the bf16 head dims TMA cannot take.
+FMA_WIDTHS = (16, 32, 64, 128, 256)
 NEG_INF = torch.finfo(torch.float32).min
 
 
-def kernel_width(d: int) -> int:
-    """The instantiated width W the kernel runs head dim ``d`` at: the
-    smallest of :data:`WIDTHS` that holds it, the same for both types.
-    Raises ``ValueError`` for a head dim it does not take (not a multiple
-    of 8 from 8 to 128)."""
-    if d % 8 or not 8 <= d <= WIDTHS[-1]:
-        raise ValueError(f"flash kernel head dim {d} not in 8, 16, ..., {WIDTHS[-1]} "
-                         f"(multiples of 8)")
-    return next(w for w in WIDTHS if w >= d)
+def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """``"wgmma"`` (bf16 at a multiple of 8 up to 128: wgmma fed by TMA) or
+    ``"fma"`` (f32, and every other bf16 head dim). Raises ``ValueError``
+    for a head dim the kernel does not take (outside 1 to 256)."""
+    if not 1 <= d <= FMA_WIDTHS[-1]:
+        raise ValueError(f"flash kernel head dim {d} not in 1, 2, ..., {FMA_WIDTHS[-1]}")
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= WIDTHS[-1] else "fma"
 
 
-def kernel_route(d: int, dtype: torch.dtype) -> str:
-    """``"wgmma"`` (bf16 at width 64: wgmma fed by TMA) or ``"fma"``."""
-    return "wgmma" if kernel_width(d) == 64 and dtype == torch.bfloat16 else "fma"
+def kernel_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The instantiated width W the kernel runs head dim ``d`` at in
+    ``dtype`` (sessions serve in bf16, the default): the smallest width of
+    its route (:func:`kernel_route`) that holds it. Raises ``ValueError``
+    for a head dim it does not take."""
+    widths = WIDTHS if kernel_route(d, dtype) == "wgmma" else FMA_WIDTHS
+    return next(w for w in widths if w >= d)
+
+
+def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """KV heads -> ``heads`` query heads: head h reads KV head h // groups."""
+    return x if x.shape[2] == heads else x.repeat_interleave(heads // x.shape[2], 2)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,8 +76,10 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None) -> torch.Tensor:
     """Plain attention, (B, S, H, D) layout: f32 scores, finfo.min mask
     (keys >= ``kv_len``, and above the diagonal when causal), softmax,
-    weights rounded to the input type for the value product. Autocast does
+    weights rounded to the input type for the value product. Grouped k and
+    v (fewer heads than q) are repeated to q's heads first. Autocast does
     not reach it: the scores stay f32 whatever the caller's autocast."""
+    k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
     with torch.autocast(q.device.type, enabled=False):
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         tq, tk = scores.shape[-2:]
@@ -84,14 +99,15 @@ def _forward(q, k, v, causal: bool, scale: float, kv_len: int) -> torch.Tensor:
         raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
-    kernel_width(d)
+    kernel_width(d, q.dtype)
     # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
     # starts mid-allocation is copied.
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     out = torch.empty_like(q)
     KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, h,
-                  s, k.shape[1], kv_len, d, float(scale), int(causal), stream_of(q))
+                  k.shape[2], s, k.shape[1], kv_len, d, float(scale), int(causal),
+                  stream_of(q))
     return out
 
 
@@ -124,16 +140,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     scale: Optional[float] = None,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """q (B, S, H, D), k and v (B, T, H, D) -> (B, S, H, D) in q's type.
-    Keys at and past ``kv_len`` (default T) are masked."""
+    """q (B, S, H, D), k and v (B, T, Hkv, D) with Hkv dividing H -> (B, S,
+    H, D) in q's type; query head h reads KV head h // (H // Hkv). Keys at
+    and past ``kv_len`` (default T) are masked."""
     b, s, h, d = q.shape
-    t = k.shape[1]
+    t, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     kv_len = t if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= t:
         raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
-    if k.shape != (b, t, h, d) or v.shape != k.shape:
+    if hkv < 1 or h % hkv or k.shape != (b, t, hkv, d) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     if causal and s != t:
