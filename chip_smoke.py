@@ -30,19 +30,24 @@ Phases, one output line each (JSON after the phase name):
    cross K/V padded to 1536 positions (kv_len 1500) as the main path
    stores them, for prefill, and on the self cache at pos 0, 200 and 447;
    beam search's folded cross read (5 queries a stream), a 224-token
-   prompt's prefill (7 launches of 32 queries) on the cache and on the
-   cross K/V, the folded beam prefill of that prompt (35 launches), the
+   prompt's prefill on the cache and on the cross K/V, the folded beam
+   prefill of that prompt (1,120 queries), the
    unpadded bf16 cross read of language detection, speculative decoding's
    5-query verify read, causal on the cache at pos 200 and 447, the
    draft's 2-query reads at 6 heads on its cache and cross K/V, and
    continuous batching's reads of the cache with one position per row (16
    rows spread from 0 to 447, all at 200, all at 0, and the 5-query verify
    read at spread positions), whose bound counts each row's valid prefix.
+   Decode's reads of several bf16 queries run its tensor-core route
+   (``decode_attention_mq``, one launch at any S), the others its FMA route
+   (``decode_attention``): each decode line names its ``decode_route``
+   (``mma`` or ``fma``) and its ``launches_per_call``, and fails if the
+   other route launched.
    The YOHO family's shapes (phase e2e-yoho): the log-mel of 16 windows of
    164,080 samples (scipy framing, HTK, 128 mels, 1,024 frames), encoder
    attention (16, 512, 6, 64) on 3 KV heads unexpanded, the bf16 cross read
    (T 512) and the causal bf16 self read (T 256, pos 200) at 6 query heads
-   on 3 KV heads; then head dim 16 (the trained fixture's) at the fixture's
+   on 3 KV heads, one query and five (a verify step); then head dim 16 (the trained fixture's) at the fixture's
    shapes and at the full-width batch; SDPA with ``enable_gqa`` beside each
    attention line. Phase e2e-yoho-train's: the teacher-forced decoder's
    causal (16, 256, 6, 64) and cross 256 x 512 flash passes, and head dims
@@ -55,7 +60,8 @@ Phases, one output line each (JSON after the phase name):
    the cross read at 96; the int8 cross read at D = 8 (the JAX dry run's
    whisper, 4 heads; batch 16, T 1536, kv_len 1500); flash checked
    (untimed) at D = 8, 24, 72, 120 and 136 (FMAs at width 256), causal and
-   not. Every flash line names its route (``flash_route``) and ``width``;
+   not; decode at D = 256 (2 heads on 1), one query and five, timed, and D =
+   200 (width 256) at 1, 5 and 224 queries, checked. Every flash line names its route (``flash_route``) and ``width``;
    bf16 k and v go to the kernel unexpanded, and the bound counts q, out
    and those K/V bytes.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
@@ -81,11 +87,12 @@ Phases, one output line each (JSON after the phase name):
    timings both times), then ``condition_on_previous_text`` on the 75 s
    request. Checks: the language logits, one folded beam step's logits
    and the alignment map of one window against the CPU plain path in
-   float32; a hook on the decode kernel's launch counts every read's
+   float32; a hook on the decode kernels' launches counts every read's
    (rows, queries, positions) and holds them to the beam arithmetic
-   (per layer: the detection step, each batch's prefill in 32-query
-   chunks, one self read at 80 rows and one folded cross read of 5
-   queries at 16 rows per step; no cross read at 80 rows).
+   (per layer: the detection step, each batch's prefill in one launch at
+   any prompt length, one self read at 80 rows and one folded cross read
+   of 5 queries at 16 rows per step; no cross read at 80 rows), and each
+   route's launches to the reads of one query (FMA) and of more.
    With ``--profile`` each path's second run is traced with
    ``torch.profiler`` and a ``profile`` line gives the device time of the
    top kernels and of each of the port's own kernel functions, and the
@@ -109,7 +116,7 @@ Phases, one output line each (JSON after the phase name):
    disagrees: the low-acceptance worst case) and the target itself (every
    round commits gamma + 1 tokens but at ties). Checks: one verify step's
    logits against the CPU plain path in float32; a hook on the decode
-   kernel's launch holds every read to the round arithmetic (per batch the
+   kernels' launches holds every read to the round arithmetic (per batch the
    prompt's prefill by both models; per round and draft layer one S = 2
    step and gamma - 1 S = 1 steps at the draft's heads, then per target
    layer one 5-query verify step; each a causal read of the cache and a
@@ -136,7 +143,7 @@ Phases, one output line each (JSON after the phase name):
    every decoded window equals greedy's (the ``e2e``
    configuration, one batch of every distinct window) up to its first
    difference, where greedy's top-2 margin is at most 4 bf16 ulps; a hook
-   on the decode kernel's launch sees every causal read inside a chunk at
+   on the decode kernels' launches sees every causal read inside a chunk at
    per-row positions (16 rows; S = 5 verify reads in (c)) and none at a
    scalar one; each chunk runs under PyTorch's sync debug mode set to
    raise (no host sync inside a chunk) and each ``reap`` makes one;
@@ -466,6 +473,60 @@ def check_close(name, got, want, rtol, atol) -> float:
     return err
 
 
+def _decode_launches(launches: dict) -> int:
+    """Decode attention's launches in ``launches`` (kernel name -> count)
+    over its two routes: the FMA route's single-query reads and the
+    tensor-core route's multi-query reads."""
+    return launches.get("decode_attention", 0) + launches.get("decode_attention_mq", 0)
+
+
+def _never_launched(launches: dict, names=None, skip=()) -> list:
+    """The kernels of ``names`` (default: every kernel of ``launches`` but
+    ``skip``) that never launched. Decode attention counts over both routes:
+    a part whose reads are all single queries, or all prefills, launches
+    one of them."""
+    names = [n for n in (launches if names is None else names)
+             if n not in skip and n != "decode_attention_mq"]
+    return [n for n in names
+            if (_decode_launches(launches) if n == "decode_attention" else launches[n]) == 0]
+
+
+def _hook_decode(record):
+    """Calls ``record(args)`` with the C arguments of every decode-attention
+    launch, on either route (both entry points take the same arguments:
+    args[8] B, [9] Hq, [10] Hkv, [11] S, [13] T, [15] causal, [17] per-row
+    pos), just before the launch. Returns the function that takes the hook
+    off."""
+    from yoho_tpu_torch.ops import decode_attention as da
+
+    for kernel in da.KERNELS:
+        def recording(*args, launch=kernel.launch):
+            record(args)
+            launch(*args)
+        kernel.launch = recording
+
+    def undo():
+        for kernel in da.KERNELS:
+            del kernel.launch
+    return undo
+
+
+def _decode_route_call(name: str, args):
+    """Calls decode attention once on ``args``; returns its output, the
+    kernel of the route it must take (``kernel_route``), the route, and that
+    kernel's launches in the call. Fails if the other route launched."""
+    from yoho_tpu_torch.ops import decode_attention as da
+
+    route = da.kernel_route(args[0].shape[2], args[0].dtype)
+    kernel = da.KERNEL_MQ if route == "mma" else da.KERNEL
+    before = {k.name: k.launches for k in da.KERNELS}
+    out = da.fused_decode_attention(*args)
+    launched = {k.name: k.launches - before[k.name] for k in da.KERNELS}
+    if launched[kernel.name] < 1 or sum(launched.values()) != launched[kernel.name]:
+        raise AssertionError(f"{name}: launches {launched}, the {route} route expected")
+    return out, kernel, route, launched[kernel.name]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -647,9 +708,7 @@ def kernel_checks(card: str) -> dict:
         if not (pos is None or isinstance(pos, int)):
             pos = torch.tensor(rows, dtype=torch.int32, device=dev)
         args = (qq, k_, v_, ks, vs, pos, kv_len, 1, packing)
-        before = da.KERNEL.launches
-        got = da.fused_decode_attention(*args)
-        launches = da.KERNEL.launches - before
+        got, kernel, route, launches = _decode_route_call(f"decode {label}", args)
         if not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"decode {label}: non-finite output")
         err = check_close(f"decode {label}", got, da.decode_attention_reference(*args),
@@ -664,10 +723,11 @@ def kernel_checks(card: str) -> dict:
         nbytes = (per_pos + (ks is not None) * 2 * h_ * 2) * sum(t_rows) \
             + 2 * qq.numel() * 2 + (0 if isinstance(pos, (int, type(None))) else 4 * b_)
         flops = 4 * h_ * keys * qq.shape[3]
-        record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
+        record(kernel, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
                nbytes, {"bf16": flops}, library() if library else None,
-               "rtol 0.05, atol 0.02", main=main, launches_per_call=launches, **extra)
+               "rtol 0.05, atol 0.02", main=main, launches_per_call=launches,
+               decode_route=route, **extra)
 
     cross = quantize_kv(*kv(1500), pad_to=128)
     case("cross int8 S=1 (T 1536, kv_len 1500)", q_of(1), cross.k_q, cross.v_q,
@@ -690,18 +750,18 @@ def kernel_checks(card: str) -> dict:
 
     case("cross bf16 S=1 (T 1500, rows through registers; language detection)", qb, kb, vb,
          None, None, None, 1, library=lambda: time_ms(sdpa_decode, 50, flush))
-    # The request options' reads (phase e2e-options): beam search's cross
-    # read, 5 beams folded into the queries of each stream's untiled K/V;
-    # a 224-token prompt's prefill, chunked into 32-query launches, on the
-    # cache (causal at pos 0) and on the cross K/V; the beam prefill of
-    # that prompt (5 x 224 folded queries).
+    # The request options' reads (phase e2e-options), each one launch of
+    # the tensor-core route: beam search's cross read, 5 beams folded into
+    # the queries of each stream's untiled K/V (the route's main case); a
+    # 224-token prompt's prefill on the cache (causal at pos 0) and on the
+    # cross K/V; the beam prefill of that prompt (5 x 224 folded queries).
     case("cross int8 folded beams S=5 (B 16, T 1536, kv_len 1500)", q_of(5), cross.k_q,
-         cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
-    case("self int8 prefill S=224 causal pos=0 (T 512, 7 launches)", q_of(224), self_kv.k_q,
+         cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len, main=True)
+    case("self int8 prefill S=224 causal pos=0 (T 512)", q_of(224), self_kv.k_q,
          self_kv.v_q, self_kv.k_scale, self_kv.v_scale, 0, 1)
-    case("cross int8 prefill S=224 (7 launches)", q_of(224), cross.k_q, cross.v_q,
+    case("cross int8 prefill S=224", q_of(224), cross.k_q, cross.v_q,
          cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
-    case("cross int8 folded beam prefill S=1120 (35 launches)", q_of(1120), cross.k_q,
+    case("cross int8 folded beam prefill S=1120", q_of(1120), cross.k_q,
          cross.v_q, cross.k_scale, cross.v_scale, None, 1, kv_len=cross.kv_len)
     # Speculative decoding (phase e2e-spec): the target's verify step, 5
     # queries (gamma 4 + 1) causal on the cache at a non-zero pos (its cross
@@ -876,14 +936,13 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                 for _ in range(2))
         groups = heads // kvh
         args = (qq, k, v, None, None, pos, None, groups)
-        before = da.KERNEL.launches
-        got = da.fused_decode_attention(*args)
-        launches = da.KERNEL.launches - before
+        got, kernel, route, launches = _decode_route_call(f"decode {label}", args)
         tol = (0.05, 0.02) if dtype == torch.bfloat16 else (1e-4, 1e-5)
         err = check_close(f"decode {label}", got, da.decode_attention_reference(*args), *tol)
         if not timed:
-            emit("kernel", name=da.KERNEL.name, case=label, max_abs_err=err,
-                 tolerance=f"rtol {tol[0]}, atol {tol[1]}")
+            emit("kernel", name=kernel.name, case=label, max_abs_err=err,
+                 tolerance=f"rtol {tol[0]}, atol {tol[1]}", decode_route=route,
+                 launches_per_call=launches)
             return
         t_row = t if pos is None else min(t, pos + s)
         keys = bq * (s * t if pos is None else sum(min(t, pos + i + 1) for i in range(s)))
@@ -897,16 +956,22 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
             return sdpa_f(qq, k.transpose(2, 3), v.transpose(2, 3), attn_mask=mask,
                           scale=1.0, enable_gqa=True)
 
-        record(da.KERNEL, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
+        record(kernel, label, err, time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
                time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
                nbytes, {"bf16": 4 * heads * keys * d}, yardstick_ms(sdpa, flush),
-               "rtol 0.05, atol 0.02", main=False, launches_per_call=launches)
+               "rtol 0.05, atol 0.02", main=False, launches_per_call=launches,
+               decode_route=route)
 
     flash_case("yoho encoder 16x512x6x64 on 3 KV heads, bf16", 16, 512, 512, 6, 3, 64,
                False)
     decode_case("yoho cross bf16 S=1, 6 on 3 heads (T 512)", 16, 6, 3, 64, 512, 1, None)
     decode_case("yoho self bf16 S=1 causal pos=200, 6 on 3 heads (T 256)", 16, 6, 3, 64, 256,
                 1, 200)
+    # Several queries of a KV head's two query heads on tensor cores: a
+    # verify step's 5 over the cross K/V and causal on the cache.
+    decode_case("yoho cross bf16 S=5, 6 on 3 heads (T 512)", 16, 6, 3, 64, 512, 5, None)
+    decode_case("yoho self bf16 S=5 causal pos=200, 6 on 3 heads (T 256)", 16, 6, 3, 64, 256,
+                5, 200)
     # Head dim 16 (the wgmma route at width 16), the trained fixture at batch 3.
     flash_case("D=16 fixture encoder 3x32x4x16 on 2 KV heads, bf16", 3, 32, 32, 4, 2, 16,
                False)
@@ -969,6 +1034,14 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                 48, 256, 1, 200)
     decode_case("D=96 cross bf16 S=1, 4 on 2 heads (T 512; width 128)", 16, 4, 2, 96, 512, 1,
                 None)
+    # Head dim 256 (dims 512 on 2 heads, 1 KV head), decode's widest width:
+    # one query on FMAs, five on tensor cores; 200 padded to it, checked.
+    for s_ in (1, 5):
+        decode_case(f"D=256 cross bf16 S={s_}, 2 on 1 heads (T 512)", 16, 2, 1, 256, 512, s_,
+                    None)
+    for s_, pos in ((1, 200), (5, 100), (224, 0)):
+        decode_case(f"D=200 bf16 S={s_} pos={pos}, 4 on 2 heads (T 256; width 256)", 4, 4, 2,
+                    200, 256, s_, pos, timed=False)
 
 
 class _IdText:
@@ -1128,13 +1201,13 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
     # The W8A8 kernel runs twice per encoder block per batch on the int8
     # lane, and never otherwise; every other kernel runs on both paths.
     want_w8a8 = 2 * cfg.n_audio_layer * batches if model.encoder_int8 else 0
-    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+    idle = _never_launched(launches, skip=(W8A8.name,))
     if idle or launches[W8A8.name] != want_w8a8:
         raise AssertionError(f"{phase}: kernels never launched: {idle}; w8a8 "
                              f"{launches[W8A8.name]} launches, {want_w8a8} expected")
     n_tok = sum(len(t) for t in toks)
     # Two decode-attention launches (self, cross) per layer per step.
-    steps = launches["decode_attention"] // (2 * cfg.n_text_layer * batches)
+    steps = _decode_launches(launches) // (2 * cfg.n_text_layer * batches)
     emit(phase, model=f"whisper-{preset}", lanes=lanes, batch=BATCH,
          requests=list(seconds), windows=windows, wall_s=wall, wall_s_second_run=wall2,
          audio_s_per_s=sum(seconds) / wall, segment_tokens=n_tok,
@@ -1239,17 +1312,15 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
     # Every decode-attention launch's (rows, queries, positions, causal),
     # through a hook on the kernel's launch.
     shapes: Counter = Counter()
-    launch = da.KERNEL.launch
 
-    def recording_launch(*args):
+    def recording_launch(args):
         shapes[(args[8], args[11], args[13], args[15])] += 1
-        launch(*args)
 
     def counted(fn):
         for k in kernels:
             k.launches = 0
         shapes.clear()
-        da.KERNEL.launch = recording_launch
+        unhook = _hook_decode(recording_launch)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1257,7 +1328,7 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            del da.KERNEL.launch
+            unhook()
         return wall, out, {k.name: k.launches for k in kernels}, Counter(shapes)
 
     def serve():
@@ -1292,8 +1363,10 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
 
     # The launch arithmetic: per layer, one detection step (self, bf16 cross),
     # per decode batch a prefill (self at B*K rows; cross folded, K x P
-    # queries of the B untiled rows, in 32-query chunks), then per step one
+    # queries of the B untiled rows, one launch at any P), then per step one
     # self read at B*K rows and one folded cross read of K queries at B rows.
+    # Reads of more than one query run the tensor-core route, the others the
+    # FMA route.
     b, rows = BATCH, BATCH * beams
     n_win = [len(chunk_audio(a, tr.chunk_samples, tr.stride_samples)[1]) for a in audios]
     batches = {p: -(-sum(n for n, q in zip(n_win, prompts) if (q is None) == (p == 3)) // b)
@@ -1302,14 +1375,17 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
     want = Counter({(b, 1, 1500, 0): layers, (b, 1, 128, 1): layers,
                     (rows, 3, 512, 1): layers * batches[3],
                     (b, 3 * beams, 1536, 0): layers * batches[3],
-                    (rows, 32, 512, 1): 7 * layers * batches[224],
-                    (b, 32, 1536, 0): 35 * layers * batches[224],
+                    (rows, 224, 512, 1): layers * batches[224],
+                    (b, 224 * beams, 1536, 0): layers * batches[224],
                     (rows, 1, 512, 1): layers * steps, (b, beams, 1536, 0): layers * steps})
     cross_rows = sorted({k[0] for k in seen if k[2] == 1536})
-    if seen != want or cross_rows != [b] or launches[da.KERNEL.name] != sum(want.values()):
+    routes = (launches[da.KERNEL.name], launches[da.KERNEL_MQ.name])
+    if seen != want or cross_rows != [b] or routes != (
+            sum(n for k, n in want.items() if k[1] == 1),
+            sum(n for k, n in want.items() if k[1] > 1)):
         raise AssertionError(f"{phase}: decode-attention launches {dict(seen)} "
-                             f"({launches[da.KERNEL.name]}), expected {dict(want)}")
-    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+                             f"(FMA, tensor-core routes {routes}), expected {dict(want)}")
+    idle = _never_launched(launches, skip=(W8A8.name,))
     if idle or launches[W8A8.name]:
         raise AssertionError(f"{phase}: kernels never launched: {idle}; w8a8 "
                              f"{launches[W8A8.name]} launches")
@@ -1323,9 +1399,9 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
                       **options, **serving)
     c_wall, c_result, c_launches, c_seen = counted(lambda: seq.transcribe(audios[2]))
     c_tokens = [t for s in c_result.segments for t in s.tokens]
-    chunked = c_seen[(1, 32, 512, 1)]
-    if not c_tokens or chunked != 7 * layers * n_win[2] \
-            or c_seen[(1, 32, 1536, 0)] != chunked:
+    prompted = c_seen[(1, 224, 512, 1)]
+    if not c_tokens or prompted != layers * n_win[2] \
+            or c_seen[(1, 224, 1536, 0)] != prompted:
         raise AssertionError(f"{phase}: conditioning gave {len(c_tokens)} tokens, "
                              f"decode launches {dict(c_seen)}")
 
@@ -1342,7 +1418,7 @@ def e2e_options(card: str, kernels, trace: bool = False) -> dict:
         cross_read_rows=cross_rows, launches=launches,
         conditioning=dict(wall_s=c_wall, audio_s_per_s=seconds[2] / c_wall,
                           segment_tokens=len(c_tokens),
-                          windows_with_224_token_prompt=chunked // (7 * layers),
+                          windows_with_224_token_prompt=prompted // layers,
                           launches=c_launches), card=card)
     return {k: launches[k] + c_launches[k] for k in launches}
 
@@ -1436,7 +1512,7 @@ def e2e_files(card: str, kernels) -> dict:
     seconds = [len(d) / sr for d in decoded]
     outside = [(i, s.start, s.end) for i, r in enumerate(results) for s in r.segments
                if not 0 <= s.start <= s.end <= seconds[i] + 1e-3]
-    idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+    idle = _never_launched(launches, skip=(W8A8.name,))
     if outside or idle or not any(toks):
         raise AssertionError(f"{phase}: segments outside their request {outside[:4]}; "
                              f"kernels never launched {idle}; tokens {sum(map(len, toks))}")
@@ -1512,7 +1588,6 @@ def e2e_spec(card: str, kernels) -> dict:
     from yoho_tpu_torch.infer.pipeline import Transcriber
     from yoho_tpu_torch.nn.params import init_random
     from yoho_tpu_torch.nn.whisper import Whisper
-    from yoho_tpu_torch.ops import decode_attention as da
     from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
     from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
     from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
@@ -1561,11 +1636,9 @@ def e2e_spec(card: str, kernels) -> dict:
     # Every decode-attention launch's (rows, heads, queries, positions,
     # causal), through a hook on the kernel's launch.
     shapes: Counter = Counter()
-    launch = da.KERNEL.launch
 
-    def recording_launch(*args):
+    def recording_launch(args):
         shapes[(args[8], args[9], args[11], args[13], args[15])] += 1
-        launch(*args)
 
     def serve(tr):
         """One transcribe_many with its decode rows captured: (wall, rows
@@ -1582,7 +1655,7 @@ def e2e_spec(card: str, kernels) -> dict:
             k.launches = 0
         shapes.clear()
         tr._decode_with_fallback = capturing
-        da.KERNEL.launch = recording_launch
+        unhook = _hook_decode(recording_launch)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1590,7 +1663,8 @@ def e2e_spec(card: str, kernels) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
-            del da.KERNEL.launch, tr._decode_with_fallback
+            unhook()
+            del tr._decode_with_fallback
         return wall, rows, {k.name: k.launches for k in kernels}, Counter(shapes)
 
     # Greedy, with the two largest of its processed logits (after the
@@ -1640,10 +1714,10 @@ def e2e_spec(card: str, kernels) -> dict:
                                     (cfg.n_text_head, lt, gamma + 1, rounds)):
             want[(BATCH, heads, s, 512, 1)] += layers * n
             want[(BATCH, heads, s, 1536, 0)] += layers * n
-        if seen != want or launches[da.KERNEL.name] != sum(want.values()):
+        if seen != want or _decode_launches(launches) != sum(want.values()):
             raise AssertionError(f"{phase} ({label}): decode-attention launches "
                                  f"{dict(seen)}, expected {dict(want)}")
-        idle = [name for name, n in launches.items() if n == 0 and name != W8A8.name]
+        idle = _never_launched(launches, skip=(W8A8.name,))
         if idle or launches[W8A8.name] or stats["syncs"] != rounds:
             raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, "
                                  f"w8a8 {launches[W8A8.name]}, stats {stats}")
@@ -1754,7 +1828,6 @@ def e2e_serve(card: str, kernels) -> dict:
     from yoho_tpu_torch.infer.slot_engine import SlotEngine, _Window
     from yoho_tpu_torch.nn.params import init_random
     from yoho_tpu_torch.nn.whisper import Whisper
-    from yoho_tpu_torch.ops import decode_attention as da
     from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
     from yoho_tpu_torch.text.srt import compose_srt, segments_to_subtitles
     from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
@@ -1779,7 +1852,7 @@ def e2e_serve(card: str, kernels) -> dict:
 
     def take_launches(label):
         got = {k.name: k.launches for k in kernels}
-        idle = [name for name, n in got.items() if n == 0 and name != W8A8.name]
+        idle = _never_launched(got, skip=(W8A8.name,))
         if idle or got[W8A8.name]:
             raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, "
                                  f"w8a8 {got[W8A8.name]}")
@@ -1791,12 +1864,10 @@ def e2e_serve(card: str, kernels) -> dict:
     # a cross read).
     shapes: Counter = Counter()
     in_chunk = [False]
-    launch = da.KERNEL.launch
 
-    def recording_launch(*args):
+    def recording_launch(args):
         shapes[(in_chunk[0], args[8], args[11], "per-row pos" if args[17] is not None
                 else "scalar pos" if args[15] else "no pos")] += 1
-        launch(*args)
 
     def by_shape():
         return {f"{'chunk' if k[0] else 'outside chunks'} B{k[1]} S{k[2]} {k[3]}": n
@@ -1898,7 +1969,7 @@ def e2e_serve(card: str, kernels) -> dict:
     ref = {_window_key(batch[j]): (g_tokens[j], g_top2[j]) for j in range(len(ref_windows))}
     prompt = np.asarray(greedy._prompt_ids(), np.int64)
     out = {}
-    da.KERNEL.launch = recording_launch
+    unhook = _hook_decode(recording_launch)
     try:
         # (a) The engine: the 5 windows of the three requests in four waves,
         # admitted before chunks 0, 1, 2 and 3 (20 windows for 16 slots: the
@@ -2137,7 +2208,7 @@ def e2e_serve(card: str, kernels) -> dict:
             slot_occupancy_per_chunk=stats["occupied_slot_chunks"] / stats["chunks"],
             decode_launches=by_shape(), launches=launches, **ties)
     finally:
-        del da.KERNEL.launch
+        unhook()
     emit(phase, model="whisper-small", slots=BATCH, chunk_tokens=chunk_tokens,
          requests=[int(x) for x in seconds], parts=out, launches=dict(total), card=card)
     _SERVE_WALLS.update({k: dict(wall_s=v["wall_s"], audio_s_per_s=v["audio_s_per_s"])
@@ -2414,7 +2485,7 @@ def train_phase(card: str, kernels) -> dict:
         lossN = float(tuner._val_loss(*first))
         losses = tuner.update_losses
         w8a8 = kernels[-1].name  # off the path: training stays float
-        idle = [n for n, c in launches.items() if c == 0 and n != w8a8]
+        idle = _never_launched(launches, skip=(w8a8,))
         if idle or launches[w8a8]:
             raise AssertionError(f"{phase}: kernels of the path never launched: {idle}; "
                                  f"w8a8 {launches[w8a8]}")
@@ -2721,7 +2792,7 @@ def e2e_cli(card: str, kernels) -> dict:
         result = fn()
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels}
-        idle = [n for n in want if launches[n] == 0]
+        idle = _never_launched(launches, want)
         if idle or (launches[W8A8.name] > 0) != w8a8:
             raise AssertionError(f"{phase} ({label}): launches {launches}; "
                                  f"w8a8 expected: {w8a8}")
@@ -3063,7 +3134,7 @@ def _part_counter(phase: str, kernels):
         result = fn()
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels}
-        idle = [n for n in want if launches[n] == 0]
+        idle = _never_launched(launches, want)
         if idle or launches[W8A8.name]:
             raise AssertionError(f"{phase} ({label}): launches {launches}")
         for n, v in launches.items():
@@ -3141,7 +3212,7 @@ def e2e_yoho(card: str, kernels) -> dict:
                       for a in audios)
         launches = report["transcribe-1"]["launches"]
         batches = -(-windows // BATCH)
-        steps = launches["decode_attention"] // (2 * cfg.n_text_blocks * batches)
+        steps = _decode_launches(launches) // (2 * cfg.n_text_blocks * batches)
         report["transcribe-1"].update(
             windows=windows, batches=batches, decode_steps=steps,
             audio_s_per_s=sum(YOHO_SECONDS) / wall, wall_s_second_run=wall2,
@@ -3689,7 +3760,7 @@ def _train_stages_2_4(phase: str, measured, report: dict, root: Path, chosen, re
         if (len(rows) != 1 or not all(np.isfinite(losses)) or len(step_ms)
                 != hp.accumulated_batches or not slot_of[n].exists()
                 or (per_step["mel_log_spectrogram"], per_step["flash_attention_forward"],
-                    per_step["decode_attention"]) != (mel, flash, 0)):
+                    _decode_launches(per_step)) != (mel, flash, 0)):
             raise AssertionError(f"{phase}: {label} rows {rows}, {len(step_ms)} mini-steps, "
                                  f"launches per mini-step {per_step}")
         after_first = step_ms[1:]
@@ -3989,7 +4060,6 @@ def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, k
 
     from yoho_tpu_torch.cli.serve import drain, follow, serve, warmup
     from yoho_tpu_torch.infer.batching import RequestCancelled
-    from yoho_tpu_torch.ops import decode_attention as da
     from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
     from yoho_tpu_torch.parallel import mesh as pm
 
@@ -4015,12 +4085,10 @@ def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, k
     # rows, queries, causal position kind and query / KV heads.
     shapes: Counter = Counter()
     in_chunk = [False]
-    launch = da.KERNEL.launch
 
-    def recording_launch(*args):
+    def recording_launch(args):
         shapes[(in_chunk[0], args[8], args[11], "per-row pos" if args[17] is not None
                 else "scalar pos" if args[15] else "no pos", args[9], args[10])] += 1
-        launch(*args)
 
     def hooks(engine, rows, target=None):
         """Runs each chunk of ``engine`` with the launch flag set and with
@@ -4140,7 +4208,7 @@ def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, k
             if not continuous:
                 tr._features, tr._decode_with_fallback = features, decode
         launches = {k.name: k.launches for k in kernels}
-        idle = [n for n in YOHO_PATH if launches[n] == 0]
+        idle = _never_launched(launches, YOHO_PATH)
         if idle or launches[W8A8.name]:
             raise AssertionError(f"{phase} ({label}): kernels never launched {idle}, w8a8 "
                                  f"{launches[W8A8.name]}")
@@ -4167,14 +4235,14 @@ def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, k
             cancelled_freed_after_chunks=(freed[0] - base["chunks"]) if freed else None,
             decode_launches=dict(shapes))
 
-    da.KERNEL.launch = recording_launch
+    unhook = _hook_decode(recording_launch)
     try:
         runs = {"slot engine": served("slot engine", served_tr, True, cancel=True),
                 "micro-batcher": served("micro-batcher", served_tr, False),
                 "speculative slots": served("speculative slots", spec_tr, True,
                                             stream=False)}
     finally:
-        del da.KERNEL.launch
+        unhook()
     if not lead:
         return {}
 
@@ -4214,7 +4282,7 @@ def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, k
     out = {}
     for label, run in runs.items():
         if label == "micro-batcher":
-            steps = run["launches"]["decode_attention"] // (2 * cfg.n_text_layer)
+            steps = _decode_launches(run["launches"]) // (2 * cfg.n_text_layer)
             predicted = _mesh_predicted(cfg, "whisper", world, run["decode_batches"], steps)[0]
             predicted.update({"broadcast_obj/world": run["ticks"],
                               "all_reduce/world": run["dispatches"]})
@@ -4334,7 +4402,7 @@ def _mesh_serve_yoho(phase: str, world: int, lead: bool, ycfg, ysharded, yplain,
     if any(r != ranks[0] for r in ranks):
         raise AssertionError(f"{phase} (yoho, slot engine): the ranks' engine stats differ: "
                              f"{ranks}")
-    idle = [n for n in YOHO_PATH if got["launches"][n] == 0]
+    idle = _never_launched(got["launches"], YOHO_PATH)
     if idle:
         raise AssertionError(f"{phase} (yoho, slot engine): kernels never launched {idle}")
     for n, v in got["launches"].items():
@@ -4396,7 +4464,7 @@ def _mesh_rank(card: str, kernels, world: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels}
-        idle = [n for n in want if launches[n] == 0]
+        idle = _never_launched(launches, want)
         if idle or (launches[W8A8.name] > 0) != w8a8:
             raise AssertionError(f"{phase} ({label}): launches {launches}")
         if count:
@@ -4434,7 +4502,7 @@ def _mesh_rank(card: str, kernels, world: int) -> dict:
                       for a in audios)
         batches = -(-windows // BATCH)
         run = report["whisper-mesh"]
-        steps = run["launches"]["decode_attention"] // (2 * cfg.n_text_layer)
+        steps = _decode_launches(run["launches"]) // (2 * cfg.n_text_layer)
         predicted, per_encode, per_step = _mesh_predicted(cfg, "whisper", world, batches,
                                                           steps)
         if run["collectives"] != predicted:
@@ -4500,7 +4568,7 @@ def _mesh_rank(card: str, kernels, world: int) -> dict:
                                     kernels, total, yref_raw, yref_top2)
         serve_s += time.perf_counter() - t_serve
         yrun = report["yoho-mesh"]
-        ysteps = yrun["launches"]["decode_attention"] // (2 * ycfg.n_text_blocks)
+        ysteps = _decode_launches(yrun["launches"]) // (2 * ycfg.n_text_blocks)
         ypred, y_encode, y_step = _mesh_predicted(ycfg, "yoho", world, 1, ysteps)
         if yrun["collectives"] != ypred:
             raise AssertionError(f"{phase}: YOHO collectives {yrun['collectives']}, "
@@ -4856,7 +4924,7 @@ def _mesh_train_rank(card: str, kernels, world: int, tmp: Path, plain: dict) -> 
         run = measured(f"asr-{spec}", lambda: _timed_run(trainer, MESH_TRAIN_UPDATES))
         counts = dict(pm.COUNTS)
         cfg = trainer.config.yoho
-        steps = report[f"asr-{spec}"]["launches"]["decode_attention"] // (2 * cfg.n_text_blocks)
+        steps = _decode_launches(report[f"asr-{spec}"]["launches"]) // (2 * cfg.n_text_blocks)
         buckets = len(list(pm._buckets(list(trainer._leaves.values()), pm.BUCKET_ELEMENTS)))
         predicted = _train_predicted(cfg, mesh.shape["model"], MESH_TRAIN_UPDATES,
                                      MESH_TRAIN_ACC, steps, buckets, checkpoints=2)
@@ -5073,7 +5141,7 @@ def main(argv) -> int:
 
         from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8a8_dense
 
-        kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+        kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, *decode_attention.KERNELS,
                    w8a8_dense.KERNEL]
         world = int(os.environ["WORLD_SIZE"])
         if "--mesh-rank" in argv:
@@ -5095,7 +5163,7 @@ def main(argv) -> int:
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          flash_attention_cu_s=per_source.get("flash_attention.cu"))
 
-    kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+    kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, *decode_attention.KERNELS,
                w8a8_dense.KERNEL]
     entries = kernel_checks(card)
     launches = {k.name: 0 for k in kernels}
@@ -5112,6 +5180,9 @@ def main(argv) -> int:
             launches[name] += n
         emit("phase-wall", path=phase.__name__.replace("_", "-"),
              seconds=time.perf_counter() - t0)
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the paths: {idle}")
     print(json.dumps({"kernels": [
         dict(entries[k.name], launches=launches[k.name]) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

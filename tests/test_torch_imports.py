@@ -198,16 +198,17 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu():
         w8a8_dense,
     )
 
-    kernels = (mel_kernel.KERNEL, flash_attention.KERNEL, decode_attention.KERNEL,
+    kernels = (mel_kernel.KERNEL, flash_attention.KERNEL, *decode_attention.KERNELS,
                w8a8_dense.KERNEL)
     before = [k.launches for k in kernels]
     mel_kernel.fused_log_mel(torch.zeros(1, 1600))
     flash_attention.flash_attention(*(torch.zeros(1, 4, 1, 8) for _ in range(3)))
-    decode_attention.fused_decode_attention(
-        torch.zeros(1, 1, 1, 8), torch.zeros(1, 1, 8, 4, dtype=torch.int8),
-        torch.zeros(1, 1, 8, 4, dtype=torch.int8),
-        torch.ones(1, 1, 1, 4, dtype=torch.bfloat16),
-        torch.ones(1, 1, 1, 4, dtype=torch.bfloat16))
+    for q in (torch.zeros(1, 1, 1, 8), torch.zeros(1, 1, 5, 8, dtype=torch.bfloat16)):
+        decode_attention.fused_decode_attention(
+            q, torch.zeros(1, 1, 8, 4, dtype=torch.int8),
+            torch.zeros(1, 1, 8, 4, dtype=torch.int8),
+            torch.ones(1, 1, 1, 4, dtype=torch.bfloat16),
+            torch.ones(1, 1, 1, 4, dtype=torch.bfloat16))
     w8a8_dense.w8a8_dense(torch.zeros(3, 32), torch.zeros(8, 32, dtype=torch.int8),
                           torch.ones(8), activation="gelu_tanh")
     assert [k.launches for k in kernels] == before

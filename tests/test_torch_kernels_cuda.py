@@ -26,6 +26,11 @@ from yoho_tpu_torch.ops import decode_attention, flash_attention, mel_kernel, w8
 pytestmark = pytest.mark.cuda
 
 
+def _decode_launches():
+    """Decode-attention launches on both routes (FMA and tensor cores)."""
+    return sum(k.launches for k in decode_attention.KERNELS)
+
+
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
@@ -116,10 +121,10 @@ def test_decode_kernel_matches_plain(gen, kind, s, pos, t, kv_len):
     else:
         qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
         args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
                                                   packing=packing)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
                                                        packing=packing)
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
@@ -130,8 +135,7 @@ def test_decode_kernel_matches_plain(gen, kind, s, pos, t, kv_len):
 @pytest.mark.parametrize("s", [33, 64, 224, 1120])
 def test_decode_kernel_long_query_runs(gen, kind, pos, s):
     """More than 32 queries (a prompt's prefill, beams folded into the query
-    axis) run through the kernel in chunks of 32, one launch each, a causal
-    chunk at pos + its first query."""
+    axis) run on the tensor-core route in one launch."""
     t, kv_len = 1536, 1500
     k, v = (torch.randn((2, 4, 64, t), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
@@ -141,10 +145,10 @@ def test_decode_kernel_long_query_runs(gen, kind, pos, s):
     else:
         qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
         args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
                                                   packing=packing)
-    assert decode_attention.KERNEL.launches == before + -(-s // decode_attention.MAX_QUERIES)
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
                                                        packing=packing)
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
@@ -194,9 +198,9 @@ def test_speculative_reads_match_plain(gen, heads, s, pos, t, kv_len):
          ).to(torch.bfloat16)
     qkv = kv_cache.quantize_kv(k, v)
     args = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len)
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
 
@@ -211,7 +215,7 @@ ROW_POS = {"spread": [0, 3, 61, 64, 127, 200, 255, 300, 383, 384, 400, 420, 430,
 def test_decode_kernel_per_row_pos(gen, kind, rows, s):
     """Continuous batching's causal reads: every row of 16 at its own
     position in a 512-position cache (12 heads), S = 1, the draft's 2, the
-    verify's 5 and a chunked 40. Rows at pos 0 leave most of their cluster
+    verify's 5 and 40, each one launch. Rows at pos 0 leave most of their cluster
     with nothing to read: those blocks combine as empty states (no NaN).
     The scalar launch at the same position gives the same answer."""
     t = 512
@@ -225,9 +229,9 @@ def test_decode_kernel_per_row_pos(gen, kind, rows, s):
         qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
         args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
     pos = torch.tensor(ROW_POS[rows], dtype=torch.int32, device="cuda")
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, packing=packing)
-    assert decode_attention.KERNEL.launches == before + -(-s // decode_attention.MAX_QUERIES)
+    assert _decode_launches() == before + 1
     assert torch.isfinite(got.float()).all()
     want = decode_attention.decode_attention_reference(*args, pos=pos, packing=packing)
     torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
@@ -617,10 +621,10 @@ def test_decode_kernel_head_dim_16(gen, kind, groups, s, pos, t, kv_len):
     else:
         qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
         args, packing = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
                                                   groups=groups, packing=packing)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
                                                        groups=groups, packing=packing)
     tol = (1e-4, 1e-5) if kind == "f32" else (0.05, 0.02)
@@ -677,10 +681,10 @@ def test_decode_kernel_head_dims_32_128(gen, d, q_dtype, groups, s, pos, t, kv_l
             for _ in range(2))
     q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
          ).to(q_dtype)
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
                                                   groups=groups)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
                                                        groups=groups)
     tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
@@ -704,9 +708,9 @@ def test_decode_kernel_head_dims_32_128_per_row_pos(gen, d, q_dtype, s):
 
 def test_other_head_dims_raise(gen):
     """Head dims outside the kernels' set raise on the card, never fall
-    back: flash past 256 (264), decode past 128 (136), and int8 / int4 K/V
-    at 96 (past 64) and at 12 (not a multiple of 8); and a model whose head
-    dim is outside it is refused at construction."""
+    back: flash past 256 (264), decode past 256 (257) on both routes, and
+    int4 K/V at an odd head dim (its bytes hold dims r and r + D/2); and a
+    model whose head dim is outside it is refused at construction."""
     from yoho_tpu_torch.core.config import WhisperConfig, YOHOConfig
     from yoho_tpu_torch.nn.whisper import Whisper
     from yoho_tpu_torch.nn.yoho import YOHOModel
@@ -715,20 +719,19 @@ def test_other_head_dims_raise(gen):
         x = torch.zeros((1, 8, 2, 264), device="cuda", dtype=dtype)
         with pytest.raises(ValueError, match="head dim 264"):
             flash_attention.flash_attention(x, x, x)
-        q = torch.zeros((1, 2, 1, 136), device="cuda", dtype=dtype)
-        k = torch.zeros((1, 2, 136, 128), device="cuda", dtype=dtype)
-        with pytest.raises(ValueError, match="head dim 136"):
-            decode_attention.fused_decode_attention(q, k, k)
-    for d in (96, 12):
-        kf = torch.randn((1, 2, d, 128), device="cuda").to(torch.bfloat16)
-        qd = torch.zeros((1, 2, 1, d), device="cuda", dtype=torch.bfloat16)
-        for quant in (kv_cache.quantize_kv, kv_cache.quantize_kv4):
-            qkv = quant(kf, kf)
-            with pytest.raises(ValueError, match=f"head dim {d}"):
-                decode_attention.fused_decode_attention(
-                    qd, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, packing=qkv.packing)
-    with pytest.raises(ValueError, match="encoder: decode kernel head dim 136"):
-        YOHOModel(YOHOConfig(dims=544, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
+        for s in (1, 5):
+            q = torch.zeros((1, 2, s, 257), device="cuda", dtype=dtype)
+            k = torch.zeros((1, 2, 257, 128), device="cuda", dtype=dtype)
+            with pytest.raises(ValueError, match="head dim 257"):
+                decode_attention.fused_decode_attention(q, k, k)
+    for s in (1, 5):
+        qd = torch.zeros((1, 2, s, 97), device="cuda", dtype=torch.bfloat16)
+        packed = torch.zeros((1, 2, 48, 128), device="cuda", dtype=torch.uint8)
+        scale = torch.ones((1, 2, 1, 128), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim 97"):
+            decode_attention.fused_decode_attention(qd, packed, packed, scale, scale, packing=2)
+    with pytest.raises(ValueError, match="encoder: flash kernel head dim 264"):
+        YOHOModel(YOHOConfig(dims=1056, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
     with pytest.raises(ValueError, match="decoder: flash kernel head dim 264"):
         Whisper(WhisperConfig(n_audio_state=32, n_audio_head=4, n_text_state=528,
                               n_text_head=2), device="cuda")
@@ -817,10 +820,10 @@ def test_decode_kernel_float_kv_any_head_dim(gen, d, q_dtype, groups, s, pos, t,
             for _ in range(2))
     q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
          ).to(q_dtype)
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
                                                   groups=groups)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
                                                        groups=groups)
     tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
@@ -884,10 +887,10 @@ def test_decode_kernel_padded_head_dims(gen, d, q_dtype, groups, s, pos, t, kv_l
             for _ in range(2))
     q = (torch.randn((2, 2 * groups, s, d), generator=gen, device="cuda") * d ** -0.5
          ).to(q_dtype)
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(q, k, v, pos=pos, kv_len=kv_len,
                                                   groups=groups)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(q, k, v, pos=pos, kv_len=kv_len,
                                                        groups=groups)
     tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
@@ -931,14 +934,165 @@ def test_decode_kernel_padded_integer_kv(gen, d, kind, q_dtype, groups, s, pos, 
          ).to(q_dtype)
     qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
     args = (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
-    before = decode_attention.KERNEL.launches
+    before = _decode_launches()
     got = decode_attention.fused_decode_attention(*args, pos=pos, kv_len=kv_len,
                                                   groups=groups, packing=qkv.packing)
-    assert decode_attention.KERNEL.launches == before + 1
+    assert _decode_launches() == before + 1
     want = decode_attention.decode_attention_reference(*args, pos=pos, kv_len=kv_len,
                                                        groups=groups, packing=qkv.packing)
     tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+# ------------------------------------------ several queries on tensor cores
+# bf16 reads of S >= 2 queries (a prompt's prefill, folded beams, a
+# speculative verify) run decode_attention_mq.cu, one launch at any S; the
+# FMA route keeps single queries and f32 q, at every head dim to 256.
+
+MQ_KINDS = ("int8", "int4", "bf16")
+
+
+def _kv(gen, kind, b, hkv, d, t, dtype=torch.bfloat16):
+    """(k, v, k_scale, v_scale, packing): random K/V of ``kind`` (floats in
+    ``dtype``)."""
+    k, v = (torch.randn((b, hkv, d, t), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    if kind in ("bf16", "float"):
+        return k, v, None, None, 1
+    qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(
+        k.to(torch.bfloat16), v.to(torch.bfloat16))
+    return qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, qkv.packing
+
+
+def _row_pos(b, end):
+    """b per-row positions spread from 0 to ``end``, on the card."""
+    return torch.tensor([round(end * i / max(b - 1, 1)) for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+
+
+def _mq_case(gen, kind, groups, d, s, t, pos, kv_len=None, b=2, hkv=2):
+    """One bf16 read of s queries: one launch of the tensor-core route (none
+    of the FMA route), finite, against the plain version."""
+    k, v, ks, vs, packing = _kv(gen, kind, b, hkv, d, t)
+    q = (torch.randn((b, hkv * groups, s, d), generator=gen, device="cuda") * d ** -0.5
+         ).to(torch.bfloat16)
+    if pos == "rows":
+        pos = _row_pos(b, (kv_len or t) - s)
+    args = (q, k, v, ks, vs)
+    kw = dict(pos=pos, kv_len=kv_len, groups=groups, packing=packing)
+    assert decode_attention.kernel_route(s, q.dtype) == "mma"
+    before = (decode_attention.KERNEL_MQ.launches, decode_attention.KERNEL.launches)
+    got = decode_attention.fused_decode_attention(*args, **kw)
+    assert (decode_attention.KERNEL_MQ.launches, decode_attention.KERNEL.launches) == \
+        (before[0] + 1, before[1])
+    assert got.shape == (b, s, hkv * groups, d) and torch.isfinite(got.float()).all()
+    want = decode_attention.decode_attention_reference(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+@pytest.mark.parametrize("kind", MQ_KINDS)
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("pos", [None, 100, "rows"])
+@pytest.mark.parametrize("s", [2, 5, 8, 16, 32, 33, 224, 1120])
+def test_decode_mq_route_matches_plain(gen, kind, groups, pos, s):
+    """S = 2 to 1120 (one, two and four 16-row tiles a block, several
+    blocks of rows) at head dim 64 over the padded cross K/V (T 1536,
+    kv_len 1500, through TMA): no pos, a scalar causal pos and per-row
+    positions, groups 1 and 2."""
+    _mq_case(gen, kind, groups, 64, s, 1536, pos, kv_len=1500)
+
+
+@pytest.mark.parametrize("kind", MQ_KINDS)
+@pytest.mark.parametrize("s,pos", [(3, None), (5, 0), (224, 0), (40, "rows")])
+@pytest.mark.parametrize("t,kv_len", [(333, 300), (1500, 1500), (512, 512), (8192, 8000)])
+def test_decode_mq_route_load_branches(gen, kind, s, pos, t, kv_len):
+    """Every load branch of the ring on the tensor-core route: element
+    copies (333), 4-byte words (bf16 rows of 1500), TMA tiles (512), and a T
+    whose chunks outnumber a cluster's blocks (8192); a causal prefill at
+    pos 0, whose first rows read a chunk or two."""
+    _mq_case(gen, kind, 1, 64, s, t, pos, kv_len=kv_len, b=3, hkv=3)
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 96, 128, 200, 256])
+@pytest.mark.parametrize("kind", MQ_KINDS)
+@pytest.mark.parametrize("s,pos", [(5, None), (5, "rows"), (224, 0)])
+@pytest.mark.parametrize("t,kv_len", [(512, 512), (333, 300)])
+def test_decode_mq_route_head_dims(gen, d, kind, s, pos, t, kv_len):
+    """The tensor-core route at every width and padded head dims (48 at 64,
+    96 at 128, 200 at 256; int4 split at D/2), grouped, through TMA tiles
+    and element copies."""
+    _mq_case(gen, kind, 2, d, s, t, pos, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("d", [24, 96, 100, 136, 200, 256])
+@pytest.mark.parametrize("kind", ["int8", "int4", "float"])
+@pytest.mark.parametrize("q_dtype,s,pos", [
+    (torch.bfloat16, 1, None), (torch.bfloat16, 1, 200), (torch.bfloat16, 1, "rows"),
+    (torch.float32, 1, None), (torch.float32, 4, 100), (torch.float32, 5, "rows"),
+    (torch.float32, 32, None)])
+@pytest.mark.parametrize("t,kv_len", [(333, 300), (512, 512)])
+def test_decode_fma_route_wide_head_dims(gen, d, kind, q_dtype, s, pos, t, kv_len):
+    """The FMA route at the widths it gained (32, 128 and 256 for int8 and
+    int4, 256 for floats) and padded head dims there: single queries in bf16
+    and f32, and f32 runs of 4, 5 and 32 queries (chunks of 32, of 4 at
+    width 256)."""
+    k, v, ks, vs, packing = _kv(gen, kind, 2, 2, d, t, q_dtype)
+    q = (torch.randn((2, 4, s, d), generator=gen, device="cuda") * d ** -0.5).to(q_dtype)
+    if pos == "rows":
+        pos = _row_pos(2, kv_len - s)
+    args = (q, k, v, ks, vs)
+    kw = dict(pos=pos, kv_len=kv_len, groups=2, packing=packing)
+    assert decode_attention.kernel_route(s, q_dtype) == "fma"
+    chunk = decode_attention.MAX_QUERIES if d <= 128 else decode_attention.MAX_QUERIES_256
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    got = decode_attention.fused_decode_attention(*args, **kw)
+    assert (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches) == \
+        (before[0] + -(-s // chunk), before[1])
+    want = decode_attention.decode_attention_reference(*args, **kw)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("heads", [2, 3])
+def test_whisper_with_wide_head_dims_decodes_on_the_card(gen, heads):
+    """A whisper model at head dim 200 (dims 400 on 2 heads) or 136 (dims
+    408 on 3) constructs on the card and decodes there over the int8 cross
+    K/V and cache: the prompt's prefill (3 queries: the tensor-core route)
+    and a step (one query: the FMA route), logits finite and within 5e-2
+    (relative norm) of the CPU's plain path in f32 with the same weights."""
+    from yoho_tpu_torch.core.config import WhisperConfig
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+
+    dims = 400 if heads == 2 else 408
+    cfg = WhisperConfig(n_mels=16, n_audio_ctx=64, n_audio_state=dims, n_audio_head=heads,
+                        n_audio_layer=1, n_vocab=300, n_text_ctx=32, n_text_state=dims,
+                        n_text_head=heads, n_text_layer=2)
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16, device="cuda"), seed=0)
+    ref = Whisper(cfg, dtype=torch.float32, device="cpu")
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    mel = torch.randn((2, 2 * cfg.n_audio_ctx, cfg.n_mels), generator=gen, device="cuda")
+    prompt, step = torch.tensor([[1, 2, 3]] * 2), torch.tensor([[4]] * 2)
+
+    def run(m, dev, quantized):
+        xa = m.encode_audio(mel.to(dev, m.dtype))
+        caches = m.init_caches(2, None, None, quantized)
+        ckv = m.cross_kvs(xa, "int8" if quantized else False)
+        first = m.decode_step(prompt.to(dev), caches, ckv, 0)[0]
+        return first, m.decode_step(step.to(dev), caches, ckv, 3)[0]
+
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    with torch.inference_mode():
+        got = run(model, "cuda", True)
+        want = run(ref, "cpu", False)
+    # Per layer a self and a cross read: the prefill's on tensor cores, the
+    # step's on FMAs.
+    assert (decode_attention.KERNEL.launches - before[0],
+            decode_attention.KERNEL_MQ.launches - before[1]) == (4, 4)
+    for g, w in zip(got, want):
+        g = g.float().cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - w).norm() / w.norm()) < 5e-2
 
 
 # ------------------------------------------------- the YOHO serving shapes

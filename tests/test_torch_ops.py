@@ -123,10 +123,10 @@ def test_decode_attention_int4_matches_jax():
 
 @pytest.mark.parametrize("pos", [0, 100, None])
 def test_decode_attention_chunks_long_query_runs(pos):
-    """S = 224 (a per-request prompt's prefill) goes through the wrapper in
-    chunks of 32 queries, a causal chunk at ``pos`` + its first query: the
-    same as the plain version over all 224 queries at once, and as JAX's
-    XLA route for S > 32."""
+    """S = 224 (a per-request prompt's prefill) in f32 (the FMA route) goes
+    through the wrapper in chunks of 32 queries, a causal chunk at ``pos`` +
+    its first query: the same as the plain version over all 224 queries at
+    once, and as JAX's XLA route for S > 32."""
     g = np.random.default_rng(14)
     b, h, d, t, s = 2, 2, 64, 512, 224
     q = g.standard_normal((b, h, s, d)).astype(np.float32)
@@ -146,6 +146,37 @@ def test_decode_attention_chunks_long_query_runs(pos):
         jnp.asarray(k_q), jnp.asarray(v_q), jnp.asarray(ks, jnp.bfloat16),
         jnp.asarray(vs, jnp.bfloat16)), mask, jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,d,groups", [(5, 64, 1), (224, 64, 1), (5, 200, 2)])
+def test_decode_attention_several_queries_one_call_matches_jax(s, d, groups, monkeypatch):
+    """Several bf16 queries (the tensor-core route on the card: a verify
+    step, a prompt's prefill) go through the wrapper in one call at any S,
+    never in chunks: with one causal position per row, the same as JAX's
+    fused_decode_attention (Pallas, interpret mode) at that row's position,
+    row by row; int8 K/V, grouped heads at D = 200."""
+    g = np.random.default_rng(15)
+    b, hkv, t = 3, 2, 256
+    rows = [0, 13, t - s]
+    q = _bf16(g.standard_normal((b, hkv * groups, s, d)).astype(np.float32) * d ** -0.5)
+    k_q, k_s = _quantize_ref(g.standard_normal((b, hkv, d, t)).astype(np.float32))
+    v_q, v_s = _quantize_ref(g.standard_normal((b, hkv, d, t)).astype(np.float32))
+    ks, vs = _bf16(k_s), _bf16(v_s)
+    calls = []
+    plain = tda.decode_attention_reference
+    monkeypatch.setattr(tda, "decode_attention_reference",
+                        lambda *a, **kw: calls.append(a[0].shape) or plain(*a, **kw))
+    assert tda.kernel_route(s) == "mma"
+    got = tda.fused_decode_attention(
+        _t(q, torch.bfloat16), _t(k_q), _t(v_q), _t(ks, torch.bfloat16),
+        _t(vs, torch.bfloat16), pos=torch.tensor(rows, dtype=torch.int32), groups=groups)
+    assert calls == [(b, hkv * groups, s, d)] and got.shape == (b, s, hkv * groups, d)
+    for r, p in enumerate(rows):
+        jargs = (jnp.asarray(k_q[r:r + 1]), jnp.asarray(v_q[r:r + 1]),
+                 jnp.asarray(ks[r:r + 1], jnp.bfloat16), jnp.asarray(vs[r:r + 1], jnp.bfloat16))
+        want = jax_decode(jnp.asarray(q[r:r + 1], jnp.bfloat16), *jargs, pos=jnp.int32(p),
+                          groups=groups)
+        _close(got[r:r + 1], want)
 
 
 def test_decode_attention_rejects_bad_shapes():

@@ -1,36 +1,44 @@
 #!/usr/bin/env python3
 """Time variants of the flash and decode attention kernels on one NVIDIA GPU.
 
-    python3 tools/attention_variants.py [--parent DIR]
+    python3 tools/attention_variants.py [--parent DIR] [--variants NAME,...]
 
-Builds ``yoho_tpu_torch/csrc/flash_attention.cu`` and ``decode_attention.cu``
-once per variant below, each with some of its constants or expressions
-replaced (one
-``nvcc`` per variant, all started together, into
-``yoho_tpu_torch/_build/variants/``); with ``--parent DIR`` also the two
-sources of another checkout (an earlier tree unpacked there, built against
-its own headers and called through its own C entry points: a flash entry
-point without the KV-head count gets K/V repeated to the query heads), so
-that two trees are compared on one card in one run. The parent's kernels
-are first held to the shipped ones bit for bit where the route did not
-change: flash in f32 at widths 16, 32, 64 and 128 and in bf16 at width 64,
-equal heads, causal or not, ``kv_len`` inside a tile, Tq != Tk; decode over
-float, int8 and int4 K/V at every width each kind has (D = W), S = 1, 4
-and 32, no / scalar / per-row ``pos``, groups 1 and 2, every load branch.
-Where the route did change (bf16 flash at widths 16, 32 and 128, now on
-wgmma), the shipped kernel is held to the plain version instead, at the
-same cases. One line per kernel counts the cases, and the exit code is 1 if
-any differs. Each variant is held to the plain version (``chip_smoke.py``'s
-tolerances) and timed with ``chip_smoke.py``'s ``time_ms`` (device time,
-L2 flushed between calls) at the main paths' shapes and the YOHO shapes
-(head dims 16, 32, 48, 64, 96 and 128 on grouped K/V, which this tree's
-kernels read unexpanded), in turns: every variant once forward and once
-backward a round, three rounds, and the median is printed. "flash padded
-to width 64" runs bf16 head dims 8-32 on the width-64 route, TMA
+Builds ``yoho_tpu_torch/csrc/flash_attention.cu``, ``decode_attention.cu``
+(decode's FMA route: one query, f32 q) and ``decode_attention_mq.cu``
+(its tensor-core route: several bf16 queries) once per variant below, each
+with some of its constants or expressions replaced (one ``nvcc`` per
+variant, all started together, into ``yoho_tpu_torch/_build/variants/``;
+``--variants`` builds only the named ones); with ``--parent DIR`` also the
+flash and decode sources of another checkout (an earlier tree unpacked
+there, built against its own headers and called through its own C entry
+points: a flash entry point without the KV-head count gets K/V repeated to
+the query heads; a decode entry point that takes at most 32 queries is
+called as that tree's wrapper called it, in chunks of 32 with their copies),
+so that two trees are compared on one card in one run. The parent's
+kernels are first held to the shipped ones bit for bit where the route did
+not change: flash in f32 at widths 16, 32, 64 and 128 and in bf16 at width
+64, equal heads, causal or not, ``kv_len`` inside a tile, Tq != Tk; decode
+over float, int8 and int4 K/V at every width the parent built for each kind
+(D = W), S = 1 in both types and S = 4 and 32 in f32, no / scalar / per-row
+``pos``, groups 1 and 2, every load branch. Where the route did change
+(bf16 flash at widths 16, 32 and 128, now on wgmma; bf16 decode of S = 4
+and 32, now on tensor cores), the shipped kernel is held to the plain
+version instead, at the same cases. One line per kernel counts the cases,
+and the exit code is 1 if any differs. Each variant is held to the plain
+version (``chip_smoke.py``'s tolerances) and timed with ``chip_smoke.py``'s
+``time_ms`` (device time, L2 flushed between calls) at the main paths'
+shapes and the YOHO shapes (head dims 16, 32, 48, 64, 96 and 128 on grouped
+K/V, which this tree's kernels read unexpanded), and decode's multi-query
+reads (prefills, folded beams, verify steps) on the tensor-core route
+against the parent's FMA route, in turns (a variant marked "timing only"
+leaves part of the work out and is not held to the plain version: it shows
+where the time goes): every variant once forward and
+once backward a round, three rounds, and the median is printed. "flash
+padded to width 64" runs bf16 head dims 8-32 on the width-64 route, TMA
 zero-filling the columns past D; "2 (3) consumer warpgroups" runs every
 launch at widths 16-64 on two (three) instead of the count ``pick_nwg``
-chooses. One JSON line per case; the first line
-is the card's name and power limit. Needs CUDA; imports no JAX.
+chooses. One JSON line per case; the first line is the card's name and power
+limit. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +61,12 @@ _FLASH_WIDTHS = "D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128"
 _FLASH_ST = "ST = STAGES;"
 _FLASH_QB = "QB = W == 128 ? 1 : QBUF;"
 
+# The multi-query route's step width, its loop over a warp's steps, and its
+# conversion of a chunk's codes.
+_MQ_NG = "if (wm > 1) return launch<KIND, W, TC / 16>(a, wm, n_rt);"
+_MQ_STEPS = "for (int tp = p0; has_rows && tp < p0 + ppw; tp += step) {"
+_MQ_CONVERT = "      convert16<KIND, W>(st, tl, warp, lane);\n"
+
 # name -> (source, replacements); "shipped" replaces nothing. A key that is a
 # name replaces that constant's value; any other key is text, replaced once.
 VARIANTS = {
@@ -70,12 +84,27 @@ VARIANTS = {
     "decode 8 warps (128-position chunks)": ("decode_attention.cu", {"WARPS": 8}),
     "decode clusters for 1 block per SM": ("decode_attention.cu", {"BLOCKS_PER_SM": 1}),
     "decode clusters for 4 blocks per SM": ("decode_attention.cu", {"BLOCKS_PER_SM": 4}),
+    "decode_mq shipped": ("decode_attention_mq.cu", {}),
+    "decode_mq 2 stages": ("decode_attention_mq.cu", {"STAGES": 2}),
+    "decode_mq 4 stages": ("decode_attention_mq.cu", {"STAGES": 4}),
+    "decode_mq clusters for 1 block per SM": ("decode_attention_mq.cu", {"BLOCKS_PER_SM": 1}),
+    "decode_mq clusters for 4 blocks per SM": ("decode_attention_mq.cu", {"BLOCKS_PER_SM": 4}),
+    "decode_mq one 16-position group a step at every row count": (
+        "decode_attention_mq.cu", {_MQ_NG: "if (false) return launch<KIND, W, TC / 16>(a, wm, n_rt);"}),
+    "decode_mq without the products (timing only)": ("decode_attention_mq.cu", {
+        _MQ_STEPS: "for (int tp = p0; false && tp < p0 + ppw; tp += step) {"}),
+    "decode_mq without the code conversion (timing only)": ("decode_attention_mq.cu", {
+        _MQ_CONVERT: ""}),
 }
 ROUNDS = 3
 # The flash C entry point of trees before it took the KV-head count:
 # dtype, q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream.
 _FLASH_ARGS_NO_HKV = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# The decode widths every earlier tree built, by K/V kind, and the queries a
+# launch of its entry point took.
+PARENT_DECODE_WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
+PARENT_MAX_QUERIES = 32
 
 
 def variant_source(src: str, sub: dict) -> str:
@@ -127,6 +156,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, help="checkout whose two kernels to hold the "
                                                  "shipped ones to and time as well")
+    ap.add_argument("--variants", help="comma-separated names of VARIANTS to build "
+                                       "(default: all)")
     args = ap.parse_args(argv)
 
     import chip_smoke
@@ -136,18 +167,23 @@ def main(argv) -> int:
     from yoho_tpu_torch.ops import flash_attention as fa
 
     print(chip_smoke.card_line(), flush=True)
+    chosen = VARIANTS if args.variants is None else {
+        n: VARIANTS[n] for n in args.variants.split(",")}
     jobs = {name: (variant_source((_build.CSRC / src).read_text(), sub), _build.CSRC)
-            for name, (src, sub) in VARIANTS.items()}
+            for name, (src, sub) in chosen.items()}
     if args.parent is not None:
         csrc = args.parent.resolve() / "yoho_tpu_torch" / "csrc"
         for src in ("flash_attention.cu", "decode_attention.cu"):
             kind = src.split("_")[0]
-            jobs[f"{kind} parent"] = ((csrc / src).read_text(), csrc)
+            if any(n.startswith(kind) for n in jobs):  # the kernels chosen
+                jobs[f"{kind} parent"] = ((csrc / src).read_text(), csrc)
     libs = build(jobs)
     fns, no_hkv = {}, set()
     for name, lib in libs.items():
-        fn = lib.flash_attention_forward if name.startswith("flash") else lib.decode_attention
-        fn.argtypes = (fa if name.startswith("flash") else da).KERNEL.argtypes
+        flash = name.startswith("flash")
+        fn = lib.flash_attention_forward if flash else \
+            lib.decode_attention_mq if name.startswith("decode_mq") else lib.decode_attention
+        fn.argtypes = (fa if flash else da).KERNEL.argtypes
         if name == "flash parent" and not re.search(
                 r"flash_attention_forward\([^)]*int Hkv", jobs[name][0]):
             fn.argtypes = _FLASH_ARGS_NO_HKV
@@ -178,19 +214,32 @@ def main(argv) -> int:
         return call
 
     def decode_call(name, q, k, v, ks, vs, out, pos=None, kv_len=None):
+        """One call of a decode entry point, or, for the parent at more than
+        its 32 queries a launch, that tree's wrapper: a launch per chunk of
+        32 queries (q's chunk copied, a causal chunk at pos + its first
+        query), each chunk's output copied into ``out``."""
         b, hq, s, d = q.shape
         rows = isinstance(pos, torch.Tensor)
         kind = "float" if ks is None else "int4" if k.dtype == torch.uint8 else "int8"
 
-        def call():
+        def launch(qq, oo, p):
             err = fns[name](1 if q.dtype == torch.bfloat16 else 0, da.KINDS.index(kind),
-                            ptr(q), ptr(k), ptr(v), ptr(ks) if ks is not None else None,
-                            ptr(vs) if vs is not None else None, ptr(out), b, hq, k.shape[1],
-                            s, d, k.shape[3], kv_len or k.shape[3], int(pos is not None),
-                            0 if pos is None or rows else pos, ptr(pos) if rows else None,
-                            stream(q))
+                            ptr(qq), ptr(k), ptr(v), ptr(ks) if ks is not None else None,
+                            ptr(vs) if vs is not None else None, ptr(oo), b, hq, k.shape[1],
+                            qq.shape[2], d, k.shape[3], kv_len or k.shape[3],
+                            int(p is not None), 0 if p is None or rows else p,
+                            ptr(p) if rows else None, stream(q))
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
+
+        def call():
+            if name != "decode parent" or s <= PARENT_MAX_QUERIES:
+                return launch(q, out, pos)
+            for i0 in range(0, s, PARENT_MAX_QUERIES):
+                i1 = min(i0 + PARENT_MAX_QUERIES, s)
+                oc = torch.empty((b, i1 - i0, hq, d), dtype=q.dtype, device=dev)
+                launch(q[:, :, i0:i1].contiguous(), oc, None if pos is None else pos + i0)
+                out[:, i0:i1] = oc
         return call
 
     def same(calls, out):
@@ -216,23 +265,22 @@ def main(argv) -> int:
                           "bit_identical": n - len(bad), "differ": bad[:40]}), flush=True)
         return not bad
 
-    def held_to_plain(cases):
-        """cases as ``parity``'s, for a route this tree changed: the shipped
-        kernel against the plain version; True if every case is within
-        chip_smoke.py's bf16 tolerance."""
+    def held_to_plain(what, name, tol, cases):
+        """cases: (label, out, {name: call}, plain output), for a route this
+        tree changed: the shipped kernel ``name`` against the plain version;
+        True if every case is within ``tol`` (rtol, atol)."""
         n, bad = 0, []
         for label, out, calls, want in cases:
             n += 1
             out.fill_(float("nan"))
-            calls["flash shipped"]()
+            calls[name]()
             torch.cuda.synchronize()
             try:
-                chip_smoke.check_close(label, out, want, 1e-2, 1e-2)
+                chip_smoke.check_close(label, out, want, *tol)
             except AssertionError:
                 bad.append(label)
-        print(json.dumps({"held_to_plain": "flash bf16 at widths 16, 32, 128 (now wgmma)",
-                          "cases": n, "within_tolerance": n - len(bad), "differ": bad[:40]}),
-              flush=True)
+        print(json.dumps({"held_to_plain": what, "cases": n, "within_tolerance": n - len(bad),
+                          "differ": bad[:40]}), flush=True)
         return not bad
 
     def flash_cases(changed):
@@ -256,9 +304,12 @@ def main(argv) -> int:
                     yield case + ((fa.attention_reference(q, k, v, causal, d ** -0.5, kv_len),)
                                   if changed else ())
 
-    def decode_parity_cases():
+    def decode_cases(changed):
+        """The parent's cases whose route is unchanged (one query; f32 at 4
+        and 32), or, changed, the bf16 runs of 4 and 32 queries now on
+        tensor cores, with the plain version's output."""
         for kind in da.KINDS:
-            for d in da.WIDTHS[kind]:
+            for d in PARENT_DECODE_WIDTHS[kind]:
                 for q_dtype in (torch.float32, torch.bfloat16):
                     for t, kv_len in ((333, 300), (1500, 1500), (512, 512), (1536, 1500)):
                         kf, vf = (torch.randn((2, 2, d, t), generator=gen, device=dev)
@@ -268,6 +319,8 @@ def main(argv) -> int:
                         kv = (kv.k_q, kv.v_q, kv.k_scale, kv.v_scale) \
                             if isinstance(kv, QuantizedKV) else kv
                         for s in (1, 4, 32):
+                            if changed != (da.kernel_route(s, q_dtype) == "mma"):
+                                continue
                             for pos in (None, 100, torch.tensor([0, kv_len - s],
                                                                 dtype=torch.int32, device=dev)):
                                 for groups in (1, 2):
@@ -276,16 +329,27 @@ def main(argv) -> int:
                                     out = torch.empty((2, s, 2 * groups, d), dtype=q_dtype,
                                                       device=dev)
                                     p = "rows" if isinstance(pos, torch.Tensor) else pos
-                                    yield (f"{kind} {str(q_dtype)[6:]} D={d} T={t} S={s} "
-                                           f"pos={p} groups={groups}", out,
-                                           {n: decode_call(n, q, *kv, out, pos, kv_len)
-                                            for n in ("decode parent", "decode shipped")})
+                                    names = ("decode parent", "decode_mq shipped" if changed
+                                             else "decode shipped")
+                                    case = (f"{kind} {str(q_dtype)[6:]} D={d} T={t} S={s} "
+                                            f"pos={p} groups={groups}", out,
+                                            {n: decode_call(n, q, *kv, out, pos, kv_len)
+                                             for n in names})
+                                    yield case + ((da.decode_attention_reference(
+                                        q, *kv, pos, kv_len, groups,
+                                        2 if kind == "int4" else 1),) if changed else ())
 
     ok = True
     if args.parent is not None:
-        ok &= parity("flash", flash_cases(False))
-        ok &= held_to_plain(flash_cases(True))
-        ok &= parity("decode", decode_parity_cases())
+        if "flash shipped" in libs:
+            ok &= parity("flash", flash_cases(False))
+            ok &= held_to_plain("flash bf16 at widths 16, 32, 128 (wgmma)", "flash shipped",
+                                (1e-2, 1e-2), flash_cases(True))
+        if "decode shipped" in libs:
+            ok &= parity("decode", decode_cases(False))
+        if "decode_mq shipped" in libs:
+            ok &= held_to_plain("decode bf16 at S = 4 and 32 (tensor cores)",
+                                "decode_mq shipped", (0.05, 0.02), decode_cases(True))
 
     def run(calls, check):
         """calls: name -> call(); times them in turns, ROUNDS rounds, each
@@ -293,7 +357,8 @@ def main(argv) -> int:
         for name, call in calls.items():
             call()
             torch.cuda.synchronize()
-            check(name)
+            if "timing only" not in name:  # a variant that leaves work out
+                check(name)
         times = {name: [] for name in calls}
         for _ in range(ROUNDS):
             for name in list(calls) + list(calls)[::-1]:
@@ -301,13 +366,14 @@ def main(argv) -> int:
         return {name: statistics.median(t) for name, t in times.items()}
 
     flash_names = [n for n in libs if n.startswith("flash")]
-    decode_names = [n for n in libs if n.startswith("decode")]
     for b, t, heads, kvh, d, causal in (
             (16, 1500, 12, 12, 64, False), (16, 1500, 20, 20, 64, False),
             (16, 448, 12, 12, 64, True), (16, 512, 24, 12, 16, False),
             (16, 512, 12, 6, 32, False), (16, 512, 4, 2, 128, False),
             (16, 512, 4, 2, 96, False), (16, 512, 6, 3, 64, False),
             (16, 256, 6, 3, 64, True), (16, 512, 8, 4, 48, False)):
+        if not flash_names:
+            break
         q = torch.randn((b, t, heads, d), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, t, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
@@ -330,20 +396,53 @@ def main(argv) -> int:
 
     cross = quantize_kv(*kv(1500), pad_to=128)
     cache = quantize_kv(*kv(512))
+    spread = torch.tensor([round(442 * i / 15) for i in range(16)], dtype=torch.int32,
+                          device=dev)
+    # (label, K/V, queries, pos, kv_len, query heads)
     cases = [("cross int8 S=1 (T 1536, kv_len 1500)", cross, 1, None, 1500, 12),
-             ("cross int8 S=3 (prefill)", cross, 3, None, 1500, 12),
              ("self int8 S=1 pos=0", cache, 1, 0, 512, 12),
              ("self int8 S=1 pos=200", cache, 1, 200, 512, 12),
              ("self int8 S=1 pos=447", cache, 1, 447, 512, 12),
              ("cross bf16 S=1 (T 1500, the unquantized lane)", tuple(kv(1500)), 1, None, 1500,
-              12)]
+              12),
+             ("cross int8 S=2 (the draft's step; T 1536)", cross, 2, None, 1500, 12),
+             ("cross int8 S=3 (prefill)", cross, 3, None, 1500, 12),
+             ("cross int8 folded beams S=5 (T 1536, kv_len 1500)", cross, 5, None, 1500, 12),
+             ("self int8 verify S=5 causal pos=200 (T 512)", cache, 5, 200, 512, 12),
+             ("self int8 verify S=5 causal pos=447 (T 512)", cache, 5, 447, 512, 12),
+             ("self int8 verify S=5 per-row pos 0..442 (T 512)", cache, 5, spread, 512, 12),
+             ("self int8 prefill S=224 causal pos=0 (T 512)", cache, 224, 0, 512, 12),
+             ("cross int8 prefill S=224", cross, 224, None, 1500, 12),
+             ("cross int8 folded beam prefill S=1120", cross, 1120, None, 1500, 12)]
     for d, heads in ((16, 24), (32, 12), (128, 4)):
         cases.append((f"D={d} cross bf16 S=1, {heads} on {heads // 2} heads (T 512)",
                       tuple(kv(512, heads // 2, d)), 1, None, 512, heads))
+    draft_cache, draft_cross = quantize_kv(*kv(512, 6)), quantize_kv(*kv(1500, 6), pad_to=128)
+    cases += [("draft self int8 S=2 causal pos=199, 6 heads (T 512)", draft_cache, 2, 199, 512,
+               6),
+              ("draft cross int8 S=2, 6 heads (T 1536, kv_len 1500)", draft_cross, 2, None, 1500,
+               6),
+              ("yoho self bf16 S=5 causal pos=200, 6 on 3 heads (T 256)", tuple(kv(256, 3)), 5,
+               200, 256, 6),
+              ("yoho self bf16 S=1 causal pos=200, 6 on 3 heads (T 256)", tuple(kv(256, 3)), 1,
+               200, 256, 6),
+              ("yoho cross bf16 S=5, 6 on 3 heads (T 512)", tuple(kv(512, 3)), 5, None, 512, 6),
+              ("D=256 cross bf16 S=1, 2 on 1 heads (T 512)", tuple(kv(512, 1, 256)), 1, None,
+               512, 2),
+              ("D=256 cross bf16 S=5, 2 on 1 heads (T 512)", tuple(kv(512, 1, 256)), 5, None,
+               512, 2)]
+    del cache
     for label, kvs, s, pos, kv_len, heads in cases:
         k_, v_, ks, vs = ((kvs.k_q, kvs.v_q, kvs.k_scale, kvs.v_scale)
                           if isinstance(kvs, QuantizedKV) else (*kvs, None, None))
         d = k_.shape[2] * (2 if k_.dtype == torch.uint8 else 1)
+        route = da.kernel_route(s)
+        names = [n for n in libs if n.startswith("decode_mq" if route == "mma" else "decode ")
+                 and not n.endswith("parent")]
+        if d in PARENT_DECODE_WIDTHS["float" if ks is None else "int8"] and "decode parent" in libs:
+            names.append("decode parent")
+        if not names:
+            continue
         q = (torch.randn((16, heads, s, d), generator=gen, device=dev) * d ** -0.5
              ).to(torch.bfloat16)
         out = torch.empty((16, s, heads, d), dtype=torch.bfloat16, device=dev)
@@ -352,9 +451,9 @@ def main(argv) -> int:
 
         def check(name):
             chip_smoke.check_close(name, out, want, 0.05, 0.02)
-        print(json.dumps({"case": f"decode {label}",
+        print(json.dumps({"case": f"decode {label}", "route": route,
                           "ms": run({n: decode_call(n, q, k_, v_, ks, vs, out, pos, kv_len)
-                                     for n in decode_names}, check),
+                                     for n in names}, check),
                           "card": chip_smoke.card_line()}), flush=True)
     return 0 if ok else 1
 

@@ -1,4 +1,9 @@
-// Flash-decode attention of a few queries against a time-minor KV cache.
+// Flash-decode attention of a few queries against a time-minor KV cache:
+// the FMA route, one query a lane pair. It runs every single-query read (a
+// decode step) and f32 q at any S; several bf16 queries (a prompt's
+// prefill, folded beams, a speculative verify) run the tensor-core route of
+// decode_attention_mq.cu, which shares this file's stage ring
+// (decode_stage.cuh) and arguments.
 //
 // Replaces the TPU kernel yoho_tpu/ops/decode_attention.py::
 // _decode_attention_call (body _decode_attn_kernel). On the TPU the T axis
@@ -16,24 +21,25 @@
 //                                 the type of q without scales
 //   out      (B, S, Hq, D)        the type of q
 //
-// Head dims: 64 (every whisper size, the full-width YOHO model), and 16,
-// 32 and 128 for YOHO sessions (the trained fixture is dims 64 on 4 heads;
-// 32 and 128 for K/V in the type of q only: the YOHO family has no int8 or
-// int4 K/V). Lane l < STR holds the NPL key and value dims l + STR j: two
-// dims (STR = D/2) up to D = 64, so at D = 16 and 32 only lanes 0-7 or
-// 0-15 hold dims and the others add zeros to the score butterfly, and four
-// (STR = 32) at D = 128. These are simple instantiations, not fast ones. The
+// Widths W = 16, 32, 64, 128 and 256 for every K/V kind: 64 is every
+// whisper size and the full-width YOHO model. Lane l < STR holds the NPL
+// key and value dims l + STR j: two dims (STR = W/2) up to W = 64, so at
+// W = 16 and 32 only lanes 0-7 or 0-15 hold dims and the others add zeros
+// to the score butterfly, and W/32 (STR = 32) above; an int4 byte row
+// l + 32 j holds dims l + 32 j and l + 32 j + W/2, entries j and j + NPL/2
+// of that map. These are simple instantiations, not fast ones (at W = 256
+// a lane's 16 positions of K and V are 256 registers, which spill). The
 // tiles stay DK rows of 64 positions, so the TMA boxes and swizzles are
-// those of D = 64 with fewer or more rows (D = 128 bf16: a 64 x 128 box,
-// 33 KB a stage). When the chunks are done the warps' and the block's
-// softmax states take the stage memory over, which keeps f32 K/V at D = 128
+// those of D = 64 with fewer or more rows (W = 256 bf16: a 64 x 256 box,
+// 65 KB a stage). When the chunks are done the warps' and the block's
+// softmax states take the stage memory over, which keeps f32 K/V at W = 128
 // with 32 queries (three 66.5 KB stages, 83 KB of states) inside the 227 KB
-// a block may have.
+// a block may have; f32 K/V at W = 256 (129 KB a stage) run one stage and
+// at most 4 queries a launch.
 //
-// Any other head dim Dh (K/V in the type of q: any Dh up to 128; int8 and
-// int4: a multiple of 8 up to 64; the JAX model attends at any dims //
-// heads) runs on the smallest instantiated width W >= Dh, a runtime argument
-// of the same instantiations. Nothing here needs Dh to be a multiple of 8:
+// Any head dim Dh from 1 to 256 (int4: even; the JAX model attends at any
+// dims // heads) runs on the smallest width W >= Dh, a runtime argument of
+// the same instantiations. Nothing here needs Dh to be a multiple of 8:
 // q and out move element by element, and K/V rows are T positions long
 // whatever Dh is, so the TMA boxes, the word copies and their strides (T
 // elements a row, DKh T a head) are those of any Dh. Global rows follow Dh (q and out rows of Dh,
@@ -63,7 +69,7 @@
 //   exp(-inf - -inf)). The CL blocks of a cluster (CL a power of two up
 //   to 8, grown until the grid has about two blocks per SM) take the
 //   chunks of one (b, h) in turn, each through a ring of three shared-memory
-//   stages. Where rows are a multiple of 16 bytes (the cross K/V, padded to
+//   stages (decode_stage.cuh). Where rows are a multiple of 16 bytes (the cross K/V, padded to
 //   a multiple of 128 positions for this; the caches), one thread fills a
 //   stage with four TMA tile loads (K and V, 64 positions by D/pack rows,
 //   and the two scale rows) that report to the stage's mbarrier, so the
@@ -90,14 +96,13 @@
 //   cluster barrier keeps every block alive while its peers read it.
 #include <cooperative_groups.h>
 
-#include <algorithm>
-#include <type_traits>
-
-#include "tma.cuh"
+#include "decode_stage.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace decode;
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
@@ -106,39 +111,6 @@ constexpr int TC = WARPS * PW;       // positions per chunk
 constexpr int STAGES = 3;
 constexpr int MAX_CLUSTER = 8;       // the portable cluster size
 constexpr int BLOCKS_PER_SM = 2;     // the grid the cluster size aims at
-
-enum { KV_INT8 = 0, KV_INT4 = 1, KV_FLOAT = 2 };
-
-template <typename QT, int KIND> struct KvType { using T = QT; };
-template <typename QT> struct KvType<QT, KV_INT8> { using T = int8_t; };
-template <typename QT> struct KvType<QT, KV_INT4> { using T = uint8_t; };
-
-// One shared-memory stage (1024-byte aligned): the K tile and the V tile,
-// DK rows of TC positions (ROWB bytes) each, then TC bf16 k scales and TC
-// v scales.
-template <typename E, int DK> struct Stage {
-  static constexpr int ROWB = TC * (int)sizeof(E);
-  static constexpr int KV = DK * ROWB;
-  static constexpr int SCALES = 2 * KV;
-  static constexpr int BYTES = (2 * KV + 2 * TC * 2 + 1023) / 1024 * 1024;
-};
-
-// Byte offset of byte `b` of tile row `r`: the TMA swizzle of the row
-// width (64 B: 16-byte chunk ^= (r / 2) % 4; 128 B: chunk ^= r % 8). f32
-// rows (256 B, never loaded by TMA) take the 128-byte pattern in software.
-template <int ROWB>
-__device__ __forceinline__ int swz(int r, int b) {
-  return r * ROWB + (ROWB == 64 ? b ^ (((r >> 1) & 3) << 4) : b ^ ((r & 7) << 4));
-}
-
-// Four bytes to floats without the (quarter-rate) integer conversion: a
-// byte b placed under the exponent of 2^23 reads as 2^23 + b; `bias` is
-// 2^23 plus the code's offset (128 for a signed byte flipped to unsigned,
-// 8 for an int4 nibble).
-__device__ __forceinline__ void bytes4(uint32_t u, float bias, float* x) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - bias;
-}
 
 // The 16 positions [16 w, 16 w + 16) of tile row r, as floats.
 template <typename E>
@@ -164,7 +136,8 @@ __device__ __forceinline__ void row16(const unsigned char* tile, int r, int w, f
   }
 }
 
-// int4: the low nibbles are dim r, the high nibbles dim r + D/2.
+// int4: the low nibbles of byte row r are dim r, the high nibbles dim
+// r + D/2.
 __device__ __forceinline__ void row16_int4(const unsigned char* tile, int r, int w,
                                            float (&lo)[16], float (&hi)[16]) {
   const uint4 u = *reinterpret_cast<const uint4*>(tile + swz<TC>(r, w * 16));
@@ -174,21 +147,6 @@ __device__ __forceinline__ void row16_int4(const unsigned char* tile, int r, int
     bytes4(word[i] & 0x0F0F0F0Fu, 8388616.f, &lo[4 * i]);
     bytes4((word[i] >> 4) & 0x0F0F0F0Fu, 8388616.f, &hi[4 * i]);
   }
-}
-
-// N-byte asynchronous copy global -> shared; `bytes` 0 writes zeros.
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One step of butterfly16: keeps HALF of the values, adds the partner's.
@@ -236,16 +194,16 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int DKh = KIND == KV_INT4 ? Dh / 2 : Dh;  // K/V rows of a (b, h) in global memory
   constexpr int NPL = D > 64 ? D / 32 : 2;  // dims per lane
   constexpr int STR = D / NPL;    // lane l < STR holds dims l + STR j, j < NPL
-  static_assert(KIND != KV_INT4 || NPL == 2, "int4 holds dims l and l + D/2 in one byte");
   constexpr int PART = D + 2;     // a softmax state: acc[D], m, l
-  using L = Stage<E, DK>;
+  using L = Stage<E, DK, TC>;
+  constexpr int NST = ring_stages(L::BYTES, STAGES);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   // After the last chunk the states take the stages' memory over; the
   // barriers and q lie past both.
-  const int region = max(STAGES * L::BYTES, (int)sizeof(float) * (WARPS + 1) * S * PART);
+  const int region = max(NST * L::BYTES, (int)sizeof(float) * (WARPS + 1) * S * PART);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (region + 7) / 8 * 8);
-  float* q_s = reinterpret_cast<float*>(bars + STAGES);  // S x D
+  float* q_s = reinterpret_cast<float*>(bars + NST);     // S x D
   float* wpart = reinterpret_cast<float*>(smem);         // WARPS x S x PART
   float* bpart = wpart + WARPS * S * PART;               // S x PART: this block's state
 
@@ -260,7 +218,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_all;
   const int t_end = pos_rows != nullptr ? min(t_end_all, pos + S) : t_end_all;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool holds = lane < STR;  // always at D = 64 and 128
+  const bool holds = lane < STR;  // always at D >= 64
   const bool scaled = k_scale != nullptr;
   const int n_chunks = (t_end + TC - 1) / TC;
   const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;  // chunks rank + i CL
@@ -274,98 +232,11 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     }
   };
 
-  // Thread 0 starts the TMA loads of local chunk i into its stage; rows
-  // past T arrive as zeros.
-  const CUtensorMap *map_k = &tm_k, *map_v = &tm_v, *map_ks = &tm_ks, *map_vs = &tm_vs;
-  auto issue = [&](int i) {
-    const uint32_t buf = smem_addr(smem + (i % STAGES) * L::BYTES);
-    const uint32_t bar = smem_addr(bars + i % STAGES);
-    const int t0 = (rank + i * CL) * TC;
-    mbar_expect_tx(bar, 2 * L::KV + (scaled ? 4 * TC : 0));
-    tma_load(buf, map_k, bar, t0, 0, bhk);
-    tma_load(buf + L::KV, map_v, bar, t0, 0, bhk);
-    if (scaled) {
-      tma_load(buf + L::SCALES, map_ks, bar, t0, bhk);
-      tma_load(buf + L::SCALES + 2 * TC, map_vs, bar, t0, bhk);
-    }
-  };
-  // Rows of a multiple of 4 bytes that TMA does not take (mode 1, or 3
-  // where rows are a multiple of 8): every thread starts 4- or 8-byte
-  // asynchronous copies of local chunk i into the same layout (cp.async,
-  // one commit group per chunk); words at or past t_end are zero-filled.
-  auto issue_words_of = [&](int i, auto word_bytes) {
-    constexpr int WB = decltype(word_bytes)::value;
-    constexpr int WPR = TC * (int)sizeof(E) / WB;  // words per chunk row
-    unsigned char* buf = smem + (i % STAGES) * L::BYTES;
-    const int t0 = (rank + i * CL) * TC;
-    for (int e = tid; e < 2 * DK * WPR; e += THREADS) {
-      const int r = e / WPR, w = e - r * WPR, rr = r % DK;
-      const bool row_in = rr < DKh;  // rows past DKh are padding: zeros
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(
-          static_cast<const E*>(r < DK ? k : v) + ((size_t)bhk * DKh + (row_in ? rr : 0)) * T +
-          t0);
-      const bool in = row_in && t0 + WB * w / (int)sizeof(E) < t_end;
-      cp_async<WB>(smem_addr(buf + (r < DK ? 0 : L::KV) + swz<L::ROWB>(r % DK, WB * w)),
-                   in ? src + WB * w : src, in ? WB : 0);
-    }
-    for (int e = tid; scaled && e < TC; e += THREADS) {  // two bf16 scales a word
-      const int r = e / (TC / 2), w = e - r * (TC / 2);
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          (r == 0 ? k_scale : v_scale) + (size_t)bhk * T + t0);
-      const bool in = t0 + 2 * w < t_end;
-      cp_async<4>(smem_addr(buf + L::SCALES + r * TC * 2 + 4 * w), in ? src + w : src,
-                  in ? 4 : 0);
-    }
-    cp_async_commit();
-  };
-  auto issue_words = [&](int i) {
-    if (mode == 3) issue_words_of(i, std::integral_constant<int, 8>{});
-    else issue_words_of(i, std::integral_constant<int, 4>{});
-  };
-  // Any other T (mode 0): all threads copy local chunk i element by element
-  // through registers, BATCH loads in flight before the first store;
-  // positions at or past t_end read as zero.
-  auto load_plain = [&](int i) {
-    unsigned char* buf = smem + (i % STAGES) * L::BYTES;
-    const int t0 = (rank + i * CL) * TC;
-    constexpr int BATCH = 8;
-    static_assert(2 * DK * TC % (BATCH * THREADS) == 0, "elements split evenly");
-    for (int e0 = 0; e0 < 2 * DK * TC; e0 += BATCH * THREADS) {
-      E x[BATCH];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int e = e0 + u * THREADS + tid, r = e / TC, t = t0 + e - r * TC, rr = r % DK;
-        const E* src = static_cast<const E*>(r < DK ? k : v) +
-                       ((size_t)bhk * DKh + (rr < DKh ? rr : 0)) * T;
-        x[u] = t < t_end && rr < DKh ? src[t] : E{};
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int e = e0 + u * THREADS + tid, r = e / TC, p = e - r * TC;
-        *reinterpret_cast<E*>(buf + (r < DK ? 0 : L::KV) +
-                              swz<L::ROWB>(r % DK, p * (int)sizeof(E))) = x[u];
-      }
-    }
-    if (scaled) {
-      __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(buf + L::SCALES);
-      for (int e = tid; e < 2 * TC; e += THREADS) {
-        const int r = e / TC, t = t0 + e - r * TC;
-        sc[e] = t < t_end ? (r == 0 ? k_scale : v_scale)[(size_t)bhk * T + t]
-                          : __float2bfloat16(0.f);
-      }
-    }
-  };
-
+  const Ring<E, DK, TC, THREADS, NST> ring{
+      smem, bars, &tm_k, &tm_v, &tm_ks, &tm_vs, k, v, k_scale, v_scale,
+      bhk, DKh, T, t_end, rank, CL, mode, my_n, tid};
   // The first loads go out before q is read, so the two latencies overlap.
-  const bool tma = mode == 2;
-  if (tma && tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(smem_addr(bars + s), 1);
-    mbar_fence_init();
-    for (int i = 0; i < min(STAGES, my_n); ++i) issue(i);
-  }
-  const bool words = mode == 1 || mode == 3;
-  if (words)  // STAGES - 1 commit groups, empty where there is no chunk
-    for (int i = 0; i < STAGES - 1; ++i) i < my_n ? issue_words(i) : cp_async_commit();
+  ring.start();
   for (int i = tid; i < S * D; i += THREADS) {
     const int s = i / D, d = true_dim(i - s * D);
     q_s[i] = d >= 0 ? to_f32<QT>(q[((size_t)bh * S + s) * Dh + d]) : 0.f;
@@ -382,22 +253,9 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int pl = lane >> 1;  // the position whose full score this lane holds
 
   for (int i = 0; i < my_n; ++i) {
-    const unsigned char* buf = smem + (i % STAGES) * L::BYTES;
-    if (tma) {
-      mbar_wait(smem_addr(bars + i % STAGES), (i / STAGES) & 1);
-    } else if (words) {
-      // Chunk i + STAGES - 1 goes into the stage chunk i - 1 left (every
-      // warp passed the barrier at the end of the last pass).
-      if (i + STAGES - 1 < my_n) issue_words(i + STAGES - 1);
-      else cp_async_commit();  // an empty group keeps the count
-      cp_async_wait<STAGES - 1>();
-      __syncthreads();
-    } else {
-      __syncthreads();  // every warp is done with the stage's previous chunk
-      load_plain(i);
-      __syncthreads();
-    }
-    const int tw = (rank + i * CL) * TC + warp * PW;  // this warp's first position
+    const unsigned char* buf = ring.stage(i);
+    ring.acquire(i);
+    const int tw = ring.first(i) + warp * PW;  // this warp's first position
     if (tw < t_end) {
       float kr[NPL][16], vr[NPL][16];  // dims lane + STR j
       if (!holds) {
@@ -406,8 +264,13 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 #pragma unroll
           for (int p = 0; p < 16; ++p) kr[j][p] = vr[j][p] = 0.f;
       } else if constexpr (KIND == KV_INT4) {
-        row16_int4(buf, lane, warp, kr[0], kr[1]);
-        row16_int4(buf + L::KV, lane, warp, vr[0], vr[1]);
+        // Byte row lane + STR j holds dims lane + STR j (low nibbles) and
+        // lane + STR j + D/2 (high nibbles): j and j + NPL/2 of the map.
+#pragma unroll
+        for (int j = 0; j < NPL / 2; ++j) {
+          row16_int4(buf, lane + STR * j, warp, kr[j], kr[j + NPL / 2]);
+          row16_int4(buf + L::KV, lane + STR * j, warp, vr[j], vr[j + NPL / 2]);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < NPL; ++j) {
@@ -455,14 +318,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
         for (int j = 0; j < NPL; ++j) acc[s][j] = a[j];
       }
     }
-    if (words) __syncthreads();  // every warp is done with this stage
-    if (tma && i + STAGES < my_n) {
-      __syncthreads();  // every warp is done with this stage
-      if (tid == 0) {
-        fence_proxy_async();
-        issue(i + STAGES);
-      }
-    }
+    ring.release(i);
   }
 
   // The warps' states -> this block's state, in the stages' memory once
@@ -515,133 +371,74 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 }
 
 template <typename QT, int KIND, int SMAX, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                   void* out, int B, int Hq, int Hkv, int S, int Dh, int T, int t_end,
-                   int causal, int pos, const int* pos_rows, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
-  const int DKh = KIND == KV_INT4 ? Dh / 2 : Dh;
-  using L = Stage<E, DK>;
-  const int n_chunks = (t_end + TC - 1) / TC;
-  int cl = 1;
-  const int target = BLOCKS_PER_SM * sm_count();
-  while (cl < MAX_CLUSTER && 2 * cl <= n_chunks && B * Hq * cl < target) cl *= 2;
-
-  // TMA maps: K and V as (T, DKh, B * Hkv) tiles of (TC, DK, 1) in the
-  // row width's swizzle (rows past DKh zero-filled), the scales as
-  // (T, B * Hkv) rows of TC.
-  CUtensorMap mk, mv, mks, mvs;
-  memset(&mks, 0, sizeof(mks));
-  memset(&mvs, 0, sizeof(mvs));
-  int tma = L::ROWB <= 128;  // the widest row a TMA swizzle covers
-  if (tma) {
-    const CUtensorMapDataType type =
-        sizeof(E) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    const CUtensorMapSwizzle swizzle =
-        L::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-    const uint64_t dims[3] = {(uint64_t)T, (uint64_t)DKh, (uint64_t)B * Hkv};
-    const uint64_t strides[2] = {(uint64_t)T * sizeof(E), (uint64_t)DKh * T * sizeof(E)};
-    const uint32_t box[3] = {TC, DK, 1};
-    tma = tensor_map(&mk, type, 3, k, dims, strides, box, swizzle) &&
-          tensor_map(&mv, type, 3, v, dims, strides, box, swizzle);
-    if (tma && ks != nullptr) {
-      const uint64_t sdims[2] = {(uint64_t)T, (uint64_t)B * Hkv};
-      const uint64_t sstrides[1] = {(uint64_t)T * 2};
-      const uint32_t sbox[2] = {TC, 1};
-      tma = tensor_map(&mks, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ks, sdims, sstrides, sbox,
-                       CU_TENSOR_MAP_SWIZZLE_NONE) &&
-            tensor_map(&mvs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, vs, sdims, sstrides, sbox,
-                       CU_TENSOR_MAP_SWIZZLE_NONE);
-    }
-  }
-  if (!tma) memset(&mk, 0, sizeof(mk)), memset(&mv, 0, sizeof(mv));
-  auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
-  auto rows_of = [&](int n) {  // rows (and scale rows) of a multiple of n bytes
-    return (T * sizeof(E)) % n == 0 && aligned(k, n) && aligned(v, n) &&
-           (ks == nullptr || (aligned(ks, 4) && aligned(vs, 4)));
-  };
-  // 2: TMA; 3, 1: 8- or 4-byte cp.async words; 0: element copies.
-  const int mode = tma ? 2 : rows_of(8) ? 3 : rows_of(4) ? 1 : 0;
-
+  using L = Stage<E, DK, TC>;
+  constexpr int NST = ring_stages(L::BYTES, STAGES);
+  const int n_chunks = (a.t_end + TC - 1) / TC;
+  const int cl = cluster_size(n_chunks, a.B * a.Hq, BLOCKS_PER_SM * sm_count(), MAX_CLUSTER);
+  const KvMaps m = kv_maps<E, DK, TC>(a.k, a.v, a.ks, a.vs, a.B, a.Hkv,
+                                      KIND == KV_INT4 ? a.Dh / 2 : a.Dh, a.T);
   constexpr int PART = D + 2;
-  const size_t states = sizeof(float) * (size_t)(WARPS + 1) * S * PART;
-  const size_t smem = 1024 + (std::max((size_t)STAGES * L::BYTES, states) + 7) / 8 * 8 + 8 * STAGES +
-                      sizeof(float) * (size_t)S * D;
-  auto kern = decode_attn<QT, KIND, SMAX, D>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, B * Hq);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  // A block on its own is a cluster of one without the attribute, which
-  // launches faster.
-  cfg.numAttrs = cl > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kern, mk, mv, mks, mvs, static_cast<const QT*>(q), k, v,
-                           static_cast<const __nv_bfloat16*>(ks),
-                           static_cast<const __nv_bfloat16*>(vs), static_cast<QT*>(out), Hq, Hkv,
-                           S, Dh, T, t_end, causal, pos, pos_rows, mode);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const size_t states = sizeof(float) * (size_t)(WARPS + 1) * a.S * PART;
+  const size_t smem = 1024 + (std::max((size_t)NST * L::BYTES, states) + 7) / 8 * 8 + 8 * NST +
+                      sizeof(float) * (size_t)a.S * D;
+  return launch_clusters(decode_attn<QT, KIND, SMAX, D>, dim3(cl, a.B * a.Hq), THREADS, smem,
+                         cl, a.stream, m.k, m.v, m.ks, m.vs, static_cast<const QT*>(a.q), a.k,
+                         a.v, static_cast<const __nv_bfloat16*>(a.ks),
+                         static_cast<const __nv_bfloat16*>(a.vs), static_cast<QT*>(a.out), a.Hq,
+                         a.Hkv, a.S, a.Dh, a.T, a.t_end, a.causal, a.pos, a.pos_rows, m.mode);
 }
 
+// S queries -> the instantiation that holds them: one query for bf16 q
+// (several bf16 queries run decode_attention_mq.cu); 1, 4 or 32 for f32 q,
+// 1 or 4 at width 256, whose 32-query states the registers cannot hold.
 template <typename QT, int KIND, int D>
-cudaError_t dispatch_s(const void* q, const void* k, const void* v, const void* ks,
-                       const void* vs, void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
-                       int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (S <= 1) return launch<QT, KIND, 1, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-  if (S <= 4) return launch<QT, KIND, 4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-  if (S <= 32) return launch<QT, KIND, 32, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+cudaError_t dispatch_s(const Args& a) {
+  if (a.S <= 1) return launch<QT, KIND, 1, D>(a);
+  if constexpr (std::is_same<QT, float>::value) {
+    if (a.S <= 4) return launch<QT, KIND, 4, D>(a);
+    if constexpr (D <= 128)
+      if (a.S <= 32) return launch<QT, KIND, 32, D>(a);
+  }
   return cudaErrorInvalidValue;
 }
 
 template <typename QT, int D>
-cudaError_t dispatch_kind(int kind, const void* q, const void* k, const void* v, const void* ks,
-                          const void* vs, void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
-                          int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
+cudaError_t dispatch_kind(int kind, const Args& a) {
   switch (kind) {
-    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(a);
+    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(a);
+    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Head dim Dh -> the smallest width W >= Dh built for the kind: 16 and 64
-// for every kind, 32 and 128 for K/V in the type of q only. Float K/V take
-// any Dh from 1 to 128, int8 and int4 a multiple of 8 up to 64.
+// Head dim Dh -> the smallest width W >= Dh: 16, 32, 64, 128 or 256, for
+// every kind. Any Dh from 1 to 256; int4 an even one (its bytes hold dims
+// r and r + Dh/2).
 template <typename QT>
-cudaError_t dispatch_d(int Dh, int kind, const void* q, const void* k, const void* v,
-                       const void* ks, const void* vs, void* out, int B, int Hq, int Hkv, int S,
-                       int T, int t_end, int causal, int pos, const int* pr, cudaStream_t st) {
-  if (kind == KV_FLOAT ? Dh < 1 || Dh > 128 : Dh < 8 || Dh % 8 || Dh > 64)
-    return cudaErrorInvalidValue;
-  if (Dh <= 16)
-    return dispatch_kind<QT, 16>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-  if (Dh <= 32 && kind == KV_FLOAT)
-    return dispatch_s<QT, KV_FLOAT, 32>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-  if (Dh <= 64)
-    return dispatch_kind<QT, 64>(kind, q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
-  return dispatch_s<QT, KV_FLOAT, 128>(q, k, v, ks, vs, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos, pr, st);
+cudaError_t dispatch_d(int kind, const Args& a) {
+  if (a.Dh < 1 || a.Dh > 256 || (kind == KV_INT4 && a.Dh % 2)) return cudaErrorInvalidValue;
+  if (a.Dh <= 16) return dispatch_kind<QT, 16>(kind, a);
+  if (a.Dh <= 32) return dispatch_kind<QT, 32>(kind, a);
+  if (a.Dh <= 64) return dispatch_kind<QT, 64>(kind, a);
+  if (a.Dh <= 128) return dispatch_kind<QT, 128>(kind, a);
+  return dispatch_kind<QT, 256>(kind, a);
 }
 
 }  // namespace
 
 YOHO_ERROR_STRING_FN
 
-// q_dtype: 0 = float32, 1 = bfloat16. kind: 0 = int8, 1 = int4 (packed),
-// 2 = K/V in the type of q (k_scale and v_scale null). causal: query row s
-// of batch row b sees keys <= pos + s, or <= pos_rows[b] + s when pos_rows
-// (B ints on the device, each >= 0) is not null. Dh is any head dim from 1
-// to 128 (kind 2) or a multiple of 8 up to 64 (kinds 0 and 1). One launch;
-// no workspace.
+// q_dtype: 0 = float32, 1 = bfloat16 (one query: several bf16 queries
+// run decode_attention_mq, with the same arguments). kind: 0 = int8, 1 =
+// int4 (packed), 2 = K/V in the type of q (k_scale and v_scale null).
+// causal: query row s of batch row b sees keys <= pos + s, or <=
+// pos_rows[b] + s when pos_rows (B ints on the device, each >= 0) is not
+// null. Dh is any head dim from 1 to 256 (int4: even). One launch; no
+// workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
@@ -651,11 +448,9 @@ extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void
   if (causal && pos_rows == nullptr) t_end = min(t_end, pos + S);
   if (t_end <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (pos_rows != nullptr && !causal))
     return cudaErrorInvalidValue;
-  if (q_dtype == 0)
-    return dispatch_d<float>(Dh, kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, T, t_end,
-                             causal, pos, pos_rows, stream);
-  if (q_dtype == 1)
-    return dispatch_d<__nv_bfloat16>(Dh, kind, q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S,
-                                     T, t_end, causal, pos, pos_rows, stream);
+  const Args a{q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos,
+               pos_rows, stream};
+  if (q_dtype == 0) return dispatch_d<float>(kind, a);
+  if (q_dtype == 1) return dispatch_d<__nv_bfloat16>(kind, a);
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-"""Fused decode attention over time-minor (B, H, D, T) KV: the CUDA kernel
-``csrc/decode_attention.cu`` and its plain PyTorch version.
+"""Fused decode attention over time-minor (B, H, D, T) KV: the CUDA kernels
+``csrc/decode_attention.cu`` (the FMA route) and ``csrc/decode_attention_mq.cu``
+(the tensor-core route), and their plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/decode_attention.py::
 fused_decode_attention``, with the same contract:
@@ -16,23 +17,25 @@ fused_decode_attention``, with the same contract:
   kv_len   int             only keys < kv_len are valid
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
-Returns (B, S, Hq, D) in q's type. D is any head dim up to 128 (float K/V)
-or a multiple of 8 up to 64 (int8, int4), each run at the smallest
-instantiated width W that holds it (:func:`kernel_width`; zero-padded in
-shared memory).
+Returns (B, S, Hq, D) in q's type. D is any head dim from 1 to 256 (int4:
+an even one), each run at the smallest instantiated width W that holds it
+(:func:`kernel_width`; zero-padded in shared memory).
 Unlike the TPU kernel, T need not be a multiple of 128: int8/int4/bf16
 rows of a multiple of 16 bytes (the padded cross K/V, the cache) stream in
 by TMA tile loads, rows of a multiple of 4 bytes by asynchronous word
-copies, any other T element by element. One launch per call of at most 32 queries: a thread-block
-cluster per (b, h) merges its blocks' softmax states (sm_90a). Longer
-query runs (a prompt's prefill, beams folded into the query axis) go
-through the same kernel in chunks of 32, one launch each; a causal chunk
-whose first query is i0 runs at ``pos + i0`` (for a per-row ``pos`` an
-offset tensor on the device). A per-row ``pos`` is read by the kernel
-only, never by the host: the grid spans ``min(T, kv_len)`` and each
-(b, h) ends its row at ``min(T, kv_len, pos[b] + S)``. The wrapper takes
-the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+copies, any other T element by element. A thread-block cluster per
+(b, head) merges its blocks' softmax states (sm_90a). Two routes
+(:func:`kernel_route`): several bf16 queries (a prompt's prefill, beams
+folded into the query axis, a speculative verify) run on tensor cores, one
+launch per call at any S, the K/V of a KV head read once for all its query
+heads ("mma"); a single query, and f32 q at any S, run on FMAs ("fma"), at
+most 32 queries a launch (4 at width 256): longer f32 runs go through it in
+chunks, one launch each, a causal chunk whose first query is i0 at
+``pos + i0`` (for a per-row ``pos`` an offset tensor on the device). A
+per-row ``pos`` is read by the kernels only, never by the host: the grid
+spans ``min(T, kv_len)`` and each (b, h) ends its row at
+``min(T, kv_len, pos[b] + S)``. The wrapper takes the plain version only for
+a tensor on the CPU; for a CUDA tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -43,37 +46,50 @@ import torch
 
 from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, stream_of
 
-KERNEL = CudaKernel(
-    "decode_attention", "decode_attention.cu", "decode_attention",
-    [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P],
-    replaces="yoho_tpu/ops/decode_attention.py:140 _decode_attention_call")
+# Both entry points take the same arguments: q dtype, K/V kind, q, k, v,
+# k_scale, v_scale, out, B, Hq, Hkv, S, D, T, kv_len, causal, pos,
+# per-row pos, stream.
+_ARGS = [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P]
+_REPLACES = "yoho_tpu/ops/decode_attention.py:140 _decode_attention_call"
+KERNEL = CudaKernel("decode_attention", "decode_attention.cu", "decode_attention", _ARGS,
+                    replaces=_REPLACES)
+KERNEL_MQ = CudaKernel("decode_attention_mq", "decode_attention_mq.cu", "decode_attention_mq",
+                       _ARGS, replaces=_REPLACES)
+KERNELS = (KERNEL, KERNEL_MQ)
 
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KINDS = ("int8", "int4", "float")  # the kernel's K/V kind codes 0, 1, 2
-# The instantiated head dims by K/V kind: 64 whisper and the full-width
-# YOHO model; 16, 32, 128 YOHO sessions, whose K/V are floats (32 and 128
-# are built for float K/V only). Every other head dim runs padded: any D up
-# to 128 for float K/V, a multiple of 8 for int8 and int4.
-WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
-MAX_QUERIES = 32    # queries per launch (the kernel's per-row softmax states)
+KINDS = ("int8", "int4", "float")  # the kernels' K/V kind codes 0, 1, 2
+# The instantiated head dims, the same for every K/V kind: 64 is whisper
+# and the full-width YOHO model. Every other head dim runs padded to the
+# next: any D from 1 to 256, an even one for int4 (a byte holds dims r and
+# r + D/2).
+WIDTHS = (16, 32, 64, 128, 256)
+MAX_QUERIES = 32    # queries per FMA launch (its per-row softmax states)
+MAX_QUERIES_256 = 4  # at width 256
 NEG_INF = torch.finfo(torch.float32).min
 
 
 def kernel_width(d: int, kind: str = "float") -> int:
-    """The instantiated width W the kernel runs head dim ``d`` at for K/V
+    """The instantiated width W the kernels run head dim ``d`` at for K/V
     of ``kind`` ("float", "int8" or "int4"): the smallest of
-    :data:`WIDTHS` that holds it. Raises ``ValueError`` for a head dim it
-    does not take (float K/V: outside 1 to 128; integer K/V: not a multiple
-    of 8 from 8 to 64)."""
-    widths = WIDTHS[kind]
-    if kind == "float":
-        if not 1 <= d <= widths[-1]:
-            raise ValueError(f"decode kernel head dim {d} not in 1, 2, ..., {widths[-1]} "
-                             f"for {kind} K/V")
-    elif d % 8 or not 8 <= d <= widths[-1]:
-        raise ValueError(f"decode kernel head dim {d} not in 8, 16, ..., {widths[-1]} "
-                         f"(multiples of 8) for {kind} K/V")
-    return next(w for w in widths if w >= d)
+    :data:`WIDTHS` that holds it. Raises ``ValueError`` for a head dim they
+    do not take (outside 1 to 256; int4: also an odd one)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown K/V kind {kind!r}")
+    if not 1 <= d <= WIDTHS[-1]:
+        raise ValueError(f"decode kernel head dim {d} not in 1, 2, ..., {WIDTHS[-1]} "
+                         f"for {kind} K/V")
+    if kind == "int4" and d % 2:
+        raise ValueError(f"decode kernel head dim {d} not in 2, 4, ..., {WIDTHS[-1]} "
+                         f"(even) for {kind} K/V")
+    return next(w for w in WIDTHS if w >= d)
+
+
+def kernel_route(s: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The route a read of ``s`` queries in q of ``dtype`` runs: "mma"
+    (tensor cores, ``decode_attention_mq.cu``) for several bf16 queries,
+    "fma" (``decode_attention.cu``) for one query or f32 q."""
+    return "mma" if dtype == torch.bfloat16 and s >= 2 else "fma"
 
 
 def is_row_pos(pos) -> bool:
@@ -138,7 +154,7 @@ def decode_attention_reference(q, k, v, k_scale=None, v_scale=None, pos=None,
 def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
                            kv_len: Optional[int] = None, groups: int = 1,
                            packing: int = 1) -> torch.Tensor:
-    """Decode attention through the kernel (CUDA) or its plain version
+    """Decode attention through a kernel (CUDA) or its plain version
     (CPU); see the module docstring for the contract."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[3]
@@ -156,10 +172,12 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
         raise ValueError(f"per-row pos must be a ({b},) integer tensor on "
                          f"{q.device}, got {tuple(pos.shape)} {pos.dtype} on "
                          f"{pos.device}")
-    if s > MAX_QUERIES:
+    route = kernel_route(s, q.dtype)
+    chunk = MAX_QUERIES if d <= 128 else MAX_QUERIES_256
+    if route == "fma" and s > chunk:
         out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
-        for i0 in range(0, s, MAX_QUERIES):
-            i1 = min(i0 + MAX_QUERIES, s)
+        for i0 in range(0, s, chunk):
+            i1 = min(i0 + chunk, s)
             out[:, i0:i1] = fused_decode_attention(
                 q[:, :, i0:i1], k, v, k_scale, v_scale,
                 None if pos is None else (pos + i0 if row_pos else int(pos) + i0),
@@ -197,10 +215,9 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     # A per-row pos goes to the kernel as an int32 device pointer; the
     # scalar stays an int argument.
     pos_rows = pos.to(torch.int32).contiguous() if row_pos else None
-    KERNEL.launch(_QTYPES[q.dtype], KINDS.index(kind), ptr(q), ptr(k), ptr(v),
-                  ptr(ks) if ks is not None else None,
-                  ptr(vs) if vs is not None else None, ptr(out), b, hq,
-                  hkv, s, d, t, kv_len, int(causal),
-                  int(pos) if causal and not row_pos else 0,
-                  ptr(pos_rows) if row_pos else None, stream_of(q))
+    (KERNEL_MQ if route == "mma" else KERNEL).launch(
+        _QTYPES[q.dtype], KINDS.index(kind), ptr(q), ptr(k), ptr(v),
+        ptr(ks) if ks is not None else None, ptr(vs) if vs is not None else None, ptr(out),
+        b, hq, hkv, s, d, t, kv_len, int(causal), int(pos) if causal and not row_pos else 0,
+        ptr(pos_rows) if row_pos else None, stream_of(q))
     return out
