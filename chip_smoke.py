@@ -63,7 +63,13 @@ Phases, one output line each (JSON after the phase name):
    not; decode at D = 256 (2 heads on 1), one query and five, timed, and D =
    200 (width 256) at 1, 5 and 224 queries, checked. Every flash line names its route (``flash_route``) and ``width``;
    bf16 k and v go to the kernel unexpanded, and the bound counts q, out
-   and those K/V bytes.
+   and those K/V bytes. Head dims above 256 (the split route, output
+   slices of width 256: ``slices`` on each line): flash (16, 512, 4 on 2,
+   512) and decode's int8 cross reads at D = 512, S = 1 and 5 (T 512),
+   timed, each with the extra work of its slices beside its bound (flash's
+   recomputed QK products, decode's repeated K bytes); flash at D = 264
+   and 512 in f32 and bf16, causal and not, and decode at D = 264 and 512
+   on both routes over int8, int4 and float K/V, checked.
 4. ``e2e``: whisper-small at full width with random bf16 weights from a
    seed, int8 cross-K/V and int8 self-cache, greedy decode with timestamps,
    batch 16, through ``Transcriber.transcribe_many`` on requests of 12 s,
@@ -123,7 +129,9 @@ Phases, one output line each (JSON after the phase name):
    read of the cross K/V at 16 rows); one host sync per round; each row's
    tokens equal greedy's (the ``e2e`` configuration, run again with its
    processed logits recorded) up to its first difference, and there the
-   greedy top-2 margin is at most 4 bf16 ulps of the larger logit. It
+   greedy top-2 margin is at most 4 bf16 ulps of the larger logit. Greedy
+   and both drafts decode ``SERVE_MAX_LEN`` (112) positions a window, not
+   448, to fit the time limit. It
    prints per draft the wall, audio-s/s, rounds, tokens committed per
    round, host syncs, the rows that diverge and the decode launches by
    shape; ``phase-wall`` lines give each of the two phases' seconds.
@@ -336,13 +344,22 @@ Phases, one output line each (JSON after the phase name):
    part counts launches from 0 (mel and flash, decode in the validations
    and the dry run's serving; w8a8 never); the unsharded references'
    launches are not counted.
-16. ``kernels``: one JSON object with every kernel's numbers; launches are
+16. ``e2e-wide-heads``: whisper at head dim 264 (dims 528 on 2 heads, 80
+   mels, 1,500 positions, the multilingual vocabulary, 2 + 2 layers),
+   seed-0 random bf16 weights, int8 cross K/V and cache, batch 16: both
+   attention kernels on their split route. One window's prefill (tensor
+   cores) and step (FMAs) against the CPU in f32 (5e-2 relative), then
+   ``transcribe_many`` of the three requests twice (``SERVE_MAX_LEN``
+   positions a window): the same tokens, mel, flash and decode launched,
+   every decode launch at D = 264.
+17. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
    ``train`` phase's runs, ``e2e-cli``'s commands, the parts of
    ``e2e-yoho`` and ``e2e-yoho-train``, ``e2e-mesh``'s mesh runs (its
-   served runs included) and ``e2e-mesh-train``'s parts.
-17. The last line: ``{"ok": true, "device": {...}}``.
+   served runs included), ``e2e-mesh-train``'s parts and
+   ``e2e-wide-heads``' first run.
+18. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -800,6 +817,7 @@ def kernel_checks(card: str) -> dict:
          kv_len=cross8.kv_len)
     del kb, vb, qb, cross, self_kv, c4, draft_self, draft_cross, k8, v8, cross8
     _yoho_kernel_checks(card, gen, flush, record)
+    _split_kernel_checks(card, gen, flush, record)
 
     # Kernel 4: the W8A8 encoder MLP of a batch of 16 windows (M = 24,000
     # rows): large-v3-turbo's fc1 (with the tanh GELU) and fc2, and
@@ -1044,6 +1062,118 @@ def _yoho_kernel_checks(card: str, gen, flush, record) -> None:
                     200, 256, s_, pos, timed=False)
 
 
+def _split_kernel_checks(card: str, gen, flush, record) -> None:
+    """Head dims above 256, the split route of both attention kernels
+    (output slices of width 256; flash's rest at the smallest FMA width that
+    holds it). Timed: flash (16, 512, 4 on 2, 512) in bf16 with SDPA beside
+    it, and decode's int8 cross reads at D = 512, S = 1 (FMAs) and S = 5
+    (tensor cores), 4 on 2 heads over T 512; each bound counts the work of
+    one pass and the line names the extra work of the slices (flash
+    recomputes the scores once a slice: (slices - 1) x the QK products;
+    decode reads K once a slice: (slices - 1) x K's bytes). Checked
+    (untimed) against the plain versions: flash at D = 264 (slices 256 +
+    16) and 512 in f32 and bf16, causal and not, 4 on 2 heads; decode at D
+    = 264 and 512 over int8, int4 and float K/V, on the FMA route (bf16 S =
+    1, f32 S = 1 and 5) and the tensor-core route (bf16 S = 5 and 224), no,
+    scalar and per-row pos, groups 2."""
+    import torch
+
+    from yoho_tpu_torch.nn.kv_cache import quantize_kv, quantize_kv4
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    sdpa_f = torch.nn.functional.scaled_dot_product_attention
+    for d in (264, 512):  # flash, checked
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                q = torch.randn((4, 300, 4, d), generator=gen, device=dev).to(dtype)
+                k, v = (torch.randn((4, 300, 2, d), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+                tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+                before = fa.KERNEL.launches
+                got = fa.flash_attention(q, k, v, causal, d ** -0.5)
+                if fa.KERNEL.launches != before + 1:
+                    raise AssertionError(f"flash D={d}: the kernel did not launch once")
+                label = f"D={d} {'causal ' if causal else ''}4x300x4 on 2 KV heads, " \
+                        f"{str(dtype)[6:]}"
+                err = check_close(f"flash {label}", got,
+                                  fa.attention_reference(q, k, v, causal, d ** -0.5), tol, tol)
+                emit("kernel", name=fa.KERNEL.name, case=label, max_abs_err=err,
+                     tolerance=f"rtol {tol}, atol {tol}", flash_route=fa.kernel_route(d, dtype),
+                     slices=fa.kernel_slices(d, dtype))
+    for d in (264, 512):  # decode, checked
+        for kind in ("int8", "int4", "float"):
+            for q_dtype, s_ in ((torch.bfloat16, 1), (torch.float32, 1), (torch.float32, 5),
+                                (torch.bfloat16, 5), (torch.bfloat16, 224)):
+                kf, vf = (torch.randn((4, 2, d, 300), generator=gen, device=dev)
+                          for _ in range(2))
+                if kind == "float":
+                    kv = (kf.to(q_dtype), vf.to(q_dtype), None, None, 1)
+                else:
+                    qkv = (quantize_kv if kind == "int8" else quantize_kv4)(
+                        kf.to(torch.bfloat16), vf.to(torch.bfloat16))
+                    kv = (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, qkv.packing)
+                for pos in (None, 50, "rows"):
+                    qq = (torch.randn((4, 4, s_, d), generator=gen, device=dev) * d ** -0.5
+                          ).to(q_dtype)
+                    p_ = torch.tensor([0, 20, 40, 300 - s_], dtype=torch.int32, device=dev) \
+                        if pos == "rows" else pos
+                    args = (qq, *kv[:4], p_, None, 2, kv[4])
+                    label = f"D={d} {kind} {str(q_dtype)[6:]} S={s_} pos={pos} 4 on 2 (T 300)"
+                    got, kernel, route, launches = _decode_route_call(f"decode {label}", args)
+                    tol = (0.05, 0.02) if q_dtype == torch.bfloat16 else (1e-4, 1e-5)
+                    err = check_close(f"decode {label}", got,
+                                      da.decode_attention_reference(*args), *tol)
+                    emit("kernel", name=kernel.name, case=label, max_abs_err=err,
+                         tolerance=f"rtol {tol[0]}, atol {tol[1]}", decode_route=route,
+                         launches_per_call=launches, slices=da.kernel_slices(d, kind))
+
+    # Timed: flash (16, 512, 4 on 2, 512), bf16.
+    b, t, heads, kvh, d = 16, 512, 4, 2, 512
+    q = torch.randn((b, t, heads, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, t, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    scale = d ** -0.5
+    err = check_close("flash split", fa.flash_attention(q, k, v, False, scale),
+                      fa.attention_reference(q, k, v, False, scale), 1e-2, 1e-2)
+    slices = fa.kernel_slices(d)
+
+    def sdpa():
+        return sdpa_f(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale,
+                      enable_gqa=True)
+
+    qk = 2 * b * heads * t * t * d  # the QK products of one pass (PV as many)
+    record(fa.KERNEL, f"D={d} encoder {b}x{t}x{heads}x{d} on {kvh} KV heads, bf16 (split)",
+           err, time_ms(lambda: fa.flash_attention(q, k, v, False, scale), 10, flush),
+           time_ms(lambda: fa.attention_reference(q, k, v, False, scale), 3, flush),
+           (q.numel() + k.numel()) * 2 * 2, {"bf16": 2 * qk}, yardstick_ms(sdpa, flush),
+           "rtol 1e-2, atol 1e-2", main=False, flash_route=fa.kernel_route(d), slices=slices,
+           split_extra_qk_ops=(len(slices) - 1) * qk)
+    del q, k, v
+    # Timed: decode's int8 cross reads at D = 512, 4 on 2 heads, T 512.
+    kf, vf = (torch.randn((b, kvh, d, t), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    cross = quantize_kv(kf, vf)
+    slices = da.kernel_slices(d, "int8")
+    for s_ in (1, 5):
+        qq = (torch.randn((b, heads, s_, d), generator=gen, device=dev) * d ** -0.5
+              ).to(torch.bfloat16)
+        args = (qq, cross.k_q, cross.v_q, cross.k_scale, cross.v_scale, None, None, heads // kvh)
+        got, kernel, route, launches = _decode_route_call(f"decode split S={s_}", args)
+        err = check_close(f"decode split S={s_}", got, da.decode_attention_reference(*args),
+                          0.05, 0.02)
+        k_bytes = b * kvh * d * t  # int8 codes of K
+        nbytes = 2 * k_bytes + 2 * b * kvh * t * 2 + 2 * qq.numel() * 2
+        record(kernel, f"D={d} cross int8 S={s_}, {heads} on {kvh} heads (T {t}; split)", err,
+               time_ms(lambda: da.fused_decode_attention(*args), 50, flush),
+               time_ms(lambda: da.decode_attention_reference(*args), 10, flush),
+               nbytes, {"bf16": 4 * b * heads * s_ * t * d}, None, "rtol 0.05, atol 0.02",
+               main=False, launches_per_call=launches, decode_route=route, slices=slices,
+               split_extra_k_bytes=(len(slices) - 1) * k_bytes)
+    del kf, vf, cross
+
+
 class _IdText:
     """A text backend of numbers: random weights have no vocabulary, so
     every id is a word written as its number (with the byte-BPE space
@@ -1068,10 +1198,10 @@ def _profiled(fn):
 
 
 SPEC_GAMMA = 4
-# The decode horizon of e2e-serve's runs and e2e-mesh's served runs:
-# whisper-small's 448 and the YOHO session's 256 cut to 112 positions a
-# window (random weights decode to the horizon), so that the script fits
-# its time limit.
+# The decode horizon of e2e-serve's runs, e2e-mesh's served runs, e2e-spec
+# and e2e-wide-heads: whisper-small's 448 and the YOHO session's 256 cut to
+# 112 positions a window (random weights decode to the horizon), so that
+# the script fits its time limit.
 SERVE_MAX_LEN = 112
 
 
@@ -1213,6 +1343,102 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
          audio_s_per_s=sum(seconds) / wall, segment_tokens=n_tok,
          tokens_per_s=n_tok / wall, decode_steps=steps,
          batch_tokens_per_s=BATCH * steps * batches / wall, launches=launches, card=card)
+    return launches
+
+
+def e2e_wide_heads(card: str, kernels) -> dict:
+    """Phase e2e-wide-heads: whisper at head dim 264, past both attention
+    kernels' widest width (dims 528 on 2 heads: the split route). 80 mels,
+    1,500 encoder positions, the multilingual vocabulary, 2 + 2 layers (no
+    preset has this width: depth cut to keep the phase short), seed-0 random
+    bf16 weights, int8 cross K/V and cache, batch 16. One window's prefill
+    of the SOT sequence (tensor cores) and one step (FMAs) against the CPU's
+    plain path in f32 with the same weights (5e-2 relative norm, the card
+    tests'); then ``transcribe_many`` of the three requests twice, each
+    window decoding ``SERVE_MAX_LEN`` positions: the same tokens both times,
+    mel, flash and decode attention launched (w8a8 never), every decode
+    launch at head dim 264. Returns the first run's launches."""
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WhisperConfig
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops import decode_attention as da
+    from yoho_tpu_torch.ops import flash_attention as fa
+    from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    phase = "e2e-wide-heads"
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=1500, n_audio_state=528, n_audio_head=2,
+                        n_audio_layer=2, n_vocab=51865, n_text_ctx=448, n_text_state=528,
+                        n_text_head=2, n_text_layer=2)
+    d = cfg.n_text_state // cfg.n_text_head
+    model = init_random(Whisper(cfg, dtype=torch.bfloat16), seed=SEED)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    audios = _requests()
+    with torch.inference_mode():
+        window = np.zeros((1, cfg.n_samples), np.float32)
+        window[0, :len(audios[0])] = audios[0][:cfg.n_samples]
+        mel = fused_whisper_log_mel(torch.as_tensor(window, device="cuda"), cfg.n_mels)
+        prompt = torch.as_tensor([table.sot_sequence("en")])
+        step = torch.as_tensor([[table.sot_sequence("en")[-1]]])
+        ref = Whisper(cfg, dtype=torch.float32, device="cpu")
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+
+        def run(m, dev, quantized):
+            xa = m.encode_audio(mel.to(dev, m.dtype))
+            caches = m.init_caches(1, None, None, quantized)
+            kvs = m.cross_kvs(xa, "int8" if quantized else False)
+            first = m.decode_step(prompt.to(dev), caches, kvs, 0)[0]
+            return first, m.decode_step(step.to(dev), caches, kvs, prompt.shape[1])[0]
+
+        errs = []
+        for g, w in zip(run(model, "cuda", True), run(ref, "cpu", False)):
+            g = g.float().cpu()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{phase}: non-finite logits")
+            errs.append(float((g - w).norm() / w.norm()))
+        if max(errs) > 5e-2:
+            raise AssertionError(f"{phase}: card vs CPU logits rel err {errs}")
+        emit("reference", path=phase, window=1, prefill_logits_rel_err=errs[0],
+             step_logits_rel_err=errs[1], tolerance="5e-2 (bf16 card vs f32 CPU)")
+        del ref
+
+    tr = Transcriber(model, token_table=table, batch_size=BATCH, quantized_cross_kv="int8",
+                     quantized_cache=True, cache_dtype=torch.bfloat16)
+    tr.max_len = SERVE_MAX_LEN
+    head_dims = set()
+    undo = _hook_decode(lambda args: head_dims.add(args[12]))
+    runs = []
+    try:
+        for _ in range(2):
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = tr.transcribe_many(audios)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, results,
+                         {k.name: k.launches for k in kernels}))
+    finally:
+        undo()
+    (wall, results, launches), (wall2, results2, _) = runs
+    toks = [[t for s in r.segments for t in s.tokens] for r in results]
+    if toks != [[t for s in r.segments for t in s.tokens] for r in results2]:
+        raise AssertionError(f"{phase}: second run gave other tokens")
+    idle = _never_launched(launches, skip=(W8A8.name,))
+    if idle or launches[W8A8.name] or head_dims != {d}:
+        raise AssertionError(f"{phase}: never launched {idle}, w8a8 {launches[W8A8.name]}, "
+                             f"decode head dims {sorted(head_dims)}")
+    emit(phase, model=f"whisper, dims {cfg.n_text_state} on {cfg.n_text_head} heads (D {d}), "
+                      f"{cfg.n_audio_layer} + {cfg.n_text_layer} layers",
+         flash_route=fa.kernel_route(d), flash_slices=fa.kernel_slices(d),
+         decode_slices=da.kernel_slices(d, "int8"), batch=BATCH, requests=[12, 30, 75],
+         max_len=SERVE_MAX_LEN, wall_s=wall, wall_s_second_run=wall2,
+         segment_tokens=sum(len(t) for t in toks), launches=launches, card=card)
     return launches
 
 
@@ -1671,6 +1897,7 @@ def e2e_spec(card: str, kernels) -> dict:
     # suppression and the timestamp rules) recorded at every position: the
     # margin a speculative row may flip inside.
     greedy = Transcriber(model, **serving)
+    greedy.max_len = SERVE_MAX_LEN
     top2 = torch.zeros((BATCH, cfg.n_text_ctx, 2), device="cuda")
     build = greedy._logits_fn
 
@@ -1696,14 +1923,17 @@ def e2e_spec(card: str, kernels) -> dict:
     draft_cfgs = {"whisper-tiny, random (seed 1)": tiny, "the target itself": model}
     for label, draft in draft_cfgs.items():
         tr = Transcriber(model, draft_model=draft, speculative_gamma=gamma, **serving)
+        tr.max_len = SERVE_MAX_LEN
         tr.speculative_stats.clear()
         wall, rows, launches, seen = serve(tr)
         stats = dict(tr.speculative_stats)
         # The launch arithmetic: per batch a prefill of the prompt by both
         # models; per round, per draft layer one S = 2 step and gamma - 1
         # S = 1 steps, then per target layer one verify step of gamma + 1
-        # queries; each step one self read (causal, the 512-position cache)
-        # and one cross read (the 1536-padded int8 K/V) at 16 rows.
+        # queries; each step one self read (causal, the cache of the
+        # horizon's max_len + gamma + 2 positions, rounded up to 128) and one
+        # cross read (the 1536-padded int8 K/V) at 16 rows.
+        cache_t = -(-(SERVE_MAX_LEN + gamma + 2) // 128) * 128
         batches, rounds = len(rows) // BATCH + (len(rows) % BATCH > 0), stats["rounds"]
         dc, lt = draft.cfg, cfg.n_text_layer
         want = Counter()
@@ -1712,7 +1942,7 @@ def e2e_spec(card: str, kernels) -> dict:
                                     (dc.n_text_head, dc.n_text_layer, 2, rounds),
                                     (dc.n_text_head, dc.n_text_layer, 1, rounds * (gamma - 1)),
                                     (cfg.n_text_head, lt, gamma + 1, rounds)):
-            want[(BATCH, heads, s, 512, 1)] += layers * n
+            want[(BATCH, heads, s, cache_t, 1)] += layers * n
             want[(BATCH, heads, s, 1536, 0)] += layers * n
         if seen != want or _decode_launches(launches) != sum(want.values()):
             raise AssertionError(f"{phase} ({label}): decode-attention launches "
@@ -5173,7 +5403,7 @@ def main(argv) -> int:
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
     for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho,
-                  e2e_yoho_train, e2e_mesh, e2e_mesh_train):
+                  e2e_yoho_train, e2e_mesh, e2e_mesh_train, e2e_wide_heads):
         kw = {"trace": "--profile" in argv} if phase is e2e_yoho_train else {}
         t0 = time.perf_counter()
         for name, n in phase(card, kernels, **kw).items():

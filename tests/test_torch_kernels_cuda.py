@@ -468,9 +468,15 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     k = torch.zeros((1, 2, 64, 16), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         decode_attention.fused_decode_attention(q, k, k)
-    with pytest.raises(ValueError):  # head dim past 256
-        flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 264), device="cuda")
-                                          for _ in range(3)))
+    with pytest.raises(TypeError):  # fp16: the flash kernel takes f32 or bf16
+        flash_attention.flash_attention(*(torch.zeros((1, 8, 1, 264), device="cuda",
+                                                      dtype=torch.float16) for _ in range(3)))
+    packed = torch.zeros((1, 2, 48, 16), device="cuda", dtype=torch.uint8)
+    scale = torch.ones((1, 2, 1, 16), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # int4 K/V at an odd head dim
+        decode_attention.fused_decode_attention(
+            torch.zeros((1, 2, 1, 97), device="cuda", dtype=torch.bfloat16), packed, packed,
+            scale, scale, packing=2)
     w_q = torch.zeros((8, 48), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):  # K % 32 != 0
         w8a8_dense.w8a8_dense(torch.zeros((2, 48), device="cuda"), w_q,
@@ -707,34 +713,21 @@ def test_decode_kernel_head_dims_32_128_per_row_pos(gen, d, q_dtype, s):
 
 
 def test_other_head_dims_raise(gen):
-    """Head dims outside the kernels' set raise on the card, never fall
-    back: flash past 256 (264), decode past 256 (257) on both routes, and
-    int4 K/V at an odd head dim (its bytes hold dims r and r + D/2); and a
-    model whose head dim is outside it is refused at construction."""
-    from yoho_tpu_torch.core.config import WhisperConfig, YOHOConfig
-    from yoho_tpu_torch.nn.whisper import Whisper
-    from yoho_tpu_torch.nn.yoho import YOHOModel
-
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros((1, 8, 2, 264), device="cuda", dtype=dtype)
-        with pytest.raises(ValueError, match="head dim 264"):
-            flash_attention.flash_attention(x, x, x)
+    """The one head dim the kernels refuse on the card, never falling back:
+    int4 K/V at an odd head dim (its bytes hold dims r and r + D/2; the JAX
+    package's ``quantize_kv4`` cannot pack one either), below and above
+    256, on both routes. Every other head dim runs (the split route above
+    256: ``test_flash_kernel_split_head_dims``, ``test_decode_split_head_dims``)."""
+    for d in (97, 263):
         for s in (1, 5):
-            q = torch.zeros((1, 2, s, 257), device="cuda", dtype=dtype)
-            k = torch.zeros((1, 2, 257, 128), device="cuda", dtype=dtype)
-            with pytest.raises(ValueError, match="head dim 257"):
-                decode_attention.fused_decode_attention(q, k, k)
-    for s in (1, 5):
-        qd = torch.zeros((1, 2, s, 97), device="cuda", dtype=torch.bfloat16)
-        packed = torch.zeros((1, 2, 48, 128), device="cuda", dtype=torch.uint8)
-        scale = torch.ones((1, 2, 1, 128), device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head dim 97"):
-            decode_attention.fused_decode_attention(qd, packed, packed, scale, scale, packing=2)
-    with pytest.raises(ValueError, match="encoder: flash kernel head dim 264"):
-        YOHOModel(YOHOConfig(dims=1056, n_audio_heads=4, n_text_heads=4), 64, device="cuda")
-    with pytest.raises(ValueError, match="decoder: flash kernel head dim 264"):
-        Whisper(WhisperConfig(n_audio_state=32, n_audio_head=4, n_text_state=528,
-                              n_text_head=2), device="cuda")
+            qd = torch.zeros((1, 2, s, d), device="cuda", dtype=torch.bfloat16)
+            packed = torch.zeros((1, 2, d // 2, 128), device="cuda", dtype=torch.uint8)
+            scale = torch.ones((1, 2, 1, 128), device="cuda", dtype=torch.bfloat16)
+            before = _decode_launches()
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                decode_attention.fused_decode_attention(qd, packed, packed, scale, scale,
+                                                        packing=2)
+            assert _decode_launches() == before
 
 
 # ------------------------------------------- wgmma at widths 16, 32 and 128
@@ -1093,6 +1086,157 @@ def test_whisper_with_wide_head_dims_decodes_on_the_card(gen, heads):
         g = g.float().cpu()
         assert torch.isfinite(g).all()
         assert float((g - w).norm() / w.norm()) < 5e-2
+
+
+# ------------------------------------------- head dims above 256: the split
+# Both kernels cut the output dims into slices (flash: 256 and the rest's
+# width; decode: 256 each) and sum the scores over all of D in every slice.
+
+SPLIT_DIMS = (257, 264, 300, 384, 512, 1024)
+
+
+@pytest.mark.parametrize("d", SPLIT_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,tq,t,kv_len,heads,kvh", [
+    (False, 200, 200, None, 2, 2), (True, 130, 130, None, 2, 1), (False, 77, 333, 300, 4, 2),
+    (False, 64, 128, 100, 3, 1), (True, 256, 256, 200, 2, 1)])
+def test_flash_kernel_split_head_dims(gen, d, dtype, causal, tq, t, kv_len, heads, kvh):
+    """The split route at D = 257 (256 + a 1-dim slice at width 16), 264,
+    300, 384 (+ 64, + 128), 512 and 1,024 (whole slices): one call (one
+    count), causal, kv_len inside a tile, Tq != Tk, GQA on unexpanded K/V,
+    against the plain version at the FMA route's tolerances."""
+    assert flash_attention.kernel_route(d, dtype) == "split"
+    q = torch.randn((2, tq, heads, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, t, kvh, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = d ** -0.5
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal, scale, kv_len)
+    assert flash_attention.KERNEL.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    want = flash_attention.attention_reference(q, k, v, causal, scale, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_flash_gradient_at_head_dim_264(gen, dtype, tol):
+    """The flash ``autograd.Function`` at D = 264, GQA 4 on 2, causal: the
+    forward is the split kernel (one count), dq, dk, dv the plain recompute
+    against ``torch.autograd.grad`` through the plain version in f32, at
+    ``test_flash_gradient_on_the_card``'s tolerances."""
+    q = torch.randn((2, 130, 4, 264), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((2, 130, 2, 264), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    g = torch.randn((2, 130, 4, 264), generator=gen, device="cuda").to(dtype)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = flash_attention.KERNEL.launches
+    out = flash_attention.flash_attention(*leaves, causal=True)
+    assert flash_attention.KERNEL.launches == before + 1
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(
+        flash_attention.attention_reference(*ref_leaves, True, 264 ** -0.5), ref_leaves,
+        g.float())
+    for name, a, b in zip("qkv", got, ref):
+        assert a.dtype == dtype and a.shape == b.shape and bool(torch.isfinite(a).all())
+        err = float((a.float() - b).abs().max())
+        assert err <= tol * float(b.abs().max()), f"d{name}: {err}"
+
+
+@pytest.mark.parametrize("d", [264, 512])
+@pytest.mark.parametrize("kind", ["int8", "int4", "float"])
+@pytest.mark.parametrize("q_dtype,s,pos", [
+    (torch.bfloat16, 1, None), (torch.bfloat16, 1, 200), (torch.bfloat16, 1, "rows"),
+    (torch.float32, 1, None), (torch.float32, 5, 100), (torch.float32, 5, "rows"),
+    (torch.bfloat16, 5, None), (torch.bfloat16, 5, 100), (torch.bfloat16, 5, "rows"),
+    (torch.bfloat16, 224, 0), (torch.bfloat16, 224, None)])
+@pytest.mark.parametrize("t,kv_len", [(333, 300), (512, 512)])
+def test_decode_split_head_dims(gen, d, kind, q_dtype, s, pos, t, kv_len):
+    """Both decode routes above 256 (slices of 256; int4 in byte rows of
+    128, dims r and r + D/2 each): one bf16 query and f32 q on FMAs (f32 in
+    chunks of 4), several bf16 queries on tensor cores in one launch; every
+    K/V kind, no, scalar and per-row pos, groups 2, through element copies
+    (333) and TMA tiles (512), against the plain version."""
+    assert decode_attention.kernel_slices(d, kind) == (256,) * (d // 256 + (d % 256 > 0))
+    k, v, ks, vs, packing = _kv(gen, kind, 2, 2, d, t, q_dtype)
+    q = (torch.randn((2, 4, s, d), generator=gen, device="cuda") * d ** -0.5).to(q_dtype)
+    if pos == "rows":
+        pos = _row_pos(2, kv_len - s)
+    args = (q, k, v, ks, vs)
+    kw = dict(pos=pos, kv_len=kv_len, groups=2, packing=packing)
+    route = decode_attention.kernel_route(s, q_dtype)
+    launches = 1 if route == "mma" else -(-s // decode_attention.MAX_QUERIES_256)
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    got = decode_attention.fused_decode_attention(*args, **kw)
+    after = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    assert after == ((before[0], before[1] + 1) if route == "mma"
+                     else (before[0] + launches, before[1]))
+    assert got.shape == (2, s, 4, d) and torch.isfinite(got.float()).all()
+    want = decode_attention.decode_attention_reference(*args, **kw)
+    tol = (1e-4, 1e-5) if q_dtype == torch.float32 else (0.05, 0.02)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1])
+
+
+def _decode_on_card_and_cpu(model, ref, mel, quantized):
+    """The prompt's prefill (3 queries: the tensor-core route) and a step
+    (one query: the FMA route) of ``model`` on the card and ``ref`` on the
+    CPU: the logits of both, and the decode launches on the card by route."""
+    prompt, step = torch.tensor([[1, 2, 3]] * 2), torch.tensor([[4]] * 2)
+
+    def run(m, dev):
+        xa = m.encode_audio(mel.to(dev, m.dtype))
+        caches = m.init_caches(2, None, None, quantized and dev == "cuda")
+        kvs = m.cross_kvs(xa, "int8" if quantized and dev == "cuda" else False)
+        first = m.decode_step(prompt.to(dev), caches, kvs, 0)[0]
+        return first, m.decode_step(step.to(dev), caches, kvs, 3)[0]
+
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    with torch.inference_mode():
+        got = run(model, "cuda")
+        launched = (decode_attention.KERNEL.launches - before[0],
+                    decode_attention.KERNEL_MQ.launches - before[1])
+        want = run(ref, "cpu")
+    return got, want, launched
+
+
+def test_head_dim_264_models_decode_on_the_card(gen):
+    """Whisper at D = 264 (dims 528 on 2 heads; int8 cross K/V and cache)
+    and YOHO at D = 264 (dims 1,056 on 4 heads over 2; bf16 caches, float
+    cross K/V) construct on the card and decode there through the split
+    route: the prefill's reads on tensor cores, the step's on FMAs, a self
+    and a cross read per layer each; logits finite and within 5e-2
+    (relative norm, ``test_whisper_with_wide_head_dims_decodes_on_the_card``'s)
+    of the CPU's plain path in f32 with the same weights."""
+    from yoho_tpu_torch.core.config import WhisperConfig, YOHOConfig
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.nn.yoho import YOHOModel
+
+    wcfg = WhisperConfig(n_mels=16, n_audio_ctx=64, n_audio_state=528, n_audio_head=2,
+                         n_audio_layer=1, n_vocab=300, n_text_ctx=32, n_text_state=528,
+                         n_text_head=2, n_text_layer=2)
+    ycfg = YOHOConfig(n_mel_bands=16, max_audio_len=64, max_text_len=32, dims=1056,
+                      n_audio_heads=4, n_audio_blocks=1, n_text_heads=4, n_text_blocks=2)
+    cases = (
+        ("whisper", lambda dev, dt: Whisper(wcfg, dtype=dt, device=dev), wcfg.n_mels,
+         2 * wcfg.n_audio_ctx, True),
+        ("yoho", lambda dev, dt: YOHOModel(ycfg, 300, voiceprint_dim=32, dtype=dt, device=dev),
+         ycfg.n_mel_bands, ycfg.max_audio_len, False))
+    for name, build, n_mels, frames, quantized in cases:
+        model = init_random(build("cuda", torch.bfloat16), seed=0)
+        assert model.decoder.blocks[0].attn.head_dim == 264
+        ref = build("cpu", torch.float32)
+        ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        mel = torch.randn((2, frames, n_mels), generator=gen, device="cuda")
+        before = flash_attention.KERNEL.launches
+        got, want, launched = _decode_on_card_and_cpu(model, ref, mel, quantized)
+        assert flash_attention.KERNEL.launches > before, name  # the encoder's split flash
+        assert launched == (4, 4), (name, launched)
+        for g, w in zip(got, want):
+            g = g.float().cpu()
+            assert torch.isfinite(g).all(), name
+            assert float((g - w).norm() / w.norm()) < 5e-2, name
 
 
 # ------------------------------------------------- the YOHO serving shapes

@@ -211,16 +211,24 @@ def test_moe_capacity_counts_the_experts(moe_yoho):
     assert yoho_param_count(tm.cfg, VOCAB, 32) == sum(p.numel() for p in tm.parameters())
 
 
-# ------------------------------------------------ head dims 8, 32, 48, 96, 128
+# ------------------------------------------- head dims 8, 32, 48, 96, 128, 264
 # Every model has KV heads on half its query heads. 8 is the JAX package's
 # tests' dims 32 on 4 heads; 48 and 96 run padded to the kernels' widths 64
-# and 128 on the card.
+# and 128 on the card, 264 (dims 528 on 2 heads over 1) in slices of 256.
 
 HEAD_DIMS = {8: dict(SMALL, dims=32),
              32: dict(SMALL, n_audio_heads=2, n_text_heads=2),
              48: dict(SMALL, dims=96, n_audio_heads=2, n_text_heads=2),
              96: dict(SMALL, dims=192, n_audio_heads=2, n_text_heads=2),
-             128: dict(SMALL, dims=256, n_audio_heads=2, n_text_heads=2)}
+             128: dict(SMALL, dims=256, n_audio_heads=2, n_text_heads=2),
+             264: dict(SMALL, dims=528, n_audio_heads=2, n_text_heads=2)}
+
+
+# The bf16 comparison stops at 128: at dims 528 bf16's rounding alone moves
+# both packages' logits 8.5% (in norm) from their f32 ones, so two bf16
+# models of the same weights differ by more than BF16_REL whatever the head
+# dim; D = 264 is held in f32.
+BF16_HEAD_DIMS = [d for d in sorted(HEAD_DIMS) if d <= 128]
 
 
 @pytest.fixture(scope="module", params=sorted(HEAD_DIMS))
@@ -231,9 +239,10 @@ def head_dim(request):
 
 
 def test_yoho_head_dims_32_and_128_match_jax_in_f32(head_dim):
-    """Head dims whose scale is not a power of two (8 and 32 to 128) on 4
-    query heads over 2 KV heads (D = 8) or 2 over 1: the teacher-forced
-    logits and the cached decode steps (a prefill and a step) at 2e-4."""
+    """Head dims whose scale is not a power of two (8, 32 to 128, and 264,
+    past the kernels' widest width) on 4 query heads over 2 KV heads (D =
+    8) or 2 over 1: the teacher-forced logits and the cached decode steps
+    (a prefill and a step) at 2e-4."""
     d, params, mel, tok = head_dim
     jm, v, tm = _models(HEAD_DIMS[d], params)
     assert tm.decoder.blocks[0].attn.head_dim == d
@@ -244,6 +253,7 @@ def test_yoho_head_dims_32_and_128_match_jax_in_f32(head_dim):
         _close(step, want)
 
 
+@pytest.mark.parametrize("head_dim", BF16_HEAD_DIMS, indirect=True)
 def test_yoho_head_dims_32_and_128_match_jax_in_bf16(head_dim):
     """bf16 models of the same weights: JAX scales q in bf16 before it
     attends, and so does the port at these head dims (all but 16 and 64)."""

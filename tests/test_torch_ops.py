@@ -148,13 +148,15 @@ def test_decode_attention_chunks_long_query_runs(pos):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("s,d,groups", [(5, 64, 1), (224, 64, 1), (5, 200, 2)])
+@pytest.mark.parametrize("s,d,groups", [(5, 64, 1), (224, 64, 1), (5, 200, 2), (5, 264, 2),
+                                         (5, 512, 1)])
 def test_decode_attention_several_queries_one_call_matches_jax(s, d, groups, monkeypatch):
     """Several bf16 queries (the tensor-core route on the card: a verify
     step, a prompt's prefill) go through the wrapper in one call at any S,
     never in chunks: with one causal position per row, the same as JAX's
     fused_decode_attention (Pallas, interpret mode) at that row's position,
-    row by row; int8 K/V, grouped heads at D = 200."""
+    row by row; int8 K/V, grouped heads at D = 200 and 264 (the split
+    route's head dims above 256 on the card: 264 and 512)."""
     g = np.random.default_rng(15)
     b, hkv, t = 3, 2, 256
     rows = [0, 13, t - s]
@@ -179,6 +181,25 @@ def test_decode_attention_several_queries_one_call_matches_jax(s, d, groups, mon
         _close(got[r:r + 1], want)
 
 
+def test_int4_at_an_odd_head_dim_is_the_references_limit():
+    """Int4 K/V at an odd head dim: the JAX package's ``quantize_kv4``
+    cannot pack it (its halves D // 2 and D - D // 2 do not broadcast), and
+    the port refuses it too, in its quantizer and in the decode kernels'
+    head-dim set; every even head dim, above 256 too, packs in both."""
+    x = np.random.default_rng(3).standard_normal((1, 2, 263, 8)).astype(np.float32)
+    with pytest.raises(TypeError, match="broadcast"):
+        quantize_kv4(jnp.asarray(x), jnp.asarray(x))
+    with pytest.raises(ValueError, match="even head dim, got 263"):
+        tkv.quantize_kv4(_t(x), _t(x))
+    with pytest.raises(ValueError, match="head dim 263 .*int4 K/V"):
+        tda.kernel_width(263, "int4")
+    even = x[:, :, :262]
+    want, got = quantize_kv4(jnp.asarray(even), jnp.asarray(even)), \
+        tkv.quantize_kv4(_t(even), _t(even))
+    np.testing.assert_array_equal(got.k_q.numpy(), np.asarray(want.k_q))
+    assert tda.kernel_slices(262, "int4") == (256, 256)
+
+
 def test_decode_attention_rejects_bad_shapes():
     q = torch.zeros(1, 2, 1, 8)
     k = torch.zeros(1, 2, 8, 16, dtype=torch.int8)
@@ -201,7 +222,12 @@ def test_decode_attention_rejects_bad_shapes():
     pytest.param(False, 128, 384, 6, 3, 16, id="gqa2-False-128-384-d16"),
     # Head dims the kernel runs on FMAs only: not a multiple of 8, past 128.
     pytest.param(False, 300, 300, 4, 2, 12, id="gqa2-False-300-300-d12"),
-    pytest.param(True, 256, 256, 3, 1, 136, id="gqa3-True-256-256-d136")])
+    pytest.param(True, 256, 256, 3, 1, 136, id="gqa3-True-256-256-d136"),
+    # Head dims above 256: the split route's output slices on the card.
+    pytest.param(False, 64, 96, 2, 1, 264, id="gqa2-False-64-96-d264"),
+    pytest.param(True, 80, 80, 2, 1, 264, id="gqa2-True-80-80-d264"),
+    pytest.param(False, 48, 80, 2, 1, 512, id="gqa2-False-48-80-d512"),
+    pytest.param(True, 64, 64, 2, 1, 512, id="gqa2-True-64-64-d512")])
 def test_flash_forward_matches_jax(causal, tq, tk, h, hkv, d):
     g = np.random.default_rng(0)
     b = 2

@@ -9,28 +9,25 @@ Builds ``yoho_tpu_torch/csrc/flash_attention.cu``, ``decode_attention.cu``
 with some of its constants or expressions replaced (one ``nvcc`` per
 variant, all started together, into ``yoho_tpu_torch/_build/variants/``;
 ``--variants`` builds only the named ones); with ``--parent DIR`` also the
-flash and decode sources of another checkout (an earlier tree unpacked
-there, built against its own headers and called through its own C entry
-points: a flash entry point without the KV-head count gets K/V repeated to
-the query heads; a decode entry point that takes at most 32 queries is
-called as that tree's wrapper called it, in chunks of 32 with their copies),
-so that two trees are compared on one card in one run. The parent's
-kernels are first held to the shipped ones bit for bit where the route did
-not change: flash in f32 at widths 16, 32, 64 and 128 and in bf16 at width
-64, equal heads, causal or not, ``kv_len`` inside a tile, Tq != Tk; decode
-over float, int8 and int4 K/V at every width the parent built for each kind
-(D = W), S = 1 in both types and S = 4 and 32 in f32, no / scalar / per-row
-``pos``, groups 1 and 2, every load branch. Where the route did change
-(bf16 flash at widths 16, 32 and 128, now on wgmma; bf16 decode of S = 4
-and 32, now on tensor cores), the shipped kernel is held to the plain
-version instead, at the same cases. One line per kernel counts the cases,
-and the exit code is 1 if any differs. Each variant is held to the plain
+flash and both decode sources of another checkout (an earlier tree
+unpacked there whose decode has both routes and whose flash takes the
+KV-head count; built against its own headers and called through its own
+C entry points), so that two trees are compared on one card in one run.
+The parent's kernels are first held to the shipped ones bit for bit at
+every head dim the parent takes (to 256): flash in f32 and bf16 at every
+width and at padded head dims, equal and grouped heads, causal or not,
+``kv_len`` inside a tile, Tq != Tk; decode over float, int8 and int4 K/V
+at every width and padded head dims, one query in both types and f32 runs
+of 4 (and 32 to width 128) on the FMA route, bf16 runs of 4, 32 and 224 on
+the tensor-core route, no / scalar / per-row ``pos``, groups 1 and 2, every
+load branch. One line per kernel route counts the cases, and the exit
+code is 1 if any differs. Each variant is held to the plain
 version (``chip_smoke.py``'s tolerances) and timed with ``chip_smoke.py``'s
 ``time_ms`` (device time, L2 flushed between calls) at the main paths'
 shapes and the YOHO shapes (head dims 16, 32, 48, 64, 96 and 128 on grouped
-K/V, which this tree's kernels read unexpanded), and decode's multi-query
-reads (prefills, folded beams, verify steps) on the tensor-core route
-against the parent's FMA route, in turns (a variant marked "timing only"
+K/V, which this tree's kernels read unexpanded), and decode's reads on
+each route (the multi-query reads: prefills, folded beams, verify steps on
+tensor cores) against the parent's same route, in turns (a variant marked "timing only"
 leaves part of the work out and is not held to the plain version: it shows
 where the time goes): every variant once forward and
 once backward a round, three rounds, and the median is printed. "flash
@@ -63,9 +60,9 @@ _FLASH_QB = "QB = W == 128 ? 1 : QBUF;"
 
 # The multi-query route's step width, its loop over a warp's steps, and its
 # conversion of a chunk's codes.
-_MQ_NG = "if (wm > 1) return launch<KIND, W, TC / 16>(a, wm, n_rt);"
+_MQ_NG = "if (wm > 1) return launch<KIND, W, TC / 16, SPLIT>(a, wm, n_rt);"
 _MQ_STEPS = "for (int tp = p0; has_rows && tp < p0 + ppw; tp += step) {"
-_MQ_CONVERT = "      convert16<KIND, W>(st, tl, warp, lane);\n"
+_MQ_CONVERT = "      convert16<KIND, W>(st, tl, warp, lane, last);\n"
 
 # name -> (source, replacements); "shipped" replaces nothing. A key that is a
 # name replaces that constant's value; any other key is text, replaced once.
@@ -90,21 +87,21 @@ VARIANTS = {
     "decode_mq clusters for 1 block per SM": ("decode_attention_mq.cu", {"BLOCKS_PER_SM": 1}),
     "decode_mq clusters for 4 blocks per SM": ("decode_attention_mq.cu", {"BLOCKS_PER_SM": 4}),
     "decode_mq one 16-position group a step at every row count": (
-        "decode_attention_mq.cu", {_MQ_NG: "if (false) return launch<KIND, W, TC / 16>(a, wm, n_rt);"}),
+        "decode_attention_mq.cu",
+        {_MQ_NG: "if (false) return launch<KIND, W, TC / 16, SPLIT>(a, wm, n_rt);"}),
     "decode_mq without the products (timing only)": ("decode_attention_mq.cu", {
         _MQ_STEPS: "for (int tp = p0; false && tp < p0 + ppw; tp += step) {"}),
     "decode_mq without the code conversion (timing only)": ("decode_attention_mq.cu", {
         _MQ_CONVERT: ""}),
 }
 ROUNDS = 3
-# The flash C entry point of trees before it took the KV-head count:
-# dtype, q, k, v, out, B, H, Tq, Tk, kv_len, D, scale, causal, stream.
-_FLASH_ARGS_NO_HKV = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# The decode widths every earlier tree built, by K/V kind, and the queries a
-# launch of its entry point took.
-PARENT_DECODE_WIDTHS = {"float": (16, 32, 64, 128), "int8": (16, 64), "int4": (16, 64)}
-PARENT_MAX_QUERIES = 32
+# The parent's sources, by the name of their job.
+PARENT_SOURCES = {"flash parent": "flash_attention.cu", "decode parent": "decode_attention.cu",
+                  "decode_mq parent": "decode_attention_mq.cu"}
+# The head dims the parity cases take: every width and padded dims (int4:
+# even), up to the parent's widest, 256.
+PARITY_FLASH_DIMS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 136, 200, 256)
+PARITY_DECODE_DIMS = (8, 16, 32, 48, 64, 100, 128, 200, 256)
 
 
 def variant_source(src: str, sub: dict) -> str:
@@ -173,21 +170,16 @@ def main(argv) -> int:
             for name, (src, sub) in chosen.items()}
     if args.parent is not None:
         csrc = args.parent.resolve() / "yoho_tpu_torch" / "csrc"
-        for src in ("flash_attention.cu", "decode_attention.cu"):
-            kind = src.split("_")[0]
-            if any(n.startswith(kind) for n in jobs):  # the kernels chosen
-                jobs[f"{kind} parent"] = ((csrc / src).read_text(), csrc)
+        for name, src in PARENT_SOURCES.items():
+            if name.replace("parent", "shipped") in jobs:  # the kernels chosen
+                jobs[name] = ((csrc / src).read_text(), csrc)
     libs = build(jobs)
-    fns, no_hkv = {}, set()
+    fns = {}
     for name, lib in libs.items():
         flash = name.startswith("flash")
         fn = lib.flash_attention_forward if flash else \
             lib.decode_attention_mq if name.startswith("decode_mq") else lib.decode_attention
         fn.argtypes = (fa if flash else da).KERNEL.argtypes
-        if name == "flash parent" and not re.search(
-                r"flash_attention_forward\([^)]*int Hkv", jobs[name][0]):
-            fn.argtypes = _FLASH_ARGS_NO_HKV
-            no_hkv.add(name)
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -199,47 +191,30 @@ def main(argv) -> int:
     def flash_call(name, q, k, v, out, causal=False, kv_len=None):
         b, s, h, d = q.shape
         t, hkv = k.shape[1], k.shape[2]
-        if name in no_hkv:  # K/V repeated to the query heads, as that tree's callers did
-            k, v = (x.repeat_interleave(h // hkv, 2) for x in (k, v))
-            heads = (h,)
-        else:
-            heads = (h, hkv)
 
         def call():
             err = fns[name](1 if q.dtype == torch.bfloat16 else 0, ptr(q), ptr(k), ptr(v),
-                            ptr(out), b, *heads, s, t, kv_len or t, d, d ** -0.5, int(causal),
+                            ptr(out), b, h, hkv, s, t, kv_len or t, d, d ** -0.5, int(causal),
                             stream(q))
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
         return call
 
     def decode_call(name, q, k, v, ks, vs, out, pos=None, kv_len=None):
-        """One call of a decode entry point, or, for the parent at more than
-        its 32 queries a launch, that tree's wrapper: a launch per chunk of
-        32 queries (q's chunk copied, a causal chunk at pos + its first
-        query), each chunk's output copied into ``out``."""
+        """One call of a decode entry point (one launch)."""
         b, hq, s, d = q.shape
         rows = isinstance(pos, torch.Tensor)
         kind = "float" if ks is None else "int4" if k.dtype == torch.uint8 else "int8"
 
-        def launch(qq, oo, p):
+        def call():
             err = fns[name](1 if q.dtype == torch.bfloat16 else 0, da.KINDS.index(kind),
-                            ptr(qq), ptr(k), ptr(v), ptr(ks) if ks is not None else None,
-                            ptr(vs) if vs is not None else None, ptr(oo), b, hq, k.shape[1],
-                            qq.shape[2], d, k.shape[3], kv_len or k.shape[3],
-                            int(p is not None), 0 if p is None or rows else p,
-                            ptr(p) if rows else None, stream(q))
+                            ptr(q), ptr(k), ptr(v), ptr(ks) if ks is not None else None,
+                            ptr(vs) if vs is not None else None, ptr(out), b, hq, k.shape[1],
+                            s, d, k.shape[3], kv_len or k.shape[3], int(pos is not None),
+                            0 if pos is None or rows else pos, ptr(pos) if rows else None,
+                            stream(q))
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
-
-        def call():
-            if name != "decode parent" or s <= PARENT_MAX_QUERIES:
-                return launch(q, out, pos)
-            for i0 in range(0, s, PARENT_MAX_QUERIES):
-                i1 = min(i0 + PARENT_MAX_QUERIES, s)
-                oc = torch.empty((b, i1 - i0, hq, d), dtype=q.dtype, device=dev)
-                launch(q[:, :, i0:i1].contiguous(), oc, None if pos is None else pos + i0)
-                out[:, i0:i1] = oc
         return call
 
     def same(calls, out):
@@ -265,51 +240,33 @@ def main(argv) -> int:
                           "bit_identical": n - len(bad), "differ": bad[:40]}), flush=True)
         return not bad
 
-    def held_to_plain(what, name, tol, cases):
-        """cases: (label, out, {name: call}, plain output), for a route this
-        tree changed: the shipped kernel ``name`` against the plain version;
-        True if every case is within ``tol`` (rtol, atol)."""
-        n, bad = 0, []
-        for label, out, calls, want in cases:
-            n += 1
-            out.fill_(float("nan"))
-            calls[name]()
-            torch.cuda.synchronize()
-            try:
-                chip_smoke.check_close(label, out, want, *tol)
-            except AssertionError:
-                bad.append(label)
-        print(json.dumps({"held_to_plain": what, "cases": n, "within_tolerance": n - len(bad),
-                          "differ": bad[:40]}), flush=True)
-        return not bad
-
-    def flash_cases(changed):
-        """The parity cases: those whose route is the parent's (changed
-        False), or those whose route this tree changed, with the plain
-        version's output (changed True)."""
+    def flash_cases():
+        """Every route the parent takes: f32 and bf16 at every width and
+        padded head dims, equal and grouped heads."""
         for dtype in (torch.float32, torch.bfloat16):
-            for d in (16, 32, 64, 128):
-                if changed != (dtype == torch.bfloat16 and d != 64):
-                    continue
-                for causal, tq, t, kv_len, heads in (
-                        (False, 300, 300, None, 3), (True, 300, 300, None, 3),
-                        (False, 300, 300, 129, 3), (True, 256, 256, 200, 2),
-                        (False, 6, 1500, None, 3), (False, 512, 512, None, 6)):
-                    q, k, v = (torch.randn((2, m, heads, d), generator=gen, device=dev)
-                               .to(dtype) for m in (tq, t, t))
+            for d in PARITY_FLASH_DIMS:
+                for causal, tq, t, kv_len, heads, kvh in (
+                        (False, 300, 300, None, 3, 3), (True, 300, 300, None, 3, 3),
+                        (False, 300, 300, 129, 3, 3), (True, 256, 256, 200, 2, 2),
+                        (False, 6, 1500, None, 3, 3), (False, 512, 512, None, 6, 3),
+                        (True, 130, 130, None, 4, 1)):
+                    q = torch.randn((2, tq, heads, d), generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn((2, t, kvh, d), generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
                     out = torch.empty_like(q)
-                    case = (f"{str(dtype)[6:]} D={d} causal={causal} {tq}x{t} kv_len={kv_len}",
-                            out, {n: flash_call(n, q, k, v, out, causal, kv_len)
-                                  for n in ("flash parent", "flash shipped")})
-                    yield case + ((fa.attention_reference(q, k, v, causal, d ** -0.5, kv_len),)
-                                  if changed else ())
+                    yield (f"{str(dtype)[6:]} D={d} causal={causal} {tq}x{t} kv_len={kv_len} "
+                           f"{heads} on {kvh}", out,
+                           {n: flash_call(n, q, k, v, out, causal, kv_len)
+                            for n in ("flash parent", "flash shipped")})
 
-    def decode_cases(changed):
-        """The parent's cases whose route is unchanged (one query; f32 at 4
-        and 32), or, changed, the bf16 runs of 4 and 32 queries now on
-        tensor cores, with the plain version's output."""
+    def decode_cases(route):
+        """The reads of one route ("fma": one query, f32 runs of 4 and 32;
+        "mma": bf16 runs of 4, 32 and 224) at every width and padded head
+        dims, every kind and load branch, no / scalar / per-row pos, groups
+        1 and 2."""
+        prefix = "decode_mq" if route == "mma" else "decode"
         for kind in da.KINDS:
-            for d in PARENT_DECODE_WIDTHS[kind]:
+            for d in PARITY_DECODE_DIMS:
                 for q_dtype in (torch.float32, torch.bfloat16):
                     for t, kv_len in ((333, 300), (1500, 1500), (512, 512), (1536, 1500)):
                         kf, vf = (torch.randn((2, 2, d, t), generator=gen, device=dev)
@@ -318,8 +275,9 @@ def main(argv) -> int:
                               else (quantize_kv if kind == "int8" else quantize_kv4)(kf, vf))
                         kv = (kv.k_q, kv.v_q, kv.k_scale, kv.v_scale) \
                             if isinstance(kv, QuantizedKV) else kv
-                        for s in (1, 4, 32):
-                            if changed != (da.kernel_route(s, q_dtype) == "mma"):
+                        for s in (1, 4, 32, 224):
+                            if da.kernel_route(s, q_dtype) != route or (
+                                    route == "fma" and s > (32 if d <= 128 else 4)):
                                 continue
                             for pos in (None, 100, torch.tensor([0, kv_len - s],
                                                                 dtype=torch.int32, device=dev)):
@@ -329,27 +287,19 @@ def main(argv) -> int:
                                     out = torch.empty((2, s, 2 * groups, d), dtype=q_dtype,
                                                       device=dev)
                                     p = "rows" if isinstance(pos, torch.Tensor) else pos
-                                    names = ("decode parent", "decode_mq shipped" if changed
-                                             else "decode shipped")
-                                    case = (f"{kind} {str(q_dtype)[6:]} D={d} T={t} S={s} "
-                                            f"pos={p} groups={groups}", out,
-                                            {n: decode_call(n, q, *kv, out, pos, kv_len)
-                                             for n in names})
-                                    yield case + ((da.decode_attention_reference(
-                                        q, *kv, pos, kv_len, groups,
-                                        2 if kind == "int4" else 1),) if changed else ())
+                                    yield (f"{kind} {str(q_dtype)[6:]} D={d} T={t} S={s} "
+                                           f"pos={p} groups={groups}", out,
+                                           {n: decode_call(n, q, *kv, out, pos, kv_len)
+                                            for n in (f"{prefix} parent", f"{prefix} shipped")})
 
     ok = True
     if args.parent is not None:
-        if "flash shipped" in libs:
-            ok &= parity("flash", flash_cases(False))
-            ok &= held_to_plain("flash bf16 at widths 16, 32, 128 (wgmma)", "flash shipped",
-                                (1e-2, 1e-2), flash_cases(True))
-        if "decode shipped" in libs:
-            ok &= parity("decode", decode_cases(False))
-        if "decode_mq shipped" in libs:
-            ok &= held_to_plain("decode bf16 at S = 4 and 32 (tensor cores)",
-                                "decode_mq shipped", (0.05, 0.02), decode_cases(True))
+        if "flash parent" in libs:
+            ok &= parity("flash", flash_cases())
+        if "decode parent" in libs:
+            ok &= parity("decode", decode_cases("fma"))
+        if "decode_mq parent" in libs:
+            ok &= parity("decode_mq", decode_cases("mma"))
 
     def run(calls, check):
         """calls: name -> call(); times them in turns, ROUNDS rounds, each
@@ -437,10 +387,7 @@ def main(argv) -> int:
                           if isinstance(kvs, QuantizedKV) else (*kvs, None, None))
         d = k_.shape[2] * (2 if k_.dtype == torch.uint8 else 1)
         route = da.kernel_route(s)
-        names = [n for n in libs if n.startswith("decode_mq" if route == "mma" else "decode ")
-                 and not n.endswith("parent")]
-        if d in PARENT_DECODE_WIDTHS["float" if ks is None else "int8"] and "decode parent" in libs:
-            names.append("decode parent")
+        names = [n for n in libs if n.startswith("decode_mq" if route == "mma" else "decode ")]
         if not names:
             continue
         q = (torch.randn((16, heads, s, d), generator=gen, device=dev) * d ** -0.5

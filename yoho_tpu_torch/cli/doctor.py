@@ -219,12 +219,11 @@ def _check_session(name: str, root: str) -> list:
     return rows
 
 
-def _check_head_dims(name: str, root: str, cuda: bool) -> list:
+def _check_head_dims(name: str, root: str) -> list:
     """One row per stack of the session's model: its head dim and the route
-    and width the attention kernels run it at (sessions serve in bf16).
-    ``FAIL`` for a head dim outside the kernels' set when CUDA is present
-    (the model would refuse to build there); without CUDA a ``warn``, since
-    the plain versions on the CPU take any head dim."""
+    and widths the attention kernels run it at (sessions serve in bf16).
+    The kernels take every head dim, above 256 in slices, so every row is
+    ``ok``, with a card or without."""
     import torch
 
     from yoho_tpu_torch.core.config import load_session_config
@@ -237,18 +236,18 @@ def _check_head_dims(name: str, root: str, cuda: bool) -> list:
     rows = []
     for stack, heads in (("encoder", cfg.n_audio_heads), ("decoder", cfg.n_text_heads)):
         d = cfg.dims // heads
-        try:
-            widths = (flash_attention.kernel_width(d, torch.bfloat16),
-                      decode_attention.kernel_width(d))
-        except ValueError as e:
-            rows.append((f"session:head_dim.{stack}", FAIL if cuda else WARN,
-                         f"D {d} (dims {cfg.dims} / {heads} heads): {e}"
-                         + ("" if cuda else "; only the CPU's plain versions run it")))
-            continue
-        at = [f"padded to width {w}" if w != d else f"at width {w}" for w in widths]
-        rows.append((f"session:head_dim.{stack}", OK,
-                     f"D {d}: flash {flash_attention.kernel_route(d, torch.bfloat16)} "
-                     f"{at[0]}; decode {at[1]}"))
+        at = []
+        for slices in (flash_attention.kernel_slices(d, torch.bfloat16),
+                       decode_attention.kernel_slices(d)):
+            if len(slices) > 1:
+                at.append(f"split into {len(slices)} slices at widths "
+                          + " + ".join(str(w) for w in slices))
+            else:
+                at.append(f"padded to width {slices[0]}" if slices[0] != d
+                          else f"at width {d}")
+        route = flash_attention.kernel_route(d, torch.bfloat16)
+        flash = at[0] if route == "split" else f"{route} {at[0]}"
+        rows.append((f"session:head_dim.{stack}", OK, f"D {d}: flash {flash}; decode {at[1]}"))
     return rows
 
 
@@ -275,17 +274,14 @@ def main(argv=None) -> int:
                         help="machine-readable output, one JSON per check")
     args = parser.parse_args(argv)
     rows = _check_package() + _check_deps() + _check_native() + _check_codecs()
-    cuda = False
     if not args.no_devices:
         dev = _check_devices(args.device_timeout)
-        rows += dev
-        cuda = dev[0][1] == OK
-        rows += _check_kernels(cuda=cuda)
+        rows += dev + _check_kernels(cuda=dev[0][1] == OK)
     if args.hf:
         rows += _check_hf(args.hf)
     if args.session:
         rows += _check_session(args.session, args.root)
-        rows += _check_head_dims(args.session, args.root, cuda)
+        rows += _check_head_dims(args.session, args.root)
 
     failed = False
     for name, status, detail in rows:

@@ -53,6 +53,20 @@
 // r + W / 2 (a zero byte decodes to -8, which a zero q lane cancels). At
 // Dh == W every map is the identity and the outputs are the width's own.
 //
+// Head dims above 256 (int4: even ones; the split route, SPLIT) run at
+// width 256 in slices: nk = ceil(DKh / DK) parts of DK = 256 K/V rows (128
+// int4 byte rows, each holding dims r and r + Dh / 2: a slice is cut in
+// byte rows, so it never straddles the split at Dh / 2), one cluster per
+// (b, h, slice) on the grid's z axis. Every chunk streams as nk ring units
+// (decode_stage.cuh): K's first nk - 1 parts alone, whose partial scores a
+// lane pair keeps per query (the butterfly is linear, so the parts' sums
+// add), then K's last part with V's rows of the block's slice and the
+// scales, where the chunk's softmax and value product run as without the
+// split. q of each part is read from global memory (L1), so shared memory
+// does not grow with Dh. Each slice's cluster reads all of K and its own
+// part of V: K is read nk times (nk - 1 extra reads of K against the
+// bound).
+//
 // Bound on the H100: the cache bytes. Whisper-small's cross read at B=16
 // moves 2 x 16 x 12 x 64 x 1500 B = 36.9 MB of int8 codes (+ 1.2 MB of
 // scales) per launch, ~11 us at 3.35 TB/s; its operations (4*S*T*D per
@@ -181,7 +195,7 @@ __device__ __forceinline__ float pair_sum(float x) {
   return x;
 }
 
-template <typename QT, int KIND, int SMAX, int D>
+template <typename QT, int KIND, int SMAX, int D, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
             const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
@@ -200,7 +214,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   // After the last chunk the states take the stages' memory over; the
-  // barriers and q lie past both.
+  // barriers and q (not with SPLIT: read a part at a time) lie past both.
   const int region = max(NST * L::BYTES, (int)sizeof(float) * (WARPS + 1) * S * PART);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (region + 7) / 8 * 8);
   float* q_s = reinterpret_cast<float*>(bars + NST);     // S x D
@@ -220,8 +234,11 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool holds = lane < STR;  // always at D >= 64
   const bool scaled = k_scale != nullptr;
+  const int nk = SPLIT ? (DKh + DK - 1) / DK : 1;  // K parts (and slices)
+  const int sl = SPLIT ? (int)blockIdx.z : 0;       // this cluster's slice
   const int n_chunks = (t_end + TC - 1) / TC;
-  const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;  // chunks rank + i CL
+  // Ring units: chunks rank + i CL, nk units each.
+  const int my_n = (rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0) * nk;
   // Dim dw of W's layout -> the true dim it holds, or -1 for a padded one.
   auto true_dim = [&](int dw) {
     if constexpr (KIND == KV_INT4) {
@@ -231,15 +248,31 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
       return dw < Dh ? dw : -1;
     }
   };
+  // The same for dim dw of part p (the split route).
+  auto part_dim = [&](int p, int dw) {
+    if constexpr (KIND == KV_INT4) {
+      const int half = Dh / 2, l = (dw < D / 2 ? dw : dw - D / 2) + p * (D / 2);
+      return l < half ? (dw < D / 2 ? l : l + half) : -1;
+    } else {
+      return dw + p * D < Dh ? dw + p * D : -1;
+    }
+  };
+  // Query s's dim dw of part p, from global memory (the split route).
+  auto q_at = [&](int s, int p, int dw) {
+    const int d = part_dim(p, dw);
+    return d >= 0 ? to_f32<QT>(q[((size_t)bh * S + s) * Dh + d]) : 0.f;
+  };
 
-  const Ring<E, DK, TC, THREADS, NST> ring{
+  const Ring<E, DK, TC, THREADS, NST, SPLIT> ring{
       smem, bars, &tm_k, &tm_v, &tm_ks, &tm_vs, k, v, k_scale, v_scale,
-      bhk, DKh, T, t_end, rank, CL, mode, my_n, tid};
+      bhk, DKh, T, t_end, rank, CL, mode, my_n, tid, nk, sl * DK};
   // The first loads go out before q is read, so the two latencies overlap.
   ring.start();
-  for (int i = tid; i < S * D; i += THREADS) {
-    const int s = i / D, d = true_dim(i - s * D);
-    q_s[i] = d >= 0 ? to_f32<QT>(q[((size_t)bh * S + s) * Dh + d]) : 0.f;
+  if constexpr (!SPLIT) {
+    for (int i = tid; i < S * D; i += THREADS) {
+      const int s = i / D, d = true_dim(i - s * D);
+      q_s[i] = d >= 0 ? to_f32<QT>(q[((size_t)bh * S + s) * Dh + d]) : 0.f;
+    }
   }
   __syncthreads();
 
@@ -251,11 +284,62 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
     for (int j = 0; j < NPL; ++j) acc[s][j] = 0.f;
   }
   const int pl = lane >> 1;  // the position whose full score this lane holds
+  // The split route's K parts: K's rows at this warp's 16 positions, dims
+  // lane + STR j (int4 as below), and q's dims qd against them, summed
+  // over the lanes (unscaled), as the chunk's last part computes them.
+  auto k_rows = [&](const unsigned char* tile, float (&x)[NPL][16]) {
+    if (!holds) {
+#pragma unroll
+      for (int j = 0; j < NPL; ++j)
+#pragma unroll
+        for (int p = 0; p < 16; ++p) x[j][p] = 0.f;
+    } else if constexpr (KIND == KV_INT4) {
+#pragma unroll
+      for (int j = 0; j < NPL / 2; ++j)
+        row16_int4(tile, lane + STR * j, warp, x[j], x[j + NPL / 2]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) row16<E>(tile, lane + STR * j, warp, x[j]);
+    }
+  };
+  auto score = [&](const float (&qd)[NPL], const float (&kr)[NPL][16]) {
+    float part[16];
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      part[p] = qd[0] * kr[0][p];
+#pragma unroll
+      for (int j = 1; j < NPL; ++j) part[p] = fmaf(qd[j], kr[j][p], part[p]);
+    }
+    return butterfly16(part, lane);
+  };
+  // The split route's partial scores of position pl over the chunk's K
+  // parts so far, per query.
+  float xs[SMAX];
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) xs[s] = 0.f;
 
   for (int i = 0; i < my_n; ++i) {
     const unsigned char* buf = ring.stage(i);
     ring.acquire(i);
     const int tw = ring.first(i) + warp * PW;  // this warp's first position
+    if constexpr (SPLIT) {
+      if (!ring.last(i)) {  // a K part alone: partial scores
+        if (tw < t_end) {
+          float kr[NPL][16], qd[NPL];
+          k_rows(buf, kr);
+#pragma unroll
+          for (int s = 0; s < SMAX; ++s) {
+            if (s >= S) break;
+#pragma unroll
+            for (int j = 0; j < NPL; ++j)
+              qd[j] = holds ? q_at(s, ring.part(i), lane + STR * j) : 0.f;
+            xs[s] += score(qd, kr);
+          }
+        }
+        ring.release(i);
+        continue;
+      }
+    }
     if (tw < t_end) {
       float kr[NPL][16], vr[NPL][16];  // dims lane + STR j
       if (!holds) {
@@ -287,7 +371,10 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
         if (s >= S) break;
         float qd[NPL];
 #pragma unroll
-        for (int j = 0; j < NPL; ++j) qd[j] = holds ? q_s[s * D + lane + STR * j] : 0.f;
+        for (int j = 0; j < NPL; ++j) {
+          if constexpr (SPLIT) qd[j] = holds ? q_at(s, nk - 1, lane + STR * j) : 0.f;
+          else qd[j] = holds ? q_s[s * D + lane + STR * j] : 0.f;
+        }
         float part[16];
 #pragma unroll
         for (int p = 0; p < 16; ++p) {
@@ -295,7 +382,9 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 #pragma unroll
           for (int j = 1; j < NPL; ++j) part[p] = fmaf(qd[j], kr[j][p], part[p]);
         }
-        const float x = butterfly16(part, lane) * k_sc;
+        float x;  // the split route adds the chunk's earlier parts
+        if constexpr (SPLIT) x = (butterfly16(part, lane) + xs[s]) * k_sc, xs[s] = 0.f;
+        else x = butterfly16(part, lane) * k_sc;
         const bool valid = t < t_end && (!causal || t <= pos + s);
         const float m_new = fmaxf(m_w[s], pair_max(valid ? x : YOHO_NEG_INF));
         const float alpha = __expf(m_w[s] - m_new);
@@ -353,7 +442,7 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
 
   // The cluster's states -> the output; block `rank` writes its share.
   for (int e = rank * THREADS + tid; e < S * D; e += CL * THREADS) {
-    const int s = e / D, d = e - s * D, dt = true_dim(d);
+    const int s = e / D, d = e - s * D, dt = SPLIT ? part_dim(sl, d) : true_dim(d);
     if (dt < 0) continue;  // a padded dim: not stored
     float mx = YOHO_NEG_INF;
     for (int r = 0; r < CL; ++r)
@@ -370,22 +459,25 @@ decode_attn(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CU
   cluster.sync();  // no block leaves while a peer still reads its state
 }
 
-template <typename QT, int KIND, int SMAX, int D>
+template <typename QT, int KIND, int SMAX, int D, bool SPLIT>
 cudaError_t launch(const Args& a) {
   using E = typename KvType<QT, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? D / 2 : D;
   using L = Stage<E, DK, TC>;
   constexpr int NST = ring_stages(L::BYTES, STAGES);
+  const int DKh = KIND == KV_INT4 ? a.Dh / 2 : a.Dh;
+  const int nk = SPLIT ? (DKh + DK - 1) / DK : 1;  // slices: the grid's z
   const int n_chunks = (a.t_end + TC - 1) / TC;
-  const int cl = cluster_size(n_chunks, a.B * a.Hq, BLOCKS_PER_SM * sm_count(), MAX_CLUSTER);
-  const KvMaps m = kv_maps<E, DK, TC>(a.k, a.v, a.ks, a.vs, a.B, a.Hkv,
-                                      KIND == KV_INT4 ? a.Dh / 2 : a.Dh, a.T);
+  const int cl = cluster_size(n_chunks, a.B * a.Hq * nk, BLOCKS_PER_SM * sm_count(),
+                              MAX_CLUSTER);
+  const KvMaps m = kv_maps<E, DK, TC>(a.k, a.v, a.ks, a.vs, a.B, a.Hkv, DKh, a.T);
   constexpr int PART = D + 2;
   const size_t states = sizeof(float) * (size_t)(WARPS + 1) * a.S * PART;
   const size_t smem = 1024 + (std::max((size_t)NST * L::BYTES, states) + 7) / 8 * 8 + 8 * NST +
-                      sizeof(float) * (size_t)a.S * D;
-  return launch_clusters(decode_attn<QT, KIND, SMAX, D>, dim3(cl, a.B * a.Hq), THREADS, smem,
-                         cl, a.stream, m.k, m.v, m.ks, m.vs, static_cast<const QT*>(a.q), a.k,
+                      (SPLIT ? 0 : sizeof(float) * (size_t)a.S * D);
+  if (nk > 65535) return cudaErrorInvalidValue;
+  return launch_clusters(decode_attn<QT, KIND, SMAX, D, SPLIT>, dim3(cl, a.B * a.Hq, nk), THREADS,
+                         smem, cl, a.stream, m.k, m.v, m.ks, m.vs, static_cast<const QT*>(a.q), a.k,
                          a.v, static_cast<const __nv_bfloat16*>(a.ks),
                          static_cast<const __nv_bfloat16*>(a.vs), static_cast<QT*>(a.out), a.Hq,
                          a.Hkv, a.S, a.Dh, a.T, a.t_end, a.causal, a.pos, a.pos_rows, m.mode);
@@ -393,39 +485,41 @@ cudaError_t launch(const Args& a) {
 
 // S queries -> the instantiation that holds them: one query for bf16 q
 // (several bf16 queries run decode_attention_mq.cu); 1, 4 or 32 for f32 q,
-// 1 or 4 at width 256, whose 32-query states the registers cannot hold.
-template <typename QT, int KIND, int D>
+// 1 or 4 at width 256 (and split), whose 32-query states the registers
+// cannot hold.
+template <typename QT, int KIND, int D, bool SPLIT>
 cudaError_t dispatch_s(const Args& a) {
-  if (a.S <= 1) return launch<QT, KIND, 1, D>(a);
+  if (a.S <= 1) return launch<QT, KIND, 1, D, SPLIT>(a);
   if constexpr (std::is_same<QT, float>::value) {
-    if (a.S <= 4) return launch<QT, KIND, 4, D>(a);
+    if (a.S <= 4) return launch<QT, KIND, 4, D, SPLIT>(a);
     if constexpr (D <= 128)
-      if (a.S <= 32) return launch<QT, KIND, 32, D>(a);
+      if (a.S <= 32) return launch<QT, KIND, 32, D, SPLIT>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename QT, int D>
+template <typename QT, int D, bool SPLIT = false>
 cudaError_t dispatch_kind(int kind, const Args& a) {
   switch (kind) {
-    case KV_INT8: return dispatch_s<QT, KV_INT8, D>(a);
-    case KV_INT4: return dispatch_s<QT, KV_INT4, D>(a);
-    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D>(a);
+    case KV_INT8: return dispatch_s<QT, KV_INT8, D, SPLIT>(a);
+    case KV_INT4: return dispatch_s<QT, KV_INT4, D, SPLIT>(a);
+    case KV_FLOAT: return dispatch_s<QT, KV_FLOAT, D, SPLIT>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Head dim Dh -> the smallest width W >= Dh: 16, 32, 64, 128 or 256, for
-// every kind. Any Dh from 1 to 256; int4 an even one (its bytes hold dims
-// r and r + Dh/2).
+// every kind; any Dh above 256 runs split at width 256. Any Dh >= 1; int4
+// an even one (its bytes hold dims r and r + Dh/2).
 template <typename QT>
 cudaError_t dispatch_d(int kind, const Args& a) {
-  if (a.Dh < 1 || a.Dh > 256 || (kind == KV_INT4 && a.Dh % 2)) return cudaErrorInvalidValue;
+  if (a.Dh < 1 || (kind == KV_INT4 && a.Dh % 2)) return cudaErrorInvalidValue;
   if (a.Dh <= 16) return dispatch_kind<QT, 16>(kind, a);
   if (a.Dh <= 32) return dispatch_kind<QT, 32>(kind, a);
   if (a.Dh <= 64) return dispatch_kind<QT, 64>(kind, a);
   if (a.Dh <= 128) return dispatch_kind<QT, 128>(kind, a);
-  return dispatch_kind<QT, 256>(kind, a);
+  if (a.Dh <= 256) return dispatch_kind<QT, 256>(kind, a);
+  return dispatch_kind<QT, 256, true>(kind, a);
 }
 
 }  // namespace
@@ -437,8 +531,8 @@ YOHO_ERROR_STRING_FN
 // int4 (packed), 2 = K/V in the type of q (k_scale and v_scale null).
 // causal: query row s of batch row b sees keys <= pos + s, or <=
 // pos_rows[b] + s when pos_rows (B ints on the device, each >= 0) is not
-// null. Dh is any head dim from 1 to 256 (int4: even). One launch; no
-// workspace.
+// null. Dh is any head dim >= 1 (int4: even), above 256 split into
+// slices of 256 (a grid axis). One launch; no workspace.
 extern "C" int decode_attention(int q_dtype, int kind, const void* q, const void* k,
                                 const void* v, const void* k_scale, const void* v_scale,
                                 void* out, int B, int Hq, int Hkv, int S, int Dh, int T,

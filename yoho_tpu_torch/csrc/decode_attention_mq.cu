@@ -79,6 +79,16 @@
 // 16, 32, 64, 128 or 256 that holds it, padded as the FMA route pads (q's
 // padded dims zero, padded output dims not stored; int4's split at Dh/2 sits
 // at W/2). At W = 256 a warp holds 64 q and 128 accumulator registers.
+//
+// Head dims above 256 (int4: even ones) run the split route (SPLIT) at W =
+// 256, as the FMA route does: nk = ceil(DKh / DK) parts of K/V rows, one
+// cluster per (row tiles, slice) on the grid's y axis, every chunk nk ring
+// units (decode_stage.cuh). For K's first nk - 1 parts a warp loads q's
+// fragments of that part (from global memory, L1) and adds the part's
+// score products into the chunk's partial scores (kept per 16-position
+// step, in local memory); the last part brings V's rows of the block's
+// slice and the scales, and the chunk's softmax and value products run as
+// without the split. int8 and int4 parts convert their K codes alone.
 #include <cooperative_groups.h>
 
 #include "decode_stage.cuh"
@@ -160,12 +170,13 @@ template <int W> struct Tiles {
 // Warp `c` converts positions [16 c, 16 c + 16) of a chunk: its K and V
 // codes (DK rows of TC bytes, 64-byte swizzle; int4: byte row r's low
 // nibbles become row r, its high nibbles row r + W/2) and its scales.
-template <int KIND, int W>
+// K_ONLY (a split route's K part): K's codes alone.
+template <int KIND, int W, bool K_ONLY = false>
 __device__ __forceinline__ void convert16(const unsigned char* stage, unsigned char* tiles, int c,
                                           int lane) {
   constexpr int DK = KIND == KV_INT4 ? W / 2 : W;
   using T = Tiles<W>;
-  for (int e = lane; e < 2 * DK; e += 32) {
+  for (int e = lane; e < (K_ONLY ? 1 : 2) * DK; e += 32) {
     const int m = e / DK, r = e - m * DK;  // K or V, code row
     const uint4 u = *reinterpret_cast<const uint4*>(stage + m * DK * TC + swz<TC>(r, 16 * c));
     const uint32_t word[4] = {u.x, u.y, u.z, u.w};
@@ -185,6 +196,7 @@ __device__ __forceinline__ void convert16(const unsigned char* stage, unsigned c
     }
     store16(dst, r, c, lo);
   }
+  if constexpr (K_ONLY) return;
   const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(stage + 2 * DK * TC);
   float* dst = reinterpret_cast<float*>(tiles + T::SCALES);
   const int t = 16 * c + (lane & 15), v = lane >> 4;  // lanes 0-15: k scales, 16-31: v scales
@@ -203,7 +215,7 @@ __host__ __device__ int ring_smem(int wm) {
   return ring_stages(L::BYTES, STAGES, 2 * TB) * L::BYTES + (wm > 1 ? 2 : 1) * TB;
 }
 
-template <int KIND, int W, int NG>
+template <int KIND, int W, int NG, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
@@ -238,14 +250,17 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
   const int G = Hq / Hkv;
   const int R = S * G;                  // query rows of this KV head
   const int WT = WARPS / WM;            // warps that share a row tile
-  const int r_blk = blockIdx.y * 16 * WM;
+  const int nk = SPLIT ? (DKh + DK - 1) / DK : 1;  // K parts (and slices)
+  const int sl = SPLIT ? (int)blockIdx.y % nk : 0;  // this cluster's slice
+  const int r_blk = (SPLIT ? (int)blockIdx.y / nk : (int)blockIdx.y) * 16 * WM;
   const int pos = pos_rows != nullptr ? pos_rows[b] : pos_all;
   const int t_end = pos_rows != nullptr ? min(t_end_all, pos + S) : t_end_all;
   // The end of row r's keys: t_end, and past pos + s (s = r / G) when causal.
   auto row_end = [&](int r) { return causal ? min(t_end, pos + r / G + 1) : t_end; };
   const int t_blk = row_end(min(r_blk + 16 * WM, R) - 1);  // this block's last row's end
   const int n_chunks = (t_blk + TC - 1) / TC;
-  const int my_n = rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0;
+  // Ring units: chunks rank + i CL, nk units each.
+  const int my_n = (rank < n_chunks ? (n_chunks - rank + CL - 1) / CL : 0) * nk;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, c = lane & 3;  // a fragment's row (and row + 8) and column pair
   const int row0 = r_blk + (warp % WM) * 16;  // this warp's 16 rows
@@ -265,16 +280,26 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
       return dw < Dh ? dw : -1;
     }
   };
+  // The same for dim dw of part p (the split route).
+  auto part_dim = [&](int p, int dw) {
+    if constexpr (KIND == KV_INT4) {
+      const int half = Dh / 2, l = (dw < W / 2 ? dw : dw - W / 2) + p * (W / 2);
+      return l < half ? (dw < W / 2 ? l : l + half) : -1;
+    } else {
+      return dw + p * W < Dh ? dw + p * W : -1;
+    }
+  };
 
-  const Ring<E, DK, TC, THREADS, NST> ring{
+  const Ring<E, DK, TC, THREADS, NST, SPLIT> ring{
       smem, bars, &tm_k, &tm_v, &tm_ks, &tm_vs, k, v, k_scale, v_scale,
-      bhk, DKh, T, t_blk, rank, CL, mode, my_n, tid};
+      bhk, DKh, T, t_blk, rank, CL, mode, my_n, tid, nk, sl * DK};
   // The first loads go out before q is read, so the two latencies overlap.
   ring.start();
   // q of this warp's rows as A fragments: register i of k-step kk holds row
-  // g + 8 (i & 1), dims 16 kk + 8 (i >> 1) + 2 c and the next.
+  // g + 8 (i & 1), dims 16 kk + 8 (i >> 1) + 2 c and the next (the split
+  // route: of part p, loaded a unit at a time).
   uint32_t qa[W / 16][4];
-  {
+  auto load_qa = [&](auto dim_of) {
     const unsigned short* qrow[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -284,7 +309,7 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
                         : nullptr;
     }
     auto q_at = [&](int i, int dw) -> uint32_t {
-      const int d = true_dim(dw);
+      const int d = dim_of(dw);
       return qrow[i] != nullptr && d >= 0 ? qrow[i][d] : 0u;
     };
 #pragma unroll
@@ -294,7 +319,8 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
         const int dw = 16 * kk + 8 * (i >> 1) + 2 * c;
         qa[kk][i] = q_at(i & 1, dw) | (q_at(i & 1, dw + 1) << 16);
       }
-  }
+  };
+  if constexpr (!SPLIT) load_qa(true_dim);
   __syncthreads();  // the ring's barriers are initialized
 
   // Scores and running maxima are kept in log2 units (k scale x log2(e)).
@@ -308,16 +334,28 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
   const int k_row = ((lm & 1) << 3) + lr, k_pos = (lm >> 1) << 3;
   const int v_row = ((lm >> 1) << 3) + lr, v_pos = (lm & 1) << 3;
   const bool scaled = k_scale != nullptr;
+  // The split route's partial scores of a chunk, per step of this warp (a
+  // split instantiation takes one 16-position group a step, NG = 1).
+  float sacc[SPLIT ? TC / 16 : 1][2][4];
 
   for (int i = 0; i < my_n; ++i) {
     ring.acquire(i);
     const unsigned char* st = ring.stage(i);
     unsigned char* tl = tiles + (WM > 1 ? i & 1 : 0) * Tiles<W>::BYTES;
+    // The split route: the chunk's softmax and value products run in its
+    // last part; every part first loads q's fragments of its dims.
+    const bool last = ring.last(i);
+    if constexpr (SPLIT) load_qa([&](int dw) { return part_dim(ring.part(i), dw); });
     if constexpr (CONVERT) {
       // Each warp converts a quarter of the chunk's positions (the scales
       // come along); after a block barrier the stage is free and TMA
       // refills it while the warps read the tiles.
-      convert16<KIND, W>(st, tl, warp, lane);
+      if constexpr (SPLIT) {
+        if (!last) convert16<KIND, W, true>(st, tl, warp, lane);
+        else convert16<KIND, W>(st, tl, warp, lane);
+      } else {
+        convert16<KIND, W>(st, tl, warp, lane);
+      }
       __syncthreads();
       ring.release(i, true);
     }
@@ -334,7 +372,15 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
 #pragma unroll
       for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) s[gi][j][0] = s[gi][j][1] = s[gi][j][2] = s[gi][j][3] = 0.f;
+        for (int j = 0; j < 2; ++j) {
+          if constexpr (SPLIT) {  // the chunk's earlier parts' sums, or 0
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[gi][j][e] = ring.part(i) > 0 ? sacc[(tp - p0) / step][j][e] : 0.f;
+          } else {
+            s[gi][j][0] = s[gi][j][1] = s[gi][j][2] = s[gi][j][3] = 0.f;
+          }
+        }
 #pragma unroll
       for (int kk = 0; kk < W / 16; ++kk)
 #pragma unroll
@@ -345,6 +391,15 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
           mma_bf16(s[gi][0], qa[kk], kb[0], kb[1]);
           mma_bf16(s[gi][1], qa[kk], kb[2], kb[3]);
         }
+      if constexpr (SPLIT) {
+        if (!last) {  // a K part: the partial scores wait for the next part
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sacc[(tp - p0) / step][j][e] = s[0][j][e];
+          continue;
+        }
+      }
       // s[gi][j][e]: row g + 8 (e >> 1), position t0 + 16 gi + 8 j + 2 c +
       // (e & 1); in log2 units, masked keys at finfo.min.
       float mx[2] = {YOHO_NEG_INF, YOHO_NEG_INF};
@@ -476,7 +531,7 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
 
   // The cluster's states -> the output; block `rank` writes its share.
   for (int e = rank * THREADS + tid; e < rows * W; e += CL * THREADS) {
-    const int rl = e / W, dw = e - rl * W, dt = true_dim(dw);
+    const int rl = e / W, dw = e - rl * W, dt = SPLIT ? part_dim(sl, dw) : true_dim(dw);
     if (dt < 0) continue;  // a padded dim: not stored
     float mr[MAX_CLUSTER], mx = YOHO_NEG_INF;
 #pragma unroll
@@ -497,18 +552,21 @@ decode_attn_mq(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__
   cluster.sync();  // no block leaves while a peer still reads its state
 }
 
-template <int KIND, int W, int NG>
+template <int KIND, int W, int NG, bool SPLIT>
 cudaError_t launch(const Args& a, int wm, int n_rt) {
   using E = typename KvType<__nv_bfloat16, KIND>::T;
   constexpr int DK = KIND == KV_INT4 ? W / 2 : W;
   constexpr int STATES = (int)sizeof(float) * (WARPS + 2) * 16 * (W + 2);
+  const int DKh = KIND == KV_INT4 ? a.Dh / 2 : a.Dh;
+  const int nk = SPLIT ? (DKh + DK - 1) / DK : 1;  // slices: row tiles x nk on the grid's y
+  if ((long)n_rt * nk > 65535) return cudaErrorInvalidValue;
   const int n_chunks = (a.t_end + TC - 1) / TC;
-  const int cl = cluster_size(n_chunks, a.B * a.Hkv * n_rt, BLOCKS_PER_SM * sm_count(),
+  const int cl = cluster_size(n_chunks, a.B * a.Hkv * n_rt * nk, BLOCKS_PER_SM * sm_count(),
                               MAX_CLUSTER);
-  const KvMaps m = kv_maps<E, DK, TC>(a.k, a.v, a.ks, a.vs, a.B, a.Hkv,
-                                      KIND == KV_INT4 ? a.Dh / 2 : a.Dh, a.T);
+  const KvMaps m = kv_maps<E, DK, TC>(a.k, a.v, a.ks, a.vs, a.B, a.Hkv, DKh, a.T);
   const size_t smem = 1024 + (size_t)std::max(ring_smem<KIND, W>(wm), STATES) + 8 * STAGES;
-  return launch_clusters(decode_attn_mq<KIND, W, NG>, dim3(cl, n_rt, a.B * a.Hkv), THREADS, smem,
+  return launch_clusters(decode_attn_mq<KIND, W, NG, SPLIT>, dim3(cl, n_rt * nk, a.B * a.Hkv),
+                         THREADS, smem,
                          cl, a.stream, m.k, m.v, m.ks, m.vs,
                          static_cast<const __nv_bfloat16*>(a.q), a.k, a.v,
                          static_cast<const __nv_bfloat16*>(a.ks),
@@ -522,24 +580,24 @@ cudaError_t launch(const Args& a, int wm, int n_rt) {
 // share of a chunk, 64 positions at four tiles a block; one 16-position
 // group where the warps split the positions four ways (fewer registers,
 // more blocks resident: the few-query reads) and at W = 256 (whose
-// accumulators fill the registers).
-template <int KIND, int W>
+// accumulators fill the registers), split or not.
+template <int KIND, int W, bool SPLIT>
 cudaError_t dispatch_rows(const Args& a) {
   const int tiles = (a.S * (a.Hq / a.Hkv) + 15) / 16;
   const int wm = tiles >= 3 ? WARPS : tiles;
   const int n_rt = (tiles + wm - 1) / wm;
   if (a.B * a.Hkv > 65535 || n_rt > 65535) return cudaErrorInvalidValue;
   if constexpr (W < 256)
-    if (wm > 1) return launch<KIND, W, TC / 16>(a, wm, n_rt);
-  return launch<KIND, W, 1>(a, wm, n_rt);
+    if (wm > 1) return launch<KIND, W, TC / 16, SPLIT>(a, wm, n_rt);
+  return launch<KIND, W, 1, SPLIT>(a, wm, n_rt);
 }
 
-template <int W>
+template <int W, bool SPLIT = false>
 cudaError_t dispatch_kind(int kind, const Args& a) {
   switch (kind) {
-    case KV_INT8: return dispatch_rows<KV_INT8, W>(a);
-    case KV_INT4: return dispatch_rows<KV_INT4, W>(a);
-    case KV_FLOAT: return dispatch_rows<KV_FLOAT, W>(a);
+    case KV_INT8: return dispatch_rows<KV_INT8, W, SPLIT>(a);
+    case KV_INT4: return dispatch_rows<KV_INT4, W, SPLIT>(a);
+    case KV_FLOAT: return dispatch_rows<KV_FLOAT, W, SPLIT>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -552,9 +610,9 @@ YOHO_ERROR_STRING_FN
 // (q_dtype 1) at any S >= 1: kind 0 = int8, 1 = int4 (packed), 2 = bf16
 // K/V (k_scale and v_scale null); causal: query row s of batch row b sees
 // keys <= pos + s, or <= pos_rows[b] + s when pos_rows (B ints on the
-// device, each >= 0) is not null. Dh is any head dim from 1 to 256 (int4:
-// even), run at the smallest of the widths 16, 32, 64, 128, 256 that holds
-// it. One launch; no workspace.
+// device, each >= 0) is not null. Dh is any head dim >= 1 (int4: even),
+// run at the smallest of the widths 16, 32, 64, 128, 256 that holds it, or
+// above 256 split into slices of 256. One launch; no workspace.
 extern "C" int decode_attention_mq(int q_dtype, int kind, const void* q, const void* k,
                                    const void* v, const void* k_scale, const void* v_scale,
                                    void* out, int B, int Hq, int Hkv, int S, int Dh, int T,
@@ -563,7 +621,7 @@ extern "C" int decode_attention_mq(int q_dtype, int kind, const void* q, const v
   int t_end = min(T, kv_len);
   if (causal && pos_rows == nullptr) t_end = min(t_end, pos + S);
   if (q_dtype != 1 || S < 1 || t_end <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      (pos_rows != nullptr && !causal) || Dh < 1 || Dh > 256 || (kind == KV_INT4 && Dh % 2))
+      (pos_rows != nullptr && !causal) || Dh < 1 || (kind == KV_INT4 && Dh % 2))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, k_scale, v_scale, out, B, Hq, Hkv, S, Dh, T, t_end, causal, pos,
                pos_rows, stream};
@@ -571,5 +629,6 @@ extern "C" int decode_attention_mq(int q_dtype, int kind, const void* q, const v
   if (Dh <= 32) return dispatch_kind<32>(kind, a);
   if (Dh <= 64) return dispatch_kind<64>(kind, a);
   if (Dh <= 128) return dispatch_kind<128>(kind, a);
-  return dispatch_kind<256>(kind, a);
+  if (Dh <= 256) return dispatch_kind<256>(kind, a);
+  return dispatch_kind<256, true>(kind, a);
 }

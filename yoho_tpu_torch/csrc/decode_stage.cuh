@@ -21,6 +21,14 @@
 //
 // The tiles use the 64- or 128-byte TMA swizzle of their row width (f32
 // rows, 256 bytes, take the 128-byte pattern in software).
+//
+// Head dims past the widest width (the split route, SPLIT): a (b, KV head)
+// has nk = ceil(DKh / DK) parts of DK K/V rows, and the block of slice sl
+// computes the output dims of V's part sl. Each chunk then streams as nk
+// units through the ring: parts 0 .. nk - 2 bring K's rows of that part
+// alone (the block sums their partial scores), and the last brings K's last
+// part with V's part sl and the scales, the unit a chunk is without the
+// split. Rows past DKh arrive as zeros, as any padded row does.
 #pragma once
 
 #include <algorithm>
@@ -93,8 +101,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The ring of one block: element type E, DK tile rows, TC positions a
 // chunk, THREADS threads, NST stages at `smem`, their mbarriers at `bars`.
-// t_end is the block's end: positions at or past it are never read.
-template <typename E, int DK, int TC, int THREADS, int NST>
+// t_end is the block's end: positions at or past it are never read. With
+// SPLIT, local unit i is part i % nk of chunk i / nk (K's rows part x DK
+// on, V's from v_row in the last part) and my_n counts units; without it
+// a unit is a chunk and nk and v_row are not read.
+template <typename E, int DK, int TC, int THREADS, int NST, bool SPLIT = false>
 struct Ring {
   using L = Stage<E, DK, TC>;
   unsigned char* smem;
@@ -105,15 +116,23 @@ struct Ring {
   const __nv_bfloat16* k_scale;
   const __nv_bfloat16* v_scale;
   int bhk, DKh, T, t_end, rank, CL, mode, my_n, tid;
+  int nk, v_row;
 
   __device__ bool scaled() const { return k_scale != nullptr; }
   __device__ bool tma() const { return mode == 2; }
   __device__ bool words() const { return mode == 1 || mode == 3; }
   __device__ unsigned char* stage(int i) const { return smem + (i % NST) * L::BYTES; }
-  __device__ int first(int i) const { return (rank + i * CL) * TC; }  // local chunk i's first position
+  __device__ int first(int i) const {  // local unit i's first position
+    if constexpr (SPLIT) return (rank + i / nk * CL) * TC;
+    else return (rank + i * CL) * TC;
+  }
+  __device__ int part(int i) const { return i % nk; }  // SPLIT: unit i's K part
+  // SPLIT: unit i brings V's rows and the scales (the chunk's last part).
+  __device__ bool last(int i) const { return !SPLIT || i % nk == nk - 1; }
 
   // Thread 0 starts the TMA loads of local chunk i into its stage.
   __device__ void issue(int i) const {
+    if constexpr (SPLIT) return issue_split(i);
     const uint32_t buf = smem_addr(stage(i));
     const uint32_t bar = smem_addr(bars + i % NST);
     const int t0 = first(i);
@@ -128,6 +147,7 @@ struct Ring {
   // Every thread starts WB-byte asynchronous copies of local chunk i.
   template <int WB>
   __device__ void issue_words_of(int i) const {
+    if constexpr (SPLIT) return issue_words_split<WB>(i);
     constexpr int WPR = TC * (int)sizeof(E) / WB;  // words per chunk row
     unsigned char* buf = stage(i);
     const int t0 = first(i);
@@ -158,6 +178,7 @@ struct Ring {
   // All threads copy local chunk i element by element, BATCH loads in
   // flight before the first store; positions at or past t_end read as 0.
   __device__ void load_plain(int i) const {
+    if constexpr (SPLIT) return load_plain_split(i);
     unsigned char* buf = stage(i);
     const int t0 = first(i);
     constexpr int BATCH = 8;
@@ -179,6 +200,83 @@ struct Ring {
       }
     }
     if (scaled()) {
+      __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(buf + L::SCALES);
+      for (int e = tid; e < 2 * TC; e += THREADS) {
+        const int r = e / TC, t = t0 + e - r * TC;
+        sc[e] = t < t_end ? (r == 0 ? k_scale : v_scale)[(size_t)bhk * T + t]
+                          : __float2bfloat16(0.f);
+      }
+    }
+  }
+
+  // The split route's loads of unit i: K's rows of its part, and in the
+  // chunk's last part also V's rows from v_row and the scales; rows past
+  // DKh arrive as zeros.
+  __device__ void issue_split(int i) const {
+    const uint32_t buf = smem_addr(stage(i));
+    const uint32_t bar = smem_addr(bars + i % NST);
+    const int t0 = first(i);
+    const bool with_v = last(i);
+    mbar_expect_tx(bar, (with_v ? 2 : 1) * L::KV + (with_v && scaled() ? 4 * TC : 0));
+    tma_load(buf, map_k, bar, t0, part(i) * DK, bhk);
+    if (!with_v) return;
+    tma_load(buf + L::KV, map_v, bar, t0, v_row, bhk);
+    if (scaled()) {
+      tma_load(buf + L::SCALES, map_ks, bar, t0, bhk);
+      tma_load(buf + L::SCALES + 2 * TC, map_vs, bar, t0, bhk);
+    }
+  }
+  template <int WB>
+  __device__ void issue_words_split(int i) const {
+    constexpr int WPR = TC * (int)sizeof(E) / WB;
+    unsigned char* buf = stage(i);
+    const int t0 = first(i);
+    const bool with_v = last(i);
+    for (int e = tid; e < (with_v ? 2 : 1) * DK * WPR; e += THREADS) {
+      const int r = e / WPR, w = e - r * WPR, rr = r % DK;
+      const int gr = (r < DK ? part(i) * DK : v_row) + rr;  // the row in global memory
+      const bool row_in = gr < DKh;
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          static_cast<const E*>(r < DK ? k : v) + ((size_t)bhk * DKh + (row_in ? gr : 0)) * T +
+          t0);
+      const bool in = row_in && t0 + WB * w / (int)sizeof(E) < t_end;
+      cp_async<WB>(smem_addr(buf + (r < DK ? 0 : L::KV) + swz<L::ROWB>(rr, WB * w)),
+                   in ? src + WB * w : src, in ? WB : 0);
+    }
+    for (int e = tid; with_v && scaled() && e < TC; e += THREADS) {
+      const int r = e / (TC / 2), w = e - r * (TC / 2);
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          (r == 0 ? k_scale : v_scale) + (size_t)bhk * T + t0);
+      const bool in = t0 + 2 * w < t_end;
+      cp_async<4>(smem_addr(buf + L::SCALES + r * TC * 2 + 4 * w), in ? src + w : src,
+                  in ? 4 : 0);
+    }
+    cp_async_commit();
+  }
+  __device__ void load_plain_split(int i) const {
+    unsigned char* buf = stage(i);
+    const int t0 = first(i);
+    const bool with_v = last(i);
+    constexpr int BATCH = 8;
+    static_assert(DK * TC % (BATCH * THREADS) == 0, "elements split evenly");
+    for (int e0 = 0; e0 < (with_v ? 2 : 1) * DK * TC; e0 += BATCH * THREADS) {
+      E x[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int e = e0 + u * THREADS + tid, r = e / TC, t = t0 + e - r * TC;
+        const int gr = (r < DK ? part(i) * DK : v_row) + r % DK;
+        const E* src = static_cast<const E*>(r < DK ? k : v) +
+                       ((size_t)bhk * DKh + (gr < DKh ? gr : 0)) * T;
+        x[u] = t < t_end && gr < DKh ? src[t] : E{};
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int e = e0 + u * THREADS + tid, r = e / TC, p = e - r * TC;
+        *reinterpret_cast<E*>(buf + (r < DK ? 0 : L::KV) +
+                              swz<L::ROWB>(r % DK, p * (int)sizeof(E))) = x[u];
+      }
+    }
+    if (with_v && scaled()) {
       __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(buf + L::SCALES);
       for (int e = tid; e < 2 * TC; e += THREADS) {
         const int r = e / TC, t = t0 + e - r * TC;

@@ -82,6 +82,19 @@
 // 64): TMA zero-fills the columns past Dh (Dh a multiple of 8 keeps the
 // 16-byte stride rule). At Dh == W the arithmetic and the outputs are
 // those of the width alone.
+//
+// Head dims above 256 (the JAX package attends at any dims // heads) run
+// the split route: the output dims are cut into slices, one of width 256
+// per 256 dims and the rest at the smallest FMA width that holds it (264 =
+// 256 + 8: widths 256 and 16), and a grid axis takes the slices, one block
+// per (query block, batch x head, slice). Every block computes the scores
+// over all of Dh, staging q and K through shared memory 64 dims at a time
+// (the same sequential sum over d as the FMA kernel), runs that kernel's
+// online softmax, and accumulates P V for its own slice of V only; it
+// writes its slice once. Shared memory follows the chunk and the slice
+// (113 KB at width 256), not Dh, so no head dim is too wide. The scores are
+// recomputed once per slice: ceil(Dh / 256) times the QK products of one
+// pass, and q and K are read that many times.
 #include <type_traits>
 
 #include "tma.cuh"
@@ -93,6 +106,54 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;  // 4 threads per query row
 constexpr int TPR = THREADS / BQ;
+
+// One K tile of the FMA kernels for query row r (its TPR lanes, this one
+// at c): the raw scores s of keys k0 + c + TPR i are scaled and masked
+// (keys >= kv_len, and past qpos when causal), the running max m and sum l
+// move on, P (rounded to T, as the reference's p.astype(v.dtype)) goes
+// through p_s, and acc = acc * alpha + P V over v_s (BK rows of W floats).
+template <typename T, int W>
+__device__ __forceinline__ void softmax_pv(float (&s)[BK / TPR], float (&acc)[W / TPR], float& m,
+                                           float& l, float* p_s, const float* v_s, int r,
+                                           int c, int k0, int qpos, int kv_len, int causal,
+                                           float scale) {
+  constexpr int KPT = BK / TPR;
+  constexpr int DPT = W / TPR;
+  float mx = YOHO_NEG_INF;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int kp = k0 + c + TPR * i;
+    const bool valid = kp < kv_len && (!causal || kp <= qpos);
+    s[i] = valid ? s[i] * scale : YOHO_NEG_INF;
+    mx = fmaxf(mx, s[i]);
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_new = fmaxf(m, mx);
+  const float alpha = expf(m - m_new);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const float p = expf(s[i] - m_new);
+    sum += p;
+    p_s[r * (BK + 1) + c + TPR * i] = round_as<T>(p);
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  l = l * alpha + sum;
+  m = m_new;
+  __syncwarp();  // the row's P is written and read by its own 4 lanes
+
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
+#pragma unroll 4
+  for (int j = 0; j < BK; ++j) {
+    const float p = p_s[r * (BK + 1) + j];
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, v_s[j * W + c + TPR * i], acc[i]);
+  }
+  __syncwarp();
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -164,40 +225,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < KPT; ++i) s[i] = fmaf(qv, k_s[(c + TPR * i) * DP + d], s[i]);
     }
-    float mx = YOHO_NEG_INF;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kp = k0 + c + TPR * i;
-      const bool valid = kp < kv_len && (!causal || kp <= qpos);
-      s[i] = valid ? s[i] * scale : YOHO_NEG_INF;
-      mx = fmaxf(mx, s[i]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float p = expf(s[i] - m_new);
-      sum += p;
-      p_s[r * (BK + 1) + c + TPR * i] = round_as<T>(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * alpha + sum;
-    m = m_new;
-    __syncwarp();  // the row's P is written and read by its own 4 lanes
-
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float p = p_s[r * (BK + 1) + j];
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, v_s[j * D + c + TPR * i], acc[i]);
-    }
-    __syncwarp();
+    softmax_pv<T, D>(s, acc, m, l, p_s, v_s, r, c, k0, qpos, kv_len, causal, scale);
   }
 
   if (qpos < Tq) {
@@ -206,6 +234,102 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
       if (c + TPR * i < Dh) o[c + TPR * i] = from_f32<T>(acc[i] * inv);
+  }
+}
+
+// ------------------------------------------------- D > 256: output slices
+constexpr int SPLIT_DC = 64;  // the q and K dims one pass stages for the scores
+
+// One slice of W output dims from dim s0 = d0 + blockIdx.z W: the FMA
+// kernel's arithmetic, with the scores summed over every dim of Dh in
+// chunks of SPLIT_DC through shared memory.
+template <typename T, int W>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ out, int H, int groups, int Tq, int Tk, int kv_len, int Dh,
+                float scale, int causal, int d0) {
+  constexpr int DC = SPLIT_DC;
+  constexpr int CP = DC + 1;        // padded chunk rows: no bank conflicts
+  constexpr int RPC = THREADS / DC;  // chunk rows one pass of the block loads
+  constexpr int RPP = THREADS / W;  // V slice rows one pass loads
+  constexpr int KPT = BK / TPR;
+  constexpr int DPT = W / TPR;
+  static_assert(THREADS % W == 0 && BK % RPP == 0 && BQ % RPC == 0 && BK % RPC == 0,
+                "a pass loads whole tile rows");
+  extern __shared__ float smem[];
+  float* q_s = smem;              // BQ x CP
+  float* k_s = q_s + BQ * CP;     // BK x CP
+  float* v_s = k_s + BK * CP;     // BK x W
+  float* p_s = v_s + BK * W;      // BQ x (BK + 1)
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * BQ;
+  const int s0 = d0 + blockIdx.z * W;  // this block's first output dim
+  const int tid = threadIdx.x;
+  const int r = tid / TPR;
+  const int c = tid - r * TPR;
+  const size_t row_stride = (size_t)H * Dh;
+  const size_t kv_stride = (size_t)(H / groups) * Dh;
+  const T* q_bh = q + (size_t)b * Tq * row_stride + h * Dh;
+  const size_t kv0 = (size_t)b * Tk * kv_stride + (h / groups) * Dh;
+  const int cc = tid % DC, cj0 = tid / DC;  // this thread's chunk column and first row
+  const int vc = tid % W, vj0 = tid / W;    // and its V slice column
+  const bool v_in = s0 + vc < Dh;
+
+  float m = YOHO_NEG_INF, l = 0.f;
+  float acc[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+
+  const int qpos = q0 + r;
+  int n_kb = (kv_len + BK - 1) / BK;
+  if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * BK;
+    float s[KPT];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) s[i] = 0.f;
+    for (int dc0 = 0; dc0 < Dh; dc0 += DC) {
+      __syncthreads();  // the previous chunk (and tile) fully consumed
+      const int d = dc0 + cc;
+      const bool d_in = d < Dh;
+      for (int j = cj0; j < BQ; j += RPC) {
+        const int qp = q0 + j;
+        q_s[j * CP + cc] = qp < Tq && d_in ? to_f32<T>(q_bh[(size_t)qp * row_stride + d]) : 0.f;
+      }
+      for (int j = cj0; j < BK; j += RPC) {
+        const int kp = k0 + j;
+        k_s[j * CP + cc] = kp < kv_len && d_in ? to_f32<T>(k[kv0 + (size_t)kp * kv_stride + d])
+                                               : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < DC; ++dd) {
+        const float qv = q_s[r * CP + dd];
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) s[i] = fmaf(qv, k_s[(c + TPR * i) * CP + dd], s[i]);
+      }
+    }
+    // V's slice (every thread has passed a barrier since the last P V read).
+    for (int j = vj0; j < BK; j += RPP) {
+      const int kp = k0 + j;
+      v_s[j * W + vc] =
+          v_in && kp < kv_len ? to_f32<T>(v[kv0 + (size_t)kp * kv_stride + s0 + vc]) : 0.f;
+    }
+    __syncthreads();
+
+    softmax_pv<T, W>(s, acc, m, l, p_s, v_s, r, c, k0, qpos, kv_len, causal, scale);
+  }
+
+  if (qpos < Tq) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* o = out + ((size_t)b * Tq + qpos) * row_stride + h * Dh + s0;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i)
+      if (s0 + c + TPR * i < Dh) o[c + TPR * i] = from_f32<T>(acc[i] * inv);
   }
 }
 
@@ -693,24 +817,70 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
+// n_slices slices of width W from output dim d0, one grid row each.
+template <typename T, int W>
+cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, int B, int H,
+                         int Hkv, int Tq, int Tk, int kv_len, int Dh, float scale, int causal,
+                         int d0, int n_slices, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)(BQ + BK) * (SPLIT_DC + 1) + (size_t)BK * W +
+                                       (size_t)BQ * (BK + 1));
+  auto kern = flash_fwd_split<T, W>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + BQ - 1) / BQ, B * H, n_slices);
+  kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                        static_cast<const T*>(v), static_cast<T*>(out), H,
+                                        H / Hkv, Tq, Tk, kv_len, Dh, scale, causal, d0);
+  return cudaGetLastError();
+}
+
+// D > 256: a launch of width 256 over the D / 256 full slices, then one of
+// the smallest FMA width that holds the rest, if any.
+template <typename T>
+cudaError_t launch_slices(const void* q, const void* k, const void* v, void* out, int B, int H,
+                          int Hkv, int Tq, int Tk, int kv_len, int D, float scale, int causal,
+                          cudaStream_t stream) {
+  const int full = D / 256, rest = D - 256 * full;
+  if (full > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = launch_split<T, 256>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D, scale,
+                                         causal, 0, full, stream);
+  if (err != cudaSuccess || rest == 0) return err;
+  auto rest_slice = [&](auto width) -> cudaError_t {
+    return launch_split<T, decltype(width)::value>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D,
+                                                   scale, causal, 256 * full, 1, stream);
+  };
+  if (rest <= 16) return rest_slice(std::integral_constant<int, 16>{});
+  if (rest <= 32) return rest_slice(std::integral_constant<int, 32>{});
+  if (rest <= 64) return rest_slice(std::integral_constant<int, 64>{});
+  if (rest <= 128) return rest_slice(std::integral_constant<int, 128>{});
+  return rest_slice(std::integral_constant<int, 256>{});
+}
+
 }  // namespace
 
 YOHO_ERROR_STRING_FN
 
 // dtype: 0 = float32 (FP32 FMAs), 1 = bfloat16. q (B, Tq, H, D); k, v (B,
 // Tk, Hkv, D) with Hkv dividing H (query head h reads KV head h / (H / Hkv));
-// keys >= kv_len (1 <= kv_len <= Tk) are masked; D from 1 to 256. bf16 at a
+// keys >= kv_len (1 <= kv_len <= Tk) are masked; any D >= 1. bf16 at a
 // multiple of 8 up to 128 runs wgmma + TMA (q, k and v 16-byte aligned) at
 // the width W = 16, 32, 64 or 128 that holds D; f32,
-// and bf16 at any other D, run FMAs at the width 16, 32, 64, 128 or 256
-// that holds it.
+// and bf16 at any other D up to 256, run FMAs at the width 16, 32, 64, 128
+// or 256 that holds it; D > 256 runs the split route (output slices of
+// width 256 and the rest's width, one launch per width).
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k,
                                        const void* v, void* out, int B, int H, int Hkv,
                                        int Tq, int Tk, int kv_len, int D, float scale,
                                        int causal, cudaStream_t stream) {
-  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1) || D < 1 || D > 256 ||
-      Hkv < 1 || H % Hkv)
+  if (kv_len < 1 || kv_len > Tk || (dtype != 0 && dtype != 1) || D < 1 || Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
+  if (D > 256) {
+    if (dtype == 0)
+      return launch_slices<float>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D, scale, causal,
+                                  stream);
+    return launch_slices<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, Tk, kv_len, D, scale,
+                                        causal, stream);
+  }
   if (dtype == 1 && D % 8 == 0 && D <= 128) {
     const int w = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
     auto wgmma_route = [&](auto width) -> cudaError_t {

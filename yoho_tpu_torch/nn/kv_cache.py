@@ -149,8 +149,12 @@ def quantize_kv4(k: torch.Tensor, v: torch.Tensor, pad_to: Optional[int] = None,
                  time_major: bool = False) -> QuantizedKV:
     """Int4 variant of :func:`quantize_kv`: codes in [-8, 7] stored two per
     byte along D, (B, H, D//2, T) uint8 with ``D[0:D/2]`` in the low
-    nibbles and ``D[D/2:D]`` in the high nibbles."""
+    nibbles and ``D[D/2:D]`` in the high nibbles. An odd D raises
+    ``ValueError``: its halves cannot share bytes (the JAX package's
+    ``quantize_kv4`` fails there too)."""
     d_axis = 3 if time_major else 2
+    if k.shape[d_axis] % 2:
+        raise ValueError(f"int4 K/V need an even head dim, got {k.shape[d_axis]}")
 
     def _q(x):
         scale = _absmax_scale(x, d_axis, 7.0)

@@ -73,28 +73,10 @@ from yoho_tpu_torch.nn.kv_cache import (
     attend_quantized,
 )
 from yoho_tpu_torch.ops.decode_attention import fused_decode_attention, is_row_pos
-from yoho_tpu_torch.ops.decode_attention import kernel_width as decode_width
 from yoho_tpu_torch.ops.flash_attention import flash_attention
-from yoho_tpu_torch.ops.flash_attention import kernel_width as flash_width
 from yoho_tpu_torch.ops.w8a8_dense import quantize_rows as quantize_act_rows  # noqa: F401
 from yoho_tpu_torch.ops.w8a8_dense import w8a8_dense
 from yoho_tpu_torch.parallel.mesh import AXIS_MODEL, copy_to, gather_over, sum_over
-
-
-def check_head_dims(stacks: dict, device: torch.device) -> None:
-    """On a CUDA device, raises ``ValueError`` for a stack (name -> head
-    dim) whose head dim the attention kernels do not take: the wrappers' own
-    ``kernel_width`` (flash, and decode over float K/V), so a model is
-    refused at construction, before any weights load, and not at its first
-    attention call. The plain versions on the CPU take any head dim."""
-    if device.type != "cuda":
-        return
-    for name, d in stacks.items():
-        try:
-            flash_width(d)
-            decode_width(d)
-        except ValueError as e:
-            raise ValueError(f"{name}: {e}") from None
 
 
 def model_copy(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:

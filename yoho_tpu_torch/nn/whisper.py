@@ -49,7 +49,6 @@ from yoho_tpu_torch.nn.layers import (
     LayerNorm,
     MultiHeadAttention,
     QuantizedEmbed,
-    check_head_dims,
     embed_tokens,
     model_copy,
     realized_token_probs_streamed,
@@ -290,8 +289,6 @@ class Whisper(nn.Module):
                  fast_gelu: bool = False, device=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        check_head_dims({"encoder": cfg.n_audio_state // cfg.n_audio_head,
-                         "decoder": cfg.n_text_state // cfg.n_text_head}, device)
         self.cfg = cfg
         self.dtype = dtype
         self.encoder = AudioEncoder(cfg, dtype=dtype, device=device,

@@ -46,7 +46,6 @@ from yoho_tpu_torch.nn.layers import (
     QuantizedEmbed,
     RMSNorm,
     SwiGLU,
-    check_head_dims,
     embed_tokens,
     model_copy,
     realized_token_probs_streamed,
@@ -315,8 +314,6 @@ class YOHOModel(nn.Module):
                  remat: bool = False):
         super().__init__()
         device = resolve_device(device)
-        check_head_dims({"encoder": cfg.dims // cfg.n_audio_heads,
-                         "decoder": cfg.dims // cfg.n_text_heads}, device)
         self.cfg = cfg
         self.vocab_size = vocab_size
         self.voiceprint_dim = voiceprint_dim

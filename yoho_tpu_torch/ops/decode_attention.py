@@ -17,9 +17,12 @@ fused_decode_attention``, with the same contract:
   kv_len   int             only keys < kv_len are valid
   groups   int             Hq = groups * Hkv; head h reads kv head h//groups
 
-Returns (B, S, Hq, D) in q's type. D is any head dim from 1 to 256 (int4:
-an even one), each run at the smallest instantiated width W that holds it
-(:func:`kernel_width`; zero-padded in shared memory).
+Returns (B, S, Hq, D) in q's type. D is any head dim >= 1 (int4: an even
+one), up to 256 run at the smallest instantiated width W that holds it
+(:func:`kernel_width`; zero-padded in shared memory), above 256 split into
+slices of width 256 (:func:`kernel_slices`): a cluster per slice sums the
+scores over all of D (K's rows in parts of 256, int4's in byte rows of 128,
+each holding dims r and r + D/2) and computes its slice's outputs.
 Unlike the TPU kernel, T need not be a multiple of 128: int8/int4/bf16
 rows of a multiple of 16 bytes (the padded cross K/V, the cache) stream in
 by TMA tile loads, rows of a multiple of 4 bytes by asynchronous word
@@ -60,29 +63,41 @@ KERNELS = (KERNEL, KERNEL_MQ)
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KINDS = ("int8", "int4", "float")  # the kernels' K/V kind codes 0, 1, 2
 # The instantiated head dims, the same for every K/V kind: 64 is whisper
-# and the full-width YOHO model. Every other head dim runs padded to the
-# next: any D from 1 to 256, an even one for int4 (a byte holds dims r and
-# r + D/2).
+# and the full-width YOHO model. Every other head dim up to 256 runs padded
+# to the next, every one above in slices of 256: any D >= 1, an even one for
+# int4 (a byte holds dims r and r + D/2).
 WIDTHS = (16, 32, 64, 128, 256)
 MAX_QUERIES = 32    # queries per FMA launch (its per-row softmax states)
-MAX_QUERIES_256 = 4  # at width 256
+MAX_QUERIES_256 = 4  # at width 256, and split
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def kernel_slices(d: int, kind: str = "float") -> tuple:
+    """The widths of the slices of the output dims that the kernels compute
+    head dim ``d`` in for K/V of ``kind`` ("float", "int8" or "int4"): up to
+    256 one slice at the smallest of :data:`WIDTHS` that holds it, above 256
+    (split) one slice of width 256 per 256 dims, the last padded (264 ->
+    (256, 256)); an int4 slice is 128 byte rows, dims r and r + D/2 of each.
+    Raises ``ValueError`` for a head dim they do not take (below 1; int4:
+    also an odd one: a byte holds dims r and r + D/2, and the JAX package's
+    ``quantize_kv4`` cannot pack an odd one either)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown K/V kind {kind!r}")
+    if d < 1:
+        raise ValueError(f"decode kernel head dim {d} below 1 for {kind} K/V")
+    if kind == "int4" and d % 2:
+        raise ValueError(f"decode kernel head dim {d} not even for {kind} K/V")
+    if d > WIDTHS[-1]:
+        return (WIDTHS[-1],) * -(-d // WIDTHS[-1])
+    return (next(w for w in WIDTHS if w >= d),)
 
 
 def kernel_width(d: int, kind: str = "float") -> int:
     """The instantiated width W the kernels run head dim ``d`` at for K/V
-    of ``kind`` ("float", "int8" or "int4"): the smallest of
-    :data:`WIDTHS` that holds it. Raises ``ValueError`` for a head dim they
-    do not take (outside 1 to 256; int4: also an odd one)."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown K/V kind {kind!r}")
-    if not 1 <= d <= WIDTHS[-1]:
-        raise ValueError(f"decode kernel head dim {d} not in 1, 2, ..., {WIDTHS[-1]} "
-                         f"for {kind} K/V")
-    if kind == "int4" and d % 2:
-        raise ValueError(f"decode kernel head dim {d} not in 2, 4, ..., {WIDTHS[-1]} "
-                         f"(even) for {kind} K/V")
-    return next(w for w in WIDTHS if w >= d)
+    of ``kind``: the smallest of :data:`WIDTHS` that holds it, 256 for
+    every slice above 256 (:func:`kernel_slices`). Raises ``ValueError``
+    for a head dim they do not take (below 1; int4: also an odd one)."""
+    return kernel_slices(d, kind)[0]
 
 
 def kernel_route(s: int, dtype: torch.dtype = torch.bfloat16) -> str:

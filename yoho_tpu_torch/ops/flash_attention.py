@@ -8,13 +8,16 @@ TPU kernel's ``kv_len`` does. k and v may carry fewer heads than q
 (grouped-query attention): with Hkv dividing H, query head h reads KV head
 ``h // (H // Hkv)``, which is what the JAX model's ``jnp.repeat`` of the KV
 heads gives; the kernel reads each KV head once, and the plain version
-repeats them itself. The kernel takes every head dim D from 1 to 256, each
-at an instantiated width W >= D (:func:`kernel_width`; zero-padded in
-shared memory): bf16 at a multiple of 8 up to 128 runs on Hopper's wgmma
-fed by TMA (sm_90a) at W = 16, 32, 64 or 128; f32, and bf16 at any other
-D, on FMAs at W = 16, 32, 64, 128 or 256 (:func:`kernel_route`); any other
-head dim raises. The wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
+repeats them itself. The kernel takes every head dim D >= 1, each at
+instantiated widths (:func:`kernel_width`, :func:`kernel_slices`;
+zero-padded in shared memory): bf16 at a multiple of 8 up to 128 runs on
+Hopper's wgmma fed by TMA (sm_90a) at W = 16, 32, 64 or 128; f32, and bf16
+at any other D up to 256, on FMAs at W = 16, 32, 64, 128 or 256; D above
+256 on the split route, which cuts the output dims into slices of width
+256 and a rest at the smallest FMA width that holds it, a block per slice
+summing the scores over all of D (:func:`kernel_route`). The wrapper takes
+the plain version only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.
 
 The gradient is the JAX package's: its ``custom_vjp`` backward is
 ``jax.vjp`` of the plain attention, a recompute, not a kernel. Here
@@ -49,21 +52,38 @@ NEG_INF = torch.finfo(torch.float32).min
 
 
 def kernel_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
-    """``"wgmma"`` (bf16 at a multiple of 8 up to 128: wgmma fed by TMA) or
-    ``"fma"`` (f32, and every other bf16 head dim). Raises ``ValueError``
-    for a head dim the kernel does not take (outside 1 to 256)."""
-    if not 1 <= d <= FMA_WIDTHS[-1]:
-        raise ValueError(f"flash kernel head dim {d} not in 1, 2, ..., {FMA_WIDTHS[-1]}")
+    """``"wgmma"`` (bf16 at a multiple of 8 up to 128: wgmma fed by TMA),
+    ``"fma"`` (f32, and every other bf16 head dim up to 256) or ``"split"``
+    (every head dim above 256: output slices, :func:`kernel_slices`).
+    Raises ``ValueError`` for a head dim below 1."""
+    if d < 1:
+        raise ValueError(f"flash kernel head dim {d} below 1")
+    if d > FMA_WIDTHS[-1]:
+        return "split"
     return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= WIDTHS[-1] else "fma"
 
 
+def kernel_slices(d: int, dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """The widths of the slices of the output dims that the kernel computes
+    head dim ``d`` in, in order: one slice up to 256, at the smallest width
+    of its route that holds ``d``; above 256 (the split route) one of width
+    256 per 256 dims and the rest at the smallest FMA width that holds it
+    (264 -> (256, 16), 512 -> (256, 256)). Every slice's block computes the
+    scores over all of ``d``. Raises ``ValueError`` for a head dim below 1."""
+    route = kernel_route(d, dtype)
+    if route != "split":
+        return (next(w for w in (WIDTHS if route == "wgmma" else FMA_WIDTHS) if w >= d),)
+    full, rest = divmod(d, FMA_WIDTHS[-1])
+    return (FMA_WIDTHS[-1],) * full + \
+        ((next(w for w in FMA_WIDTHS if w >= rest),) if rest else ())
+
+
 def kernel_width(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """The instantiated width W the kernel runs head dim ``d`` at in
-    ``dtype`` (sessions serve in bf16, the default): the smallest width of
-    its route (:func:`kernel_route`) that holds it. Raises ``ValueError``
-    for a head dim it does not take."""
-    widths = WIDTHS if kernel_route(d, dtype) == "wgmma" else FMA_WIDTHS
-    return next(w for w in widths if w >= d)
+    """The widest instantiated width W the kernel runs head dim ``d`` at in
+    ``dtype`` (sessions serve in bf16, the default): up to 256 the smallest
+    width of its route (:func:`kernel_route`) that holds it, above 256 the
+    split route's 256. Raises ``ValueError`` for a head dim below 1."""
+    return kernel_slices(d, dtype)[0]
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -99,7 +119,7 @@ def _forward(q, k, v, causal: bool, scale: float, kv_len: int) -> torch.Tensor:
         raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
-    kernel_width(d, q.dtype)
+    kernel_route(d, q.dtype)
     # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
     # starts mid-allocation is copied.
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
