@@ -227,7 +227,31 @@ Phases, one output line each (JSON after the phase name):
    (head dim 16) on the card: ``golden.json``'s text with the CPU port's
    tokens. Every part counts launches from 0: mel, flash and decode
    attention launch, w8a8 never.
-13. ``e2e-yoho-train``: a YOHO user's first path. A synthetic SRT corpus
+13. ``e2e-auto``: the serving path at the batch ``batch="auto"`` resolves
+   to on this card (512 on an 80 GB H100), through ``load_transcriber``
+   as ``transcribe --batch auto`` builds it: whisper-small (bf16, int8
+   cross-K/V and cache, greedy) and large-v3-turbo with both int8 lanes
+   from HF directories of seed-0 random weights the exporter writes, and
+   the default YOHO session of ``e2e-yoho``. Each transcribes as many 30 s
+   windows of noise from the seed (YOHO: 164,080-sample windows) as the
+   batch resolves to, in one ``transcribe_many`` call decoding
+   ``AUTO_MAX_LEN`` (224, ``bench.py::bench_one``'s length) positions a
+   window; then whisper-small with 5 beams at its ``auto`` batch (112
+   positions): the folded cross read and the B x K-row self read at the
+   size users run them. Checks: one batch decoded, of the resolved size;
+   ``max_memory_allocated`` above what was held at or below the capacity
+   model's bytes for that batch, and the bytes per stream measured again
+   between auto / 2 and auto at or below ``stream_terms``' sum; the first
+   16 windows decoded again at batch 16 by the same transcriber, each row
+   equal but inside a tie (greedy: ``_tie_check``; beams: the first
+   difference where the two candidates' summed logprobs are within the
+   same margin); the run under sync debug mode "warn", every host sync
+   placed between decode steps: one early-exit check every 8 steps, none
+   inside a chunk. One line per case with the card: the resolved and
+   decoded batch, wall, decode steps, audio-s/s, the peak against the
+   prediction, the slope, the token check and the launches. Above world
+   1, ``e2e-mesh`` decodes the turbo windows again over the mesh.
+14. ``e2e-yoho-train``: a YOHO user's first path. A synthetic SRT corpus
    from the seed (6 tracks of 60 s); ``create-session``; ``run-session 0``
    (the tokenizer; its round trip checked); the script's 16,000-id
    tokenizer put at ``weights.tokenizer`` (stage 0's vocabulary on this
@@ -271,7 +295,7 @@ Phases, one output line each (JSON after the phase name):
    --rttm`` over the same 16 windows (the served weights the export's in
    bf16; segment voiceprints of 256 at unit norm, and the voiceprint head
    teacher-forced on one window) and scored by ``score-diarization``.
-14. ``e2e-mesh``: the serving path over a (data, model) mesh of
+15. ``e2e-mesh``: the serving path over a (data, model) mesh of
    ``torch.distributed`` ranks (NCCL) at world = the cards present, at most
    4: in this process at world 1, else one process per card started with
    the launcher's environment (``--mesh-rank``; rank 0 reports). It prints
@@ -318,8 +342,13 @@ Phases, one output line each (JSON after the phase name):
    ``e2e-serve``'s, the ticks and the channel's host us a tick. mel, flash
    and decode attention launch on the mesh path (w8a8 under
    ``--int8-encoder`` only); the unsharded references' launches are not
-   counted. The process group is destroyed at the end.
-15. ``e2e-mesh-train``: training over a mesh of ``torch.distributed``
+   counted. Above world 1 only, large-v3-turbo int8 (both lanes) through
+   ``load_transcriber(mesh="1xW", batch="auto")`` from e2e-auto's
+   directory on e2e-auto's windows: one batch of the size e2e-auto
+   decoded, every row held to e2e-auto's row of the same window by
+   ``_tie_check`` (``turbo_auto`` on the line; w8a8 launches). The process
+   group is destroyed at the end.
+16. ``e2e-mesh-train``: training over a mesh of ``torch.distributed``
    ranks (NCCL) at world = the cards present, at most 4 (in this process
    at world 1, else one ``--mesh-train-rank`` process per card; rank 0
    reports). A synthetic SRT corpus and 8 speakers from the seed, the
@@ -344,7 +373,7 @@ Phases, one output line each (JSON after the phase name):
    part counts launches from 0 (mel and flash, decode in the validations
    and the dry run's serving; w8a8 never); the unsharded references'
    launches are not counted.
-16. ``e2e-wide-heads``: whisper at head dim 264 (dims 528 on 2 heads, 80
+17. ``e2e-wide-heads``: whisper at head dim 264 (dims 528 on 2 heads, 80
    mels, 1,500 positions, the multilingual vocabulary, 2 + 2 layers),
    seed-0 random bf16 weights, int8 cross K/V and cache, batch 16: both
    attention kernels on their split route. One window's prefill (tensor
@@ -352,14 +381,15 @@ Phases, one output line each (JSON after the phase name):
    ``transcribe_many`` of the three requests twice (``SERVE_MAX_LEN``
    positions a window): the same tokens, mel, flash and decode launched,
    every decode launch at D = 264.
-17. ``kernels``: one JSON object with every kernel's numbers; launches are
+18. ``kernels``: one JSON object with every kernel's numbers; launches are
    summed over the e2e paths' first runs (and the conditioning call),
    ``e2e-files``' first call, every ``e2e-spec`` and ``e2e-serve`` run, the
    ``train`` phase's runs, ``e2e-cli``'s commands, the parts of
-   ``e2e-yoho`` and ``e2e-yoho-train``, ``e2e-mesh``'s mesh runs (its
+   ``e2e-yoho``, ``e2e-auto``'s measured runs and ``e2e-yoho-train``,
+   ``e2e-mesh``'s mesh runs (its
    served runs included), ``e2e-mesh-train``'s parts and
    ``e2e-wide-heads``' first run.
-18. The last line: ``{"ok": true, "device": {...}}``.
+19. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Needs CUDA and the
 ``yoho_tpu_torch`` package beside this file; imports no JAX.
@@ -2901,11 +2931,13 @@ class _Recorder:
         Transcriber.transcribe_many, cli_t.load_whisper_model = self._saved
 
 
-def _stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8) -> dict:
+def _stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8,
+                          beams: int = 0) -> dict:
     """``max_memory_allocated`` above the weights through the log-mel,
     encode, int8 cross-K/V, a 3-token prefill and ``steps`` decode steps on
     an int8 cache, at each batch; the slope is the measured bytes per
-    stream."""
+    stream. With ``beams`` each stream holds that many caches and decodes
+    that many rows against its one cross K/V (beam search's fold)."""
     import torch
 
     from yoho_tpu_torch.ops.mel_kernel import fused_whisper_log_mel
@@ -2923,8 +2955,8 @@ def _stream_bytes_on_card(model, cfg, batches=(16, 32), steps: int = 8) -> dict:
             del audio  # Transcriber._features frees its window batch too
             xa = model.encode_audio(mel)
             ckv = model.cross_kvs(xa, True)
-            caches = model.init_caches(b, torch.bfloat16, None, True)
-            tok = torch.full((b, 3), 50258, dtype=torch.long, device="cuda")
+            caches = model.init_caches(b * max(1, beams), torch.bfloat16, None, True)
+            tok = torch.full((b * max(1, beams), 3), 50258, dtype=torch.long, device="cuda")
             logits, caches = model.decode_step(tok, caches, ckv, 0)
             for i in range(steps):
                 tok = logits[:, -1:].argmax(-1)
@@ -4105,6 +4137,317 @@ def _tone_clip(s: int, n_samples: int):
     return audio
 
 
+# ------------------------------------------------------------------ e2e-auto
+
+AUTO_MAX_LEN = 224  # positions a window: bench.py::bench_one's decode length
+AUTO_BEAMS = 5
+AUTO_CHECK = 16  # windows decoded again at batch 16 for the token checks
+AUTO_SEED = SEED + 30  # the windows' noise
+# Above world 1, e2e-mesh decodes e2e-auto's large-v3-turbo int8 windows
+# over the mesh: the directory and the rows it holds them to.
+_AUTO_SHARED: dict = {}
+
+
+def _auto_windows(n: int, n_samples: int):
+    """``n`` one-window requests of noise from ``AUTO_SEED``."""
+    import numpy as np
+
+    rng = np.random.default_rng(AUTO_SEED)
+    return [0.1 * rng.standard_normal(n_samples, dtype=np.float32) for _ in range(n)]
+
+
+def _watch_steps(tr, caught: list) -> list:
+    """Wraps the decode steps ``tr`` builds: each call records its position
+    and how many warnings ``caught`` holds (sync debug mode "warn" adds one
+    per host sync). Returns the list of (pos, warnings so far)."""
+    marks, make = [], tr._make_step
+
+    def make_step(ckv, model=None):
+        step = make(ckv, model)
+
+        def watched(tokens, caches, pos):
+            marks.append((int(pos), len(caught)))
+            return step(tokens, caches, pos)
+
+        return watched
+
+    tr._make_step = make_step
+    return marks
+
+
+def _syncs_inside_chunks(marks: list, caught: list) -> tuple:
+    """The host syncs between consecutive decode steps against the decode
+    loops' design (greedy and beam search alike): one early-exit check
+    before every ``_SYNC_EVERY``-th step after the prefill, none anywhere
+    else. Returns (the early-exit syncs, the steps that saw more: position,
+    syncs and the lines that made them)."""
+    from yoho_tpu_torch.infer.decode import _SYNC_EVERY
+
+    checks, bad, first = 0, [], 0
+    for (a, ca), (b, cb) in zip(marks, marks[1:]):
+        if b == 0:  # the next batch's prefill
+            continue
+        if a == 0:
+            first = b
+        syncs = [w for w in caught[ca:cb]
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        allowed = 1 if (b - first) % _SYNC_EVERY == 0 else 0
+        checks += min(len(syncs), allowed)
+        if len(syncs) > allowed:
+            bad.append(dict(pos=b, syncs=len(syncs), where=sorted(
+                {f"{Path(w.filename).name}:{w.lineno}" for w in syncs})))
+    return checks, bad
+
+
+def _beam_candidates(record: list):
+    """Patches beam search's top-k so that each call (one a step) also
+    keeps each stream's 2K best candidates: their summed logprobs and their
+    indices (beam x vocab + token). Returns the function that undoes it."""
+    import torch
+
+    from yoho_tpu_torch.infer import beam as beam_mod
+
+    real = beam_mod.top_k
+
+    def recording(x, k):
+        record.append(torch.topk(x, 2 * k, dim=-1))
+        return real(x, k)
+
+    beam_mod.top_k = recording
+
+    def undo():
+        beam_mod.top_k = real
+
+    return undo
+
+
+def _beam_tie_check(phase: str, rows, ref_rows, cands, prompt_len: int, vocab: int) -> dict:
+    """Each beam-search row against the same window's row at batch 16:
+    equal, or first different at a position i where the two candidates the
+    rows take there (one beam of the shared prefix extended by either
+    token) have summed logprobs within ``_tie_check``'s margin, 4 bf16 ulps
+    of the larger, in the batch-16 run's scores (its 2K best candidates
+    each step, ``_beam_candidates``)."""
+    import numpy as np
+
+    vals = np.stack([c.values.float().cpu().numpy() for c in cands])  # (steps, B, 2K)
+    idx = np.stack([c.indices.cpu().numpy() for c in cands])
+    equal, worst, firsts = 0, 0.0, []
+    for j, (got, want) in enumerate(zip(rows, ref_rows)):
+        got, want = np.asarray(got), np.asarray(want)
+        diff = np.flatnonzero(got != want)
+        if len(diff) == 0:
+            equal += 1
+            continue
+        i = int(diff[0])
+        step = i - prompt_len
+        firsts.append(step)
+        if not 0 <= step < len(vals):
+            raise AssertionError(f"{phase}: beams row {j} leaves the batch-16 row at {i}, "
+                                 f"outside its {len(vals)} steps")
+        score = {}
+        for s, c in zip(vals[step, j], idx[step, j]):
+            score[(int(c) // vocab, int(c) % vocab)] = float(s)
+        pairs = [(score[(bm, int(want[i]))], score[(bm, int(got[i]))])
+                 for bm in {bm for bm, _ in score}
+                 if (bm, int(want[i])) in score and (bm, int(got[i])) in score]
+        if not pairs:
+            raise AssertionError(f"{phase}: beams row {j} leaves the batch-16 row at {i} "
+                                 f"with token {int(got[i])}, not among that run's best "
+                                 f"{vals.shape[-1]} candidates there beside {int(want[i])}")
+        a, b = min(pairs, key=lambda p: abs(p[0] - p[1]))
+        ulp = 2.0 ** (np.floor(np.log2(max(abs(a), abs(b)))) - 7)
+        worst = max(worst, abs(a - b) / ulp)
+        if abs(a - b) > 4 * ulp:
+            raise AssertionError(f"{phase}: beams row {j} leaves the batch-16 row at {i} "
+                                 f"where the candidates score {a} and {b} "
+                                 f"({abs(a - b) / ulp} bf16 ulps apart)")
+    return dict(rows_checked=len(rows), rows_equal=equal,
+                first_difference_steps=sorted(firsts),
+                largest_margin_at_divergence_bf16_ulps=worst)
+
+
+def _auto_run(phase: str, label: str, tr, wins, kernels, n_layers: int, horizon: int):
+    """One ``transcribe_many`` of ``wins``, one batch of ``tr``'s resolved
+    ``auto`` size, with every launch count set to 0 just before and read
+    just after, the peak memory above what was held, and sync debug mode
+    "warn" with each host sync placed between decode steps. Fails unless
+    the batch decoded is the batch resolved, the peak is at or below the
+    capacity model's bytes for that batch (at ``horizon``, the positions
+    its caches hold) and no host sync fell inside a decode chunk. Returns
+    (the line's fields, the decoded rows, their top-2 logits)."""
+    import warnings
+
+    import torch
+
+    from yoho_tpu_torch.infer import capacity
+
+    auto = tr.batch_size
+    raw, top2 = _mesh_recorded(tr)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            marks = _watch_steps(tr, caught)
+            results = tr.transcribe_many(wins)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        tr.__dict__.pop("_make_step", None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = {k.name: k.launches for k in kernels}
+    checks, bad = _syncs_inside_chunks(marks, caught)
+    if bad:
+        raise AssertionError(f"{phase} ({label}): host syncs inside decode chunks: {bad[:5]}")
+    decoded = [int(r.shape[0]) for r in raw]
+    if len(wins) != auto or decoded != [auto]:
+        raise AssertionError(f"{phase} ({label}): {len(wins)} windows decoded in batches "
+                             f"{decoded}; auto resolved {auto}")
+    per_stream = sum(capacity.stream_terms(tr.model.cfg, tr.family, **capacity._lane_kwargs(
+        tr, tr.model, horizon)).values())
+    if peak > auto * per_stream:
+        raise AssertionError(f"{phase} ({label}): {peak} bytes above what was held at batch "
+                             f"{auto}, the capacity model {auto * per_stream}")
+    seconds = len(wins) * tr.chunk_samples / tr.sample_rate
+    row = dict(auto_batch=auto, batch_decoded=decoded[0], windows=len(wins),
+               max_len=tr.max_len, wall_s=wall,
+               decode_steps=_decode_launches(launches) // (2 * n_layers),
+               audio_s_per_s=seconds / wall, peak_bytes_above_held=peak, held_bytes=held,
+               weight_bytes=capacity.module_bytes(tr.model),
+               predicted_bytes=auto * per_stream, predicted_bytes_per_stream=per_stream,
+               segments=sum(len(r.segments) for r in results), early_exit_syncs=checks,
+               syncs_inside_chunks=0, launches=launches)
+    return row, raw, top2
+
+
+def e2e_auto(card: str, kernels) -> dict:
+    """Phase e2e-auto: the serving path at the batch ``batch="auto"``
+    resolves to on this card (the module doc, item 13). Returns the
+    launches of its measured runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.infer import capacity
+    from yoho_tpu_torch.load import load_transcriber
+    from yoho_tpu_torch.nn.export import export_hf_whisper
+    from yoho_tpu_torch.nn.params import init_random, to_jax_params
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.ops.w8a8_dense import KERNEL as W8A8
+
+    phase = "e2e-auto"
+    total = {k.name: 0 for k in kernels}
+    tmp = tempfile.TemporaryDirectory(prefix="yoho_auto_smoke_")
+    root = Path(tmp.name)
+
+    def whisper_dir(preset):
+        """An HF directory of seed-0 random f32 weights (made on the card)."""
+        cfg = WHISPER_PRESETS[preset]
+        with torch.no_grad():
+            model = init_random(Whisper(cfg, dtype=torch.float32, device="cuda"), seed=SEED)
+            export_hf_whisper(to_jax_params(model), cfg, root / preset)
+        del model
+        torch.cuda.empty_cache()
+        return cfg, str(root / preset)
+
+    def case(label, cfg, load, n_layers, slope, beams=0):
+        """``load(batch)`` -> a transcriber. The first 16 windows at batch
+        16 (the same transcriber: the reference of the token check), the
+        measured run at the resolved batch, the bytes per stream measured
+        between auto / 2 and auto. Returns the run's rows and top-2."""
+        t0 = time.perf_counter()
+        tr = load("auto")
+        auto, horizon = tr.batch_size, tr.max_len  # auto was sized for the caches' horizon
+        wins = _auto_windows(auto, tr.chunk_samples)
+        tr.max_len = SERVE_MAX_LEN if beams else AUTO_MAX_LEN
+        tr.batch_size = AUTO_CHECK
+        ref_raw, ref_top2 = _mesh_recorded(tr)
+        cands: list = []
+        undo = _beam_candidates(cands) if beams else (lambda: None)
+        try:
+            tr.transcribe_many(wins[:AUTO_CHECK])
+        finally:
+            undo()
+            del tr._logits_fn, tr._decode_with_fallback
+        tr.batch_size = auto
+        row, raw, top2 = _auto_run(phase, label, tr, wins, kernels, n_layers, horizon)
+        idle = _never_launched(row["launches"], skip=(W8A8.name,))
+        if idle or (row["launches"][W8A8.name] > 0) != bool(
+                getattr(tr.model, "encoder_int8", False)):
+            raise AssertionError(f"{phase} ({label}): launches {row['launches']}")
+        for n, v in row["launches"].items():
+            total[n] += v
+        got = [raw[0][j] for j in range(AUTO_CHECK)]
+        if beams:
+            row["token_check"] = _beam_tie_check(phase, got, ref_raw[0], cands,
+                                                 len(tr._prompt_ids()), cfg.n_vocab)
+        else:
+            tie = _tie_check(phase, label, list(enumerate(got)),
+                             {j: (ref_raw[0][j], ref_top2[0][j].float().cpu().numpy())
+                              for j in range(AUTO_CHECK)})
+            row["token_check"] = dict(tie, rows_equal=tie["rows_checked"]
+                                      - tie["rows_diverging"])
+        terms = capacity.stream_terms(cfg, tr.family,
+                                      **capacity._lane_kwargs(tr, tr.model, horizon))
+        model = tr.model
+        del tr
+        measured = slope(model, cfg, (auto // 2, auto), beams)
+        del model
+        row.update(measured_bytes_per_stream=measured["per_stream"],
+                   measured_peak_bytes=measured["peak_bytes"], predicted_terms=terms,
+                   case_s=time.perf_counter() - t0)
+        emit(phase, config=label, card=card, **row)
+        if measured["per_stream"] > sum(terms.values()):
+            raise AssertionError(f"{phase} ({label}): {measured['per_stream']} B per stream "
+                                 f"measured between {auto // 2} and {auto}, "
+                                 f"{sum(terms.values())} predicted")
+        return raw, top2
+
+    def yoho_slope(model, cfg, batches, beams):
+        return _yoho_stream_bytes_on_card(model, cfg, batches)
+
+    def whisper_slope(model, cfg, batches, beams):
+        return _stream_bytes_on_card(model, cfg, batches, beams=beams)
+
+    try:
+        cfg, hf = whisper_dir("small")
+        for label, beams in (("whisper-small", 0), ("whisper-small-beams-5", AUTO_BEAMS)):
+            case(label, cfg, lambda b, beams=beams: load_transcriber(
+                hf=hf, batch=b, beams=beams, int8_kv=True), cfg.n_text_layer,
+                whisper_slope, beams)
+        shutil.rmtree(hf)
+
+        cfg, hf = whisper_dir("large-v3-turbo")
+        raw, top2 = case("large-v3-turbo-int8", cfg, lambda b: load_transcriber(
+            hf=hf, batch=b, int8_kv=True, int8_weights=True, int8_encoder=True,
+            fast_gelu=True), cfg.n_text_layer, whisper_slope)
+        if torch.cuda.device_count() > 1:  # e2e-mesh decodes them again over the mesh
+            _AUTO_SHARED.update(tmp=tmp, hf=hf, rows=raw[0],
+                                top2=top2[0].float().cpu().numpy())
+        else:
+            shutil.rmtree(hf)
+
+        config, _ = _write_yoho_session(root / "sessions", "default")
+        case("yoho-default", config.yoho, lambda b: load_transcriber(
+            session="default", root=str(root / "sessions"), batch=b),
+            config.yoho.n_text_blocks, yoho_slope)
+    finally:
+        if "tmp" not in _AUTO_SHARED:
+            tmp.cleanup()
+        torch.cuda.empty_cache()
+    return total
+
+
 MESH_MAX_WORLD = 4
 
 
@@ -4116,8 +4459,8 @@ def _mesh_predicted(cfg, family: str, world: int, batches: int, steps: int):
     sharded attention and MLP reduces once per pass, the sharded embedding
     reduces its lookup and gathers the logits once per step, and each of
     the decode program's 4 result arrays (the YOHO family's voiceprint
-    pass: one more, with its own encoder and decoder pass) is gathered over
-    ``data`` once per batch. Returns (counts, all-reduces per encode,
+    pass: one more, with its own encoder and decoder pass, which makes no
+    logits) is gathered over ``data`` once per batch. Returns (counts, all-reduces per encode,
     all-reduces per decode step)."""
     if family == "whisper":
         heads = cfg.n_text_head
@@ -4133,7 +4476,7 @@ def _mesh_predicted(cfg, family: str, world: int, batches: int, steps: int):
         vocab, passes = 16000, batches
     emb = int(vocab % world == 0)
     out = {"all_reduce/model": batches * enc + steps * (dec + emb) + passes * (enc + dec + emb),
-           "all_gather/model": emb * (steps + passes),
+           "all_gather/model": emb * steps,
            "all_gather/data": 4 * batches + passes}
     return {k: v for k, v in out.items() if v}, enc, dec + emb
 
@@ -4210,8 +4553,8 @@ def _serve_predicted(cfg, family: str, world: int, stats: dict, ticks: int,
     agree on the outcome after each admission and at the end of each tick
     but the run's last (the close's stop tick; ``world``: the host's gloo
     group). A YOHO request's
-    voiceprint pass (``passes``) encodes, runs the decoder once and
-    gathers its rows over ``data``."""
+    voiceprint pass (``passes``) encodes, runs the decoder once (no
+    logits) and gathers its rows over ``data``."""
     _counts, enc, step = _mesh_predicted(cfg, family, world, 0, 0)
     emb = _mesh_predicted(cfg, family, world, 0, 1)[0].get("all_gather/model", 0)
     chunks = stats["chunks"]
@@ -4222,7 +4565,7 @@ def _serve_predicted(cfg, family: str, world: int, stats: dict, ticks: int,
     else:
         encodes, steps = admits, admits + chunks * SERVE_CHUNK
     out = {"all_reduce/model": (encodes + passes) * enc + (steps + passes) * step,
-           "all_gather/model": (steps + passes) * emb,
+           "all_gather/model": steps * emb,
            "all_gather/data": stats["reaps"] + passes,
            "broadcast_obj/world": ticks, "all_reduce/world": ticks - 1 + admits}
     return {k: v for k, v in out.items() if v}
@@ -4276,7 +4619,7 @@ def _served_transcriber(model, table, mesh=None, **kw):
 
 def _mesh_serve(phase: str, world: int, lead: bool, mesh, cfg, sharded, plain, kernels,
                 total: dict) -> dict:
-    """Part (d) of phase e2e-mesh (the module doc, item 14): whisper-small
+    """Part (d) of phase e2e-mesh (the module doc, item 15): whisper-small
     served over the mesh (``sharded``'s model), rank 0 serving and the
     other ranks following its schedule (``cli/serve.py::follow``), against
     ``plain``'s unsharded model. Returns the part's report on rank 0 (an
@@ -4655,8 +4998,37 @@ def _mesh_serve_yoho(phase: str, world: int, lead: bool, ycfg, ysharded, yplain,
                 launches=got["launches"], segments=segments, host_syncs_in_chunks=0, **check)
 
 
+def _mesh_auto(phase: str, world: int, mesh, path: str, measured) -> dict:
+    """Above world 1: e2e-auto's large-v3-turbo int8 (its directory, both
+    int8 lanes) through ``load_transcriber(mesh="1xW", batch="auto")`` on
+    the same windows, each decoded row held to e2e-auto's row of the same
+    window by ``_tie_check`` (in bf16 each rank rounds its partial sums)."""
+    import pickle
+
+    from yoho_tpu_torch.load import load_transcriber
+
+    ref = pickle.loads(Path(path).read_bytes())
+    tr = load_transcriber(hf=ref["hf"], batch="auto", mesh=mesh, int8_kv=True,
+                          int8_weights=True, int8_encoder=True, fast_gelu=True)
+    if tr.batch_size != len(ref["rows"]):
+        raise AssertionError(f"{phase}: auto resolves to {tr.batch_size} over the mesh, "
+                             f"{len(ref['rows'])} on one card")
+    tr.max_len = AUTO_MAX_LEN
+    wins = _auto_windows(tr.batch_size, tr.chunk_samples)
+    raw, _ = _mesh_recorded(tr)
+    measured("turbo-auto-mesh", lambda: tr.transcribe_many(wins), w8a8=True)
+    if [len(r) for r in raw] != [len(wins)]:
+        raise AssertionError(f"{phase}: decoded batches {[len(r) for r in raw]}, "
+                             f"{len(wins)} windows")
+    tie = _tie_check(phase, "large-v3-turbo-int8 auto", list(enumerate(raw[0])),
+                     {j: (ref["rows"][j], ref["top2"][j]) for j in range(len(wins))})
+    return dict(model="large-v3-turbo int8 (both lanes)", mesh=f"1x{world}",
+                auto_batch=tr.batch_size, windows=len(wins), max_len=tr.max_len,
+                tie_check_against_e2e_auto=tie)
+
+
 def _mesh_rank(card: str, kernels, world: int) -> dict:
-    """One rank of phase e2e-mesh (the module doc, item 14); rank 0 prints
+    """One rank of phase e2e-mesh (the module doc, item 15); rank 0 prints
     the phase's lines. Returns this rank's launches on the mesh path."""
     import tempfile
 
@@ -4854,10 +5226,13 @@ def _mesh_rank(card: str, kernels, world: int) -> dict:
                         collectives=report["yoho-pipeline"]["collectives"],
                         wall_s=report["yoho-pipeline"]["wall_s"])
         del m32
+        auto_ref = os.environ.get("SMOKE_AUTO_REF")
+        turbo_auto = _mesh_auto(phase, world, mesh, auto_ref, measured) \
+            if world > 1 and auto_ref else "world 1: not run"
     pm.shutdown()
     if lead:
         emit(phase, world=world, mesh=spec, backend="nccl", card=card, whisper=whisper,
-             yoho=yoho, long_encoder=long, pipeline=pipeline,
+             yoho=yoho, long_encoder=long, pipeline=pipeline, turbo_auto=turbo_auto,
              serving=dict(whisper=serving, yoho=yserving, slots=BATCH,
                           chunk_tokens=SERVE_CHUNK, wall_s=serve_s), launches=total)
     return total
@@ -4867,6 +5242,7 @@ def e2e_mesh(card: str, kernels) -> dict:
     """Phase e2e-mesh at world = the cards present, at most 4: in this
     process at world 1, else one process per card started here with the
     launcher's environment (rank 0 reports). Returns rank 0's launches."""
+    import pickle
     import socket
 
     import torch
@@ -4877,10 +5253,14 @@ def e2e_mesh(card: str, kernels) -> dict:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
+    # e2e-auto's large-v3-turbo directory and rows, for _mesh_auto.
+    auto_ref = Path(_AUTO_SHARED["tmp"].name) / "auto_ref.pkl"
+    auto_ref.write_bytes(pickle.dumps({k: _AUTO_SHARED[k] for k in ("hf", "rows", "top2")}))
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--mesh-rank"],
         env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 SMOKE_AUTO_REF=str(auto_ref)),
         stdout=subprocess.PIPE, text=True) for r in range(world)]
     try:
         outs = [p.communicate(timeout=900)[0] for p in procs]
@@ -4889,6 +5269,7 @@ def e2e_mesh(card: str, kernels) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        _AUTO_SHARED.pop("tmp").cleanup()
     if any(p.returncode for p in procs):
         raise AssertionError(f"e2e-mesh: ranks exited {[p.returncode for p in procs]}")
     launches = {}
@@ -5117,7 +5498,7 @@ def _step_pair(phase: str, label: str, model_fn, step_fn, run, mel, tokens, mask
 
 
 def _mesh_train_rank(card: str, kernels, world: int, tmp: Path, plain: dict) -> dict:
-    """One rank of phase e2e-mesh-train (the module doc, item 15); rank 0
+    """One rank of phase e2e-mesh-train (the module doc, item 16); rank 0
     prints the phase's line. Returns this rank's launches on the mesh
     runs."""
     from dataclasses import replace
@@ -5402,7 +5783,7 @@ def main(argv) -> int:
             launches[name] += n
     for name, n in e2e_options(card, kernels, trace="--profile" in argv).items():
         launches[name] += n
-    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho,
+    for phase in (e2e_files, e2e_spec, e2e_serve, train_phase, e2e_cli, e2e_yoho, e2e_auto,
                   e2e_yoho_train, e2e_mesh, e2e_mesh_train, e2e_wide_heads):
         kw = {"trace": "--profile" in argv} if phase is e2e_yoho_train else {}
         t0 = time.perf_counter()

@@ -214,3 +214,32 @@ def test_doctor_session_head_dim_rows(tmp_path, capsys):
                         str(tmp_path)]) == 0
     out = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert {r["check"]: r["status"] for r in out}["session:head_dim.encoder"] == "ok"
+
+
+@pytest.mark.parametrize("rows,per_row,runs", [
+    (16, 12, [(0, 16)]),                       # whisper-small's batch: one launch
+    (3276, 20, [(0, 3276)]),                   # 65,520 blocks: still one
+    (3277, 20, [(0, 3276), (3276, 3277)]),     # 65,540: two
+    (3280, 20, [(0, 3276), (3276, 3280)]),     # 656 windows x 5 beams x 20 heads
+    (65_535, 1, [(0, 65_535)]),
+    (200_000, 64, [(0, 1023), (1023, 2046)] + [(r, min(r + 1023, 200_000))
+                                               for r in range(2046, 200_000, 1023)]),
+    (0, 8, [(0, 0)])])
+def test_row_chunks_cover_the_batch_within_the_grid_axis(rows, per_row, runs):
+    """The attention wrappers' row planner (``_build.row_chunks``): runs of
+    rows in order, each at most 65,535 blocks on the grid axis, together
+    the whole batch; one run (the whole call) when it fits."""
+    from yoho_tpu_torch.ops._build import GRID_YZ_MAX, row_chunks
+
+    got = row_chunks(rows, per_row)
+    assert got == runs
+    assert all((b1 - b0) * per_row <= GRID_YZ_MAX for b0, b1 in got)
+    assert [b for r in got for b in range(*r)] == list(range(rows))
+
+
+@pytest.mark.parametrize("per_row", [0, 65_536])
+def test_row_chunks_raise_when_one_row_is_over_the_axis(per_row):
+    from yoho_tpu_torch.ops._build import row_chunks
+
+    with pytest.raises(ValueError, match="blocks a row"):
+        row_chunks(4, per_row)

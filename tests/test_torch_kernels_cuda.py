@@ -1311,3 +1311,120 @@ def _tone_clip(s: int, n_samples: int) -> np.ndarray:
     tone = 0.4 * np.sin(2 * np.pi * (440, 880, 1320)[s] * np.arange(int(0.25 * 16000)) / 16000)
     audio[800:800 + len(tone)] += tone.astype(np.float32)
     return audio
+
+
+# --------------------------- batch x heads above a grid axis (65,535 blocks)
+# The FMA decode route puts B x Hq blocks on the grid's y axis, the
+# tensor-core route B x Hkv on z, flash's FMA and split kernels B x H on
+# y: each holds at most 65,535, so a larger batch launches in runs of rows
+# (``ops/_build.py::row_chunks``), one count each. Small shapes but the
+# batch x heads axis.
+
+def _decode_case(gen, kind, b, hq, hkv, s, t=64, d=64):
+    k, v = (torch.randn((b, hkv, d, t), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    q = (torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+    pos = torch.randint(0, t - s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    if kind == "bf16":
+        return (q, k, v, None, None), 1, pos
+    qkv = (kv_cache.quantize_kv if kind == "int8" else kv_cache.quantize_kv4)(k, v)
+    return (q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), qkv.packing, pos
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_fma_route_past_the_grid_axis(gen, kind):
+    """One query a row (a beam step's self read) at B x Hq = 3,280 x 20 =
+    65,600 blocks, per-row pos: two launches of 3,276 and 4 rows, against
+    the plain version."""
+    args, packing, pos = _decode_case(gen, kind, 3280, 20, 20, 1)
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    got = decode_attention.fused_decode_attention(*args, pos=pos, packing=packing)
+    assert (decode_attention.KERNEL.launches - before[0],
+            decode_attention.KERNEL_MQ.launches - before[1]) == (2, 0)
+    want = decode_attention.decode_attention_reference(*args, pos=pos, packing=packing)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_decode_mq_route_past_the_grid_axis(gen, kind, groups):
+    """Five queries a row (a verify step, folded beams) on tensor cores at
+    B x Hkv = 3,300 x 20 = 66,000 blocks (groups 1 and 2), per-row pos: two
+    launches, against the plain version."""
+    args, packing, pos = _decode_case(gen, kind, 3300, 20 * groups, 20, 5)
+    before = (decode_attention.KERNEL.launches, decode_attention.KERNEL_MQ.launches)
+    got = decode_attention.fused_decode_attention(*args, pos=pos, groups=groups,
+                                                  packing=packing)
+    assert (decode_attention.KERNEL.launches - before[0],
+            decode_attention.KERNEL_MQ.launches - before[1]) == (0, 2)
+    want = decode_attention.decode_attention_reference(*args, pos=pos, groups=groups,
+                                                       packing=packing)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.02)
+
+
+@pytest.mark.parametrize("dtype,b,t,h,kvh,d,causal", [
+    (torch.float32, 4100, 16, 16, 8, 64, False),   # FMAs: 65,600 blocks
+    (torch.float32, 4100, 16, 16, 16, 64, True),
+    (torch.bfloat16, 8200, 8, 8, 4, 264, False),   # split: 65,600 blocks a slice
+    (torch.float32, 8200, 8, 8, 8, 264, True)])
+def test_flash_fma_and_split_past_the_grid_axis(gen, dtype, b, t, h, kvh, d, causal):
+    """Flash's FMA kernel (f32) and split route (D = 264) at B x H above
+    65,535: two launches, against the plain version at the FMA route's
+    tolerances."""
+    assert flash_attention.kernel_route(d, dtype) != "wgmma"
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, kvh, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.KERNEL.launches == before + 2
+    want = flash_attention.attention_reference(q, k, v, causal, d ** -0.5)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_beam_search_at_656_windows_of_20_heads_on_the_card(gen):
+    """Beam search over 656 windows x 5 beams of a 20-head whisper (dims
+    160, one layer each, 8 audio positions, weights at std 0.1 so that
+    every window decodes its own tokens) in f32 on the card: each step's
+    self read is 3,280 x 20 = 65,600 blocks on the FMA route (two launches
+    a read). The tokens equal the CPU's plain path in f32 with the same
+    weights (cuDNN's TF32 off for the convolution stem)."""
+    from yoho_tpu_torch.core.config import WhisperConfig
+    from yoho_tpu_torch.infer.beam import beam_search
+    from yoho_tpu_torch.infer.decode import make_whisper_step_fn
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+
+    cfg = WhisperConfig(n_mels=16, n_audio_ctx=8, n_audio_state=160, n_audio_head=20,
+                        n_audio_layer=1, n_vocab=300, n_text_ctx=16, n_text_state=160,
+                        n_text_head=20, n_text_layer=1)
+    b, beams = 656, 5
+    model = init_random(Whisper(cfg, dtype=torch.float32, device="cuda"), seed=0, std=0.1)
+    ref = Whisper(cfg, dtype=torch.float32, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    mel = torch.randn((b, 2 * cfg.n_audio_ctx, cfg.n_mels), generator=gen, device="cuda")
+    prompt = torch.tensor([[1, 2, 3]] * b)
+
+    def run(m, dev):
+        with torch.inference_mode():
+            ckv = m.cross_kvs(m.encode_audio(mel.to(dev)), False)
+            caches = m.init_caches(b * beams, torch.float32, None, False)
+            return beam_search(make_whisper_step_fn(m, ckv), caches, prompt.to(dev),
+                               cfg.n_text_ctx, cfg.n_vocab - 1, beams=beams)[0]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = decode_attention.KERNEL.launches
+        got = run(model, "cuda").cpu()
+        launched = decode_attention.KERNEL.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = run(ref, "cpu")
+    # Per step a self read in two launches (3,276 + 4 rows) and the folded
+    # cross read (656 x 20 blocks) in one, f32 q on FMAs throughout.
+    steps = cfg.n_text_ctx - 3
+    assert launched == 3 * steps, launched
+    assert len({tuple(r) for r in want.tolist()}) > b // 4  # windows decode apart
+    assert torch.equal(got, want), int((got != want).any(1).sum())

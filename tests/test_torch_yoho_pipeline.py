@@ -404,3 +404,36 @@ def test_evaluate_stm_matches_jax(bf16, tmp_path, capsys):
     assert got == want and got["files"] == 2 and got["ref_speakers"] == 2
     with pytest.raises(SystemExit):
         port(["evaluate", str(tmp_path), "--hf", "x", "--stm", str(stm), "--device", "cpu"])
+
+
+def test_speaker_pass_makes_no_logits(f32, monkeypatch):
+    """The YOHO speaker pass reads voiceprints from a teacher-forced
+    decoder pass and makes no vocabulary logits there (eager code would
+    make all of them, batch x positions x vocab in f32: 7 GB at the 512
+    windows ``batch="auto"`` gives the default session on an H100); its
+    voiceprints are bit for bit those of ``forward_with_voiceprints``."""
+    from yoho_tpu_torch.nn.yoho import YOHOTextDecoder
+
+    pair, clips = f32
+    _, tt = pair()
+    model = tt.model
+    monkeypatch.setattr(model, "voiceprints",
+                        lambda tokens, mel: model.forward_with_voiceprints(tokens, mel)[1])
+    want = tt.transcribe_many(clips)
+    monkeypatch.undo()
+    attach = tt._attach_voiceprints
+
+    def attach_without_logits(*a, **k):
+        with monkeypatch.context() as m:
+            m.setattr(YOHOTextDecoder, "_logits", lambda self, h: pytest.fail("logits made"))
+            return attach(*a, **k)
+
+    monkeypatch.setattr(tt, "_attach_voiceprints", attach_without_logits)
+    got = tt.transcribe_many(clips)
+    vps = [(g.voiceprint, w.voiceprint) for r, q in zip(got, want)
+           for g, w in zip(r.segments, q.segments)]
+    assert [g is None for g, _ in vps] == [w is None for _, w in vps]
+    vps = [(g, w) for g, w in vps if g is not None]
+    assert vps
+    for g, w in vps:
+        np.testing.assert_array_equal(g, w)

@@ -24,7 +24,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from yoho_tpu_torch.infer.decode import _SYNC_EVERY, NEG_INF, _suppress
+from yoho_tpu_torch.infer.decode import _SYNC_EVERY, NEG_INF, _suppress, suppress_index
 
 
 def tile_beams(x, k: int):
@@ -111,6 +111,7 @@ def beam_search(
     scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0
     finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    suppress = suppress_index(suppress_ids, dev)
 
     logits_all, caches = step_fn(tokens[:, :, :p].reshape(b * k, p), caches, 0)
     vocab = logits_all.shape[-1]
@@ -120,12 +121,13 @@ def beam_search(
         src = src.reshape(b, k, vocab)[:, 0].float()
         no_speech_prob = torch.softmax(src, dim=-1)[:, no_speech_id]
 
-    eot_only = torch.full((vocab,), NEG_INF, dtype=torch.float32, device=dev)
-    eot_only[eot_id] = 0.0
+    # Made on the device: a host scalar written into it would be a host
+    # sync inside the first chunk.
+    eot_only = torch.where(torch.arange(vocab, device=dev) == eot_id, 0.0, NEG_INF)
 
     def expand(logits, scores, finished, tokens, pos):
         # Suppression before the rules, as in greedy decode.
-        logits = _suppress(logits.float(), suppress_ids)
+        logits = _suppress(logits.float(), suppress)
         if logits_fn is not None:
             logits = logits_fn(logits, tokens.reshape(b * k, max_len), pos)
         logp = torch.log_softmax(logits, dim=-1).reshape(b, k, vocab)

@@ -46,12 +46,18 @@ def make_yoho_step_fn(model, cross_kvs):
     return step
 
 
-def _suppress(logits: torch.Tensor, suppress_ids) -> torch.Tensor:
-    if len(suppress_ids):
-        ids = torch.as_tensor(list(suppress_ids), dtype=torch.long,
-                              device=logits.device)
-        logits = logits.index_fill(1, ids, NEG_INF)
-    return logits
+def suppress_index(suppress_ids, device) -> Optional[torch.Tensor]:
+    """The suppressed ids as a tensor on ``device``, made once a decode (a
+    host list copied to the card at every step would be a host sync at
+    every step); None for no ids."""
+    if not len(suppress_ids):
+        return None
+    return torch.as_tensor(list(suppress_ids), dtype=torch.long, device=device)
+
+
+def _suppress(logits: torch.Tensor, index: Optional[torch.Tensor]) -> torch.Tensor:
+    """``logits`` with the ids of :func:`suppress_index`'s ``index`` at -inf."""
+    return logits if index is None else logits.index_fill(1, index, NEG_INF)
 
 
 def greedy_decode(
@@ -83,6 +89,7 @@ def greedy_decode(
     dev = prompt.device
     tokens = torch.full((b, max_len), eot_id, dtype=torch.long, device=dev)
     tokens[:, :p] = prompt
+    suppress = suppress_index(suppress_ids, dev)
 
     # Prefill the whole prompt in one step; pick the first new token.
     logits_all, caches = step_fn(tokens[:, :p], caches, 0)
@@ -92,7 +99,7 @@ def greedy_decode(
         no_speech_prob = torch.softmax(src.float(), dim=-1)[:, no_speech_id]
 
     def pick(logits, pos):
-        logits = _suppress(logits.float(), suppress_ids)
+        logits = _suppress(logits.float(), suppress)
         if logits_fn is not None:
             logits = logits_fn(logits, tokens, pos)
         if temperature > 0.0:

@@ -88,8 +88,7 @@ class SpeakerPassMixin:
         if self.family != "yoho":
             return
         pad = self._voiceprint_rows(tokens, per_window, lengths)
-        _logits, vp = self.model.forward_with_voiceprints(
-            torch.as_tensor(self._rows(pad), device=self.device), mel)
+        vp = self.model.voiceprints(torch.as_tensor(self._rows(pad), device=self.device), mel)
         vp = self._to_host(vp.float())
         vp_id = self.tokenizer.voiceprint_id
         for w, segs in enumerate(per_window):

@@ -43,7 +43,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from yoho_tpu_torch.infer.decode import _suppress, make_whisper_step_fn
+from yoho_tpu_torch.infer.decode import _suppress, make_whisper_step_fn, suppress_index
 
 # The target's verify step and the draft's step both need the logits of
 # every input position, which the whisper step already returns.
@@ -95,9 +95,10 @@ def speculative_greedy_decode(
             raise ValueError(f"{name} caches hold {_cache_len(caches)} positions; "
                              f"speculative decoding needs max_len + gamma + 2 = {ext}")
     dev = prompt.device
+    suppress = suppress_index(suppress_ids, dev)
 
     def processed(logits, pos):
-        logits = _suppress(logits.float(), suppress_ids)
+        logits = _suppress(logits.float(), suppress)
         if logits_fn is not None:
             logits = logits_fn(logits, tokens, pos)
         return logits

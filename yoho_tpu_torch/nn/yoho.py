@@ -266,6 +266,10 @@ class YOHOTextDecoder(nn.Module):
         h = self._hidden(tokens, xa)
         return self._logits(h), self._voiceprints(h)
 
+    def voiceprints(self, tokens, xa):
+        """:meth:`with_voiceprints`' voiceprints without its logits."""
+        return self._voiceprints(self._hidden(tokens, xa))
+
     def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
                     quantized: bool = False) -> List[KVCache]:
         """Float caches, one per block, with a horizon rounded up to a
@@ -346,6 +350,13 @@ class YOHOModel(nn.Module):
 
     def forward_with_voiceprints(self, tokens, mel):
         return self.decoder.with_voiceprints(tokens, self.encoder(mel))
+
+    def voiceprints(self, tokens, mel):
+        """The voiceprints of :meth:`forward_with_voiceprints` alone: the
+        speaker pass reads no logits, and eager code would make them all
+        (batch x positions x vocab in f32; the JAX package's jit drops
+        them unmade)."""
+        return self.decoder.voiceprints(tokens, self.encoder(mel))
 
     def cross_kvs(self, xa, quantize=False):
         return self.decoder.cross_kvs(xa, quantize)

@@ -146,6 +146,23 @@ class CudaKernel:
         self.launches += 1
 
 
+# Blocks a CUDA grid's y or z axis holds; x holds 2^31 - 1.
+GRID_YZ_MAX = 65_535
+
+
+def row_chunks(rows: int, blocks_per_row: int, limit: int = GRID_YZ_MAX) -> list:
+    """``[(start, stop), ...]``: the runs of ``rows`` batch rows, in order,
+    that the attention kernels launch one at a time when they put rows x
+    ``blocks_per_row`` blocks (batch x heads) on a grid's y or z axis:
+    each run as many rows as ``limit`` holds, the last the rest; one run
+    when they all fit (the launch is then the whole call's). Raises
+    ``ValueError`` when a single row is over the limit."""
+    if blocks_per_row < 1 or blocks_per_row > limit:
+        raise ValueError(f"{blocks_per_row} blocks a row: a grid axis holds 1 to {limit}")
+    step = limit // blocks_per_row
+    return [(r, min(r + step, rows)) for r in range(0, rows, step)] or [(0, 0)]
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

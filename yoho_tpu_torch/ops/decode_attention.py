@@ -37,8 +37,12 @@ chunks, one launch each, a causal chunk whose first query is i0 at
 ``pos + i0`` (for a per-row ``pos`` an offset tensor on the device). A
 per-row ``pos`` is read by the kernels only, never by the host: the grid
 spans ``min(T, kv_len)`` and each (b, h) ends its row at
-``min(T, kv_len, pos[b] + S)``. The wrapper takes the plain version only for
-a tensor on the CPU; for a CUDA tensor it launches a kernel or raises.
+``min(T, kv_len, pos[b] + S)``. Batch x heads lie on a grid axis of at most
+65,535 blocks (the FMA route: B x Hq; tensor cores: B x Hkv): a larger
+batch (a beam step's B x K rows) launches in runs of rows, one count each
+(``_build.row_chunks``); below the limit the call is one launch. The
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, stream_of
+from yoho_tpu_torch.ops._build import I, P, CudaKernel, ptr, row_chunks, stream_of
 
 # Both entry points take the same arguments: q dtype, K/V kind, q, k, v,
 # k_scale, v_scale, out, B, Hq, Hkv, S, D, T, kv_len, causal, pos,
@@ -230,9 +234,16 @@ def fused_decode_attention(q, k, v, k_scale=None, v_scale=None, pos=None,
     # A per-row pos goes to the kernel as an int32 device pointer; the
     # scalar stays an int argument.
     pos_rows = pos.to(torch.int32).contiguous() if row_pos else None
-    (KERNEL_MQ if route == "mma" else KERNEL).launch(
-        _QTYPES[q.dtype], KINDS.index(kind), ptr(q), ptr(k), ptr(v),
-        ptr(ks) if ks is not None else None, ptr(vs) if vs is not None else None, ptr(out),
-        b, hq, hkv, s, d, t, kv_len, int(causal), int(pos) if causal and not row_pos else 0,
-        ptr(pos_rows) if row_pos else None, stream_of(q))
+    # Batch x heads lie on a grid axis of at most 65,535 blocks (the FMA
+    # route's y: every query head; the tensor-core route's z: every KV
+    # head): a larger batch launches in runs of rows, each counted.
+    for b0, b1 in row_chunks(b, hkv if route == "mma" else hq):
+        rows = slice(b0, b1)
+        (KERNEL_MQ if route == "mma" else KERNEL).launch(
+            _QTYPES[q.dtype], KINDS.index(kind), ptr(q[rows]), ptr(k[rows]), ptr(v[rows]),
+            ptr(ks[rows]) if ks is not None else None,
+            ptr(vs[rows]) if vs is not None else None, ptr(out[rows]),
+            b1 - b0, hq, hkv, s, d, t, kv_len, int(causal),
+            int(pos) if causal and not row_pos else 0,
+            ptr(pos_rows[rows]) if row_pos else None, stream_of(q))
     return out

@@ -15,9 +15,12 @@ Hopper's wgmma fed by TMA (sm_90a) at W = 16, 32, 64 or 128; f32, and bf16
 at any other D up to 256, on FMAs at W = 16, 32, 64, 128 or 256; D above
 256 on the split route, which cuts the output dims into slices of width
 256 and a rest at the smallest FMA width that holds it, a block per slice
-summing the scores over all of D (:func:`kernel_route`). The wrapper takes
-the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+summing the scores over all of D (:func:`kernel_route`). The FMA and split
+kernels put B x H blocks on a grid axis of at most 65,535: a larger batch
+launches in runs of rows, one count each (``_build.row_chunks``); the
+wgmma route is persistent and takes any batch in one launch. The wrapper
+takes the plain version only for a tensor on the CPU; for a CUDA tensor
+it launches the kernel or raises.
 
 The gradient is the JAX package's: its ``custom_vjp`` backward is
 ``jax.vjp`` of the plain attention, a recompute, not a kernel. Here
@@ -35,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from yoho_tpu_torch.ops._build import F, I, P, CudaKernel, ptr, stream_of
+from yoho_tpu_torch.ops._build import F, I, P, CudaKernel, ptr, row_chunks, stream_of
 
 KERNEL = CudaKernel(
     "flash_attention_forward", "flash_attention.cu", "flash_attention_forward",
@@ -119,15 +122,20 @@ def _forward(q, k, v, causal: bool, scale: float, kv_len: int) -> torch.Tensor:
         raise TypeError(f"flash kernel takes f32 or bf16 q/k/v of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, s, h, d = q.shape
-    kernel_route(d, q.dtype)
+    route = kernel_route(d, q.dtype)
     # The bf16 kernel's TMA loads need 16-byte aligned bases: a view that
     # starts mid-allocation is copied.
     q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     out = torch.empty_like(q)
-    KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, h,
-                  k.shape[2], s, k.shape[1], kv_len, d, float(scale), int(causal),
-                  stream_of(q))
+    # The FMA and split kernels put batch x heads on the grid's y axis (at
+    # most 65,535 blocks): a larger batch launches in runs of rows, each
+    # counted. The wgmma route is persistent and takes any batch at once.
+    for b0, b1 in [(0, b)] if route == "wgmma" else row_chunks(b, h):
+        rows = slice(b0, b1)
+        KERNEL.launch(_DTYPES[q.dtype], ptr(q[rows]), ptr(k[rows]), ptr(v[rows]),
+                      ptr(out[rows]), b1 - b0, h, k.shape[2], s, k.shape[1], kv_len, d,
+                      float(scale), int(causal), stream_of(q))
     return out
 
 
