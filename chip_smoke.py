@@ -35,9 +35,11 @@ Phases, one output line each (JSON after the phase name):
    unpadded bf16 cross read of language detection, speculative decoding's
    5-query verify read, causal on the cache at pos 200 and 447, the
    draft's 2-query reads at 6 heads on its cache and cross K/V, and
-   continuous batching's reads of the cache with one position per row (16
-   rows spread from 0 to 447, all at 200, all at 0, and the 5-query verify
-   read at spread positions), whose bound counts each row's valid prefix.
+   continuous batching's and the captured greedy programs' reads of the
+   cache with one position per row (16 rows spread from 0 to 447, all at
+   0, all at 200 and all at 447: beside the scalar reads at 0, 200 and 447,
+   the parent's greedy route; and the 5-query verify read at spread
+   positions), whose bound counts each row's valid prefix.
    Decode's reads of several bf16 queries run its tensor-core route
    (``decode_attention_mq``, one launch at any S), the others its FMA route
    (``decode_attention``): each decode line names its ``decode_route``
@@ -76,14 +78,25 @@ Phases, one output line each (JSON after the phase name):
    30 s and 75 s of synthetic audio. Checks: finite encoder output and
    logits that agree with the CPU plain path on one window, the same
    tokens on a second run, and the kernels of the path (all but w8a8)
-   launched during the run.
+   launched during the run. The greedy decode programs run as captured
+   CUDA graphs (``infer/graphs.py``); ``_graph_checks`` then holds the
+   captured program, on 16 windows of noise at ``AUTO_MAX_LEN`` positions,
+   to the same chunk body run eagerly (tokens, lengths, ``sum_logprob``,
+   ``no_speech_prob`` bit for bit; launches per kernel equal) on its first
+   call and on a second that captures nothing, with every host sync of the
+   first call between chunks (sync debug mode "warn") and the parent's
+   route (``_int_pos_decode``: the same steps driven with an int ``pos``)
+   left only at ties; the line's ``captured`` field gives both routes'
+   walls and ms a decode step, the capture's seconds, the graph pool's
+   bytes and the bytes held after the call.
 5. ``e2e-int8``: the same for whisper large-v3-turbo (1280 wide, 32
    encoder and 4 decoder layers, 128 mels, vocab 51866) with its random
    bf16 weights quantized on the card into both int8 lanes
    (``encoder_int8``: W8A8 encoder MLPs through the w8a8 kernel;
    ``weights_int8``: int8 decoder weights and tied embedding) and
    ``fast_gelu``; the CPU reference is the same quantized model in f32,
-   and every kernel, w8a8 included, must launch.
+   and every kernel, w8a8 included, must launch; ``_graph_checks`` as in
+   ``e2e``.
 6. ``e2e-options``: whisper-small at full width and depth (random bf16
    weights, int8 cross-K/V and cache, batch 16, the same three requests)
    through one ``Transcriber`` with beams 5, ``language=None``, word
@@ -154,7 +167,11 @@ Phases, one output line each (JSON after the phase name):
    on the decode kernels' launches sees every causal read inside a chunk at
    per-row positions (16 rows; S = 5 verify reads in (c)) and none at a
    scalar one; each chunk runs under PyTorch's sync debug mode set to
-   raise (no host sync inside a chunk) and each ``reap`` makes one;
+   raise (no host sync inside a chunk) and each ``reap`` makes one; the
+   greedy engines' chunk is captured at its first step and replayed (a
+   replay passes through no Python: the reads inside chunks are the
+   capture's times the chunks, and the line's ``captured`` gives the
+   capture's seconds, pool bytes, replays and launches a replay);
    ``/statz`` and ``/metrics`` count the requests, the responses hold
    ``transcribe_many``'s segments where no window left greedy, and
    ``drain`` returns. It prints per part the wall and audio-s/s, the
@@ -226,7 +243,8 @@ Phases, one output line each (JSON after the phase name):
    at batch 16 and 32 and the ``auto`` batch; then the trained fixture
    (head dim 16) on the card: ``golden.json``'s text with the CPU port's
    tokens. Every part counts launches from 0: mel, flash and decode
-   attention launch, w8a8 never.
+   attention launch, w8a8 never. ``_graph_checks`` as in ``e2e`` on the
+   full-width session (``captured`` on the line).
 13. ``e2e-auto``: the serving path at the batch ``batch="auto"`` resolves
    to on this card (512 on an 80 GB H100), through ``load_transcriber``
    as ``transcribe --batch auto`` builds it: whisper-small (bf16, int8
@@ -247,10 +265,21 @@ Phases, one output line each (JSON after the phase name):
    difference where the two candidates' summed logprobs are within the
    same margin); the run under sync debug mode "warn", every host sync
    placed between decode steps: one early-exit check every 8 steps, none
-   inside a chunk. One line per case with the card: the resolved and
-   decoded batch, wall, decode steps, audio-s/s, the peak against the
-   prediction, the slope, the token check and the launches. Above world
-   1, ``e2e-mesh`` decodes the turbo windows again over the mesh.
+   inside a chunk (a captured program's warm-up chunk and replays). The
+   greedy cases then make a repeated call (replays only: it captures
+   nothing), its peak above what was held before the first call at or
+   below the capacity model's bytes too (the programs' buffers stay held
+   while it encodes, which the transcriber does in row chunks), and run the
+   same chunk body eagerly on the same log-mel, bit-equal to the repeated
+   call's decode: both walls, the decode's ms a step, capture seconds,
+   pool, workspace and held bytes. One line per case with the card: the
+   resolved and decoded batch, wall, decode steps, audio-s/s, the peak
+   against the prediction, the slope, the token check and the launches.
+   Then ``_batch_dependence_f32``: whisper-small's widths at 2 + 2 layers
+   in float32 decode the same 16 windows at batch 16 and at the batch
+   whisper-small's ``auto`` resolved to (the rows equal, or each row's
+   first difference). Above world 1, ``e2e-mesh`` decodes the turbo
+   windows again over the mesh.
 14. ``e2e-yoho-train``: a YOHO user's first path. A synthetic SRT corpus
    from the seed (6 tracks of 60 s); ``create-session``; ``run-session 0``
    (the tokenizer; its round trip checked); the script's 16,000-id
@@ -826,7 +855,8 @@ def kernel_checks(card: str) -> dict:
     for label, s_, rows in (("S=1 rows spread 0..447", 1, spread),
                             ("S=1 every row at 200", 1, [200] * 16),
                             ("verify S=5 rows spread 0..442", 5, [min(p, 442) for p in spread]),
-                            ("S=1 every row at 0", 1, [0] * 16)):
+                            ("S=1 every row at 0", 1, [0] * 16),
+                            ("S=1 every row at 447", 1, [447] * 16)):
         case(f"self int8 per-row pos {label} (T 512)", q_of(s_), self_kv.k_q, self_kv.v_q,
              self_kv.k_scale, self_kv.v_scale, rows, 1, per_row_pos=rows)
     draft_self = quantize_kv(*kv(512, heads=6))
@@ -1368,11 +1398,17 @@ def e2e(card: str, kernels, phase: str, preset: str, int8: bool, fast_gelu: bool
     n_tok = sum(len(t) for t in toks)
     # Two decode-attention launches (self, cross) per layer per step.
     steps = _decode_launches(launches) // (2 * cfg.n_text_layer * batches)
+    # The captured program against its eager body and the parent's route,
+    # on 16 windows of noise (the runs above are captured programs too).
+    captured = _graph_checks(phase, f"whisper-{preset}", tr,
+                             _auto_windows(BATCH, tr.chunk_samples), kernels,
+                             cfg.n_text_layer)
     emit(phase, model=f"whisper-{preset}", lanes=lanes, batch=BATCH,
          requests=list(seconds), windows=windows, wall_s=wall, wall_s_second_run=wall2,
          audio_s_per_s=sum(seconds) / wall, segment_tokens=n_tok,
          tokens_per_s=n_tok / wall, decode_steps=steps,
-         batch_tokens_per_s=BATCH * steps * batches / wall, launches=launches, card=card)
+         batch_tokens_per_s=BATCH * steps * batches / wall, launches=launches,
+         captured=captured, card=card)
     return launches
 
 
@@ -1936,7 +1972,7 @@ def e2e_spec(card: str, kernels) -> dict:
 
         def fn(logits, tokens, pos):
             out = rules(logits, tokens, pos)
-            top2[:, pos] = torch.topk(out, 2, dim=-1).values
+            _put_top2(top2, out, pos)
             return out
 
         return fn
@@ -2131,23 +2167,51 @@ def e2e_serve(card: str, kernels) -> dict:
 
     def by_shape():
         return {f"{'chunk' if k[0] else 'outside chunks'} B{k[1]} S{k[2]} {k[3]}": n
-                for k, n in sorted(shapes.items())}
+                for k, n in sorted(shapes.items(), key=str)}
 
     def chunk_hook(engine):
         """Runs each chunk of ``engine`` with the launch flag set and with
-        PyTorch's sync debug mode raising on any host sync."""
+        PyTorch's sync debug mode raising on any host sync. A captured
+        engine's first chunk runs its body twice, the warm-up (launched)
+        and the capture (launches nothing): its reads are recorded as
+        "first", and kept in ``engine.capture_shapes``, what each replay
+        launches (a replay passes through no Python, so the hook sees
+        none of it)."""
         chunk = engine._chunk
 
         def checked(state):
-            in_chunk[0] = True
+            first = engine.graph is not None and engine.graph.graph is None
+            before = Counter(shapes)
+            in_chunk[0] = "first" if first else True
             torch.cuda.set_sync_debug_mode("error")
             try:
                 chunk(state)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 in_chunk[0] = False
+            if first:
+                seen = Counter(shapes)
+                seen.subtract(before)
+                engine.capture_shapes = {(True,) + k[1:]: n // 2 for k, n in seen.items()
+                                         if n}
 
         engine._chunk = checked
+
+    def replayed(label, engine, chunks):
+        """Checks that ``engine`` ran ``chunks`` chunks as its warm-up and
+        replays of one capture, and returns the decode reads inside them
+        (each replay's, the capture's, times the chunks) and the capture's
+        numbers for the report."""
+        g = engine.graph
+        first = {k: n for k, n in shapes.items() if k[0] == "first"}
+        if g is None or g.captures != 1 or any(n % 2 for n in first.values()):
+            raise AssertionError(f"{phase} ({label}): not one capture: {g and g.captures}, "
+                                 f"first-chunk reads {first}")
+        if chunks is not None and g.replays + 1 != chunks:
+            raise AssertionError(f"{phase} ({label}): {chunks} chunks, {g.replays} replays")
+        inside = {k: n * (chunks or 1) for k, n in engine.capture_shapes.items()}
+        return inside, dict(capture_s=g.capture_s, pool_bytes=g.pool_bytes, replays=g.replays,
+                            launches_per_replay=g.launches_per_replay())
 
     def reap_syncs(engine):
         """Counts the host syncs PyTorch sees in each reap of ``engine``
@@ -2215,7 +2279,7 @@ def e2e_serve(card: str, kernels) -> dict:
 
         def fn(logits, tokens, pos):
             out = rules(logits, tokens, pos)
-            top2[:, pos] = torch.topk(out, 2, dim=-1).values
+            _put_top2(top2, out, pos)
             return out
 
         return fn
@@ -2258,7 +2322,7 @@ def e2e_serve(card: str, kernels) -> dict:
         if len(done) != len(waves) * len(windows) or syncs[0] != stats["reaps"]:
             raise AssertionError(f"{phase} (a): {len(done)} windows reaped, {syncs[0]} "
                                  f"host syncs seen in reaps, stats {stats}")
-        inside = {k: n for k, n in shapes.items() if k[0]}
+        inside, captured = replayed("a", engine, stats["chunks"])
         per_kind = stats["chunks"] * chunk_tokens * cfg.n_text_layer
         want = {(True, BATCH, 1, "per-row pos"): per_kind, (True, BATCH, 1, "no pos"): per_kind}
         if inside != want:
@@ -2271,7 +2335,7 @@ def e2e_serve(card: str, kernels) -> dict:
             windows=len(done), chunks=stats["chunks"], host_syncs_in_chunks=0,
             host_syncs_in_reaps=syncs[0], reaps=stats["reaps"],
             slot_occupancy_per_chunk=stats["occupied_slot_chunks"] / stats["chunks"],
-            decode_launches=by_shape(), launches=launches, **ties)
+            decode_launches=by_shape(), launches=launches, captured=captured, **ties)
 
         # (b) The servers: the three requests to /transcribe, the 30 s
         # request to the OpenAI endpoint as verbose_json and srt (a WAV
@@ -2413,9 +2477,13 @@ def e2e_serve(card: str, kernels) -> dict:
                     raise AssertionError(f"{phase} ({label}): {name} differs from "
                                          f"transcribe_many's: {got!r} against {want!r}")
                 checked.append(name)
-            inside = sorted(k for k in shapes if k[0] and k[3] != "no pos")
-            if continuous and (not inside or any(k[3] != "per-row pos" for k in inside)):
-                raise AssertionError(f"{phase} ({label}): causal reads in chunks {inside}")
+            captured = {}
+            if continuous:  # the chunks replay the capture (made in the warmup)
+                reads, captured = replayed(label, engine, None)
+                inside = sorted(k for k in reads if k[3] != "no pos")
+                if not inside or any(k[3] != "per-row pos" for k in inside) or not (
+                        engine.stats["chunks"] - base["chunks"]):
+                    raise AssertionError(f"{phase} ({label}): causal reads in chunks {inside}")
             out[label] = dict(wall_s=wall, audio_s_per_s=(sum(seconds) + 30 * 2 + seconds[2])
                               / wall, requests_served=statz["requests_served"],
                               drain_s=t_drain, statz=statz, **ties,
@@ -2427,7 +2495,8 @@ def e2e_serve(card: str, kernels) -> dict:
                                        - base["occupied_slot_chunks"])
                                       / max(engine.stats["chunks"] - base["chunks"], 1)}
                                  if continuous else {}),
-                              decode_launches=by_shape(), launches=launches)
+                              decode_launches=by_shape(), launches=launches,
+                              captured=captured)
 
         # (c) The speculative slots: gamma 4 with the target as its own
         # draft, the 5 windows admitted one per chunk.
@@ -3480,6 +3549,11 @@ def e2e_yoho(card: str, kernels) -> dict:
             audio_s_per_s=sum(YOHO_SECONDS) / wall, wall_s_second_run=wall2,
             segments=len(segs), voiceprints=len(vps),
             segment_tokens=sum(len(t) for t in toks), speakers=len(set(labels)))
+        # The captured program against its eager body and the parent's
+        # route on 16 windows of noise (not counted in the phase's launches).
+        report["captured"] = _graph_checks(phase, "yoho-default", tr,
+                                           _auto_windows(BATCH, tr.chunk_samples), kernels,
+                                           cfg.n_text_blocks)
 
         # The weight-only int8 decoder on the 8 s request.
         t8 = load_transcriber(session=name, root=str(root), batch=BATCH, int8_weights=True)
@@ -4137,6 +4211,186 @@ def _tone_clip(s: int, n_samples: int):
     return audio
 
 
+# ------------------------------------------------------ captured programs
+
+class _DecodeTimer:
+    """Times each ``greedy_decode`` the decode programs call, from a device
+    sync before its prefill to one after it returns: the decode alone,
+    without the encoder and the cross-K/V. The sync before falls ahead of
+    the prefill, outside every chunk."""
+
+    def __enter__(self):
+        from yoho_tpu_torch.infer import decode_programs
+
+        self.module, self.real, self.seconds = decode_programs, decode_programs.greedy_decode, []
+
+        def timed(*a, **k):
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.module.greedy_decode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.greedy_decode = self.real
+
+
+def _int_pos_decode(tr, mel):
+    """The parent's route on ``tr``'s settings: the same greedy steps driven
+    eagerly with an int ``pos`` (scalar-position decode reads, slice cache
+    writes), which ``decode_step`` still takes because beam search drives
+    it so; the early-exit check every ``_SYNC_EVERY`` steps, the loop
+    stopping at ``max_len``. Returns the tokens and the top-2 of the
+    processed logits at each position (the tie rule's margins)."""
+    import torch
+
+    from yoho_tpu_torch.infer.decode import _SYNC_EVERY, _suppress, suppress_index
+
+    model, length, eot = tr.model, tr.max_len, tr.eot
+    p = len(tr._prompt_ids())
+    rules = type(tr)._logits_fn(tr, p)
+    with torch.inference_mode():
+        b, dev = mel.shape[0], mel.device
+        ckv = model.cross_kvs(model.encode_audio(mel), tr.quantized_cross_kv)
+        caches = model.init_caches(b, tr.cache_dtype, None, tr.quantized_cache)
+        step = tr._make_step(ckv)
+        sup = suppress_index(tr._suppress_ids(), dev)
+        tokens = torch.full((b, length), eot, dtype=torch.long, device=dev)
+        tokens[:, :p] = torch.as_tensor([tr._prompt_ids()] * b, device=dev)
+        top2 = torch.full((b, length, 2), float("nan"), device=dev)
+
+        def pick(logits, pos):
+            out = _suppress(logits.float(), sup)
+            if rules is not None:
+                out = rules(out, tokens, pos)
+            _put_top2(top2, out, pos)
+            return torch.argmax(out, dim=-1)
+
+        logits, _ = step(tokens[:, :p], caches, 0)
+        tokens[:, p] = pick(logits[:, -1], p)
+        finished = tokens[:, p] == eot
+        pos = p
+        while pos + 1 < length:
+            if (pos - p) % _SYNC_EVERY == 0 and bool(finished.all()):
+                break
+            logits, _ = step(tokens[:, pos:pos + 1], caches, pos)
+            nxt = torch.where(finished, eot, pick(logits[:, -1], pos + 1))
+            tokens[:, pos + 1] = nxt
+            finished = finished | (nxt == eot)
+            pos += 1
+    return tokens.cpu().numpy(), top2.cpu().numpy()
+
+
+def _timed_program(fn, mel, kernels):
+    """One call of a decode program on ``mel`` with every launch count set
+    to 0 just before and read just after: (result, wall s, decode s,
+    launches)."""
+    import torch
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _DecodeTimer() as timer:
+        out = fn(mel)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, sum(timer.seconds), {k.name: k.launches
+                                                                 for k in kernels}
+
+
+def _same_results(a, b) -> bool:
+    """Two decode programs' (tokens, lengths, aux) bit for bit."""
+    import numpy as np
+
+    return (all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2])) and a[2].keys() == b[2].keys()
+            and all(np.array_equal(a[2][k], b[2][k]) for k in a[2]))
+
+
+def _graph_checks(phase: str, label: str, tr, wins, kernels, n_layers: int,
+                  max_len=None) -> dict:
+    """The captured greedy program of ``tr`` at batch ``len(wins)`` (16),
+    decoding ``max_len`` positions a window (``AUTO_MAX_LEN`` by default,
+    to fit the time limit): held to the same chunk body run
+    eagerly (tokens, lengths, sum_logprob and no_speech_prob bit for bit,
+    launches per kernel equal) on its first call (warm-up chunk, capture,
+    replays) and on a second (replays only, no capture); the first call
+    under sync debug mode "warn" with every host sync between chunks; the
+    parent's route (``_int_pos_decode``) left only at ties. Returns the
+    line's fields: walls, decode seconds and ms per step of both routes,
+    capture seconds, the graph pool's bytes, the workspace's and the bytes
+    held after the call."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    b, saved = len(wins), tr.max_len
+    max_len = max_len or AUTO_MAX_LEN
+    tr.max_len = max_len
+    try:
+        p = len(tr._prompt_ids())
+        tr._workspaces.pop(b, None)  # a program captured now, at this horizon
+        mel = tr._features(np.stack(wins))
+        eager = tr._build_decode_fn(b, 0.0, p, captured=False)
+        want, e_wall, e_dec, e_launch = _timed_program(eager, mel, kernels)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                marks, undo = _watch_steps(tr, caught)
+                try:
+                    got, g_wall, g_dec, g_launch = _timed_program(tr._decode_fn(b), mel, kernels)
+                finally:
+                    undo()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        held_after = torch.cuda.memory_allocated() - held
+        ws = tr._workspaces[b]
+        prog = ws.graphs[(0.0, p)]
+        replays_first = prog.replays
+        again, a_wall, a_dec, a_launch = _timed_program(tr._decode_fn(b), mel, kernels)
+        checks, capture_syncs, bad = _syncs_inside_chunks(marks, caught)
+        if bad:
+            raise AssertionError(f"{phase} ({label}): host syncs inside chunks: {bad[:5]}")
+        if not (_same_results(got, want) and _same_results(again, want)):
+            raise AssertionError(f"{phase} ({label}): the captured program's results are not "
+                                 "the eager body's bit for bit")
+        if not (g_launch == e_launch == a_launch):
+            raise AssertionError(f"{phase} ({label}): launches eager {e_launch}, captured "
+                                 f"{g_launch}, second call {a_launch}")
+        if prog.captures != 1 or replays_first < 1:
+            raise AssertionError(f"{phase} ({label}): {prog.captures} captures, "
+                                 f"{replays_first} replays in the first call")
+        ref_tok, ref_top2 = _int_pos_decode(tr, mel)
+        tie = _tie_check(phase, f"{label}: captured vs int pos", list(enumerate(got[0])),
+                         {j: (ref_tok[j], ref_top2[j]) for j in range(b)})
+        steps = _decode_launches(g_launch) // (2 * n_layers)
+        return dict(
+            batch=b, max_len=max_len, decode_steps=steps, equal_to_eager_body=True,
+            launches_equal=True, launches=g_launch,
+            launches_per_replay=prog.launches_per_replay(),
+            eager_wall_s=e_wall, graph_first_call_wall_s=g_wall, graph_wall_s=a_wall,
+            eager_decode_s=e_dec, graph_first_call_decode_s=g_dec, graph_decode_s=a_dec,
+            eager_ms_per_step=e_dec * 1e3 / steps, graph_ms_per_step=a_dec * 1e3 / steps,
+            capture_s=prog.capture_s, captures=prog.captures,
+            replays_first_call=replays_first, replays_second_call=prog.replays - replays_first,
+            pool_bytes=prog.pool_bytes, workspace_bytes=ws.buffer_bytes(),
+            held_after_call_bytes=held_after, early_exit_syncs=checks,
+            capture_syncs=capture_syncs, syncs_inside_chunks=0,
+            parent_route=dict(tie, rows_equal=tie["rows_checked"] - tie["rows_diverging"]))
+    finally:
+        tr.max_len = saved
+
+
 # ------------------------------------------------------------------ e2e-auto
 
 AUTO_MAX_LEN = 224  # positions a window: bench.py::bench_one's decode length
@@ -4146,6 +4400,8 @@ AUTO_SEED = SEED + 30  # the windows' noise
 # Above world 1, e2e-mesh decodes e2e-auto's large-v3-turbo int8 windows
 # over the mesh: the directory and the rows it holds them to.
 _AUTO_SHARED: dict = {}
+# The batch auto resolved to, by case (the batch-dependence check's).
+_AUTO_BATCHES: dict = {}
 
 
 def _auto_windows(n: int, n_samples: int):
@@ -4156,47 +4412,109 @@ def _auto_windows(n: int, n_samples: int):
     return [0.1 * rng.standard_normal(n_samples, dtype=np.float32) for _ in range(n)]
 
 
-def _watch_steps(tr, caught: list) -> list:
-    """Wraps the decode steps ``tr`` builds: each call records its position
-    and how many warnings ``caught`` holds (sync debug mode "warn" adds one
-    per host sync). Returns the list of (pos, warnings so far)."""
+def _watch_steps(tr, caught: list) -> tuple:
+    """Marks where the decode loops of ``tr`` run, with how many warnings
+    ``caught`` held (sync debug mode "warn" adds one per host sync): each
+    step driven with an int position (a prefill, beam search's steps) as
+    ("step", pos, warnings), and each chunk of a captured program
+    (``infer/graphs.py``) as a span ("warm-up" | "first" | "replay",
+    warnings at its start, at its end); "first" is a program's first call,
+    its warm-up chunk and then its capture. Returns (the marks, the
+    function that takes the watch off)."""
+    from yoho_tpu_torch.infer.graphs import ChunkGraph
+
     marks, make = [], tr._make_step
 
     def make_step(ckv, model=None):
         step = make(ckv, model)
 
         def watched(tokens, caches, pos):
-            marks.append((int(pos), len(caught)))
+            if isinstance(pos, int):
+                marks.append(("step", pos, len(caught)))
             return step(tokens, caches, pos)
 
         return watched
 
+    def spanned(kind, fn):
+        def run(self, *a, **k):
+            mark = [kind, len(caught), None]
+            marks.append(mark)
+            try:
+                return fn(self, *a, **k)
+            finally:
+                mark[2] = len(caught)
+        return run
+
+    saved = {n: ChunkGraph.__dict__[n] for n in ("_warm_up", "warm_and_capture", "replay")}
+    ChunkGraph._warm_up = spanned("warm-up", saved["_warm_up"])
+    ChunkGraph.warm_and_capture = spanned("first", saved["warm_and_capture"])
+    ChunkGraph.replay = spanned("replay", saved["replay"])
     tr._make_step = make_step
-    return marks
+
+    def undo():
+        for n, f in saved.items():
+            setattr(ChunkGraph, n, f)
+        tr.__dict__.pop("_make_step", None)
+
+    return marks, undo
 
 
 def _syncs_inside_chunks(marks: list, caught: list) -> tuple:
-    """The host syncs between consecutive decode steps against the decode
-    loops' design (greedy and beam search alike): one early-exit check
-    before every ``_SYNC_EVERY``-th step after the prefill, none anywhere
-    else. Returns (the early-exit syncs, the steps that saw more: position,
+    """The host syncs of a run against the decode loops' design. Eager
+    steps (beam search): one early-exit check before every
+    ``_SYNC_EVERY``-th step after the prefill, none anywhere else. Captured
+    chunks: none inside a warm-up chunk or a replay, at most one (the
+    early-exit check) between a batch's prefill or one chunk and the next
+    chunk; a capture's own are counted apart. Returns (the early-exit
+    syncs, the captures' syncs, the places that saw more: position or span,
     syncs and the lines that made them)."""
     from yoho_tpu_torch.infer.decode import _SYNC_EVERY
 
-    checks, bad, first = 0, [], 0
-    for (a, ca), (b, cb) in zip(marks, marks[1:]):
-        if b == 0:  # the next batch's prefill
+    def syncs(a, b):
+        return [w for w in caught[a:b]
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    def where(found):
+        return sorted({f"{Path(w.filename).name}:{w.lineno}" for w in found})
+
+    checks, captures, bad, first = 0, 0, [], 0
+    steps = [m for m in marks if m[0] == "step"]
+    chunked = any(m[0] != "step" for m in marks)
+    for (_, a, ca), (_, b, cb) in zip(steps, steps[1:]):
+        if b == 0 or chunked:  # the next batch's prefill; chunks are checked below
             continue
         if a == 0:
             first = b
-        syncs = [w for w in caught[ca:cb]
-                 if "called a synchronizing CUDA operation" in str(w.message)]
+        found = syncs(ca, cb)
         allowed = 1 if (b - first) % _SYNC_EVERY == 0 else 0
-        checks += min(len(syncs), allowed)
-        if len(syncs) > allowed:
-            bad.append(dict(pos=b, syncs=len(syncs), where=sorted(
-                {f"{Path(w.filename).name}:{w.lineno}" for w in syncs})))
-    return checks, bad
+        checks += min(len(found), allowed)
+        if len(found) > allowed:
+            bad.append(dict(pos=b, syncs=len(found), where=where(found)))
+    # The captured programs: each chunk span, and the gap before it back
+    # to the end of the chunk before or to the batch's prefill.
+    prev_end, pending = None, None
+    for m in marks:
+        kind, start, end = m
+        if kind == "step":
+            prev_end = end  # a prefill: the warnings at its start
+            continue
+        if kind in ("first", "replay") and prev_end is not None:
+            gap = syncs(prev_end, start)
+            checks += min(len(gap), 1)
+            if len(gap) > 1:
+                bad.append(dict(span=f"before a {kind}", syncs=len(gap), where=where(gap)))
+        if kind in ("warm-up", "replay"):
+            found = syncs(start, end)
+            if found:
+                bad.append(dict(span=kind, syncs=len(found), where=where(found)))
+        if kind == "warm-up" and pending is not None:  # the rest of its first call
+            captures += len(syncs(pending[1], pending[2])) - len(syncs(start, end))
+            pending = None
+        if kind == "first":
+            pending = m
+        if kind in ("first", "replay"):
+            prev_end = end
+    return checks, captures, bad
 
 
 def _beam_candidates(record: list):
@@ -4274,10 +4592,13 @@ def _auto_run(phase: str, label: str, tr, wins, kernels, n_layers: int, horizon:
     "warn" with each host sync placed between decode steps. Fails unless
     the batch decoded is the batch resolved, the peak is at or below the
     capacity model's bytes for that batch (at ``horizon``, the positions
-    its caches hold) and no host sync fell inside a decode chunk. Returns
-    (the line's fields, the decoded rows, their top-2 logits)."""
+    its caches hold) and no host sync fell inside a decode chunk. A greedy
+    case then makes a repeated call and runs the eager body (the module
+    doc, item 13). Returns (the line's fields, the decoded rows, their
+    top-2 logits)."""
     import warnings
 
+    import numpy as np
     import torch
 
     from yoho_tpu_torch.infer import capacity
@@ -4295,16 +4616,20 @@ def _auto_run(phase: str, label: str, tr, wins, kernels, n_layers: int, horizon:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            marks = _watch_steps(tr, caught)
-            results = tr.transcribe_many(wins)
-            torch.cuda.synchronize()
+            marks, undo = _watch_steps(tr, caught)
+            try:
+                results = tr.transcribe_many(wins)
+                torch.cuda.synchronize()
+            finally:
+                undo()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-        tr.__dict__.pop("_make_step", None)
+        del tr._logits_fn, tr._decode_with_fallback
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - held
+    held_after = torch.cuda.memory_allocated() - held
     launches = {k.name: k.launches for k in kernels}
-    checks, bad = _syncs_inside_chunks(marks, caught)
+    checks, capture_syncs, bad = _syncs_inside_chunks(marks, caught)
     if bad:
         raise AssertionError(f"{phase} ({label}): host syncs inside decode chunks: {bad[:5]}")
     decoded = [int(r.shape[0]) for r in raw]
@@ -4317,14 +4642,67 @@ def _auto_run(phase: str, label: str, tr, wins, kernels, n_layers: int, horizon:
         raise AssertionError(f"{phase} ({label}): {peak} bytes above what was held at batch "
                              f"{auto}, the capacity model {auto * per_stream}")
     seconds = len(wins) * tr.chunk_samples / tr.sample_rate
+    steps = _decode_launches(launches) // (2 * n_layers)
     row = dict(auto_batch=auto, batch_decoded=decoded[0], windows=len(wins),
-               max_len=tr.max_len, wall_s=wall,
-               decode_steps=_decode_launches(launches) // (2 * n_layers),
+               max_len=tr.max_len, wall_s=wall, decode_steps=steps,
                audio_s_per_s=seconds / wall, peak_bytes_above_held=peak, held_bytes=held,
+               held_after_call_bytes=held_after,
                weight_bytes=capacity.module_bytes(tr.model),
                predicted_bytes=auto * per_stream, predicted_bytes_per_stream=per_stream,
                segments=sum(len(r.segments) for r in results), early_exit_syncs=checks,
                syncs_inside_chunks=0, launches=launches)
+    if tr.beams <= 1:
+        # A repeated call (replays only: it captures nothing), with the
+        # programs' buffers held: its peak above what was held before the
+        # first call is held to the capacity model too. Then the same chunk
+        # body run eagerly on the same log-mel, bit-equal to the repeated
+        # call's decode.
+        p = len(tr._prompt_ids())
+        ws = tr._workspaces[auto]
+        prog = ws.graphs[(0.0, p)]
+        decoded, decode = [], tr._decode_with_fallback
+
+        def keep(*a, **k):
+            decoded.append(decode(*a, **k))
+            return decoded[-1]
+
+        tr._decode_with_fallback = keep
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with _DecodeTimer() as timer:
+                tr.transcribe_many(wins)
+            torch.cuda.synchronize()
+        finally:
+            del tr._decode_with_fallback
+        a_wall, a_dec = time.perf_counter() - t0, sum(timer.seconds)
+        a_peak = torch.cuda.max_memory_allocated() - held
+        a_launch = {k.name: k.launches for k in kernels}
+        mel = tr._features(np.stack(wins))
+        eager, e_wall, e_dec, e_launch = _timed_program(
+            tr._build_decode_fn(auto, 0.0, p, captured=False), mel, kernels)
+        got = decoded[0]
+        same = _same_results((got[0], got[1], {k: got[2][k] for k in eager[2]}), eager)
+        if a_peak > auto * per_stream:
+            raise AssertionError(f"{phase} ({label}): the repeated call's {a_peak} bytes "
+                                 f"above what was held before the first call at batch "
+                                 f"{auto}, the capacity model {auto * per_stream}")
+        if prog.captures != 1 or not same or len(decoded) != 1 \
+                or _decode_launches(a_launch) != _decode_launches(e_launch):
+            raise AssertionError(f"{phase} ({label}): {prog.captures} captures; the repeated "
+                                 f"call's results equal to the eager body's: {same}; decode "
+                                 f"launches {a_launch} against {e_launch}")
+        row.update(capture_s=prog.capture_s, capture_syncs=capture_syncs,
+                   pool_bytes=prog.pool_bytes, workspace_bytes=ws.buffer_bytes(),
+                   repeated_call_wall_s=a_wall, repeated_call_peak_bytes_above_held=a_peak,
+                   graph_decode_s=a_dec, eager_decode_s=e_dec, eager_wall_s=e_wall,
+                   graph_ms_per_step=a_dec * 1e3 / steps, eager_ms_per_step=e_dec * 1e3 / steps,
+                   equal_to_eager_body=True, repeated_call_captures=0,
+                   launches_per_replay=prog.launches_per_replay())
+        del eager, decoded, mel
     return row, raw, top2
 
 
@@ -4332,6 +4710,7 @@ def e2e_auto(card: str, kernels) -> dict:
     """Phase e2e-auto: the serving path at the batch ``batch="auto"``
     resolves to on this card (the module doc, item 13). Returns the
     launches of its measured runs."""
+    import gc
     import shutil
     import tempfile
 
@@ -4368,6 +4747,7 @@ def e2e_auto(card: str, kernels) -> dict:
         t0 = time.perf_counter()
         tr = load("auto")
         auto, horizon = tr.batch_size, tr.max_len  # auto was sized for the caches' horizon
+        _AUTO_BATCHES[label] = auto
         wins = _auto_windows(auto, tr.chunk_samples)
         tr.max_len = SERVE_MAX_LEN if beams else AUTO_MAX_LEN
         tr.batch_size = AUTO_CHECK
@@ -4400,7 +4780,9 @@ def e2e_auto(card: str, kernels) -> dict:
         terms = capacity.stream_terms(cfg, tr.family,
                                       **capacity._lane_kwargs(tr, tr.model, horizon))
         model = tr.model
-        del tr
+        del tr  # its programs hold the captured buffers: collected before the slope
+        gc.collect()
+        torch.cuda.empty_cache()
         measured = slope(model, cfg, (auto // 2, auto), beams)
         del model
         row.update(measured_bytes_per_stream=measured["per_stream"],
@@ -4441,11 +4823,59 @@ def e2e_auto(card: str, kernels) -> dict:
         case("yoho-default", config.yoho, lambda b: load_transcriber(
             session="default", root=str(root / "sessions"), batch=b),
             config.yoho.n_text_blocks, yoho_slope)
+        _batch_dependence_f32(phase, card)
     finally:
         if "tmp" not in _AUTO_SHARED:
             tmp.cleanup()
         torch.cuda.empty_cache()
     return total
+
+
+def _batch_dependence_f32(phase: str, card: str) -> None:
+    """Whether a window's tokens depend on the batch it decodes in, in
+    float32 (``core/device.py::full_fp32``: no TF32 in the products or the
+    convolutions): whisper-small's widths at 2 + 2 layers (seed-0 random
+    weights, float cross K/V and caches), the same 16 windows of noise at
+    batch 16 and as the first 16 of ``auto_batch`` windows at the batch
+    ``auto`` resolves to for whisper-small, ``AUTO_MAX_LEN`` positions a
+    window. Prints the rows equal and each other row's first difference:
+    the finding is the line, and no outcome fails the phase."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from yoho_tpu_torch.core.config import WHISPER_PRESETS
+    from yoho_tpu_torch.core.device import full_fp32
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import init_random
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+
+    cfg = dataclasses.replace(WHISPER_PRESETS["small"], n_audio_layer=2, n_text_layer=2)
+    model = init_random(Whisper(cfg, dtype=torch.float32), seed=SEED)
+    table = WhisperTokenTable(multilingual=True, text_backend=_IdText())
+    tr = Transcriber(model, token_table=table, batch_size=BATCH, cache_dtype=torch.float32)
+    tr.max_len = AUTO_MAX_LEN
+    big = max(_AUTO_BATCHES.get("whisper-small", 0), 2 * BATCH)
+    wins = np.stack(_auto_windows(big, tr.chunk_samples))
+    t0 = time.perf_counter()
+    with full_fp32():
+        small = tr._decode_fn(BATCH)(tr._features(wins[:BATCH]))[0]
+        large = tr._decode_fn(big)(tr._features(wins))[0][:BATCH]
+    rows = []
+    for j, (a, b) in enumerate(zip(small, large)):
+        diff = np.flatnonzero(a != b)
+        rows.append(None if len(diff) == 0 else int(diff[0]))
+    equal = sum(r is None for r in rows)
+    emit(phase, config="whisper-small widths, 2 + 2 layers, f32 (batch dependence)",
+         card=card, batches=[BATCH, big], windows=BATCH, max_len=tr.max_len,
+         rows_equal=equal, first_differences={j: r for j, r in enumerate(rows) if r is not None},
+         distinct_rows=len({tuple(r) for r in small}), seconds=time.perf_counter() - t0)
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 MESH_MAX_WORLD = 4
@@ -4459,8 +4889,8 @@ def _mesh_predicted(cfg, family: str, world: int, batches: int, steps: int):
     sharded attention and MLP reduces once per pass, the sharded embedding
     reduces its lookup and gathers the logits once per step, and each of
     the decode program's 4 result arrays (the YOHO family's voiceprint
-    pass: one more, with its own encoder and decoder pass, which makes no
-    logits) is gathered over ``data`` once per batch. Returns (counts, all-reduces per encode,
+    pass: one more, with a decoder pass over the decode's encoder output,
+    which makes no logits) is gathered over ``data`` once per batch. Returns (counts, all-reduces per encode,
     all-reduces per decode step)."""
     if family == "whisper":
         heads = cfg.n_text_head
@@ -4475,19 +4905,37 @@ def _mesh_predicted(cfg, family: str, world: int, batches: int, steps: int):
         dec = cfg.n_text_blocks * (2 * attn + 1)
         vocab, passes = 16000, batches
     emb = int(vocab % world == 0)
-    out = {"all_reduce/model": batches * enc + steps * (dec + emb) + passes * (enc + dec + emb),
+    out = {"all_reduce/model": batches * enc + steps * (dec + emb) + passes * (dec + emb),
            "all_gather/model": emb * steps,
            "all_gather/data": 4 * batches + passes}
     return {k: v for k, v in out.items() if v}, enc, dec + emb
 
 
+def _put_top2(buf, out, pos) -> None:
+    """Writes the top-2 of the processed logits ``out`` (B, V) into ``buf``
+    (B, T, 2) at buffer index ``pos``: an int (a prefill's pick, beam
+    search's steps) or a per-row tensor (a greedy or slot chunk, where the
+    write is a scatter on the device that a captured chunk replays). ``buf``
+    holds the padding the last chunk writes past ``max_len``."""
+    import torch
+
+    vals = torch.topk(out, 2, dim=-1).values
+    if isinstance(pos, int):
+        buf[:, pos] = vals
+    else:
+        buf.scatter_(1, pos.long()[:, None, None].expand(-1, 1, 2), vals[:, None, :])
+
+
 def _mesh_recorded(tr) -> tuple:
     """Patches a transcriber to keep the raw tokens of each batch it
     decodes and, per batch, the top-2 of its processed logits at each
-    (row, position): ``_tie_check``'s reference. Returns the two lists."""
+    (row, position): ``_tie_check``'s reference. Returns the two lists.
+    The top-2 of a batch is written into one buffer per (rows, width),
+    which a captured chunk reads at a fixed address; the next batch's
+    first pick keeps a copy of the last one's."""
     import torch
 
-    raw, top2 = [], []
+    raw, top2, live = [], [], {}
     build, decode = tr._logits_fn, tr._decode_with_fallback
 
     def recording(prompt_len):
@@ -4495,10 +4943,14 @@ def _mesh_recorded(tr) -> tuple:
 
         def fn(logits, tokens, pos):
             out = logits if rules is None else rules(logits, tokens, pos)
-            if pos == prompt_len:  # a new batch's first pick
-                top2.append(torch.full((out.shape[0], tr.max_len, 2), float("nan"),
-                                       device=out.device))
-            top2[-1][:, pos] = torch.topk(out, 2, dim=-1).values
+            key = (out.shape[0], tokens.shape[1])
+            if isinstance(pos, int) and pos == prompt_len:  # a new batch's first pick
+                if top2:
+                    top2[-1] = top2[-1].clone()
+                if key not in live:
+                    live[key] = torch.empty(key + (2,), device=out.device)
+                top2.append(live[key].fill_(float("nan")))
+            _put_top2(live[key], out, pos)
             return out
 
         return fn

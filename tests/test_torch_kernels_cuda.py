@@ -1428,3 +1428,139 @@ def test_beam_search_at_656_windows_of_20_heads_on_the_card(gen):
     assert launched == 3 * steps, launched
     assert len({tuple(r) for r in want.tolist()}) > b // 4  # windows decode apart
     assert torch.equal(got, want), int((got != want).any(1).sum())
+
+
+# ------------------------------------------- the captured decode programs
+# On one card the greedy chunk runs as a CUDA graph (infer/graphs.py):
+# captured once per program, replayed chunk by chunk. The replay is held
+# bit for bit to the same chunk body run eagerly, and its launch counts to
+# the eager run's.
+
+def _tiny_whisper_transcriber(batch, **kw):
+    """The trained ``whisper_tiny`` fixture on the card in bf16 with the
+    int8 lanes and timestamps, EOT biased away so that every row runs to
+    the 32-token horizon (four chunks)."""
+    import json
+    from pathlib import Path
+
+    from yoho_tpu_torch.core.config import WhisperConfig
+    from yoho_tpu_torch.infer.pipeline import Transcriber
+    from yoho_tpu_torch.nn.params import load_jax_params
+    from yoho_tpu_torch.nn.whisper import Whisper
+    from yoho_tpu_torch.text.whisper_tokens import WhisperTokenTable
+    from yoho_tpu_torch.train.checkpoint import load_params
+
+    fx = Path(__file__).parent / "fixtures" / "whisper_tiny"
+    cfg = WhisperConfig(**json.loads((fx / "config.json").read_text()))
+    model = load_jax_params(Whisper(cfg, dtype=torch.bfloat16),
+                            load_params(fx / "params.msgpack"))
+    table = WhisperTokenTable(multilingual=True)
+    return Transcriber(model, token_table=table, batch_size=batch, quantized_cross_kv="int8",
+                       quantized_cache=True, cache_dtype=torch.bfloat16,
+                       logit_bias={table.eot: -100.0}, **kw)
+
+
+def _tiny_yoho_transcriber(batch):
+    from pathlib import Path
+
+    from yoho_tpu_torch.load import load_transcriber
+
+    return load_transcriber(session="tiny", root=str(Path(__file__).parent / "fixtures"
+                                                      / "sessions"), batch=batch)
+
+
+def _windows_of(tr, n):
+    """``n`` windows: the three tone clips, then noise from a seed."""
+    rng = np.random.default_rng(3)
+    wins = [_tone_clip(s % 3, tr.chunk_samples) for s in range(3)]
+    wins += [(0.05 * rng.standard_normal(tr.chunk_samples)).astype(np.float32)
+             for _ in range(n - 3)]
+    return np.stack(wins)
+
+
+def _counted(fn):
+    kernels = [mel_kernel.KERNEL, flash_attention.KERNEL, *decode_attention.KERNELS,
+               w8a8_dense.KERNEL]
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in kernels}
+
+
+@pytest.mark.parametrize("family,temperature", [("whisper", 0.0), ("yoho", 0.0),
+                                                ("whisper", 0.6)])
+def test_captured_greedy_equals_the_eager_body_at_batch_16(gen, family, temperature):
+    """Batch 16 of the fixtures: the captured program's tokens, lengths,
+    sum_logprob and no_speech_prob equal the eager body's bit for bit, with
+    the same launches per kernel; a second call captures nothing and gives
+    the same again. Above temperature 0 (the fallback ladder's rung) the
+    draws come from the generator registered with the graph, seeded as the
+    eager body's."""
+    from yoho_tpu_torch.infer.graphs import sampling_capturable
+
+    if temperature > 0 and not sampling_capturable():
+        pytest.skip("this PyTorch cannot capture a generator")
+    tr = _tiny_whisper_transcriber(16) if family == "whisper" else _tiny_yoho_transcriber(16)
+    p = len(tr._prompt_ids())
+    mel = tr._features(_windows_of(tr, 16))
+    eager = tr._build_decode_fn(16, temperature, p, captured=False)
+    want, want_n = _counted(lambda: eager(mel, seed=3))
+    got, got_n = _counted(lambda: tr._decode_fn(16, temperature)(mel, seed=3))
+    program = tr._workspaces[16].graphs[(temperature, p)]
+    assert program.captures == 1 and program.replays >= 1
+    again, again_n = _counted(lambda: tr._decode_fn(16, temperature)(mel, seed=3))
+    assert program.captures == 1
+    for out, n in ((got, got_n), (again, again_n)):
+        for a, b in zip(out[:2], want[:2]):
+            np.testing.assert_array_equal(a, b)
+        assert out[2].keys() == want[2].keys()
+        for k in want[2]:
+            np.testing.assert_array_equal(out[2][k], want[2][k])
+        assert n == want_n, (n, want_n)
+    assert (want[1] == tr.max_len).any()  # rows that run to the horizon
+    assert len({tuple(r) for r in want[0]}) > 1
+
+
+@pytest.mark.parametrize("case", ["int8-cross", "int8-self-row-pos"])
+def test_captured_decode_read_sees_new_contents(gen, case):
+    """One S = 1 decode read captured (the FMA route: TMA maps built at
+    capture, cluster launch) and replayed after its inputs' contents
+    change: the output is the plain version's on the new contents, and
+    equals the kernel run eagerly on them."""
+    from yoho_tpu_torch.infer.graphs import ChunkGraph
+
+    b, h, d = 16, 12, 64
+    t, kv_len = (1536, 1500) if case == "int8-cross" else (512, 512)
+
+    def fill():
+        k, v = (torch.randn((b, h, d, t), generator=gen, device="cuda") for _ in range(2))
+        qkv = kv_cache.quantize_kv(k, v)
+        q = (torch.randn((b, h, 1, d), generator=gen, device="cuda") * 0.3).to(torch.bfloat16)
+        pos = torch.randint(0, 448, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        return q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, pos
+
+    static = fill()
+    out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device="cuda")
+
+    def read(q, k, v, ks, vs, pos):
+        return decode_attention.fused_decode_attention(
+            q, k, v, ks, vs, pos=None if case == "int8-cross" else pos, kv_len=kv_len)
+
+    graph = ChunkGraph(lambda: out.copy_(read(*static)))
+    graph()  # warm-up + capture
+    assert graph.launches_per_replay() == {"decode_attention": 1}
+    for _ in range(2):
+        new = fill()
+        for s, n in zip(static, new):
+            s.copy_(n)
+        before = decode_attention.KERNEL.launches
+        graph()
+        torch.cuda.synchronize()
+        assert decode_attention.KERNEL.launches == before + 1
+        q, k, v, ks, vs, pos = new
+        want = decode_attention.decode_attention_reference(
+            q, k, v, ks, vs, pos=None if case == "int8-cross" else pos, kv_len=kv_len)
+        torch.testing.assert_close(out.float(), want.float(), rtol=0.05, atol=0.02)
+        assert torch.equal(out, read(*new))
+    assert graph.replays == 2 and graph.captures == 1

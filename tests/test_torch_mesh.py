@@ -243,9 +243,10 @@ def test_yoho_session_at_a_mesh_of_one_counts_the_predicted_collectives():
     the unsharded tokens, and per batch, with every attention, MLP and the
     vocabulary sharded over an axis of 1: the encoder's 2 all-reduces a
     block; per decode step 3 a block plus the embedding's lookup reduce
-    and one logits gather; the teacher-forced voiceprint pass (encoder,
-    decoder, embedding; it makes no logits, so no gather) once; 4 data
-    gathers from the decode and one from the voiceprint pass."""
+    and one logits gather; the teacher-forced voiceprint pass (decoder
+    and embedding over the decode's encoder output; it makes no logits,
+    so no gather) once; 4 data gathers from the decode and one from the
+    voiceprint pass."""
     from pathlib import Path
 
     from yoho_tpu_torch.load import load_transcriber
@@ -266,6 +267,6 @@ def test_yoho_session_at_a_mesh_of_one_counts_the_predicted_collectives():
         [[s.tokens for s in r.segments] for r in want.transcribe_many(clips)]
     cfg = t.model.cfg
     enc, dec = 2 * cfg.n_audio_blocks, 3 * cfg.n_text_blocks + 1
-    assert dict(pm.COUNTS) == {"all_reduce/model": enc + dec * len(steps) + enc + dec,
+    assert dict(pm.COUNTS) == {"all_reduce/model": enc + dec * len(steps) + dec,
                                "all_gather/model": len(steps),
                                "all_gather/data": 5}

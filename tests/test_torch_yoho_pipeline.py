@@ -418,7 +418,7 @@ def test_speaker_pass_makes_no_logits(f32, monkeypatch):
     _, tt = pair()
     model = tt.model
     monkeypatch.setattr(model, "voiceprints",
-                        lambda tokens, mel: model.forward_with_voiceprints(tokens, mel)[1])
+                        lambda tokens, mel, xa=None: model.forward_with_voiceprints(tokens, mel)[1])
     want = tt.transcribe_many(clips)
     monkeypatch.undo()
     attach = tt._attach_voiceprints

@@ -31,7 +31,13 @@ decode streams fit in the device's memory beside the weights. Per stream
   peak), 3.7 (large-v3-turbo int8) and 4.8 (large-v3-turbo bf16), and
   whisper-small's slope moved by 2.3 MB (one tensor at its width) between
   two calls; 6 keeps the sum at or above every reading with about a
-  tensor to spare.
+  tensor to spare. On one card the captured greedy programs keep their
+  cross-K/V, caches and graph pool between calls
+  (``infer/decode_programs.py``), so a repeated call encodes beside them:
+  the transcriber encodes a batch in row chunks of an eighth, no fewer
+  than 16 rows (``DecodeProgramsMixin._encode``), whose activations fit in
+  this term; ``chip_smoke.py``'s e2e-auto holds a repeated call's peak to
+  the model as well as the first call's.
 
 The YOHO family (``family="yoho"``) has the same terms at its own widths:
 float cross K/V and caches of ``kv_heads * head_dim`` cells a position

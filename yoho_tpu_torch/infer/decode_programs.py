@@ -16,6 +16,15 @@ unquantized cross-K/V and a float cache of 128 positions). The YOHO family
 no-speech token, no SOT index and no timestamp rules, and decodes over
 float cross K/V and caches.
 
+On one card the greedy program is what ``jax.jit`` makes of JAX's: its
+chunks run as a CUDA graph captured at the program's first call and
+replayed (``infer/graphs.py``), over one workspace per batch size (the
+caches, the cross-K/V that each call writes in place, the greedy state and
+a graph pool) that every greedy program of the transcriber shares
+(:meth:`DecodeProgramsMixin._workspace`); the encoder, the cross-K/V and
+the prefill run eagerly before the chunks. Beam search, speculative
+decoding and a mesh keep their eager loops.
+
 Under a mesh (``Transcriber(mesh=...)``) every program works on this
 rank's ``data`` rows (:meth:`DecodeProgramsMixin._to_device`,
 :meth:`DecodeProgramsMixin._rows`) and gathers its results over ``data``
@@ -38,7 +47,12 @@ from yoho_tpu_torch.infer.decode import (
     make_whisper_step_fn,
     make_yoho_step_fn,
 )
+from yoho_tpu_torch.infer.graphs import ChunkGraph
 from yoho_tpu_torch.infer.speculative import speculative_greedy_decode
+
+# The fewest rows the encoder and the cross-K/V projections take at once
+# (:meth:`DecodeProgramsMixin._row_chunk`).
+_ENCODE_ROWS = 16
 
 
 class DecodeProgramsMixin:
@@ -236,9 +250,10 @@ class DecodeProgramsMixin:
 
     def _decode_fn(self, batch: int, temperature: float = 0.0,
                    prompt_len: Optional[int] = None):
-        """The decode program ``fn(mel, prompt=None, seed=0) -> (tokens,
-        lengths, aux)`` as numpy arrays, memoized per (batch, beams,
-        temperature, prompt length)."""
+        """The decode program ``fn(mel, prompt=None, seed=0, xa=None) ->
+        (tokens, lengths, aux)`` as numpy arrays, memoized per (batch,
+        beams, temperature, prompt length); ``xa`` is ``mel``'s encoder
+        output where the caller has it (:meth:`_encode`)."""
         prompt_len = prompt_len or len(self._prompt_ids())
         key = (batch, self.beams, float(temperature), prompt_len)
         if key not in self._programs:
@@ -246,27 +261,119 @@ class DecodeProgramsMixin:
                                                         prompt_len)
         return self._programs[key]
 
-    def _build_decode_fn(self, batch: int, temperature: float, prompt_len: int):
+    def _captures(self, temperature: float) -> bool:
+        """Whether the greedy program runs its chunks as a captured CUDA
+        graph (``infer/graphs.py``): on a CUDA device without a mesh, and
+        above temperature 0 only where this PyTorch captures a generator.
+        The device alone picks the route: there is no switch."""
+        from yoho_tpu_torch.infer.graphs import sampling_capturable
+
+        return (self.device.type == "cuda" and self.mesh is None
+                and (temperature == 0.0 or sampling_capturable()))
+
+    def _workspace(self, rows: int):
+        """The captured greedy programs' buffers at ``rows`` streams: one
+        set per batch size, shared by every greedy program of this
+        transcriber (the fallback's temperatures, other prompt lengths).
+        Settings that size them (the horizon, the lanes) make a new set,
+        and the old one is released first."""
+        from yoho_tpu_torch.infer.decode import GreedyState
+        from yoho_tpu_torch.infer.graphs import GreedyWorkspace
+
+        key = (rows, self.max_len, self.cache_dtype, bool(self.quantized_cache),
+               self.quantized_cross_kv)
+        ws = self._workspaces.get(rows)
+        if ws is None or ws.key != key:
+            self._workspaces.pop(rows, None)
+            ws = GreedyWorkspace(key=key, state=GreedyState.empty(rows, self.max_len,
+                                                                  self.device),
+                                 pool=torch.cuda.graph_pool_handle())
+            self._workspaces[rows] = ws
+        return ws
+
+    @staticmethod
+    def _row_chunk(b: int) -> int:
+        """The most rows of a batch of ``b`` that the encoder and each
+        layer's cross-K/V projections take at once: an eighth, and no fewer
+        than ``_ENCODE_ROWS``. A large batch's activations and quantizer
+        temporaries are then a fraction of its own, which is what lets a
+        repeated call run beside the captured programs' held buffers within
+        the capacity model (``infer/capacity.py``)."""
+        return max(_ENCODE_ROWS, -(-b // 8))
+
+    @torch.inference_mode()
+    def _encode(self, mel: torch.Tensor, model=None) -> torch.Tensor:
+        """The encoder output of ``mel`` (this rank's rows) under ``model``
+        (default: the transcriber's; a draft's), :meth:`_row_chunk` rows at
+        a time into one output."""
+        model = model or self.model
+        b = mel.shape[0]
+        step = self._row_chunk(b)
+        if b <= step:
+            return model.encode_audio(mel)
+        first = model.encode_audio(mel[:step])
+        xa = first.new_empty((b, *first.shape[1:]))
+        xa[:step] = first
+        del first
+        for i in range(step, b, step):
+            xa[i:i + step] = model.encode_audio(mel[i:i + step])
+        return xa
+
+    def _build_decode_fn(self, batch: int, temperature: float, prompt_len: int,
+                         captured: Optional[bool] = None):
+        """``captured``: the greedy branch's route, by default
+        :meth:`_captures`; False runs the same chunk body eagerly (the
+        reference a measurement holds the captured program to)."""
         model = self.model
         suppress = self._suppress_ids()
         logits_fn = self._logits_fn(prompt_len)
         k = self.beams if self.beams > 1 else 0
         default_prompt = np.asarray([self._prompt_ids()] * batch, np.int64)
+        if captured is None:
+            captured = self._captures(temperature)
 
         @torch.inference_mode()
-        def fn(mel, prompt=None, seed: int = 0):
+        def fn(mel, prompt=None, seed: int = 0, xa=None):
             if prompt is None:
                 prompt = default_prompt
             if prompt.shape != (batch, prompt_len):
                 raise ValueError(f"prompt {prompt.shape} != ({batch}, {prompt_len})")
-            xa = model.encode_audio(mel)
-            ckv = model.cross_kvs(xa, self.quantized_cross_kv)
+            if xa is None:
+                xa = self._encode(mel)
             prompt = torch.as_tensor(self._rows(np.asarray(prompt)), dtype=torch.long,
                                      device=self.device)
             rows = prompt.shape[0]  # this rank's (the batch without a mesh)
             kw = dict(suppress_ids=suppress, logits_fn=logits_fn, return_aux=True,
                       no_speech_id=self._no_speech_id(),
                       sot_index=self._sot_index(prompt_len))
+            greedy = not k and not (self.draft_model is not None and temperature == 0.0)
+            if greedy and captured:
+                # The program's static buffers: the cross-K/V written in
+                # place (one layer's and row chunk's temporaries at a
+                # time), the caches and the state reused; the chunks
+                # replay one capture.
+                ws = self._workspace(rows)
+                ws.ckv = model.cross_kvs(xa, self.quantized_cross_kv, out=ws.ckv,
+                                         rows=self._row_chunk(rows))
+                del xa
+                if ws.caches is None:  # after the cross-K/V's temporaries are gone
+                    ws.caches = model.init_caches(rows, self.cache_dtype, None,
+                                                  self.quantized_cache)
+                program = ws.graphs.get((temperature, prompt_len))
+                if program is None:
+                    program = ws.graphs[(temperature, prompt_len)] = ChunkGraph(
+                        state=ws.state, pool=ws.pool,
+                        generator=(torch.Generator(device=self.device)
+                                   if temperature > 0.0 else None))
+                if program.generator is not None:  # the one the graph draws from
+                    program.generator.manual_seed(42 + seed)
+                tokens, lengths, aux = greedy_decode(
+                    self._make_step(ws.ckv), ws.caches, prompt, self.max_len, self.eot,
+                    temperature=temperature, generator=program.generator,
+                    program=program, **kw)
+                return self._results(rows, tokens, lengths, aux)
+            ckv = model.cross_kvs(xa, self.quantized_cross_kv, rows=self._row_chunk(rows))
+            del xa
             if k:
                 # The cross-K/V stay untiled: the K beams of a stream share
                 # one read of them (nn.layers._beam_fold).
@@ -275,13 +382,13 @@ class DecodeProgramsMixin:
                 tokens, lengths, _scores, aux = beam_search(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
                     beams=k, length_penalty=self.length_penalty, **kw)
-            elif self.draft_model is not None and temperature == 0.0:
+            elif not greedy:
                 # The draft encodes the same mel; both cache sets hold the
                 # stale-write workspace past the horizon.
                 d_model = self.draft_model
                 gamma = self.speculative_gamma
-                d_ckv = d_model.cross_kvs(d_model.encode_audio(mel),
-                                          self.quantized_cross_kv)
+                d_ckv = d_model.cross_kvs(self._encode(mel, d_model),
+                                          self.quantized_cross_kv, rows=self._row_chunk(rows))
                 horizon = self.max_len + gamma + 2
                 t_caches = model.init_caches(rows, self.cache_dtype, horizon,
                                              self.quantized_cache)
@@ -298,20 +405,27 @@ class DecodeProgramsMixin:
                 tokens, lengths, aux = greedy_decode(
                     self._make_step(ckv), caches, prompt, self.max_len, self.eot,
                     temperature=temperature, generator=gen, **kw)
-            if "no_speech_prob" not in aux:
-                aux["no_speech_prob"] = torch.zeros((rows,), dtype=torch.float32,
-                                                    device=self.device)
-            return (self._to_host(tokens), self._to_host(lengths),
-                    {k: self._to_host(v) for k, v in aux.items()})
+            return self._results(rows, tokens, lengths, aux)
 
         return fn
 
+    def _results(self, rows: int, tokens, lengths, aux):
+        """A decode program's device results -> numpy arrays of the whole
+        batch (a zero no-speech probability where the family has none)."""
+        if "no_speech_prob" not in aux:
+            aux["no_speech_prob"] = torch.zeros((rows,), dtype=torch.float32,
+                                                device=self.device)
+        return (self._to_host(tokens), self._to_host(lengths),
+                {k: self._to_host(v) for k, v in aux.items()})
+
     @torch.inference_mode()
-    def _align_fn(self, mel: torch.Tensor, tokens: np.ndarray):
+    def _align_fn(self, mel: torch.Tensor, tokens: np.ndarray, xa=None):
         """The teacher-forced alignment pass over ``tokens`` (B, max_len):
         (alignment map (B, max_len, T_audio), realized-token probabilities
-        (B, max_len)) from one forward, as numpy arrays."""
-        xa = self.model.encode_audio(mel)
+        (B, max_len)) from one forward, as numpy arrays. ``xa``: the
+        encoder output of ``mel`` where the caller has it."""
+        if xa is None:
+            xa = self._encode(mel)
         amap, probs = self.model.cross_attention_map(
             torch.as_tensor(self._rows(tokens), dtype=torch.long, device=self.device),
             xa, True)
@@ -323,7 +437,7 @@ class DecodeProgramsMixin:
         batch of first windows -> (b, vocab) f32 logits, over the
         unquantized cross-K/V and a float cache of 128 positions."""
         model = self.model
-        xa = model.encode_audio(self._features(windows))
+        xa = self._encode(self._features(windows))
         b = xa.shape[0]  # this rank's rows
         caches = model.init_caches(b, self.cache_dtype, 128)
         prompt = torch.full((b, 1), self.token_table.sot, dtype=torch.long,

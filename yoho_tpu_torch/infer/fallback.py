@@ -38,7 +38,7 @@ class FallbackLadderMixin:
         let best_of pick a candidate the ladder immediately re-fails)."""
         return aux["sum_logprob"] / np.maximum(lengths - n_prompt, 1)
 
-    def _decode_rung(self, b: int, temp: float, prompt_len, mel, prompt):
+    def _decode_rung(self, b: int, temp: float, prompt_len, mel, prompt, xa=None):
         """Decode one ladder rung, returning writable host arrays.
 
         At sampling rungs (temp > 0) with ``best_of > 1``, decodes
@@ -47,9 +47,10 @@ class FallbackLadderMixin:
         keeps, per window, the candidate with the highest mean logprob:
         OpenAI whisper's best_of selection rule. Greedy rungs are
         deterministic, so extra candidates would be identical — skipped.
+        ``xa``: ``mel``'s encoder output where the caller has it.
         """
         fn = self._decode_fn(b, temp, prompt_len)
-        tokens, lengths, aux = fn(mel, prompt)
+        tokens, lengths, aux = fn(mel, prompt, xa=xa)
         tokens = np.array(tokens)
         lengths = np.array(lengths)
         aux = {k: np.array(v) for k, v in aux.items()}
@@ -64,7 +65,7 @@ class FallbackLadderMixin:
 
         best = avg_lp(lengths, aux)
         for seed in range(1, self.best_of):
-            t2, l2, a2 = fn(mel, prompt, seed=seed)
+            t2, l2, a2 = fn(mel, prompt, seed=seed, xa=xa)
             l2 = np.asarray(l2)
             a2 = {k: np.asarray(v) for k, v in a2.items()}
             better = avg_lp(l2, a2) > best
@@ -78,7 +79,7 @@ class FallbackLadderMixin:
         return tokens, lengths, aux
 
     def _decode_with_fallback(self, b: int, mel, prompt=None,
-                              temperatures=None):
+                              temperatures=None, xa=None):
         """Greedy first; windows failing the whisper quality checks (low
         mean logprob, pathological compression ratio) are replaced by
         higher-temperature re-decodes (parity with OpenAI's fallback).
@@ -86,20 +87,21 @@ class FallbackLadderMixin:
         conditioning); ``temperatures`` overrides the configured ladder
         (per-request temperature: a single-rung ladder decodes exactly at
         that temperature); ``aux["used_temperature"]`` records the ladder
-        rung each window ended on."""
+        rung each window ended on; ``xa`` is ``mel``'s encoder output
+        where the caller has it (every rung reads it)."""
         ladder = tuple(temperatures) if temperatures is not None \
             else self.temperatures
         prompt_len = None if prompt is None else prompt.shape[1]
         tokens, lengths, aux = self._decode_rung(b, ladder[0], prompt_len,
-                                                 mel, prompt)
+                                                 mel, prompt, xa)
         aux["used_temperature"] = np.full((b,), ladder[0], np.float32)
         self._run_fallback_ladder(b, mel, prompt, tokens, lengths, aux,
-                                  temperatures=ladder)
+                                  temperatures=ladder, xa=xa)
         return tokens, lengths, aux
 
     def _run_fallback_ladder(self, b: int, mel, prompt,
                              tokens: np.ndarray, lengths: np.ndarray,
-                             aux, temperatures=None) -> None:
+                             aux, temperatures=None, xa=None) -> None:
         """Ladder rungs > 0: re-decode failed windows at rising
         temperature, mutating ``tokens``/``lengths``/``aux`` in place.
         Shared by :meth:`_decode_with_fallback` and the continuous
@@ -132,7 +134,7 @@ class FallbackLadderMixin:
                 break
             if callable(mel):
                 mel = mel()
-            t2, l2, a2 = self._decode_rung(b, temp, prompt_len, mel, prompt)
+            t2, l2, a2 = self._decode_rung(b, temp, prompt_len, mel, prompt, xa)
             tokens[failed] = t2[failed]
             lengths[failed] = l2[failed]
             for k in a2:

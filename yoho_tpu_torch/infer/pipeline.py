@@ -282,6 +282,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
         self._logit_bias_entries = self._build_logit_bias(
             logit_bias, hotwords, hotword_boost)
         self._programs = {}
+        # The captured greedy programs' buffers, one set per batch size
+        # (decode_programs.py::_workspace).
+        self._workspaces = {}
         if isinstance(batch_size, str):
             # "auto": the largest batch the device's memory holds under
             # this transcriber's settings (infer/capacity.py).
@@ -388,17 +391,18 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
         per_window: List[List[Segment]] = []
         for win in windows:
             mel = self._features(win[None])
+            xa = self._encode(mel)  # the decode's and the passes' own
             ctx = init_ctx + history
             ids = ([tt.sot_prev] + ctx[-ctx_budget:] + sot_seq
                    if len(ctx) >= ctx_budget else base_ids)
             tokens, lengths, aux = self._decode_with_fallback(
-                1, mel, np.asarray([ids], np.int64))
+                1, mel, np.asarray([ids], np.int64), xa=xa)
             silent = self._silent_mask(lengths, aux, n_prompt=len(ids))
             segs = ([] if silent[0]
                     else self._tokens_to_segments(tokens[0], int(lengths[0]),
                                                   n_prompt=len(ids)))
             self._attach_quality([segs], lengths, aux, n_prompt=len(ids))
-            self._attach_words(mel, tokens, lengths, [segs], n_prompt=len(ids))
+            self._attach_words(mel, tokens, lengths, [segs], n_prompt=len(ids), xa=xa)
             per_window.append(segs)
             if aux["used_temperature"][0] > 0.5:
                 history = []  # a degenerate window: do not condition on it
@@ -506,8 +510,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
                 prompt = np.asarray([win_entries[g][1] for g in chunk]
                                     + [filler] * (b - actual), np.int64)
                 mel = self._features(batch)
+                xa = self._encode(mel)  # the decode's and the passes' own
                 tokens, lengths, aux = self._decode_with_fallback(
-                    b, mel, prompt, temperatures=ladder)
+                    b, mel, prompt, temperatures=ladder, xa=xa)
                 silent = self._silent_mask(lengths, aux, n_prompt=plen)
                 segs = [[] if silent[j]
                         else self._tokens_to_segments(tokens[j], int(lengths[j]),
@@ -515,8 +520,9 @@ class Transcriber(DecodeProgramsMixin, FallbackLadderMixin, RenderingMixin,
                         for j in range(actual)]
                 self._attach_quality(segs, lengths, aux, n_prompt=plen)
                 # The full padded batch: only rows with segments are read.
-                self._attach_voiceprints(mel, tokens, segs, lengths)
-                self._attach_words(mel, tokens, lengths, segs, n_prompt=plen)
+                self._attach_voiceprints(mel, tokens, segs, lengths, xa=xa)
+                self._attach_words(mel, tokens, lengths, segs, n_prompt=plen, xa=xa)
+                del mel, xa
                 for j, g in enumerate(chunk):
                     per_window[g] = segs[j]
 

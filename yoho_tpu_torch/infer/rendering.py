@@ -59,11 +59,12 @@ class RenderingMixin:
 
     def _attach_words(self, mel: torch.Tensor, tokens: np.ndarray,
                       lengths: np.ndarray, per_window,
-                      n_prompt: Optional[int] = None) -> None:
+                      n_prompt: Optional[int] = None, xa=None) -> None:
         """Word timestamps: DTW over the teacher-forced cross-attention map
         of the whole padded batch (rows without segments are skipped).
         ``n_prompt`` keeps prompt positions out of the words: a prompted
-        request's prompt holds text tokens."""
+        request's prompt holds text tokens. ``xa``: ``mel``'s encoder
+        output where the caller has it."""
         if not self.word_timestamps:
             return
         if self.family == "whisper" and self.token_table.text_backend is None:
@@ -72,7 +73,7 @@ class RenderingMixin:
         b = tokens.shape[0]
         pad = np.full((b, self.max_len), self.eot, np.int64)
         pad[:, : tokens.shape[1]] = tokens[:, : self.max_len]
-        amap, probs = self._align_fn(mel, pad)
+        amap, probs = self._align_fn(mel, pad, xa)
         for j, segs in enumerate(per_window):
             n = int(lengths[j])
             ids = [int(t) for t in tokens[j, :n]]

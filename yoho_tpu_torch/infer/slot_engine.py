@@ -17,15 +17,18 @@ chunk); here they are two functions over in-place device state:
   (one call costs the same for 1 or S admissions), the results placed with
   a gather plus a select per slot (``fill_row`` / ``fill_valid``), so
   untouched slots keep their state;
-* chunk: ``chunk_tokens`` greedy steps over all slots as a host loop that
-  never waits for the device: ``pos``, ``active``, ``tokens`` and
-  ``sum_lp`` stay on the device. :meth:`SlotEngine.reap` reads them back
+* chunk: ``chunk_tokens`` greedy steps over all slots that never wait for
+  the device: ``pos``, ``active``, ``tokens`` and ``sum_lp`` stay on the
+  device and are written in place. :meth:`SlotEngine.reap` reads them back
   once per chunk (one host sync, counted in ``SlotEngine.stats``).
 
-The fixed shapes also keep the step capturable by CUDA graphs. The
-speculative program builders live in ``infer/continuous_spec.py`` and use
-:class:`EngineSpec` only; the request-level threading lives in
-``infer/continuous.py``.
+On one card the greedy chunk runs as a CUDA graph (``infer/graphs.py``),
+the counterpart of JAX's compiled chunk: captured once at the first step
+and replayed at every later one (``SlotEngine.graph``); admission stays
+eager. On the CPU, over a mesh and in the speculative engine it runs as
+Python over the device state. The speculative programs are made in
+``infer/continuous_spec.py`` from :class:`EngineSpec` alone; the
+request-level threading lives in ``infer/continuous.py``.
 
 Over a (data, model) mesh (``Transcriber(mesh=...)``) the S slots divide
 over ``data`` as a decode program's rows do: the rank at data index i
@@ -219,22 +222,22 @@ def build_greedy_programs(spec: EngineSpec):
     step, pick = spec.step, spec.pick
 
     def chunk(st: SlotState) -> None:
-        """K greedy steps over all slots, each at its own position; no host
-        sync (every value stays on the device)."""
+        """K greedy steps over all slots, each at its own position, in
+        place; no host sync (every value stays on the device), so on the
+        card the chunk is captured once and replayed."""
         tokens, pos, active, sum_lp = st.tokens, st.pos, st.active, st.sum_lp
         for _ in range(spec.chunk_tokens):
             cur = tokens.gather(1, pos.long()[:, None])  # the last decided token
-            logits, st.caches = step(cur, st.caches, st.ckv, pos)
+            logits, _ = step(cur, st.caches, st.ckv, pos)
             nxt, lp = pick(logits[:, -1], tokens, pos + 1)
             nxt = torch.where(active, nxt, eot)
-            sum_lp = sum_lp + torch.where(active, lp, 0.0)
+            sum_lp.add_(torch.where(active, lp, 0.0))
             new_pos = torch.where(active, pos + 1, pos)
             idx = new_pos.long()[:, None]
             tokens.scatter_(1, idx, torch.where(active[:, None], nxt[:, None],
                                                 tokens.gather(1, idx)))
-            active = active & (nxt != eot) & (new_pos + 1 < L)
-            pos = new_pos
-        st.pos, st.active, st.sum_lp = pos, active, sum_lp
+            active.logical_and_((nxt != eot) & (new_pos + 1 < L))
+            pos.copy_(new_pos)
 
     return make_admit(spec), chunk
 
@@ -323,8 +326,8 @@ class SlotEngine:
                 return t._make_step(ckv, model)(toks, caches, pos)
 
             def encode_one(windows):
-                return model.cross_kvs(model.encode_audio(t._features(windows)),
-                                       t.quantized_cross_kv)
+                return model.cross_kvs(t._encode(t._features(windows), model),
+                                       t.quantized_cross_kv, rows=t._row_chunk(len(windows)))
 
             return init_caches, step, encode_one
 
@@ -360,6 +363,16 @@ class SlotEngine:
             self._admit, self._chunk = build_spec_programs(self.spec)
         else:
             self._admit, self._chunk = build_greedy_programs(self.spec)
+        # On one card the greedy chunk is captured at the first step (after
+        # the first admission has made the cross-K/V buffers) and replayed
+        # (infer/graphs.py); on the CPU and over a mesh it runs eagerly.
+        self.graph = None
+        if self.device.type == "cuda" and self.mesh is None and not self.draft:
+            from yoho_tpu_torch.infer.graphs import ChunkGraph
+
+            body = self._chunk
+            self.graph = ChunkGraph(lambda: body(self.state), state=self.state)
+            self._chunk = lambda state: self.graph()
 
     # ------------------------------------------------------------------
     def _pick(self, logits, tokens, pos):

@@ -82,13 +82,16 @@ class SpeakerPassMixin:
 
     @torch.inference_mode()
     def _attach_voiceprints(self, mel: torch.Tensor, tokens: np.ndarray,
-                            per_window: List[List[Segment]], lengths=None) -> None:
+                            per_window: List[List[Segment]], lengths=None,
+                            xa=None) -> None:
         """YOHO family: one teacher-forced pass gives every segment the
-        voiceprint read at the position before its slot."""
+        voiceprint read at the position before its slot. ``xa``: ``mel``'s
+        encoder output where the caller has it."""
         if self.family != "yoho":
             return
         pad = self._voiceprint_rows(tokens, per_window, lengths)
-        vp = self.model.voiceprints(torch.as_tensor(self._rows(pad), device=self.device), mel)
+        rows = torch.as_tensor(self._rows(pad), device=self.device)
+        vp = self.model.voiceprints(rows, mel, self._encode(mel) if xa is None else xa)
         vp = self._to_host(vp.float())
         vp_id = self.tokenizer.voiceprint_id
         for w, segs in enumerate(per_window):

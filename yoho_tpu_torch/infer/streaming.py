@@ -107,14 +107,15 @@ class StreamingTranscriber:
         n = min(len(audio), t.chunk_samples)
         batch[0, :n] = audio[:n]
         mel = t._features(batch)
+        xa = t._encode(mel)  # the decode's and the passes' own
         # The decode program returns host arrays.
-        tokens, lengths, aux = t._decode_with_fallback(1, mel)
+        tokens, lengths, aux = t._decode_with_fallback(1, mel, xa=xa)
         silent = t._silent_mask(lengths, aux)
         segs = ([] if silent[0]
                 else t._tokens_to_segments(tokens[0], int(lengths[0])))
         t._attach_quality([segs], lengths, aux)
-        t._attach_voiceprints(mel[:1], tokens[:1], [segs], lengths[:1])
-        t._attach_words(mel[:1], tokens[:1], lengths[:1], [segs])
+        t._attach_voiceprints(mel[:1], tokens[:1], [segs], lengths[:1], xa=xa[:1])
+        t._attach_words(mel[:1], tokens[:1], lengths[:1], [segs], xa=xa[:1])
         if (segs and self._tracker is not None and t.family != "yoho"
                 and t.diarize_encoder is not None):
             # Whisper-family voiceprints come from the post-pass encoder

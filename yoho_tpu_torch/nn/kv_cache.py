@@ -29,7 +29,8 @@ from yoho_tpu_torch.ops.decode_attention import (
 )
 
 __all__ = ["KVCache", "QuantizedKV", "QuantizedKVCache", "attend_quantized",
-           "_attend_quantized", "quantize_kv", "quantize_kv4", "unpack_int4"]
+           "_attend_quantized", "cross_kv_rows", "fill_cross_kv", "quantize_kv",
+           "quantize_kv4", "unpack_int4"]
 
 
 def _write_rows(big: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -174,6 +175,53 @@ def quantize_kv4(k: torch.Tensor, v: torch.Tensor, pad_to: Optional[int] = None,
     v_q, v_scale = _q(v)
     return _pad_time(QuantizedKV(k_q, v_q, k_scale, v_scale, packing=2), t,
                      pad_to)
+
+
+_QUANTIZED_FIELDS = ("k_q", "v_q", "k_scale", "v_scale")
+
+
+def fill_cross_kv(dst, src, row: int = 0) -> None:
+    """Copies one layer's cross K/V ``src`` into ``dst``'s rows from
+    ``row`` on, in place: both a :class:`QuantizedKV` of the same length
+    and packing, or both a float (k, v) pair, of the same shapes past the
+    batch. A captured decode program reads its cross K/V at fixed
+    addresses, so each call writes the new windows' K/V there."""
+    if isinstance(dst, QuantizedKV):
+        if not isinstance(src, QuantizedKV) or (dst.kv_len, dst.packing) != (
+                src.kv_len, src.packing):
+            raise ValueError("cross K/V of another kind, length or packing")
+        pairs = [(getattr(dst, n), getattr(src, n)) for n in _QUANTIZED_FIELDS]
+    else:
+        pairs = list(zip(dst, src))
+    for d, s in pairs:
+        d = d[row:row + s.shape[0]]
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"cross K/V {tuple(s.shape)} {s.dtype} into rows "
+                             f"{row}: of {tuple(d.shape)} {d.dtype}")
+        d.copy_(s)
+
+
+def cross_kv_rows(make, xa: torch.Tensor, rows: Optional[int] = None, out=None):
+    """One layer's cross K/V ``make(xa)``, made ``rows`` rows of ``xa`` at a
+    time (all at once when None) and written into ``out``, or into a new
+    layer of the first part's kind; returns it. At or below ``rows`` rows
+    with no ``out`` it is ``make(xa)`` itself. Each part's temporaries (the
+    projections, the quantizer's) are freed before the next part's."""
+    b = xa.shape[0]
+    step = b if rows is None else max(1, rows)
+    if out is None and step >= b:
+        return make(xa)
+    for i in range(0, b, step):
+        part = make(xa[i:i + step])
+        if out is None:
+            out = (QuantizedKV(*(getattr(part, n).new_empty((b, *getattr(part, n).shape[1:]))
+                                 for n in _QUANTIZED_FIELDS),
+                               kv_len=part.kv_len, packing=part.packing)
+                   if isinstance(part, QuantizedKV)
+                   else tuple(t.new_empty((b, *t.shape[1:])) for t in part))
+        fill_cross_kv(out, part, i)
+        del part
+    return out
 
 
 def attend_quantized(q: torch.Tensor, qkv: QuantizedKV, pos=None) -> torch.Tensor:

@@ -305,7 +305,11 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = model_copy(self, x)
-        return model_sum(self, self.down(F.silu(self.gate(x)) * self.up(x)))
+        h = silu(self.gate(x))
+        # In place where no gradient is taken: the same product, one hidden-
+        # sized tensor less at the peak (:func:`gelu`).
+        h = h * self.up(x) if torch.is_grad_enabled() else h.mul_(self.up(x))
+        return model_sum(self, self.down(h))
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -548,6 +552,21 @@ class MultiHeadAttention(nn.Module):
         return model_sum(self, self.out_proj(out.reshape(b, s, -1))), cache
 
 
+def gelu(x: torch.Tensor, approximate: str = "none") -> torch.Tensor:
+    """``F.gelu``, in place where no gradient is taken (inference): the same
+    values, one tensor of ``x``'s size less at the peak. A captured decode
+    program keeps its buffers while the next call encodes beside them
+    (``infer/graphs.py``), so the encoder's peak is what that call adds."""
+    if torch.is_grad_enabled():
+        return F.gelu(x, approximate=approximate)
+    return torch.ops.aten.gelu_(x, approximate=approximate)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``F.silu``, in place where no gradient is taken (:func:`gelu`)."""
+    return F.silu(x, inplace=not torch.is_grad_enabled())
+
+
 class MLP(nn.Module):
     """Whisper MLP: fc1 -> exact (erf) GELU -> fc2, 4x expansion.
 
@@ -574,7 +593,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(model_copy(self, x))
         if not isinstance(self.fc1, Int8Dense):  # else fused into fc1
-            h = F.gelu(h, approximate="tanh" if self.gelu_tanh else "none")
+            h = gelu(h, approximate="tanh" if self.gelu_tanh else "none")
         return model_sum(self, self.fc2(h))
 
 

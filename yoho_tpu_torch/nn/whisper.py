@@ -40,6 +40,7 @@ from yoho_tpu_torch.core.device import full_fp32, resolve_device
 from yoho_tpu_torch.nn.kv_cache import (
     KVCache,
     QuantizedKVCache,
+    cross_kv_rows,
     quantize_kv,
     quantize_kv4,
 )
@@ -50,6 +51,7 @@ from yoho_tpu_torch.nn.layers import (
     MultiHeadAttention,
     QuantizedEmbed,
     embed_tokens,
+    gelu,
     model_copy,
     realized_token_probs_streamed,
     vocab_logits,
@@ -147,8 +149,8 @@ class AudioEncoder(nn.Module):
         """(B, n_frames, n_mels) -> (B, n_audio_ctx, n_state)."""
         x = mel.to(self.dtype).transpose(1, 2)
         with full_fp32():  # a float32 model's convolutions, not TF32
-            x = F.gelu(self.conv1(x))
-            x = F.gelu(self.conv2(x)).transpose(1, 2)
+            x = gelu(self.conv1(x))
+            x = gelu(self.conv2(x)).transpose(1, 2)
         x = x + self.positions
         return self.ln_post(_run_blocks(self.blocks, self.remat, x))
 
@@ -206,23 +208,32 @@ class TextDecoder(nn.Module):
                           device=device)
                 for blk in self.blocks]
 
-    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
+    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False,
+                  out: Optional[List] = None, rows: Optional[int] = None):
         """Per-layer cross-attention K/V, once per window. ``quantize``:
         False (the model's type), True/"int8" or "int4". Quantized K/V
         are zero-padded along T to a multiple of 128 with the valid length
         kept as ``kv_len`` (the JAX package's layout when its kernel runs):
         a padded int8 row is a multiple of 16 bytes, which the decode
-        kernel's TMA loads need."""
+        kernel's TMA loads need. ``out``: an earlier result of the same
+        shapes, whose layers are written in place one at a time (a captured
+        decode program's buffers; no second set is held) and returned. ``rows``:
+        the most rows of ``xa`` a layer's projections take at once
+        (``kv_cache.cross_kv_rows``)."""
         mode = {False: None, True: "int8"}.get(quantize, quantize)
         if mode == "int8":
-            return [quantize_kv(*blk.cross_attn.kv_tm(xa), pad_to=128, time_major=True)
-                    for blk in self.blocks]
-        if mode == "int4":
-            return [quantize_kv4(*blk.cross_attn.kv_tm(xa), pad_to=128, time_major=True)
-                    for blk in self.blocks]
-        if mode is not None:
+            def make(blk, x):
+                return quantize_kv(*blk.cross_attn.kv_tm(x), pad_to=128, time_major=True)
+        elif mode == "int4":
+            def make(blk, x):
+                return quantize_kv4(*blk.cross_attn.kv_tm(x), pad_to=128, time_major=True)
+        elif mode is not None:
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        return [blk.cross_attn.kv(xa) for blk in self.blocks]
+        else:
+            def make(blk, x):
+                return blk.cross_attn.kv(x)
+        return [cross_kv_rows(lambda x, blk=blk: make(blk, x), xa, rows, dst)
+                for blk, dst in zip(self.blocks, out or [None] * len(self.blocks))]
 
     def cross_attention_map(self, tokens: torch.Tensor, xa: torch.Tensor,
                             with_probs: bool = False):
@@ -326,8 +337,9 @@ class Whisper(nn.Module):
     def decode_text(self, tokens: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
         return self.decoder(tokens, xa)
 
-    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False):
-        return self.decoder.cross_kvs(xa, quantize)
+    def cross_kvs(self, xa: torch.Tensor, quantize: Union[bool, str] = False,
+                  out: Optional[List] = None, rows: Optional[int] = None):
+        return self.decoder.cross_kvs(xa, quantize, out, rows)
 
     def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
                     quantized: bool = False):

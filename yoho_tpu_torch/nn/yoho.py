@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from yoho_tpu_torch.core.config import YOHOConfig
 from yoho_tpu_torch.core.device import full_fp32, resolve_device
-from yoho_tpu_torch.nn.kv_cache import KVCache
+from yoho_tpu_torch.nn.kv_cache import KVCache, cross_kv_rows
 from yoho_tpu_torch.nn.layers import (
     GroupedQueryAttention,
     QuantizedDense,
@@ -49,6 +49,7 @@ from yoho_tpu_torch.nn.layers import (
     embed_tokens,
     model_copy,
     realized_token_probs_streamed,
+    silu,
     vocab_logits,
 )
 from yoho_tpu_torch.nn.moe import MoESwiGLU
@@ -175,10 +176,10 @@ class YOHOAudioEncoder(nn.Module):
         x = mel.to(self.dtype).transpose(1, 2)
         with full_fp32():  # a float32 model's convolutions, not TF32
             x = self.conv1(x).transpose(1, 2)
-            x = F.silu(self.norm1(x)).transpose(1, 2)
+            x = silu(self.norm1(x)).transpose(1, 2)
             x = F.max_pool1d(x, 2, 2)
             x = self.conv2(x).transpose(1, 2)
-        return F.silu(self.norm2(x))
+        return silu(self.norm2(x))
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         for blk in self.blocks:
@@ -284,13 +285,16 @@ class YOHOTextDecoder(nn.Module):
                               dtype or self.dtype, device=device)
                 for blk in self.blocks]
 
-    def cross_kvs(self, xa, quantize=False):
+    def cross_kvs(self, xa, quantize=False, out=None, rows=None):
         """Per-block cross K/V (rotated keys), once per window, float in the
-        model's type. The YOHO family has no quantized cross-K/V lane."""
+        model's type. The YOHO family has no quantized cross-K/V lane.
+        ``out``: an earlier result, written in place one block at a time,
+        ``rows`` rows of ``xa`` at a time (``Whisper.cross_kvs``)."""
         if quantize:
             raise ValueError("the YOHO family decodes with float cross K/V "
                              "(no quantized_cross_kv lane)")
-        return [blk.cross_kv(xa) for blk in self.blocks]
+        return [cross_kv_rows(blk.cross_kv, xa, rows, dst)
+                for blk, dst in zip(self.blocks, out or [None] * len(self.blocks))]
 
     def decode_step(self, tokens, caches, cross_kvs, pos, with_voiceprints: bool = True):
         """Cached step: tokens (B, S_new) at ``pos`` (an int or a per-row
@@ -351,15 +355,16 @@ class YOHOModel(nn.Module):
     def forward_with_voiceprints(self, tokens, mel):
         return self.decoder.with_voiceprints(tokens, self.encoder(mel))
 
-    def voiceprints(self, tokens, mel):
+    def voiceprints(self, tokens, mel, xa=None):
         """The voiceprints of :meth:`forward_with_voiceprints` alone: the
         speaker pass reads no logits, and eager code would make them all
         (batch x positions x vocab in f32; the JAX package's jit drops
-        them unmade)."""
-        return self.decoder.voiceprints(tokens, self.encoder(mel))
+        them unmade). ``xa``: the encoder output of ``mel`` when the caller
+        has it (the decode program's), which skips the encoder."""
+        return self.decoder.voiceprints(tokens, self.encoder(mel) if xa is None else xa)
 
-    def cross_kvs(self, xa, quantize=False):
-        return self.decoder.cross_kvs(xa, quantize)
+    def cross_kvs(self, xa, quantize=False, out=None, rows=None):
+        return self.decoder.cross_kvs(xa, quantize, out, rows)
 
     def init_caches(self, batch: int, dtype=None, max_len: Optional[int] = None,
                     quantized: bool = False):
